@@ -1,0 +1,218 @@
+"""Model configuration dataclasses and the model-config registry.
+
+Schema-compatible with the reference open_clip JSON model configs and with the
+JAX package's ``config.py``. The CoCa decoder, audio, GenLIP and GenLAP sections
+are kept as raw dicts: those families are not ported, and a model that has one
+raises at build time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+logger = logging.getLogger(__name__)
+
+
+def _filter_cfg(cls, d: Dict[str, Any]) -> Dict[str, Any]:
+    """Keep the keys that are fields of ``cls``, warning on the others."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - names)
+    if unknown:
+        logger.warning("%s: unknown config keys %s", cls.__name__, unknown)
+    return {k: v for k, v in d.items() if k in names}
+
+
+@dataclass
+class CLIPVisionCfg:
+    layers: Union[Tuple[int, int, int, int], List[int], int] = 12
+    width: int = 768
+    head_width: int = 64
+    mlp_ratio: float = 4.0
+    patch_size: Optional[int] = 16
+    image_size: Union[Tuple[int, int], int] = 224
+    image_seq_len: Optional[int] = None
+
+    ls_init_value: Optional[float] = None
+    patch_dropout: float = 0.0
+    attentional_pool: Union[bool, str] = False
+    attn_pooler_queries: int = 256
+    attn_pooler_heads: int = 8
+    no_ln_pre: bool = False
+    pos_embed_type: str = "learnable"
+    final_ln_after_pool: bool = False
+    pool_type: str = "tok"
+    output_tokens: bool = False
+    act_kwargs: Optional[dict] = None
+    norm_kwargs: Optional[dict] = None
+
+    block_type: Optional[str] = None
+    qk_norm: bool = False
+    scaled_cosine_attn: bool = False
+    scale_heads: bool = False
+    scale_attn_inner: bool = False
+    scale_attn: bool = False
+    scale_fc: bool = False
+
+    class_token: bool = True
+    conv_stem_channels: Optional[Tuple[int, ...]] = None
+    conv_stem_strides: Optional[Tuple[int, ...]] = None
+
+    timm_model_name: Optional[str] = None
+    timm_model_pretrained: bool = False
+    timm_pool: str = "avg"
+    timm_proj: str = "linear"
+    timm_proj_bias: bool = False
+    timm_drop: float = 0.0
+    timm_drop_path: Optional[float] = None
+    timm_model_kwargs: Optional[dict] = None
+
+    def __post_init__(self):
+        if isinstance(self.layers, list):
+            self.layers = tuple(self.layers)
+
+    @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.layers, (tuple, list))
+
+    @property
+    def heads(self) -> int:
+        return self.width // self.head_width
+
+    @property
+    def norm_eps(self) -> float:
+        return float((self.norm_kwargs or {}).get("eps", 1e-5))
+
+    @property
+    def grid_size(self) -> Tuple[int, int]:
+        ih, iw = to_2tuple(self.image_size)
+        ph, pw = to_2tuple(self.patch_size)
+        return ih // ph, iw // pw
+
+
+@dataclass
+class CLIPTextCfg:
+    text_arch: str = "clip"
+    context_length: int = 77
+    variable_text: bool = False
+    vocab_size: int = 49408
+    hf_tokenizer_name: Optional[str] = None
+    tokenizer_mode: Optional[str] = None
+    tokenizer_kwargs: Optional[dict] = None
+
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+    ls_init_value: Optional[float] = None
+    embed_cls: bool = False
+    pad_id: int = 0
+    bos_id: Optional[int] = None
+    eos_id: Optional[int] = None
+    tokenizer_type: str = ""
+    tiktoken_name: str = "cl100k_base"
+    no_causal_mask: bool = False
+    final_ln_after_pool: bool = False
+    pool_type: str = "argmax"
+    proj_bias: bool = False
+    proj_type: str = "linear"
+    output_tokens: bool = False
+    act_kwargs: Optional[dict] = None
+    norm_kwargs: Optional[dict] = None
+
+    block_type: Optional[str] = None
+    qk_norm: bool = False
+    scaled_cosine_attn: bool = False
+    scale_heads: bool = False
+    scale_attn_inner: bool = False
+    scale_attn: bool = False
+    scale_fc: bool = False
+
+    attention_mode: str = "causal"
+    pos_embed: str = "rope"
+    rope_temperature: float = 10000.0
+    mlp_type: str = "swiglu"
+    norm_type: Optional[str] = None
+    norm_eps: float = 1e-6
+    attn_gated: bool = False
+    pre_norm: bool = False
+    norm_placement: str = "pre"
+    zero_init_residual: bool = False
+    reg_tokens: int = 0
+    value_residual: bool = False
+    attention_bias: Optional[bool] = None
+    mlp_bias: Optional[bool] = None
+    gate_bias: Optional[bool] = None
+
+    hf_model_name: Optional[str] = None
+    hf_model_pretrained: bool = True
+    hf_proj_type: str = "mlp"
+    hf_pooler_type: str = "mean_pooler"
+    hf_model_config: Optional[dict] = None
+
+    @property
+    def ln_eps(self) -> float:
+        return float((self.norm_kwargs or {}).get("eps", 1e-5))
+
+
+@dataclass
+class CLIPModelCfg:
+    """Top-level model config: what a ``model_configs/*.json`` file contains."""
+
+    embed_dim: int = 512
+    vision_cfg: Optional[CLIPVisionCfg] = None
+    text_cfg: Optional[CLIPTextCfg] = None
+    multimodal_cfg: Optional[dict] = None
+    audio_cfg: Optional[dict] = None
+    audio_naflex_cfg: Optional[dict] = None
+    genlip_cfg: Optional[dict] = None
+    genlap_cfg: Optional[dict] = None
+    quick_gelu: bool = False
+    custom_text: bool = False
+    init_logit_scale: Optional[float] = None
+    init_logit_bias: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CLIPModelCfg":
+        d = dict(d)
+        vision = d.pop("vision_cfg", None)
+        text = d.pop("text_cfg", None)
+        out = cls(**_filter_cfg(cls, d))
+        if vision is not None:
+            out.vision_cfg = CLIPVisionCfg(**_filter_cfg(CLIPVisionCfg, vision))
+        if text is not None:
+            out.text_cfg = CLIPTextCfg(**_filter_cfg(CLIPTextCfg, text))
+        return out
+
+
+def to_2tuple(x) -> Tuple:
+    if isinstance(x, (tuple, list)):
+        assert len(x) == 2
+        return tuple(x)
+    return (x, x)
+
+
+def list_models() -> List[str]:
+    from .model_configs import BUILTIN_MODEL_CONFIGS
+
+    return sorted(BUILTIN_MODEL_CONFIGS, key=lambda s: s.lower())
+
+
+def get_model_config(model_name: str) -> Optional[Dict[str, Any]]:
+    """A deep copy of the raw config dict, or None; ``/`` in names reads as ``-``."""
+    from .model_configs import BUILTIN_MODEL_CONFIGS
+
+    cfg = BUILTIN_MODEL_CONFIGS.get(model_name.replace("/", "-"))
+    return json.loads(json.dumps(cfg)) if cfg is not None else None
+
+
+def parse_model_cfg(model_name: str, **overrides) -> CLIPModelCfg:
+    raw = get_model_config(model_name)
+    if raw is None:
+        raise RuntimeError(f"Model config for {model_name} not found; "
+                           f"available: {', '.join(list_models())}")
+    raw.update({k: v for k, v in overrides.items() if v is not None})
+    return CLIPModelCfg.from_dict(raw)

@@ -1,0 +1,121 @@
+"""CLIP model (counterpart of ``open_clip_tpu/models/clip.py``).
+
+``CLIPModel`` is an ``nn.Module`` holding both towers under the reference
+checkpoint's names (``visual.*``, the text tower's parts at the top level,
+``logit_scale``). The functions ``encode_image``, ``encode_text``,
+``clip_forward`` and ``get_logits`` take the model as their first argument, as
+the JAX functions take (params, cfg); the model's methods call them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import CLIPModelCfg
+from . import text as text_mod
+from .vit import VisionTransformer
+
+DEFAULT_LOGIT_SCALE = math.log(1.0 / 0.07)
+
+
+def check_model_cfg(cfg: CLIPModelCfg) -> None:
+    """Raise for model families this slice does not port (towers raise for their own)."""
+    unported = [name for name, on in (
+        ("CoCa decoder", cfg.multimodal_cfg is not None),
+        ("audio tower", cfg.audio_cfg is not None or cfg.audio_naflex_cfg is not None),
+        ("GenLIP/GenLAP", cfg.genlip_cfg is not None or cfg.genlap_cfg is not None),
+        ("custom text layout", cfg.custom_text),
+        ("model without both towers", cfg.vision_cfg is None or cfg.text_cfg is None)) if on]
+    if unported:
+        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+
+
+class CLIPModel(nn.Module):
+    def __init__(self, cfg: CLIPModelCfg, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        check_model_cfg(cfg)
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        act = "quick_gelu" if cfg.quick_gelu else "gelu"
+        self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act)
+        text_mod.add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act)
+        self.logit_scale = nn.Parameter(torch.empty(()))
+        self.logit_bias = None if cfg.init_logit_bias is None else nn.Parameter(torch.empty(()))
+        self.preprocess_cfg = None  # set by the factory
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """Random weights with the JAX package's ``init_clip`` distributions."""
+        cfg = self.cfg
+        self.visual.init_weights(gen)
+        text_mod.init_text_tower(self, cfg.text_cfg, gen)
+        self.logit_scale.fill_(DEFAULT_LOGIT_SCALE if cfg.init_logit_scale is None
+                               else cfg.init_logit_scale)
+        if self.logit_bias is not None:
+            self.logit_bias.fill_(cfg.init_logit_bias)
+
+    @property
+    def device(self) -> torch.device:
+        return self.logit_scale.device
+
+    def encode_image(self, image, normalize: bool = False) -> torch.Tensor:
+        return encode_image(self, image, normalize=normalize)
+
+    def encode_text(self, text, normalize: bool = False) -> torch.Tensor:
+        return encode_text(self, text, normalize=normalize)
+
+    def get_logits(self, image, text):
+        return get_logits(self, image, text)
+
+    def forward(self, image=None, text=None) -> Dict[str, torch.Tensor]:
+        return clip_forward(self, image, text)
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x, device=device)
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalise the last axis in fp32; result in x.dtype."""
+    x32 = x.float()
+    return (x32 / torch.linalg.vector_norm(x32, dim=-1, keepdim=True).clamp_min(eps)).to(x.dtype)
+
+
+def encode_image(model: CLIPModel, image, *, normalize: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) normalized NHWC images -> (B, embed_dim) features."""
+    pooled = model.visual(_as_tensor(image, model.device), model.compute_dtype)
+    return _l2_normalize(pooled) if normalize else pooled
+
+
+def encode_text(model: CLIPModel, text, *, normalize: bool = False) -> torch.Tensor:
+    """(B, L) token ids -> (B, embed_dim) features."""
+    ids = _as_tensor(text, model.device).long()
+    pooled = text_mod.apply_text_tower(model, model.cfg.text_cfg, ids, model.compute_dtype)
+    return _l2_normalize(pooled) if normalize else pooled
+
+
+def clip_forward(model: CLIPModel, image=None, text=None) -> Dict[str, torch.Tensor]:
+    """Dict output of the reference ``CLIP.forward(output_dict=True)``."""
+    out: Dict[str, torch.Tensor] = {}
+    if image is not None:
+        out["image_features"] = encode_image(model, image, normalize=True)
+    if text is not None:
+        out["text_features"] = encode_text(model, text, normalize=True)
+    out["logit_scale"] = model.logit_scale.float().exp()
+    if model.logit_bias is not None:
+        out["logit_bias"] = model.logit_bias.float()
+    return out
+
+
+def get_logits(model: CLIPModel, image, text):
+    """(logits_per_image, logits_per_text)."""
+    out = clip_forward(model, image, text)
+    logits = out["logit_scale"] * out["image_features"].float() @ out["text_features"].float().T
+    if "logit_bias" in out:
+        logits = logits + out["logit_bias"]
+    return logits, logits.T

@@ -1,0 +1,75 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a plain C
+interface, loaded with ``ctypes``. Libraries go to ``build/open_clip_tpu_torch/``
+at the root of the checkout, named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one is reused. Nothing is built when a
+module is imported: the first launch builds what it needs. A missing ``nvcc`` or
+a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "open_clip_tpu_torch"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the port's CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _build(name: str) -> Path:
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees the whole library or none
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = ctypes.CDLL(str(_build(name)))
+    return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and shared-memory report) for a built source."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
