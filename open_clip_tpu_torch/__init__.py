@@ -1,13 +1,22 @@
 """open_clip_tpu_torch: the PyTorch and CUDA port of open_clip_tpu, for NVIDIA Hopper.
 
-Serving slice: ViT CLIP models (ViT-B-32 first) from ``create_model_and_transforms``
+Serving: ViT CLIP models (ViT-B-32 first) from ``create_model_and_transforms``
 through the device-side preprocess, ``encode_image``/``encode_text`` and
-``build_zero_shot_classifier``. Attention at CLIP lengths runs on a hand-written
-CUDA kernel (``ops/short_attention.py``). Entry points build on the GPU unless
-given ``device="cpu"``. The package imports neither JAX nor ``open_clip_tpu``.
+``build_zero_shot_classifier``. Training: ``clip_loss``, ``create_optimizer``
+(AdamW), ``make_train_step`` and the CLI ``python -m open_clip_tpu_torch.train.main``.
+Attention at CLIP lengths runs on hand-written CUDA kernels, forward and backward
+(``ops/short_attention.py``); LayerNorm's backward can (``ops/fused_ln.py``). Entry
+points build on the GPU unless given ``device="cpu"``. The package imports neither JAX nor ``open_clip_tpu``.
 """
 
-from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, get_model_config, list_models
+from .config import (
+    CLIPModelCfg,
+    CLIPTextCfg,
+    CLIPVisionCfg,
+    add_model_config,
+    get_model_config,
+    list_models,
+)
 from .constants import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -18,7 +27,11 @@ from .constants import (
 )
 from .convert import convert_params_dtype_, params_from_jax
 from .factory import create_model, create_model_and_transforms, get_tokenizer
+from .loss import clip_loss
 from .models.clip import CLIPModel, clip_forward, encode_image, encode_text, get_logits
+from .train.optim import OptimizerCfg, create_optimizer
+from .train.scheduler import const_lr, cosine_lr, create_scheduler
+from .train.train_step import TrainState, create_train_state, make_train_step
 from .tokenizer import DEFAULT_CONTEXT_LENGTH, SimpleTokenizer, tokenize
 from .transform import PreprocessCfg, make_device_preprocess
 from .zero_shot_classifier import build_zero_shot_classifier
@@ -29,11 +42,14 @@ from .zero_shot_metadata import (
 )
 
 __all__ = [
-    "CLIPModelCfg", "CLIPTextCfg", "CLIPVisionCfg", "get_model_config", "list_models",
+    "CLIPModelCfg", "CLIPTextCfg", "CLIPVisionCfg", "add_model_config", "get_model_config",
+    "list_models",
     "IMAGENET_MEAN", "IMAGENET_STD", "INCEPTION_MEAN", "INCEPTION_STD",
     "OPENAI_DATASET_MEAN", "OPENAI_DATASET_STD",
     "convert_params_dtype_", "params_from_jax",
     "create_model", "create_model_and_transforms", "get_tokenizer",
+    "clip_loss", "OptimizerCfg", "create_optimizer", "const_lr", "cosine_lr", "create_scheduler",
+    "TrainState", "create_train_state", "make_train_step",
     "CLIPModel", "clip_forward", "encode_image", "encode_text", "get_logits",
     "DEFAULT_CONTEXT_LENGTH", "SimpleTokenizer", "tokenize",
     "PreprocessCfg", "make_device_preprocess",

@@ -12,6 +12,7 @@ import dataclasses
 import json
 import logging
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 logger = logging.getLogger(__name__)
@@ -193,6 +194,20 @@ def to_2tuple(x) -> Tuple:
         assert len(x) == 2
         return tuple(x)
     return (x, x)
+
+
+def add_model_config(path_or_dict, name: Optional[str] = None) -> None:
+    """Register a model config from a JSON file or a dict (a dict needs ``name``)."""
+    from .model_configs import BUILTIN_MODEL_CONFIGS
+
+    if isinstance(path_or_dict, dict):
+        if not name:
+            raise ValueError("name required when adding a config dict")
+        BUILTIN_MODEL_CONFIGS[name] = dict(path_or_dict)
+        return
+    path = Path(path_or_dict)
+    with open(path) as fh:
+        BUILTIN_MODEL_CONFIGS[name or path.stem] = json.load(fh)
 
 
 def list_models() -> List[str]:

@@ -5,7 +5,9 @@ Models are built on the card unless the caller asks for another device:
 ``device=None`` means CUDA, and raises where CUDA is absent; there is no quiet
 fallback to the CPU. Weights are random, drawn from a ``torch.Generator``
 seeded by ``seed`` with the JAX package's init distributions; no checkpoint is
-loaded yet (``pretrained=`` raises).
+loaded yet (``pretrained=`` raises). The model comes back with every parameter
+trainable; it has no dropout and no batch norm, so serving and training run the
+same forward, and callers that only serve run it under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     if precision.startswith("pure_"):
         convert_params_dtype_(model, dtype)
     model.preprocess_cfg = PreprocessCfg(size=cfg.vision_cfg.image_size)
-    return model.to(device).eval()
+    return model.to(device)
 
 
 def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None, **kwargs):

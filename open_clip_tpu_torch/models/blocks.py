@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from ..ops.layers import ACT_FNS, layer_norm, linear
@@ -133,16 +134,22 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A stack of per-layer blocks (``apply_transformer``)."""
+    """A stack of per-layer blocks (``apply_transformer``). With ``remat`` each block
+    is recomputed in the backward pass and saves nothing but its input (the JAX
+    package's ``jax.checkpoint`` with the policy ``none``)."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_width: int, **block_kw):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_width, **block_kw) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, causal: bool = False,
+                remat: bool = False) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x, causal=causal)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, causal=causal, use_reentrant=False)
+            else:
+                x = block(x, causal=causal)
         return x
 
     def init_weights(self, gen: torch.Generator, scheme: str) -> None:

@@ -21,6 +21,7 @@ from . import text as text_mod
 from .vit import VisionTransformer
 
 DEFAULT_LOGIT_SCALE = math.log(1.0 / 0.07)
+LOGIT_SCALE_MAX = math.log(100.0)
 
 
 def check_model_cfg(cfg: CLIPModelCfg) -> None:
@@ -86,26 +87,34 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return (x32 / torch.linalg.vector_norm(x32, dim=-1, keepdim=True).clamp_min(eps)).to(x.dtype)
 
 
-def encode_image(model: CLIPModel, image, *, normalize: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) normalized NHWC images -> (B, embed_dim) features."""
-    pooled = model.visual(_as_tensor(image, model.device), model.compute_dtype)
+def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: bool = False,
+                 remat: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) normalized NHWC images -> (B, embed_dim) features. ``train`` turns
+    on what only training does (patch dropout, which is not ported yet and raises);
+    ``remat`` recomputes each block in the backward pass."""
+    pooled = model.visual(_as_tensor(image, model.device), model.compute_dtype,
+                          train=train, remat=remat)
     return _l2_normalize(pooled) if normalize else pooled
 
 
-def encode_text(model: CLIPModel, text, *, normalize: bool = False) -> torch.Tensor:
+def encode_text(model: CLIPModel, text, *, normalize: bool = False,
+                remat: bool = False) -> torch.Tensor:
     """(B, L) token ids -> (B, embed_dim) features."""
     ids = _as_tensor(text, model.device).long()
-    pooled = text_mod.apply_text_tower(model, model.cfg.text_cfg, ids, model.compute_dtype)
+    pooled = text_mod.apply_text_tower(model, model.cfg.text_cfg, ids, model.compute_dtype,
+                                       remat=remat)
     return _l2_normalize(pooled) if normalize else pooled
 
 
-def clip_forward(model: CLIPModel, image=None, text=None) -> Dict[str, torch.Tensor]:
+def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False,
+                 remat: bool = False) -> Dict[str, torch.Tensor]:
     """Dict output of the reference ``CLIP.forward(output_dict=True)``."""
     out: Dict[str, torch.Tensor] = {}
     if image is not None:
-        out["image_features"] = encode_image(model, image, normalize=True)
+        out["image_features"] = encode_image(model, image, normalize=True, train=train,
+                                             remat=remat)
     if text is not None:
-        out["text_features"] = encode_text(model, text, normalize=True)
+        out["text_features"] = encode_text(model, text, normalize=True, remat=remat)
     out["logit_scale"] = model.logit_scale.float().exp()
     if model.logit_bias is not None:
         out["logit_bias"] = model.logit_bias.float()
@@ -119,3 +128,9 @@ def get_logits(model: CLIPModel, image, text):
     if "logit_bias" in out:
         logits = logits + out["logit_bias"]
     return logits, logits.T
+
+
+@torch.no_grad()
+def clamp_logit_scale(model: CLIPModel, max_val: float = LOGIT_SCALE_MAX) -> None:
+    """Clamp the temperature after an optimizer step, in place."""
+    model.logit_scale.clamp_(max=max_val)

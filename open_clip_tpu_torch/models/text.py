@@ -74,12 +74,13 @@ def text_global_pool(x: torch.Tensor, text: torch.Tensor, pool_type: str = "argm
 
 
 def apply_text_tower(m: nn.Module, cfg: CLIPTextCfg, text: torch.Tensor,
-                     compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     compute_dtype: torch.dtype = torch.float32, *,
+                     remat: bool = False) -> torch.Tensor:
     """(B, L) int token ids -> pooled, projected (B, embed_dim)."""
     seq_len = text.shape[1]
     x = m.token_embedding.weight[text].to(compute_dtype)
     x = x + m.positional_embedding[:seq_len].to(compute_dtype)
-    x = m.transformer(x, causal=not cfg.no_causal_mask)
+    x = m.transformer(x, causal=not cfg.no_causal_mask, remat=remat)
     x = m.ln_final(x)
     pooled = text_global_pool(x, text, cfg.pool_type, cfg.eos_id)
     return linear(pooled, m.text_projection)

@@ -97,16 +97,19 @@ class VisionTransformer(nn.Module):
         self.transformer.init_weights(gen, "vision")
         self.proj.normal_(0.0, scale, generator=gen)
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, *,
+                train: bool = False, remat: bool = False) -> torch.Tensor:
         """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim)."""
         cfg = self.cfg
+        if train and cfg.patch_dropout > 0.0:
+            raise NotImplementedError("patch dropout in training is not ported yet")
         x = self.conv1(patchify(x.to(compute_dtype), cfg.patch_size))
         cls = self.class_embedding.to(compute_dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding[: x.shape[1]].to(compute_dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
-        x = self.transformer(x)
+        x = self.transformer(x, remat=remat)
         if cfg.final_ln_after_pool:
             pooled = self.ln_post(_global_pool(cfg, x))
         else:

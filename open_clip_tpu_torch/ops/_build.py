@@ -16,8 +16,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "open_clip_tpu_torch"
@@ -67,6 +68,15 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(_build(name)))
     return lib
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Build several sources at once, one ``nvcc`` each, all started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build, names))  # reading every result re-raises a failed build
+    for name in names:
+        load(name)
 
 
 def build_log(name: str) -> str:

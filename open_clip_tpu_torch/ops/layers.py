@@ -12,13 +12,29 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+# Opt-in, off by default as in the JAX package: route LayerNorm through
+# ``ops/fused_ln.py``, whose backward is the hand-written one-pass CUDA kernel.
+# With it on, a CUDA tensor's backward runs that kernel or raises.
+FUSED_LN_BWD = False
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-               eps: float = 1e-5) -> torch.Tensor:
+
+def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+                     eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics and affine, output in x.dtype."""
     y = F.layer_norm(x.float(), x.shape[-1:], scale.float(),
                      None if bias is None else bias.float(), eps)
     return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """``layer_norm_plain``, or with ``FUSED_LN_BWD`` the same forward with the fused
+    backward kernel of ``ops/fused_ln.py``."""
+    if FUSED_LN_BWD:
+        from .fused_ln import layer_norm_fused_bwd
+
+        return layer_norm_fused_bwd(x, scale, bias, eps)
+    return layer_norm_plain(x, scale, bias, eps)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -241,7 +241,9 @@ import numpy as np, torch
 import chip_smoke
 import open_clip_tpu_torch as oc
 from open_clip_tpu_torch.models.clip import CLIPModel
-from open_clip_tpu_torch.ops import _build, attention, layers, short_attention
+from open_clip_tpu_torch import checkpoint, data, loss
+from open_clip_tpu_torch.ops import _build, attention, fused_ln, layers, short_attention
+from open_clip_tpu_torch.train import main, optim, params, scheduler, train_loop, train_step
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
 model.init_weights(torch.Generator().manual_seed(0))
@@ -252,6 +254,12 @@ with torch.no_grad():
     clf = oc.build_zero_shot_classifier(model, tok, ["cat", "dog"], oc.SIMPLE_IMAGENET_TEMPLATES)
     logits = model.encode_image(x, normalize=True) @ clf
 assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
+layers.FUSED_LN_BWD = True
+opt = optim.create_optimizer(optim.OptimizerCfg(grad_clip_norm=1.0), model, scheduler.const_lr(1e-3, 0))
+state = train_step.create_train_state(model, opt)
+batch = {{"image": torch.randn(4, 32, 32, 3), "text": torch.randint(1, 1000, (4, 16))}}
+state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
+assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 print("ok")
 """
 
