@@ -6,15 +6,17 @@
 Phases, each of which fails the run (exit code 1, no result line) when it fails:
   0. build the CUDA kernels from csrc/ with nvcc, one process per source, together;
   1. each kernel against its plain PyTorch version on the card, at the shapes the
-     main paths give it (bf16 and fp32): the attention forward and backward, each
-     also where one head's logits sit ~100 below its neighbour's, and the LayerNorm
-     backward; kernel, plain and library-call device time, each from one CUDA graph
-     of 50 calls (no host work between launches), and the bound;
+     main paths give it (bf16 and fp32): the short attention forward and backward,
+     each also where one head's logits sit ~100 below its neighbour's, the LayerNorm
+     backward, and the three flash attention kernels (forward with logsumexp, dq,
+     dk/dv) at the NaFlex train and serve buckets, a length that is no multiple of a
+     tile, causal, prefix-LM and hd=128; kernel, plain and library-call device time,
+     each from one CUDA graph of calls (no host work between launches), and the bound;
   2. serving: ViT-B-32 from create_model_and_transforms in pure_bf16 with random
      weights from a seed, a zero-shot classifier over 10 ImageNet classes (one
      encode_text call), and requests of 256 synthetic 256x320 uint8 images (device
      preprocess -> encode_image -> logits -> top-5), one in flight: a warm-up
-     request, a window of at least 1 s (latency, images/s over the window, device
+     request, a window of at least 0.5 s (latency, images/s over the window, device
      time per phase from CUDA events), and 10 more under torch.profiler (device
      time per kernel class, idle share). The kernel must launch 12 times per tower
      call;
@@ -31,6 +33,21 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
   5. training, CLI: open_clip_tpu_torch.train.main with synthetic data, batch 256,
      one epoch into a temporary directory, then a second one through --resume latest;
   6. one fp32 train step (TF32 off) at batch 8 on the card against the CPU: loss,
+     grad_norm and every gradient;
+  7. NaFlex serving: naflex_ViT-B-16 in pure_bf16, the same zero-shot classifier,
+     requests of 32 synthetic 384x512 uint8 images (NaFlexTransform(576, 16) on the
+     card: a 20x27 grid, 540 valid patches of 576 -> encode_image(patch dict) ->
+     logits -> top-5), timed and profiled like phase 2; 12 flash forward launches a
+     request and no backward launch;
+  8. NaFlex training: amp_bf16, AdamW with clipping, make_train_step on one fixed
+     batch of 16 patch dicts at 1024 tokens (32x32 grids, all valid, alternating with
+     24x32 grids, 768 valid) and 16 token rows, timed and profiled like phase 4; a
+     step launches each flash kernel 12 times and the short kernels 12 + 12 times
+     (the text tower); then two steps with remat;
+  9. the CLI with --dataset-type synthetic-naflex at the 1024-token bucket (batch 16
+     from the token budget), one short epoch;
+ 10. NaFlex at fp32 (TF32 off), card against CPU: image features of a ragged batch
+     of 4 at 576 tokens, and one train step at batch 4 and 512 tokens: loss,
      grad_norm and every gradient.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
@@ -62,13 +79,21 @@ BATCH = 256
 IMAGE_HW = (256, 320)
 CLASSES = 10
 DISTINCT_REQUESTS = 8  # request tensors made once and reused in turn
-WINDOW_S = 1.0  # the timed serving window lasts at least this long
-TRAIN_WINDOW_S = 2.0  # and the timed training window this long
+WINDOW_S = 0.5  # the timed serving windows last at least this long
+TRAIN_WINDOW_S = 2.0  # and the timed training windows this long
 TRAIN_PROFILED_STEPS = 3
 CLI_STEPS_PER_EPOCH = 16
 PROFILED_REQUESTS = 10
 PHASES = ("preprocess", "encode_image", "logits_top5")
+NAFLEX_MODEL = "naflex_ViT-B-16"
+NF_SERVE_BATCH, NF_IMAGE_HW, NF_SERVE_SEQ = 32, (384, 512), 576
+NF_TRAIN_BATCH, NF_TRAIN_SEQ = 16, 1024
+NF_CLI_STEPS = 8
+FLASH_SOURCE = "open_clip_tpu_torch/csrc/flash_attention.cu"
 KERNEL_CLASSES = {  # first match wins
+    "flash_attention_bwd_dq": ("flash_attn_bwd_dq",),
+    "flash_attention_bwd_dkv": ("flash_attn_bwd_dkv",),
+    "flash_attention": ("flash_attn",),
     "short_attention_bwd": ("short_attn_bwd",),
     "short_attention": ("short_attn",),
     "layer_norm_bwd": ("layer_norm_bwd",),  # the port's kernel; PyTorch's own falls below
@@ -326,6 +351,129 @@ def phase_ln_bwd_kernels(torch, fl):
     return records
 
 
+def ragged_valid(torch, b, l, lens):
+    """(B, L) bool: sample i is valid up to lens[i % len(lens)]."""
+    n = torch.tensor([lens[i % len(lens)] for i in range(b)], device="cuda")
+    return torch.arange(l, device="cuda")[None, :] < n[:, None]
+
+
+def phase_flash_kernels(torch, fa):
+    """The three flash kernels vs their plain versions; records for the kernels line.
+
+    Tolerances as for the short kernels (TOL on the output, BWD_RTOL on each gradient
+    relative to the plain result's largest entry): the sums run over up to 1024 keys,
+    tile by tile with a running max, and stay inside them; lse within 1e-4."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    # name, B, L, H, hd, causal, prefix_len, valid lengths (None: no mask), timed
+    cases = [("train", NF_TRAIN_BATCH, NF_TRAIN_SEQ, 12, 64, False, 0, (1024, 768), True),
+             ("serve", NF_SERVE_BATCH, NF_SERVE_SEQ, 12, 64, False, 0, (540,), True),
+             ("l577", 8, 577, 12, 64, False, 0, None, False),
+             ("causal640", 8, 640, 12, 64, True, 0, None, False),
+             ("prefix256", 4, 1024, 12, 64, True, 256, None, False),
+             ("hd128", 4, 512, 8, 128, False, 0, None, False)]
+    records = {}
+    for name, b, l, h, hd, causal, prefix, lens, timed in cases:
+        valid = ragged_valid(torch, b, l, lens) if lens else None
+        kw = dict(causal=causal, key_valid=valid, prefix_len=prefix)
+        vis = fa._visible(l, causal, prefix, valid, "cuda")
+        # visible (sample, query, key) triples: the mask broadcasts over samples and queries
+        pairs = b * l * l if vis is None else int(vis.expand(b, 1, l, l).sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, k, v = attention_inputs(b, l, h, hd, dtype, gen)
+            do = torch.randn(b, l, h, hd, generator=gen, device="cuda").to(dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            refs = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            check(bool(torch.isfinite(out).all()) and err <= TOL[dn] and lse_err <= 1e-4,
+                  f"flash forward {name} B={b} L={l} H={h} hd={hd} causal={causal} prefix={prefix} "
+                  f"valid={lens} {dn}: max_abs_err={err:.3e} (tol {TOL[dn]:.0e}), lse {lse_err:.1e}")
+            errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+            abs_errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
+            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
+                  f"flash backward {name} {dn}: rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/"
+                  f"{errs[2]:.2e} (tol {BWD_RTOL[dn]:.0e})")
+            size, n = q.element_size(), b * l * h * hd
+            common = {"route": "cuda", "source": FLASH_SOURCE, "shape": [b, l, h, hd],
+                      "causal": causal, "prefix_len": prefix, "valid": lens, "dtype": dn,
+                      "visible_pairs": pairs}
+            it = dict(iters=10, replays=3)
+            do_c = do.contiguous()
+            vb = fa._valid_bytes(valid, q)
+            di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+            ms_fwd = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), **it)
+            ms_dq = graph_ms(lambda: fa._launch_bwd("bwd_dq", q, k, v, do_c, lse, di, vb, causal,
+                                                    hd ** -0.5, prefix), **it)
+            ms_dkv = graph_ms(lambda: fa._launch_bwd("bwd_dkv", q, k, v, do_c, lse, di, vb, causal,
+                                                     hd ** -0.5, prefix), **it)
+            ms_bwd = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), **it)
+            plain_fwd = plain_bwd = lib_fwd = lib_bwd = None
+            if timed:
+                plain_fwd = graph_ms(lambda: fa.flash_attention_reference(q, k, v, **kw), **it)
+                plain_bwd = graph_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, ref, ref_lse, do, **kw), **it)
+                # library: SDPA with the boolean key mask; backward = both less forward
+                ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+                dot = do.transpose(1, 2).contiguous()
+                mask = None if vis is None else vis
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+
+                def sdpa_both():
+                    return torch.autograd.grad(sdpa(), (ql, kl, vl), dot)
+
+                with torch.no_grad():
+                    lib_fwd = graph_ms(sdpa, **it)
+                lib_bwd = graph_ms(sdpa_both, **it) - graph_ms(sdpa, **it)
+            recs = {
+                "fwd": dict(common, name=f"flash_attention_fwd[{name}]",
+                            replaces="open_clip_tpu/ops/flash_attention.py:45",
+                            max_abs_err=err, lse_abs_err=lse_err, ms=ms_fwd, plain_ms=plain_fwd,
+                            **bound(4 * n * size, 4 * h * hd * pairs, dn),
+                            library_ms=lib_fwd),
+                # each backward kernel alone: dq reads q, k, v, do and writes dq, with three
+                # products; dk/dv reads the same and writes two, with four. No single
+                # PyTorch call computes one of them alone.
+                "bwd_dq": dict(common, name=f"flash_attention_bwd_dq[{name}]",
+                               replaces="open_clip_tpu/ops/flash_attention.py:161",
+                               max_abs_err=abs_errs[0], max_rel_err=errs[0], ms=ms_dq,
+                               plain_ms=plain_bwd, **bound(5 * n * size, 6 * h * hd * pairs, dn),
+                               library_ms=None),
+                "bwd_dkv": dict(common, name=f"flash_attention_bwd_dkv[{name}]",
+                                replaces="open_clip_tpu/ops/flash_attention.py:218",
+                                max_abs_err=max(abs_errs[1:]), max_rel_err=max(errs[1:]), ms=ms_dkv,
+                                plain_ms=plain_bwd, **bound(6 * n * size, 8 * h * hd * pairs, dn),
+                                library_ms=None),
+            }
+            for rec in recs.values():
+                print("kernel_case " + json.dumps(rec), flush=True)
+            # the whole backward (di, dq, dk/dv) against the convention of the short kernels
+            print("kernel_case " + json.dumps(dict(
+                common, name=f"flash_attention_bwd[{name}]", ms=ms_bwd, plain_ms=plain_bwd,
+                **bound(7 * n * size, 10 * h * hd * pairs, dn), library_ms=lib_bwd)), flush=True)
+            if dtype == torch.bfloat16 and timed:  # the main paths' dtype
+                records[name] = recs
+            del q, k, v, do, out, lse, ref, ref_lse, grads, refs
+        torch.cuda.empty_cache()
+    # a sample with no valid key: zero rows, finite, as the plain version
+    q, k, v = attention_inputs(2, 600, 4, 64, torch.bfloat16, gen)
+    valid = ragged_valid(torch, 2, 600, (600, 0))
+    out, lse = fa.flash_attention_fwd(q, k, v, key_valid=valid)
+    ref, _ = fa.flash_attention_reference(q, k, v, key_valid=valid)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out), key_valid=valid)
+    check(bool((out[1] == 0).all()) and bool((ref[1] == 0).all()) and bool(torch.isfinite(lse).all())
+          and all(bool(torch.isfinite(g).all()) and bool((g[1] == 0).all()) for g in grads),
+          "flash kernels: a sample with no valid key gives zero rows, a finite lse and zero gradients")
+    return records
+
+
 def kernel_class(name: str) -> str:
     low = name.lower()
     for cls, keys in KERNEL_CLASSES.items():
@@ -359,7 +507,8 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         f"class_ms_per_{unit}": {c: ms / n for c, ms in sorted(by_class.items(), key=lambda x: -x[1])},
         "ms_per_launch": {c: by_class[c] / launches[c] for c in
-                          ("short_attention", "short_attention_bwd", "layer_norm_bwd")
+                          ("short_attention", "short_attention_bwd", "layer_norm_bwd",
+                           "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
                           if c in by_class},
         "top_kernels": [{"name": k[:120], "class": kernel_class(k), f"ms_per_{unit}": ms / n,
                          f"launches_per_{unit}": c / n} for k, ms, c in top]}
@@ -567,10 +716,10 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
             # remat: every block's forward runs again in the backward pass
             remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
             reset_counts(sa, fl)
-            state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 4)
-            check(sa.LAUNCHES == {"fwd": 2 * (lv + lt) * 4, "bwd": (lv + lt) * 4}
+            state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 2)
+            check(sa.LAUNCHES == {"fwd": 2 * (lv + lt) * 2, "bwd": (lv + lt) * 2}
                   and math.isfinite(float(rm[-1]["loss"])),
-                  f"train[remat]: launches {sa.LAUNCHES} in 4 steps, loss finite")
+                  f"train[remat]: launches {sa.LAUNCHES} in 2 steps, loss finite")
             summary["remat_median_step_ms"] = statistics.median(remat_ms)
         summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         print("train " + json.dumps(summary), flush=True)
@@ -651,6 +800,268 @@ def phase_train_card_vs_cpu(torch, oc, sa):
           f"over {len(cos)} tensors (>= {COSINE_MIN})")
 
 
+def naflex_batch(torch, n, seq_len, grids, device, seed=0, vocab=49408, context=77):
+    """One fixed NaFlex train batch: sample i has the grid grids[i % len(grids)] of
+    N(0, 1) patches from a seed, padded with zeros to seq_len, and random token ids."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    patches = torch.zeros(n, seq_len, 768, device=device)
+    coords = torch.zeros(n, seq_len, 2, dtype=torch.int32, device=device)
+    valid = torch.zeros(n, seq_len, dtype=torch.bool, device=device)
+    for i in range(n):
+        gh, gw = grids[i % len(grids)]
+        m = gh * gw
+        patches[i, :m] = torch.randn(m, 768, generator=gen, device=device)
+        ys, xs = torch.meshgrid(torch.arange(gh, device=device), torch.arange(gw, device=device),
+                                indexing="ij")
+        coords[i, :m] = torch.stack([ys.reshape(-1), xs.reshape(-1)], dim=-1).to(torch.int32)
+        valid[i, :m] = True
+    text = torch.randint(0, vocab - 1, (n, context), generator=gen, device=device)
+    return {"image": {"patches": patches, "patch_coord": coords, "patch_valid": valid},
+            "text": text}
+
+
+def phase_naflex_serve(torch, oc, sa, fa):
+    """NaFlex serving main path; returns the flash forward launches and the
+    encode_image calls that made them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_clip_tpu_torch.data.naflex import NaFlexTransform
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, _ = oc.create_model_and_transforms(NAFLEX_MODEL, precision="pure_bf16", seed=0)
+    tokenizer = oc.get_tokenizer(NAFLEX_MODEL)
+    layers_t = model.cfg.text_cfg.layers
+    layers_v = model.visual.cfg.layers
+    transform = NaFlexTransform(NF_SERVE_SEQ, model.visual.cfg.patch_size)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    requests = [torch.randint(0, 256, (NF_SERVE_BATCH, *NF_IMAGE_HW, 3), dtype=torch.uint8,
+                              device="cuda", generator=gen) for _ in range(DISTINCT_REQUESTS)]
+    phases = ("naflex_transform", "encode_image", "logits_top5")
+    with torch.inference_mode():
+        reset_counts(sa, fa)
+        clf = oc.build_zero_shot_classifier(model, tokenizer, oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                            oc.SIMPLE_IMAGENET_TEMPLATES,
+                                            num_classes_per_batch=CLASSES)
+        torch.cuda.synchronize()
+        text_launches = sa.LAUNCHES["fwd"]
+        clf32 = clf.float()
+
+        def request(i, events=None):
+            mark = (lambda j: events[j].record()) if events else (lambda j: None)
+            mark(0)
+            patches = transform(requests[i % DISTINCT_REQUESTS])
+            mark(1)
+            feats = model.encode_image(patches, normalize=True)
+            mark(2)
+            top5 = (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices
+            mark(3)
+            return patches, feats, top5.cpu()  # waits for the device: one request in flight
+
+        t0 = time.perf_counter()
+        request(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat, phase_ms = [], {n: [] for n in phases}
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < WINDOW_S:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
+            t0 = time.perf_counter()
+            patches, feats, top5 = request(len(lat) + 1, ev)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            for j, n in enumerate(phases):
+                phase_ms[n].append(ev[j].elapsed_time(ev[j + 1]))
+        window_s = time.perf_counter() - t_start
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(PROFILED_REQUESTS):
+                request(i)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        image_calls = 1 + len(lat) + PROFILED_REQUESTS
+
+    n_valid = patches["patch_valid"].sum(dim=1)
+    check(tuple(patches["patches"].shape) == (NF_SERVE_BATCH, NF_SERVE_SEQ, 768)
+          and bool((n_valid == 540).all()),
+          f"NaFlex transform: patches {tuple(patches['patches'].shape)}, "
+          f"{int(n_valid[0])} valid of {NF_SERVE_SEQ} (a 20x27 grid)")
+    check(text_launches == layers_t and sa.LAUNCHES["fwd"] == layers_t,
+          f"NaFlex classifier: {text_launches} short-kernel launches for 1 encode_text call")
+    check(fa.LAUNCHES == {"fwd": layers_v * image_calls, "bwd_dq": 0, "bwd_dkv": 0},
+          f"NaFlex requests: flash launches {fa.LAUNCHES} for {image_calls} encode_image calls "
+          f"(expect {layers_v * image_calls} forward, no backward)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (NF_SERVE_BATCH, model.cfg.embed_dim)
+          and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
+          and tuple(top5.shape) == (NF_SERVE_BATCH, 5) and int(top5.min()) >= 0
+          and int(top5.max()) < CLASSES,
+          f"NaFlex request output: features {tuple(feats.shape)} finite and unit, "
+          f"top-5 {tuple(top5.shape)}")
+    print("naflex_serve " + json.dumps({
+        "model": NAFLEX_MODEL, "precision": "pure_bf16", "batch": NF_SERVE_BATCH,
+        "image_hw": list(NF_IMAGE_HW), "seq_len": NF_SERVE_SEQ, "valid_patches": int(n_valid[0]),
+        "first_request_ms": first_ms, "window_s": window_s, "window_requests": len(lat),
+        "images_per_s": NF_SERVE_BATCH * len(lat) / window_s,
+        "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
+        "max_request_ms": max(lat),
+        "device_ms_median": {n: statistics.median(v) for n, v in phase_ms.items()},
+        "flash_fwd_launches": fa.LAUNCHES["fwd"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    print("naflex_profile " + json.dumps(profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)),
+          flush=True)
+    return fa.LAUNCHES["fwd"], image_calls
+
+
+def phase_naflex_train(torch, oc, sa, fa):
+    """NaFlex training main path; returns the flash launches of the timed window and
+    its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(NAFLEX_MODEL, precision="amp_bf16", seed=0)
+    lv, lt = model.visual.cfg.layers, model.cfg.text_cfg.layers
+    # lr 1e-4: with no warm-up, 5e-4 first drives the loss of this 16-sample batch up
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = naflex_batch(torch, NF_TRAIN_BATCH, NF_TRAIN_SEQ, ((32, 32), (24, 32)), "cuda")
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa, fa)
+    state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    flash, short = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
+    losses = [float(m["loss"]) for m in warm + window]
+    norms = [float(m["grad_norm"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses), f"naflex_train: {len(losses)} losses finite")
+    check(losses[-1] < losses[0], f"naflex_train: loss fell on the fixed batch, "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
+    check(all(math.isfinite(x) and x > 0 for x in norms), "naflex_train: grad_norm finite, positive")
+    check(flash == {"fwd": lv * n, "bwd_dq": lv * n, "bwd_dkv": lv * n},
+          f"naflex_train: flash launches {flash} in {n} steps (expect {lv * n} of each)")
+    check(short == {"fwd": lt * n, "bwd": lt * n},
+          f"naflex_train: short-kernel launches {short} in {n} steps (the text tower: "
+          f"{lt * n} of each)")
+    summary = {"model": NAFLEX_MODEL, "precision": "amp_bf16", "batch": NF_TRAIN_BATCH,
+               "seq_len": NF_TRAIN_SEQ, "window_steps": n, "window_s": wall_s,
+               "image_tokens_per_s": NF_TRAIN_BATCH * NF_TRAIN_SEQ * n / wall_s,
+               "images_per_s": NF_TRAIN_BATCH * n / wall_s,
+               "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+               "flash_launches_per_step": {k: v / n for k, v in flash.items()},
+               "short_launches_per_step": {k: v / n for k, v in short.items()}}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+    prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+    print("naflex_train_profile " + json.dumps(prof_summary), flush=True)
+    summary["device_busy_ms_per_step"] = prof_summary["device_busy_ms_per_step"]
+    # remat: the key-padding mask goes through torch's checkpoint with each block
+    remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
+    reset_counts(sa, fa)
+    state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 2)
+    check(fa.LAUNCHES == {"fwd": 2 * lv * 2, "bwd_dq": lv * 2, "bwd_dkv": lv * 2}
+          and math.isfinite(float(rm[-1]["loss"])),
+          f"naflex_train[remat]: flash launches {fa.LAUNCHES} in 2 steps, loss finite")
+    summary["remat_median_step_ms"] = statistics.median(remat_ms)
+    summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("naflex_train " + json.dumps(summary), flush=True)
+    return flash, n
+
+
+def phase_naflex_cli(torch, fa):
+    """The training CLI on token-budget NaFlex batches: one short epoch."""
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    with tempfile.TemporaryDirectory() as logs:
+        args = ["--model", NAFLEX_MODEL, "--dataset-type", "synthetic-naflex",
+                "--naflex-seq-lens", str(NF_TRAIN_SEQ), "--naflex-max-tokens",
+                str(NF_TRAIN_BATCH * NF_TRAIN_SEQ), "--batch-size", str(NF_TRAIN_BATCH),
+                "--train-num-samples", str(NF_TRAIN_BATCH * NF_CLI_STEPS),
+                "--precision", "amp_bf16", "--grad-clip-norm", "1.0", "--lr", "5e-4", "--wd", "0.2",
+                "--warmup", "4", "--log-every-n-steps", "4", "--workers", "1", "--epochs", "1",
+                "--logs", logs, "--name", "naflex"]
+        run = Path(logs) / "naflex"
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        state = train_main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        rows = [json.loads(x) for x in (run / "results.jsonl").read_text().splitlines()]
+        layers = state.model.visual.cfg.layers
+        check(state.step == NF_CLI_STEPS, f"NaFlex CLI: {state.step} steps in the epoch "
+              f"(batch {NF_TRAIN_BATCH} from the token budget)")
+        check(bool(rows) and all(math.isfinite(r["train/loss"])
+                                 and abs(r["train/loss"] - math.log(NF_TRAIN_BATCH)) < 1e-2
+                                 for r in rows),
+              f"NaFlex CLI: loss {[round(r['train/loss'], 4) for r in rows]} is ln "
+              f"{NF_TRAIN_BATCH} on identical samples")
+        check(fa.LAUNCHES == {k: layers * NF_CLI_STEPS for k in fa.LAUNCHES},
+              f"NaFlex CLI: flash launches {fa.LAUNCHES} in {NF_CLI_STEPS} steps")
+        check((run / "checkpoints" / "epoch_1.pt").exists(), "NaFlex CLI: checkpoint epoch_1.pt written")
+        last = rows[-1] if rows else {}
+        print("naflex_cli " + json.dumps({
+            "steps": NF_CLI_STEPS, "run_s": wall_s,
+            "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
+            "host_batch_ms_per_step": 1e3 * last.get("train/batch_time", float("nan"))}), flush=True)
+
+
+def phase_naflex_card_vs_cpu(torch, oc, sa, fa):
+    """fp32, TF32 off: NaFlex image features and one train step, card against CPU."""
+    from open_clip_tpu_torch.data.naflex import NaFlexTransform, collate_naflex
+    from open_clip_tpu_torch.loss import clip_loss
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    transform = NaFlexTransform(NF_SERVE_SEQ, 16)
+    images = [torch.randint(0, 256, (h, w, 3), dtype=torch.uint8, generator=gen)
+              for h, w in ((384, 512), (300, 500), (512, 384), (224, 224))]
+    dicts = collate_naflex([transform(im) for im in images])
+    n_valid = dicts["patch_valid"].sum(dim=1).tolist()
+    train = naflex_batch(torch, 4, 512, ((16, 32), (16, 24)), "cpu", seed=5)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = oc.create_model(NAFLEX_MODEL, precision="fp32", seed=3, device=device)
+        reset_counts(sa, fa)
+        with torch.inference_mode():
+            feats = model.encode_image({k: v.to(device) for k, v in dicts.items()},
+                                       normalize=True).cpu()
+        serve_launches = dict(fa.LAUNCHES)
+        batch = {"image": {k: v.to(device) for k, v in train["image"].items()},
+                 "text": train["text"].to(device)}
+        out = clip_forward(model, batch["image"], batch["text"], train=True)
+        clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp()).backward()
+        grads = {k: p.grad.detach().cpu().double() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                        model, oc.const_lr(5e-4, 0))
+        state = oc.create_train_state(model, optimizer)
+        reset_counts(sa, fa)
+        state, m = oc.make_train_step(model.cfg, optimizer)(state, batch)
+        results[device] = (feats, grads, float(m["loss"]), float(m["grad_norm"]), serve_launches,
+                           dict(fa.LAUNCHES), dict(sa.LAUNCHES))
+        del model, state, optimizer
+    (f_g, g_gpu, loss_g, norm_g, served, flash, short) = results["cuda"]
+    (f_c, g_cpu, loss_c, norm_c, *_) = results["cpu"]
+    check(served == {"fwd": 12, "bwd_dq": 0, "bwd_dkv": 0} and flash == {"fwd": 12, "bwd_dq": 12,
+          "bwd_dkv": 12} and short == {"fwd": 12, "bwd": 12},
+          f"NaFlex fp32 card run: flash {served} serving, {flash} and short {short} in the step")
+    cos = torch.nn.functional.cosine_similarity(f_g.double(), f_c.double(), dim=-1).min().item()
+    check(bool(torch.isfinite(f_g).all()) and cos >= COSINE_MIN,
+          f"NaFlex encode_image card vs CPU fp32 (valid patches {n_valid} of {NF_SERVE_SEQ}): "
+          f"min cosine {cos:.7f} (>= {COSINE_MIN})")
+    check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) and abs(norm_g - norm_c) <= 1e-3 * norm_c,
+          f"NaFlex train step card vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} (rel 1e-4), "
+          f"grad_norm {norm_g:.6f} vs {norm_c:.6f} (rel 1e-3)")
+    cosg = {k: torch.nn.functional.cosine_similarity(g_gpu[k].flatten(), g_cpu[k].flatten(),
+                                                     dim=0).item() for k in g_cpu}
+    worst = min(cosg, key=cosg.get)
+    check(all(bool(torch.isfinite(g).all()) for g in g_gpu.values()) and cosg[worst] >= COSINE_MIN,
+          f"NaFlex gradients card vs CPU fp32: min cosine {cosg[worst]:.7f} at {worst} "
+          f"over {len(cosg)} tensors (>= {COSINE_MIN})")
+
+
 def main() -> int:
     import torch
 
@@ -665,12 +1076,13 @@ def main() -> int:
 
     import open_clip_tpu_torch as oc
     from open_clip_tpu_torch.ops import _build
+    from open_clip_tpu_torch.ops import flash_attention as fa
     from open_clip_tpu_torch.ops import fused_ln as fl
     from open_clip_tpu_torch.ops import layers as layers_mod
     from open_clip_tpu_torch.ops import short_attention as sa
 
     t0 = time.perf_counter()
-    sources = ("short_attention", "layer_norm_bwd")
+    sources = ("short_attention", "layer_norm_bwd", "flash_attention")
     _build.build_all(sources)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -681,6 +1093,7 @@ def main() -> int:
     fwd_records = phase_kernels(torch, sa, text_batch=CLASSES * len(oc.SIMPLE_IMAGENET_TEMPLATES))
     bwd_records = phase_attention_bwd_kernels(torch, sa)
     ln_records = phase_ln_bwd_kernels(torch, fl)
+    flash_records = phase_flash_kernels(torch, fa)
     launches, calls = phase_serve(torch, oc, sa)
     phase_card_vs_cpu(torch, oc, sa)
     tally, steps, plain_summary = phase_train(torch, oc, sa, fl, layers_mod, fused_ln=False)
@@ -699,6 +1112,10 @@ def main() -> int:
         "peak_mem_gib_on": fused_summary["peak_mem_gib"]}), flush=True)
     phase_cli(torch)
     phase_train_card_vs_cpu(torch, oc, sa)
+    nf_serve_launches, nf_serve_calls = phase_naflex_serve(torch, oc, sa, fa)
+    nf_train_launches, nf_steps = phase_naflex_train(torch, oc, sa, fa)
+    phase_naflex_cli(torch, fa)
+    phase_naflex_card_vs_cpu(torch, oc, sa, fa)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -720,6 +1137,13 @@ def main() -> int:
     for tower, width in (("vision", 768), ("text", 512)):
         kernels.append(dict(ln_records[tower], launches=tally_ln[("ln", width)],
                             launches_per_train_step=tally_ln[("ln", width)] / steps_ln))
+    # the flash kernels: NaFlex serving (forward, at the serve bucket) and the NaFlex
+    # train window (all three, at the train bucket)
+    kernels.append(dict(flash_records["serve"]["fwd"], launches=nf_serve_launches,
+                        launches_per_call=nf_serve_launches / nf_serve_calls))
+    for which in ("fwd", "bwd_dq", "bwd_dkv"):
+        kernels.append(dict(flash_records["train"][which], launches=nf_train_launches[which],
+                            launches_per_train_step=nf_train_launches[which] / nf_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

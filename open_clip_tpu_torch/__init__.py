@@ -2,10 +2,12 @@
 
 Serving: ViT CLIP models (ViT-B-32 first) from ``create_model_and_transforms``
 through the device-side preprocess, ``encode_image``/``encode_text`` and
-``build_zero_shot_classifier``. Training: ``clip_loss``, ``create_optimizer``
+``build_zero_shot_classifier``; NaFlex models (``naflex_ViT-B-16``) take patch dicts
+from ``data.naflex.NaFlexTransform``. Training: ``clip_loss``, ``create_optimizer``
 (AdamW), ``make_train_step`` and the CLI ``python -m open_clip_tpu_torch.train.main``.
-Attention at CLIP lengths runs on hand-written CUDA kernels, forward and backward
-(``ops/short_attention.py``); LayerNorm's backward can (``ops/fused_ln.py``). Entry
+Attention runs on hand-written CUDA kernels, forward and backward: at CLIP lengths
+``ops/short_attention.py``, at 512 tokens and more ``ops/flash_attention.py``;
+LayerNorm's backward can (``ops/fused_ln.py``). Entry
 points build on the GPU unless given ``device="cpu"``. The package imports neither JAX nor ``open_clip_tpu``.
 """
 

@@ -1,5 +1,7 @@
-"""Training data (counterpart of ``open_clip_tpu/data/datasets.py``): the synthetic
-dataset only. Real datasets (webdataset, CSV) are not ported yet and raise.
+"""Training data (counterpart of ``open_clip_tpu/data/datasets.py``): the two
+synthetic datasets, ``synthetic`` (image tensors) and ``synthetic-naflex`` (NaFlex
+patch dicts in token-budget buckets, ``data/naflex.py``). Real datasets
+(webdataset, CSV, audio) are not ported yet and raise.
 
 ``SyntheticDataset`` yields the JAX class's batches: a blank image, normalised
 with the model's mean and std, and one fixed caption, repeated over the batch.
@@ -59,14 +61,30 @@ class SyntheticDataset:
 
 
 def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable) -> Dict[str, DataInfo]:
-    """{"train": DataInfo} for ``--dataset-type synthetic``."""
+    """{"train": DataInfo} for ``--dataset-type synthetic`` and ``synthetic-naflex``."""
     dstype = getattr(args, "dataset_type", "auto")
-    if dstype != "synthetic":
-        raise NotImplementedError(f"dataset type {dstype!r} is not ported yet (synthetic is)")
+    get = lambda k, d: getattr(args, k, d)  # noqa: E731
+    pin = torch.device(args.device).type == "cuda"
     batch_size = args.batch_size
+    if dstype == "synthetic-naflex":
+        from .naflex import NaFlexDataConfig, SyntheticNaFlexDataset
+
+        ncfg = NaFlexDataConfig(
+            seq_lens=tuple(get("naflex_seq_lens", (128, 256))),
+            patch_sizes=tuple(get("naflex_patch_sizes", (16,))),
+            max_tokens_per_batch=get("naflex_max_tokens", 16384),
+            batch_divisor=get("naflex_batch_divisor", 8),
+            seed=get("seed", 0),
+        )
+        n = get("train_num_samples", None) or 100
+        nb = max(1, n // batch_size)
+        ds = SyntheticNaFlexDataset(ncfg, tokenizer, num_batches=nb, pin_memory=pin)
+        return {"train": DataInfo(ds, num_samples=n, num_batches=nb)}
+    if dstype != "synthetic":
+        raise NotImplementedError(f"dataset type {dstype!r} is not ported yet "
+                                  "(synthetic and synthetic-naflex are)")
     ds = SyntheticDataset(preprocess_cfg, tokenizer,
                           dataset_size=getattr(args, "train_num_samples", None) or 100,
-                          batch_size=batch_size,
-                          pin_memory=torch.device(args.device).type == "cuda")
+                          batch_size=batch_size, pin_memory=pin)
     n = ds.num_samples
     return {"train": DataInfo(ds, num_samples=n, num_batches=max(1, n // batch_size))}

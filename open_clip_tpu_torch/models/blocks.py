@@ -58,10 +58,11 @@ class Attention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, causal: bool = False,
+                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         return multi_head_attention(x, self.in_proj_weight, self.in_proj_bias,
                                     self.out_proj.weight, self.out_proj.bias,
-                                    num_heads=self.heads, causal=causal)
+                                    num_heads=self.heads, causal=causal, key_valid=key_valid)
 
 
 class Mlp(nn.Module):
@@ -89,8 +90,9 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_1 = LayerScale(width)
             self.ls_2 = LayerScale(width)
 
-    def forward(self, x: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
-        h = self.attn(self.ln_1(x), causal=causal)
+    def forward(self, x: torch.Tensor, *, causal: bool = False,
+                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.attn(self.ln_1(x), causal=causal, key_valid=key_valid)
         if self.ls_init_value is not None:
             h = self.ls_1(h)
         x = x + h
@@ -143,13 +145,14 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_width, **block_kw) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor, *, causal: bool = False,
-                remat: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, causal: bool = False, remat: bool = False,
+                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``key_valid``: optional (B, L) key-padding mask, the same for every block."""
         for block in self.resblocks:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, causal=causal, use_reentrant=False)
+                x = checkpoint(block, x, causal=causal, key_valid=key_valid, use_reentrant=False)
             else:
-                x = block(x, causal=causal)
+                x = block(x, causal=causal, key_valid=key_valid)
         return x
 
     def init_weights(self, gen: torch.Generator, scheme: str) -> None:

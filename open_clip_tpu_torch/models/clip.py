@@ -18,6 +18,7 @@ from torch import nn
 
 from ..config import CLIPModelCfg
 from . import text as text_mod
+from .naflex_vit import NaFlexVit, is_naflex, parse_naflex_cfg
 from .vit import VisionTransformer
 
 DEFAULT_LOGIT_SCALE = math.log(1.0 / 0.07)
@@ -25,12 +26,13 @@ LOGIT_SCALE_MAX = math.log(100.0)
 
 
 def check_model_cfg(cfg: CLIPModelCfg) -> None:
-    """Raise for model families this slice does not port (towers raise for their own)."""
+    """Raise for the model families that are not ported (towers raise for their own).
+    ``custom_text`` only names the text tower's keys in an exported state dict and
+    changes nothing the model computes, so it is accepted."""
     unported = [name for name, on in (
         ("CoCa decoder", cfg.multimodal_cfg is not None),
         ("audio tower", cfg.audio_cfg is not None or cfg.audio_naflex_cfg is not None),
         ("GenLIP/GenLAP", cfg.genlip_cfg is not None or cfg.genlap_cfg is not None),
-        ("custom text layout", cfg.custom_text),
         ("model without both towers", cfg.vision_cfg is None or cfg.text_cfg is None)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
@@ -43,7 +45,10 @@ class CLIPModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         act = "quick_gelu" if cfg.quick_gelu else "gelu"
-        self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act)
+        if is_naflex(cfg.vision_cfg):
+            self.visual = NaFlexVit(parse_naflex_cfg(cfg.vision_cfg), cfg.embed_dim, act)
+        else:
+            self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act)
         text_mod.add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act)
         self.logit_scale = nn.Parameter(torch.empty(()))
         self.logit_bias = None if cfg.init_logit_bias is None else nn.Parameter(torch.empty(()))
@@ -89,11 +94,19 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: bool = False,
                  remat: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) normalized NHWC images -> (B, embed_dim) features. ``train`` turns
-    on what only training does (patch dropout, which is not ported yet and raises);
-    ``remat`` recomputes each block in the backward pass."""
-    pooled = model.visual(_as_tensor(image, model.device), model.compute_dtype,
-                          train=train, remat=remat)
+    """(B, H, W, 3) normalized NHWC images, or a NaFlex patch dict for a ``naflexvit_*``
+    tower, -> (B, embed_dim) features. ``train`` turns on what only training does
+    (patch dropout, which is not ported yet and raises); ``remat`` recomputes each
+    block in the backward pass."""
+    if isinstance(image, dict):
+        if not is_naflex(model.cfg.vision_cfg):
+            raise ValueError(
+                "got a NaFlex patch-dict batch but the model's vision tower is not a "
+                "naflexvit_* — use a naflex model (e.g. naflex_ViT-B-16) or image-tensor data")
+        image = {k: _as_tensor(v, model.device) for k, v in image.items()}
+    else:
+        image = _as_tensor(image, model.device)
+    pooled = model.visual(image, model.compute_dtype, train=train, remat=remat)
     return _l2_normalize(pooled) if normalize else pooled
 
 

@@ -49,7 +49,8 @@ class PatchEmbed(nn.Module):
 
 
 def check_vision_cfg(cfg: CLIPVisionCfg) -> None:
-    """Raise for the vision-tower variants this slice does not port."""
+    """Raise for the vision-tower variants that are not ported. (A ``naflexvit_*``
+    timm name never gets here: ``models/naflex_vit.py`` is that tower.)"""
     unported = []
     if cfg.timm_model_name:
         unported.append(f"timm tower {cfg.timm_model_name!r}")

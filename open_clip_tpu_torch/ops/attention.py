@@ -3,11 +3,13 @@
 Layout: activations are (B, L, D); heads are split as (B, L, H, hd), the JAX
 package's layout, so the q/k/v of one fused projection stay views of it.
 
-Dispatch (the JAX rule at ``attention.py:49-62``): on CUDA,
-self-attention that ``short_attention.supports`` accepts goes to the short
-kernel; the shapes the JAX rule sends to its flash kernel (L >= 512, hd % 64 == 0,
-no bias) raise, because that kernel is not ported yet; everything else, and
-everything on the CPU, takes the dense path.
+Dispatch (the JAX rule at ``attention.py:49-62``), for self-attention on CUDA:
+with a key-padding mask, no bias, L >= 512 and a head width the flash kernels
+take, the flash kernels (they mask in-kernel); without a mask, the short kernel
+where ``short_attention.supports`` accepts the shape; else, without a mask or
+bias and with L >= 512, the flash kernels again (a plain ViT at L = 577 lands
+here). Everything else, cross-attention and everything on the CPU take the dense
+path, which folds the mask into an additive bias.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from . import flash_attention as fa
 from . import short_attention as sa
 from .layers import linear
 
@@ -24,13 +27,16 @@ _NEG = torch.finfo(torch.float32).min
 
 
 def select_impl(on_cuda: bool, lq: int, lk: int, h: int, hd: int, bias, key_valid) -> str:
-    """Which path attention takes: "short", "dense", or raise for flash shapes."""
+    """Which path attention takes: "flash", "short" or "dense"."""
     if not on_cuda or lq != lk:
         return "dense"
+    flash_ok = lq >= _FLASH_MIN_SEQ and fa.supports(lq, h, hd, bias)
+    if key_valid is not None and flash_ok:
+        return "flash"  # key padding handled in-kernel
     if key_valid is None and sa.supports(lq, h, hd, bias):
         return "short"
-    if bias is None and lq >= _FLASH_MIN_SEQ and hd % 64 == 0:
-        raise NotImplementedError("flash attention kernel not yet ported")
+    if key_valid is None and flash_ok:
+        return "flash"
     return "dense"
 
 
@@ -63,6 +69,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl = select_impl(q.is_cuda, q.shape[1], k.shape[1], q.shape[2], q.shape[3], bias, key_valid)
     if impl == "short":
         return sa.short_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "flash":
+        return fa.flash_attention(q, k, v, causal=causal, scale=scale, key_valid=key_valid)
     if key_valid is not None:
         kv_bias = torch.where(key_valid.bool(), 0.0, _NEG * 0.5).float()[:, None, None, :]
         bias = kv_bias if bias is None else bias + kv_bias
@@ -72,11 +80,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
                          in_proj_bias: Optional[torch.Tensor], out_weight: torch.Tensor,
                          out_bias: Optional[torch.Tensor], *, num_heads: int,
-                         causal: bool = False) -> torch.Tensor:
-    """Fused-qkv self-attention with torch-layout (out, in) weights: (B, L, D) -> (B, L, D)."""
+                         causal: bool = False,
+                         key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused-qkv self-attention with torch-layout (out, in) weights: (B, L, D) -> (B, L, D).
+    ``key_valid``: optional (B, L) key-padding mask."""
     b, l, d = x.shape
     hd = d // num_heads
     qkv = linear(x, in_proj_weight, in_proj_bias, transposed=True)
     q, k, v = qkv.view(b, l, 3, num_heads, hd).unbind(2)  # views: no copies
-    out = dot_product_attention(q, k, v, causal=causal).reshape(b, l, d)
+    out = dot_product_attention(q, k, v, causal=causal, key_valid=key_valid).reshape(b, l, d)
     return linear(out, out_weight, out_bias, transposed=True)

@@ -92,7 +92,9 @@ def main(args=None) -> TrainState:
             start_epoch = load_native(resume_path, like=state)
 
     step_fn = make_train_step(model.cfg, optimizer, loss_type="clip",
-                              remat=args.grad_checkpointing, accum_steps=args.accum_freq)
+                              remat=args.grad_checkpointing, accum_steps=args.accum_freq,
+                              naflex_loss_scale=args.naflex_loss_scale,
+                              reference_batch_size=args.batch_size)
     # a checkpoint taken in the middle of an epoch resumes past the batches it trained on
     resume_skip = max(0, state.step - start_epoch * steps_per_epoch)
 

@@ -26,12 +26,8 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     # data
     (("--train-data",), _STRS), (("--train-data-upsampling-factors",), _STRS),
     (("--val-data",), _STRS), (("--val-num-samples",), _INTS),
-    (("--naflex-seq-lens",), dict(type=int, nargs="+", default=[128, 256, 576, 784, 1024])),
     (("--naflex-seq-len-probs",), dict(type=float, nargs="+", default=None)),
-    (("--naflex-patch-sizes",), dict(type=int, nargs="+", default=[16])),
     (("--naflex-patch-size-probs",), dict(type=float, nargs="+", default=None)),
-    (("--naflex-max-tokens", "--naflex-max-tokens-per-batch"), dict(type=int, default=16384)),
-    (("--naflex-batch-divisor",), dict(type=int, default=8)),
     (("--naflex-pad-multiple",), _INTS), (("--naflex-max-text-tokens",), _INTS),
     (("--naflex-num-train-image-tokens",), _INTS),
     (("--use-naflex",), _ON), (("--force-naflex-vision",), _ON),
@@ -39,7 +35,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--bucket-pool",), dict(type=int, default=2048)),
     (("--bucket-chunk",), dict(type=int, default=128)),
     (("--bucket-prefetch-pools",), dict(type=int, default=0)),
-    (("--naflex-loss-scale",), dict(type=str, default="none")),
     (("--dataset-resampled",), _ON),
     (("--csv-separator",), dict(type=str, default="\t")),
     (("--csv-img-key",), dict(type=str, default="filepath")),
@@ -131,8 +126,18 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--dataset-type",
                         choices=["webdataset", "csv", "synthetic", "webdataset-audio",
                                  "synthetic-audio", "webdataset-naflex", "synthetic-naflex", "auto"],
-                        default="auto", help="only 'synthetic' is ported")
+                        default="auto", help="'synthetic' and 'synthetic-naflex' are ported")
     parser.add_argument("--train-num-samples", type=int, default=None)
+    # NaFlex token-budget batching (--dataset-type synthetic-naflex)
+    parser.add_argument("--naflex-seq-lens", type=int, nargs="+", default=[128, 256, 576, 784, 1024])
+    parser.add_argument("--naflex-patch-sizes", type=int, nargs="+", default=[16])
+    parser.add_argument("--naflex-max-tokens", "--naflex-max-tokens-per-batch",
+                        dest="naflex_max_tokens", type=int, default=16384)
+    parser.add_argument("--naflex-batch-divisor", type=int, default=8)
+    parser.add_argument("--naflex-loss-scale", type=str, default="none",
+                        choices=["none", "linear", "sqrt"],
+                        help="scale the loss by (actual batch / --batch-size) for "
+                             "token-budget NaFlex batches")
     parser.add_argument("--workers", type=int, default=4)
 
     # logging / experiment

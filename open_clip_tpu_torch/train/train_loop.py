@@ -1,8 +1,8 @@
 """Epoch loop (counterpart of ``open_clip_tpu/train/train_loop.py``).
 
 ``train_one_epoch`` drives the train step over the host data pipeline. Each batch
-goes to the model's device with a non-blocking copy (from pinned memory where the
-dataset pins it), and the host waits for the device only at the metric cadence,
+(image tensors, or NaFlex patch dicts of tensors) goes to the model's device with
+a non-blocking copy (from pinned memory where the dataset pins it), and the host waits for the device only at the metric cadence,
 where it reads the loss. Evaluation is not ported yet.
 """
 
@@ -33,6 +33,13 @@ class AverageMeter:
         self.avg = self.sum / max(self.count, 1)
 
 
+def to_device(x, device):
+    """A tensor, or a (nested) dict of tensors, on ``device``; the copy does not block."""
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    return x.to(device, non_blocking=True)
+
+
 def train_one_epoch(state: TrainState, step_fn: Callable, dataloader: Iterable, epoch: int,
                     args: Any, schedule: Optional[Callable] = None, writer=None,
                     skip_steps: int = 0) -> TrainState:
@@ -55,14 +62,14 @@ def train_one_epoch(state: TrainState, step_fn: Callable, dataloader: Iterable, 
         if i < skip_steps:
             end = time.perf_counter()
             continue
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        batch = to_device(batch, device)
         data_time.update(time.perf_counter() - end)
         state, metrics = step_fn(state, batch)
         pending = metrics
 
         if (i % metric_every) == 0 or (i % log_every) == 0:
             # the host waits for the device here and nowhere else in the loop
-            bs = batch["image"].shape[0]
+            bs = batch["text"].shape[0]
             loss = float(metrics["loss"])
             loss_m.update(loss, n=bs)
             alpha = min(1.0, bs * metric_every / ema_samples)

@@ -64,11 +64,17 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
                     remat: bool = False, accum_steps: int = 1,
                     ema_decay: Optional[float] = None,
                     clamp_scale: float = LOGIT_SCALE_MAX,
-                    device_preprocess: Optional[Callable] = None
+                    device_preprocess: Optional[Callable] = None,
+                    naflex_loss_scale: str = "none",
+                    reference_batch_size: Optional[int] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``step(state, batch) -> (state, metrics)`` for a batch
-    ``{"image": (B, H, W, 3) normalized NHWC, "text": (B, L) token ids}``. The
-    compute dtype is the model's (``create_model(precision=...)``)."""
+    ``{"image": (B, H, W, 3) normalized NHWC, "text": (B, L) token ids}``; for a
+    ``naflexvit_*`` tower ``image`` is a NaFlex patch dict of (B, N, ...) tensors. The
+    compute dtype is the model's (``create_model(precision=...)``).
+    ``naflex_loss_scale`` ("none", "linear", "sqrt") scales the loss of a patch-dict
+    batch by (its batch size / ``reference_batch_size``), or by the root of that, so
+    that the small batches of the long token-budget buckets do not dominate."""
     if loss_type in UNPORTED_LOSSES:
         raise NotImplementedError(f"the {loss_type} train step is not ported yet (clip is)")
     if loss_type != "clip":
@@ -81,6 +87,16 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         raise NotImplementedError("a logit bias belongs to the siglip step, not ported yet")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+    if naflex_loss_scale not in ("none", "linear", "sqrt"):
+        raise ValueError(f"unknown naflex_loss_scale {naflex_loss_scale!r}")
+
+    def _loss_ratio(batch, n: int) -> float:
+        if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
+            return 1.0
+        if not reference_batch_size:
+            raise ValueError("naflex loss scaling needs the reference batch size")
+        ratio = n / reference_batch_size
+        return ratio if naflex_loss_scale == "linear" else ratio ** 0.5
 
     def _apply_updates(state: TrainState, loss: torch.Tensor):
         model = state.model
@@ -104,31 +120,38 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         model = state.model
         imf, txf = _features(model, batch, remat)
         loss = clip_loss(imf, txf, model.logit_scale.float().exp())
+        loss = loss * _loss_ratio(batch, imf.shape[0])
         loss.backward()
         return _apply_updates(state, loss)
 
     def accum_step(state: TrainState, batch):
         """GradCache accumulation over ``accum_steps`` equal slices of the batch."""
         model = state.model
-        n = batch["image"].shape[0]
+        n = batch["text"].shape[0]
         if n % accum_steps:
             raise ValueError(f"batch of {n} does not split into {accum_steps} microbatches")
         size = n // accum_steps
-        micro = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                 for i in range(accum_steps)]
+
+        def rows(v, i):  # a patch dict is sliced entry by entry
+            if isinstance(v, dict):
+                return {k: rows(x, i) for k, x in v.items()}
+            return v[i * size:(i + 1) * size]
+
+        micro = [{k: rows(v, i) for k, v in batch.items()} for i in range(accum_steps)]
         # phase 1: features without gradients, one loss backward w.r.t. the features
         with torch.no_grad():
             feats = [_features(model, mb, remat) for mb in micro]
         all_imf = torch.cat([f[0] for f in feats]).requires_grad_()
         all_txf = torch.cat([f[1] for f in feats]).requires_grad_()
         loss = clip_loss(all_imf, all_txf, model.logit_scale.float().exp())
+        loss = loss * _loss_ratio(batch, n)  # the cached feature gradients carry the ratio
         loss.backward()  # fills all_imf.grad, all_txf.grad and logit_scale.grad
         # phase 2: each microbatch's forward again, with the cached feature gradients
         for i, mb in enumerate(micro):
             imf, txf = _features(model, mb, remat)
-            rows = slice(i * size, (i + 1) * size)
-            torch.autograd.backward([imf, txf], [all_imf.grad[rows].to(imf.dtype),
-                                                 all_txf.grad[rows].to(txf.dtype)])
+            part = slice(i * size, (i + 1) * size)
+            torch.autograd.backward([imf, txf], [all_imf.grad[part].to(imf.dtype),
+                                                 all_txf.grad[part].to(txf.dtype)])
         return _apply_updates(state, loss)
 
     return accum_step if accum_steps > 1 else simple_step

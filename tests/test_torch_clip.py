@@ -242,7 +242,9 @@ import chip_smoke
 import open_clip_tpu_torch as oc
 from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch import checkpoint, data, loss
-from open_clip_tpu_torch.ops import _build, attention, fused_ln, layers, short_attention
+from open_clip_tpu_torch.data import naflex
+from open_clip_tpu_torch.models import naflex_vit
+from open_clip_tpu_torch.ops import _build, attention, flash_attention, fused_ln, layers, short_attention
 from open_clip_tpu_torch.train import main, optim, params, scheduler, train_loop, train_step
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
@@ -260,6 +262,16 @@ state = train_step.create_train_state(model, opt)
 batch = {{"image": torch.randn(4, 32, 32, 3), "text": torch.randint(1, 1000, (4, 16))}}
 state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+ncfg = oc.CLIPModelCfg.from_dict({{"embed_dim": 32, "custom_text": True, "vision_cfg": {{
+    "image_size": 32, "timm_model_name": "naflexvit_tiny_patch16_gap",
+    "timm_model_kwargs": {{"embed_dim": 64, "depth": 1, "num_heads": 1}}}}, "text_cfg": cfg.text_cfg.__dict__}})
+nmodel = CLIPModel(ncfg)
+nmodel.init_weights(torch.Generator().manual_seed(0))
+patches = naflex.NaFlexTransform(8, 16)(torch.zeros(2, 40, 48, 3, dtype=torch.uint8))
+q = torch.randn(1, 9, 1, 64, requires_grad=True)
+flash_attention.flash_attention(q, q, q, causal=True, prefix_len=2).sum().backward()
+with torch.no_grad():
+    assert nmodel.encode_image(patches).shape == (2, 32)
 print("ok")
 """
 

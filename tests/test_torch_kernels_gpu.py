@@ -11,13 +11,15 @@ version sum in other orders); bf16 2e-2 (the probabilities are rounded to bf16
 before the product with v, and the output is rounded to bf16). Backward kernels:
 relative to the largest entry of the plain result, fp32 1e-4 (sums over up to 288
 terms in other orders), bf16 2e-2 (ds, p and the outputs are rounded to bf16: a
-probability that rounds the other way moves a term by 2**-8).
+probability that rounds the other way moves a term by 2**-8). The flash kernels
+sum over up to 1024 keys tile by tile, with a running max: the same tolerances hold.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from open_clip_tpu_torch.ops import flash_attention as fa
 from open_clip_tpu_torch.ops import fused_ln, layers
 from open_clip_tpu_torch.ops import short_attention as sa
 
@@ -269,3 +271,119 @@ def test_train_step_launches_each_kernel_once_per_layer(cuda, monkeypatch, remat
     assert sa.LAUNCHES["bwd"] - sa_before["bwd"] == 5
     # ln_pre, ln_post, ln_final and two per block
     assert fused_ln.LAUNCHES["bwd"] - ln_before == 3 + 2 * 5
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward (out, lse), dq, dk/dv
+# ---------------------------------------------------------------------------
+
+def _ragged_valid(b, l, device):
+    """Rows valid to l, 3l/4, l/2 + 1, ... in turn; never an empty row."""
+    lens = [max(1, l - (i % 4) * (l // 4) + (i % 4 > 1)) for i in range(b)]
+    return torch.arange(l, device=device)[None, :] < torch.tensor(lens, device=device)[:, None]
+
+
+FLASH_CASES = [
+    # b, l, h, hd, causal, prefix_len, masked
+    (4, 1024, 12, 64, False, 0, True),    # the NaFlex train bucket
+    (4, 576, 12, 64, False, 0, True),     # the NaFlex eval bucket
+    (2, 577, 12, 64, False, 0, False),    # no multiple of any tile
+    (2, 640, 4, 64, True, 0, False),
+    (2, 1024, 4, 64, True, 256, False),   # prefix-LM
+    (2, 700, 2, 64, True, 100, True),     # every mask at once, ragged prefix
+    (2, 512, 8, 128, False, 0, True),
+    (2, 530, 2, 128, True, 0, False),
+    (1, 1, 1, 64, False, 0, False),
+    (3, 65, 2, 64, True, 0, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,h,hd,causal,prefix_len,masked", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, b, l, h, hd, causal, prefix_len, masked, dtype):
+    q, k, v = (x.detach().requires_grad_() for x in _fused_qkv(l + h, b, l, h, hd, dtype, cuda))
+    valid = _ragged_valid(b, l, cuda) if masked else None
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal((b, l, h, hd), dtype=np.float32))
+    do = do.to(cuda, dtype)
+    kw = dict(causal=causal, key_valid=valid, prefix_len=prefix_len)
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, **kw)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {key: n + 1 for key, n in before.items()}
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    ref, ref_lse = fa.flash_attention_reference(qd, kd, vd, **kw)
+    out2, lse = fa.flash_attention_fwd(qd, kd, vd, **kw)
+    assert torch.equal(out2, out.detach())
+    assert out.dtype == dtype and out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert lse.shape == (b, h, l) and (lse - ref_lse).abs().max().item() <= 1e-4
+    refs = fa.flash_attention_bwd_reference(qd, kd, vd, ref, ref_lse, do, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got).all()), name
+        # relative to the plain result's largest entry, or to 1e-3 where that is ~0
+        # (L = 1: the plain dq and dk are exactly 0, the kernel's ~1e-7)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL[dtype] * max(want.float().abs().max().item(), 1e-3), (name, err)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_row_without_a_visible_key_is_zero(cuda, causal):
+    """Sample 1 has no valid key: zero output, finite lse, zero gradients, as the
+    plain version; sample 0 is untouched by it."""
+    q, k, v = (x.detach().requires_grad_() for x in _fused_qkv(5, 2, 130, 2, 64, torch.float32, cuda))
+    valid = torch.ones(2, 130, dtype=torch.bool, device=cuda)
+    valid[1] = False
+    out = fa.flash_attention(q, k, v, causal=causal, key_valid=valid)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    ref, _ = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), causal=causal,
+                                          key_valid=valid)
+    assert bool((out[1] == 0).all()) and bool((ref[1] == 0).all())
+    assert (out[0] - ref[0]).abs().max().item() <= TOL[torch.float32]
+    for g in grads:
+        assert bool(torch.isfinite(g).all()) and bool((g[1] == 0).all())
+
+
+def test_flash_backward_is_deterministic(cuda):
+    q, k, v = (x.detach().requires_grad_() for x in _fused_qkv(3, 2, 600, 4, 64, torch.bfloat16, cuda))
+    valid = _ragged_valid(2, 600, cuda)
+    runs = [torch.autograd.grad(fa.flash_attention(q, k, v, key_valid=valid), (q, k, v),
+                                torch.ones_like(q)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("what", ["fp16", "transposed", "hd32", "cross", "prefix_without_causal",
+                                  "mask_shape"])
+def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(cuda, what):
+    q, k, v = _fused_qkv(2, 2, 520, 4, 64, torch.float32, cuda)
+    kw = {}
+    if what == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif what == "transposed":  # (B, H, L, hd) data seen as (B, L, H, hd)
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "hd32":
+        q = k = v = torch.zeros(1, 520, 2, 32, device=cuda)
+    elif what == "cross":
+        k = v = torch.zeros(2, 512, 4, 64, device=cuda)
+    elif what == "prefix_without_causal":
+        kw = {"prefix_len": 8}
+    else:
+        kw = {"key_valid": torch.ones(2, 519, dtype=torch.bool, device=cuda)}
+    before = dict(fa.LAUNCHES)
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == before
+
+
+def test_dispatch_sends_long_masked_attention_to_flash(cuda):
+    from open_clip_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v = _fused_qkv(9, 2, 576, 4, 64, torch.bfloat16, cuda)
+    valid = _ragged_valid(2, 576, cuda)
+    before = dict(fa.LAUNCHES)
+    out = dot_product_attention(q, k, v, key_valid=valid)
+    assert fa.LAUNCHES["fwd"] == before["fwd"] + 1
+    ref, _ = fa.flash_attention_reference(q, k, v, key_valid=valid)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]

@@ -101,7 +101,7 @@ def test_supports(l, h, hd, bias, ok):
     (True, 50, 64, None, None, "short"),
     (True, 77, 64, None, None, "short"),
     (True, 50, 64, "bias", None, "dense"),
-    (True, 50, 64, None, "mask", "dense"),
+    (True, 50, 64, None, "mask", "dense"),  # the short kernel takes no mask; too short for flash
     (True, 300, 64, None, None, "dense"),
     (True, 600, 48, None, None, "dense"),
     (False, 1024, 64, None, None, "dense"),
@@ -112,5 +112,5 @@ def test_dispatch(on_cuda, l, hd, bias, key_valid, expect):
 
 @pytest.mark.parametrize("key_valid", [None, "mask"])
 def test_dispatch_raises_for_flash_shapes(key_valid):
-    with pytest.raises(NotImplementedError, match="flash attention kernel not yet ported"):
-        pattn.select_impl(True, 1024, 1024, 8, 64, None, key_valid)
+    """These shapes raised while the flash kernels were unported; now they select them."""
+    assert pattn.select_impl(True, 1024, 1024, 8, 64, None, key_valid) == "flash"

@@ -257,6 +257,15 @@ def test_unported_step_options_raise(setup, kw):
         pts.make_train_step(cfg, opt, **kw)
 
 
+def test_naflex_loss_scale_leaves_an_image_tensor_batch_alone(setup):
+    """The scale applies to patch-dict batches only, as in the JAX step."""
+    _, params, cfg, images, texts = setup
+    _, m1 = _one_step(params, cfg, images, texts)
+    _, m2 = _one_step(params, cfg, images, texts, naflex_loss_scale="linear", reference_batch_size=64)
+    assert m1["loss"].item() == m2["loss"].item()
+    assert m1["grad_norm"].item() == m2["grad_norm"].item()
+
+
 def test_patch_dropout_in_training_raises(setup):
     _, params, _, images, texts = setup
     cfg = oc.CLIPModelCfg.from_dict({**TINY, "vision_cfg": {**TINY["vision_cfg"],

@@ -189,3 +189,100 @@ def test_average_meter():
     m.update(2.0)
     m.update(4.0, n=3)
     assert m.val == 4.0 and m.count == 4 and m.avg == pytest.approx(3.5)
+
+
+# ---------------------------------------------------------------------------
+# NaFlex: --dataset-type synthetic-naflex
+# ---------------------------------------------------------------------------
+
+NAFLEX_NAME = "tiny-torch-cli-naflex"
+NAFLEX_TINY = {
+    "embed_dim": 32, "custom_text": True,
+    "vision_cfg": {"image_size": 64, "timm_model_name": "naflexvit_tiny_patch16_gap",
+                   "timm_model_kwargs": {"embed_dim": 64, "depth": 2, "num_heads": 2,
+                                         "pos_embed_grid_size": [4, 4]}},
+    "text_cfg": TINY["text_cfg"],
+}
+
+
+def _naflex_args(tmp_path, name, *extra):
+    if NAFLEX_NAME not in oc.list_models():
+        oc.add_model_config(dict(NAFLEX_TINY), name=NAFLEX_NAME)
+    return ["--model", NAFLEX_NAME, "--dataset-type", "synthetic-naflex", "--naflex-seq-lens", "32",
+            "64", "--naflex-max-tokens", "256", "--naflex-batch-divisor", "2",
+            "--train-num-samples", "32", "--batch-size", "8", "--lr", "1e-3", "--warmup", "2",
+            "--precision", "fp32", "--logs", str(tmp_path), "--name", name, "--device", "cpu",
+            "--log-every-n-steps", "1", "--epochs", "1", *extra]
+
+
+def test_training_synthetic_naflex_smoke(tmp_path):
+    """Token-budget buckets: 32 tokens -> batch 8, 64 tokens -> batch 4; identical
+    samples, so each step's loss is ln(its batch)."""
+    from open_clip_tpu.data.naflex import NaFlexBatchScheduler as JaxScheduler
+    from open_clip_tpu.data.naflex import NaFlexDataConfig as JaxDataConfig
+
+    state = main(_naflex_args(tmp_path, "naflex", "--grad-clip-norm", "1.0"))
+    assert state.step == 4
+    schedule = JaxScheduler(JaxDataConfig(seq_lens=(32, 64), max_tokens_per_batch=256,
+                                          batch_divisor=2, seed=0), 4).schedule(0)
+    rows = [json.loads(line) for line in (tmp_path / "naflex" / "results.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3, 4]
+    for row, (_, _, batch) in zip(rows, schedule):
+        assert row["train/loss"] == pytest.approx(math.log(batch), abs=1e-4)
+    assert (tmp_path / "naflex" / "checkpoints" / "epoch_1.pt").exists()
+
+
+@pytest.mark.parametrize("mode", ["linear", "sqrt"])
+def test_training_synthetic_naflex_loss_scale_and_accumulation(tmp_path, mode):
+    """--naflex-loss-scale scales by (batch / --batch-size); --accum-freq slices the
+    patch dicts."""
+    state = main(_naflex_args(tmp_path, mode, "--naflex-loss-scale", mode, "--accum-freq", "2",
+                              "--naflex-seq-lens", "64"))
+    assert state.step == 4
+    rows = [json.loads(line) for line in (tmp_path / mode / "results.jsonl").read_text().splitlines()]
+    ratio = 4 / 8  # 64-token bucket: batch 4, against --batch-size 8
+    want = math.log(4) * (ratio if mode == "linear" else ratio ** 0.5)
+    assert all(r["train/loss"] == pytest.approx(want, abs=1e-4) for r in rows)
+
+
+def test_naflex_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in _naflex_args(tmp_path, "nocard") if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        oc.create_model_and_transforms("naflex_ViT-B-16")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--naflex-seq-len-probs", "0.5", "0.5"], ["--naflex-patch-size-probs", "1.0"],
+    ["--naflex-pad-multiple", "64"], ["--naflex-max-text-tokens", "4096"],
+    ["--naflex-num-train-image-tokens", "100000"], ["--use-naflex"], ["--force-naflex-vision"],
+    ["--length-bucketing"], ["--dataset-type", "webdataset-naflex", "--train-data", "x.tar"],
+])
+def test_unported_naflex_flags_raise(tmp_path, extra):
+    with pytest.raises(NotImplementedError):
+        main(_naflex_args(tmp_path, "x") + extra)
+
+
+def test_naflex_flags_parse_with_the_jax_names():
+    ns = pparams.parse_args(["--naflex-seq-lens", "576", "1024", "--naflex-patch-sizes", "16", "32",
+                             "--naflex-max-tokens-per-batch", "8192", "--naflex-batch-divisor", "4",
+                             "--naflex-loss-scale", "sqrt"])
+    assert (ns.naflex_seq_lens, ns.naflex_patch_sizes, ns.naflex_max_tokens,
+            ns.naflex_batch_divisor, ns.naflex_loss_scale) == ([576, 1024], [16, 32], 8192, 4, "sqrt")
+
+
+def test_get_data_synthetic_naflex_counts_batches():
+    class Args:
+        dataset_type, batch_size, train_num_samples, device = "synthetic-naflex", 8, 40, "cpu"
+        naflex_seq_lens, naflex_patch_sizes, naflex_max_tokens = (16,), (16,), 64
+        naflex_batch_divisor, seed = 1, 0
+
+    data = get_data(Args, oc.PreprocessCfg(size=32), oc.get_tokenizer("ViT-B-32", context_length=16))
+    assert data["train"].num_samples == 40 and data["train"].num_batches == 5
+    batches = list(data["train"].dataloader)
+    assert len(batches) == 5
+    assert batches[0]["image"]["patches"].shape == (4, 16, 768)
+    assert batches[0]["text"].shape == (4, 16) and batches[0]["text"].dtype == torch.int32
+    assert int(batches[0]["image"]["patch_valid"].sum()) == 4 * 12  # 96x64 resized to a 3x4 grid
