@@ -48,7 +48,23 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      from the token budget), one short epoch;
  10. NaFlex at fp32 (TF32 off), card against CPU: image features of a ragged batch
      of 4 at 576 tokens, and one train step at batch 4 and 512 tokens: loss,
-     grad_norm and every gradient.
+     grad_norm and every gradient;
+ 11. (with phase 1) the window and panel attention kernels, forward and backward
+     (dq, dk, dv, dbias), bf16 and fp32, against their plain versions at HTSAT-tiny's
+     stage-0 (shifted and not) and stage-3 shapes at the serve and train batches,
+     Swin-B's stage-0 and stage-2 windows, a non-square map and odd head counts;
+     kernel, plain, library (SDPA with the bias as attn_mask) time and the bound;
+ 12. CLAP serving: CLAP-HTSAT-tiny in pure_bf16, requests of 64 ten-second clips
+     (host AudioPreprocess, pinned copy, log-mel and encode_audio on the card, an
+     ESC-50-template classifier, top-5), timed and profiled like phase 2; 12 panel
+     forward launches a request;
+ 13. CLAP training at batch 128 (amp_bf16, AdamW, clipping): 12 panel forward and
+     backward launches a step, the loss falls;
+ 14. the CLI with --dataset-type synthetic-audio, a checkpoint and a resume;
+ 15. CLAP at fp32 (TF32 off), card against CPU: log-mel, features, every gradient;
+ 16. Swin-B (swin_base_patch4_window7_224) serving in pure_bf16 (64 images a request)
+     and training in amp_bf16 (batch 32): 24 window launches of each kind per
+     encode_image and per step, and a step with remat.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
 one {"kernels": [...]} JSON line and as the last line {"ok": true, "device": {...}}.
@@ -90,7 +106,17 @@ NF_SERVE_BATCH, NF_IMAGE_HW, NF_SERVE_SEQ = 32, (384, 512), 576
 NF_TRAIN_BATCH, NF_TRAIN_SEQ = 16, 1024
 NF_CLI_STEPS = 8
 FLASH_SOURCE = "open_clip_tpu_torch/csrc/flash_attention.cu"
+WINDOW_SOURCE = "open_clip_tpu_torch/csrc/window_attention.cu"
+CLAP_MODEL = "CLAP-HTSAT-tiny"
+CLAP_SERVE_BATCH, CLAP_TRAIN_BATCH, CLAP_CLI_BATCH = 64, 128, 32
+CLAP_SECONDS, CLAP_RATE = 10, 48000
+CLAP_CLI_STEPS = 4
+ESC50_CLASSES = ("dog", "rooster", "pig", "cow", "frog", "cat", "hen", "insects", "sheep", "crow")
+SWIN_MODEL = "swin_base_patch4_window7_224"
+SWIN_SERVE_BATCH, SWIN_TRAIN_BATCH = 64, 32
 KERNEL_CLASSES = {  # first match wins
+    "window_attention_bwd": ("win_attn_bwd", "dbias_fold"),
+    "window_attention": ("win_attn_fwd",),
     "flash_attention_bwd_dq": ("flash_attn_bwd_dq",),
     "flash_attention_bwd_dkv": ("flash_attn_bwd_dkv",),
     "flash_attention": ("flash_attn",),
@@ -508,7 +534,8 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
         f"class_ms_per_{unit}": {c: ms / n for c, ms in sorted(by_class.items(), key=lambda x: -x[1])},
         "ms_per_launch": {c: by_class[c] / launches[c] for c in
                           ("short_attention", "short_attention_bwd", "layer_norm_bwd",
-                           "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+                           "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                           "window_attention", "window_attention_bwd")
                           if c in by_class},
         "top_kernels": [{"name": k[:120], "class": kernel_class(k), f"ms_per_{unit}": ms / n,
                          f"launches_per_{unit}": c / n} for k, ms, c in top]}
@@ -1062,6 +1089,487 @@ def phase_naflex_card_vs_cpu(torch, oc, sa, fa):
           f"over {len(cosg)} tensors (>= {COSINE_MIN})")
 
 
+def window_inputs(torch, lead, c, nw, heads, n, dtype, gen):
+    """q, k, v as views of one fused (..., 3C) projection (row stride 3C), an fp32 bias
+    with -100 shift-mask entries, and do."""
+    x = torch.randn(*lead, 3 * c, generator=gen, device="cuda").to(dtype)
+    q, k, v = x.unflatten(-1, (3, c)).unbind(-2)
+    bias = torch.randn(nw, heads, n, n, generator=gen, device="cuda")
+    bias[..., 1::4, ::3] -= 100.0
+    do = torch.randn(*lead, c, generator=gen, device="cuda").to(dtype)
+    return q, k, v, bias, do
+
+
+def phase_window_kernels(torch, wa, swa):
+    """Window and panel attention kernels (forward; backward with dq, dk, dv, dbias)
+    against their plain versions, bf16 and fp32; device time from CUDA graphs of calls;
+    records for the kernels line. Library: SDPA with the float bias as attn_mask on
+    partitioned (windows, nW*H, N, hd) tensors (backward = forward+backward less
+    forward, without dbias); for the panel form the partition and reverse copies are
+    timed with it, and alone."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b_s, b_t, b_w = CLAP_SERVE_BATCH, CLAP_TRAIN_BATCH, SWIN_SERVE_BATCH
+    # name, kind, batch (samples, or windows for "window"), map (H, W) or N, C, heads, nW
+    cases = [("htsat_s0_shift_serve", "panel", b_s, (64, 64), 96, 4, 64),
+             ("htsat_s0_serve", "panel", b_s, (64, 64), 96, 4, 1),
+             ("htsat_s3_serve", "panel", b_s, (8, 8), 768, 32, 1),
+             ("htsat_s0_shift_train", "panel", b_t, (64, 64), 96, 4, 64),
+             ("htsat_s0_train", "panel", b_t, (64, 64), 96, 4, 1),
+             ("htsat_s3_train", "panel", b_t, (8, 8), 768, 32, 1),
+             ("nonsquare_odd_heads", "panel", 8, (16, 40), 48, 3, 10),
+             ("swin_s0_shift", "window", b_w * 64, 49, 128, 4, 64),
+             ("swin_s2_shift", "window", b_w * 4, 49, 512, 16, 4),
+             ("swin_s0_train", "window", SWIN_TRAIN_BATCH * 64, 49, 128, 4, 64),
+             ("odd_heads", "window", 96, 49, 72, 3, 1)]
+    it = dict(iters=10, replays=3)
+    records = {}
+    for name, kind, b, geo, c, heads, nw in cases:
+        panel = kind == "panel"
+        n = 64 if panel else geo
+        hd = c // heads
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            if panel:
+                hw = geo
+                q, k, v, bias, do = window_inputs(torch, (b, hw[0] * hw[1]), c, nw, heads, 64,
+                                                  dtype, gen)
+                kw = dict(hw=hw, ws=8)
+                fwd = lambda: swa.panel_attention_fwd(q, k, v, bias, **kw)  # noqa: E731
+                bwd = lambda: swa.panel_attention_bwd(q, k, v, bias, do, **kw)  # noqa: E731
+                ref_f = lambda: swa.panel_attention_reference(q, k, v, bias, **kw)  # noqa: E731
+                ref_b = lambda: swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw)  # noqa: E731
+                windows = b * (hw[0] // 8) * (hw[1] // 8)
+                part = lambda x: swa.partition(x, hw, 8)  # noqa: E731
+                unpart = lambda x: swa.reverse(x, hw, 8)  # noqa: E731
+                replaces = ("open_clip_tpu/ops/swin_attention.py:105",
+                            "open_clip_tpu/ops/swin_attention.py:154")
+                label = "panel_attention"
+            else:
+                q, k, v, bias, do = window_inputs(torch, (b, n), c, nw, heads, n, dtype, gen)
+                fwd = lambda: wa.window_attention_fwd(q, k, v, bias)  # noqa: E731
+                bwd = lambda: wa.window_attention_bwd(q, k, v, bias, do)  # noqa: E731
+                ref_f = lambda: wa.window_attention_reference(q, k, v, bias)  # noqa: E731
+                ref_b = lambda: wa.window_attention_bwd_reference(q, k, v, bias, do)  # noqa: E731
+                windows = b
+                part = unpart = lambda x: x  # noqa: E731
+                replaces = ("open_clip_tpu/ops/window_attention.py:141",
+                            "open_clip_tpu/ops/window_attention.py:175")
+                label = "window_attention"
+            out, grads = fwd(), bwd()
+            ref, refs = ref_f(), ref_b()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+            abs_errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
+            shape = f"B={b} {'map' if panel else 'N'}={geo} C={c} H={heads} nW={nw} {dn}"
+            check(bool(torch.isfinite(out).all()) and err <= TOL[dn],
+                  f"{label} forward {name} {shape}: max_abs_err={err:.3e} (tol {TOL[dn]:.0e})")
+            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
+                  f"{label} backward {name} {shape}: rel err dq/dk/dv/dbias="
+                  f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}/{errs[3]:.2e} (tol {BWD_RTOL[dn]:.0e})")
+            del out, grads, ref, refs
+            ms_fwd, ms_bwd = graph_ms(fwd, **it), graph_ms(bwd, **it)
+            plain_fwd = plain_bwd = lib_fwd = lib_bwd = copies = None
+            if dtype == torch.bfloat16:
+                plain_fwd, plain_bwd = graph_ms(ref_f, **it), graph_ms(ref_b, **it)
+                nb = windows // nw
+                heads_first = lambda x: part(x).reshape(nb, nw, n, heads, hd).permute(  # noqa: E731
+                    0, 1, 3, 2, 4).reshape(nb, nw * heads, n, hd).contiguous()
+                mask = bias.to(dtype).reshape(1, nw * heads, n, n)
+                lq, lk, lv = (heads_first(x).requires_grad_() for x in (q, k, v))
+                ldo = heads_first(do)
+
+                def back(o):  # (nb, nW*H, N, hd) -> the layout of q
+                    return unpart(o.reshape(nb, nw, heads, n, hd).permute(0, 1, 3, 2, 4)
+                                  .reshape(windows, n, c))
+
+                def lib():
+                    with torch.no_grad():
+                        if panel:  # the partition copies, as a caller of the library makes them
+                            return back(F.scaled_dot_product_attention(
+                                heads_first(q), heads_first(k), heads_first(v), attn_mask=mask))
+                        return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+
+                def lib_both():
+                    o = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+                    return torch.autograd.grad(o, (lq, lk, lv), ldo)
+
+                lib_fwd = graph_ms(lib, **it)
+                with torch.no_grad():
+                    lib_plain_fwd = graph_ms(
+                        lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask), **it)
+                lib_bwd = graph_ms(lib_both, **it) - lib_plain_fwd
+                if panel:
+                    with torch.no_grad():
+                        copies = graph_ms(lambda: (heads_first(q), heads_first(k), heads_first(v),
+                                                   back(lq)), **it)
+                del lq, lk, lv, ldo
+            size, blc = q.element_size(), windows * n * c
+            bias_bytes = bias.numel() * 4
+            common = {"route": "cuda", "source": WINDOW_SOURCE, "case": name, "batch": b,
+                      "map_or_n": geo, "channels": c, "heads": heads, "bias_windows": nw,
+                      "windows": windows, "dtype": dn}
+            recs = {
+                "fwd": dict(common, name=f"{label}_fwd[{name}]", replaces=replaces[0],
+                            max_abs_err=err, ms=ms_fwd, plain_ms=plain_fwd,
+                            **bound(4 * blc * size + bias_bytes, 4 * windows * n * n * c, dn),
+                            library_ms=lib_fwd, library_partition_copies_ms=copies),
+                "bwd": dict(common, name=f"{label}_bwd[{name}]", replaces=replaces[1],
+                            max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=ms_bwd,
+                            plain_ms=plain_bwd,
+                            **bound(7 * blc * size + 2 * bias_bytes, 10 * windows * n * n * c, dn),
+                            library_ms=lib_bwd),
+            }
+            for rec in recs.values():
+                print("kernel_case " + json.dumps(rec), flush=True)
+            if dtype == torch.bfloat16:
+                records[name] = recs
+            del q, k, v, bias, do
+        torch.cuda.empty_cache()
+    return records
+
+
+def clap_audio(torch, n, seed, device="cuda"):
+    """A waveform dict of n ten-second clips: 0.1 * N(0, 1) noise and a tone, from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.arange(CLAP_SECONDS * CLAP_RATE, device=device) / CLAP_RATE
+    freq = 200.0 + 100.0 * torch.arange(n, device=device)[:, None]
+    wav = 0.1 * torch.randn(n, t.numel(), generator=gen, device=device) + 0.2 * torch.sin(
+        2 * math.pi * freq * t)
+    return {"waveform": wav, "longer": torch.zeros(n, dtype=torch.bool, device=device)}
+
+
+def phase_clap_serve(torch, oc, sa, swa, wa):
+    """CLAP serving: 64 ten-second clips a request, preprocessed on the host by the
+    model's AudioPreprocess, copied from pinned memory, log-mel and encode_audio on the
+    card, logits against an ESC-50-template classifier, top-5. Returns the panel
+    forward launches and the encode_audio calls that made them."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_clip_tpu_torch.data.audio import collate_audio
+    from open_clip_tpu_torch.train.audio_zero_shot import ESC50_TEMPLATES
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, pp_val = oc.create_model_and_transforms(CLAP_MODEL, precision="pure_bf16", seed=0)
+    layers = sum(model.audio.encoder.depths)
+    tokenizer = oc.get_tokenizer(CLAP_MODEL)
+    rng = np.random.default_rng(0)
+    requests = []
+    for _ in range(4):
+        clips = [(0.1 * rng.standard_normal(CLAP_SECONDS * CLAP_RATE).astype(np.float32), CLAP_RATE)
+                 for _ in range(CLAP_SERVE_BATCH)]
+        batch = collate_audio([pp_val(c) for c in clips])
+        requests.append({k: v.pin_memory() for k, v in batch.items()})
+    phases = ("copy", "encode_audio", "logits_top5")
+    with torch.inference_mode():
+        reset_counts(sa, swa, wa)
+        clf = oc.build_zero_shot_classifier(model, tokenizer, ESC50_CLASSES, ESC50_TEMPLATES,
+                                            num_classes_per_batch=len(ESC50_CLASSES))
+        torch.cuda.synchronize()
+        text_launches = sa.LAUNCHES["fwd"]
+        clf32 = clf.float()
+
+        def request(i, events=None):
+            mark = (lambda j: events[j].record()) if events else (lambda j: None)
+            mark(0)
+            audio = {k: v.to("cuda", non_blocking=True) for k, v in requests[i % 4].items()}
+            mark(1)
+            feats = model.encode_audio(audio, normalize=True)
+            mark(2)
+            top5 = (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices
+            mark(3)
+            return feats, top5.cpu()  # waits for the device: one request in flight
+
+        t0 = time.perf_counter()
+        request(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat, phase_ms = [], {n: [] for n in phases}
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < WINDOW_S:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
+            t0 = time.perf_counter()
+            feats, top5 = request(len(lat) + 1, ev)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            for j, n in enumerate(phases):
+                phase_ms[n].append(ev[j].elapsed_time(ev[j + 1]))
+        window_s = time.perf_counter() - t_start
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(PROFILED_REQUESTS):
+                request(i)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        calls = 1 + len(lat) + PROFILED_REQUESTS
+        # the log-mel front end alone, for the stage breakdown
+        audio = {k: v.to("cuda") for k, v in requests[0].items()}
+        mel_ms = graph_ms(lambda: model.audio.encoder.mel(audio["waveform"]), iters=5, replays=3)
+    check(text_launches == model.cfg.text_cfg.layers,
+          f"CLAP classifier: {text_launches} short-kernel launches for 1 encode_text call")
+    check(swa.LAUNCHES == {"fwd": layers * calls, "bwd": 0} and wa.LAUNCHES == {"fwd": 0, "bwd": 0},
+          f"CLAP requests: panel launches {swa.LAUNCHES}, window {wa.LAUNCHES} for {calls} "
+          f"encode_audio calls (expect {layers} panel forward each, nothing else)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (CLAP_SERVE_BATCH, model.cfg.embed_dim)
+          and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
+          and tuple(top5.shape) == (CLAP_SERVE_BATCH, 5) and int(top5.min()) >= 0
+          and int(top5.max()) < len(ESC50_CLASSES),
+          f"CLAP request output: features {tuple(feats.shape)} finite and unit, top-5 {tuple(top5.shape)}")
+    print("clap_serve " + json.dumps({
+        "model": CLAP_MODEL, "precision": "pure_bf16", "batch": CLAP_SERVE_BATCH,
+        "clip_seconds": CLAP_SECONDS, "first_request_ms": first_ms, "window_s": window_s,
+        "window_requests": len(lat), "clips_per_s": CLAP_SERVE_BATCH * len(lat) / window_s,
+        "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
+        "max_request_ms": max(lat),
+        "device_ms_median": {n: statistics.median(v) for n, v in phase_ms.items()},
+        "log_mel_device_ms": mel_ms, "panel_fwd_launches": swa.LAUNCHES["fwd"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    print("clap_profile " + json.dumps(profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)),
+          flush=True)
+    return swa.LAUNCHES["fwd"], calls
+
+
+def phase_clap_train(torch, oc, sa, swa, wa):
+    """CLAP training at bench_clap's shape: batch 128 of ten-second clips, amp_bf16,
+    AdamW with clipping; returns the panel launches of the timed window and its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(CLAP_MODEL, precision="amp_bf16", seed=0)
+    layers, lt = sum(model.audio.encoder.depths), model.cfg.text_cfg.layers
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"audio": clap_audio(torch, CLAP_TRAIN_BATCH, 7),
+             "text": torch.randint(0, 49407, (CLAP_TRAIN_BATCH, 77), generator=gen, device="cuda")}
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa, swa, wa)
+    state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    panel, short = dict(swa.LAUNCHES), dict(sa.LAUNCHES)
+    losses = [float(m["loss"]) for m in warm + window]
+    norms = [float(m["grad_norm"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses), f"clap_train: {len(losses)} losses finite")
+    check(losses[-1] < losses[0], f"clap_train: loss fell on the fixed batch, "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
+    check(all(math.isfinite(x) and x > 0 for x in norms), "clap_train: grad_norm finite, positive")
+    check(panel == {"fwd": layers * n, "bwd": layers * n} and wa.LAUNCHES == {"fwd": 0, "bwd": 0},
+          f"clap_train: panel launches {panel}, window {wa.LAUNCHES} in {n} steps "
+          f"(expect {layers * n} panel forward and backward)")
+    check(short == {"fwd": lt * n, "bwd": lt * n},
+          f"clap_train: short-kernel launches {short} in {n} steps (the text tower)")
+    summary = {"model": CLAP_MODEL, "precision": "amp_bf16", "batch": CLAP_TRAIN_BATCH,
+               "clip_seconds": CLAP_SECONDS, "window_steps": n, "window_s": wall_s,
+               "clips_per_s": CLAP_TRAIN_BATCH * n / wall_s,
+               "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+               "panel_launches_per_step": {k: v / n for k, v in panel.items()},
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+    prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+    print("clap_train_profile " + json.dumps(prof_summary), flush=True)
+    summary["device_busy_ms_per_step"] = prof_summary["device_busy_ms_per_step"]
+    print("clap_train " + json.dumps(summary), flush=True)
+    return panel, n
+
+
+def phase_clap_cli(torch, swa):
+    """The training CLI on synthetic audio: one epoch, a checkpoint, a second through
+    --resume latest."""
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    with tempfile.TemporaryDirectory() as logs:
+        args = ["--model", CLAP_MODEL, "--dataset-type", "synthetic-audio",
+                "--batch-size", str(CLAP_CLI_BATCH),
+                "--train-num-samples", str(CLAP_CLI_BATCH * CLAP_CLI_STEPS),
+                "--precision", "amp_bf16", "--grad-clip-norm", "1.0", "--lr", "1e-4", "--wd", "0.2",
+                "--warmup", "2", "--log-every-n-steps", "2", "--workers", "1", "--logs", logs,
+                "--name", "clap"]
+        run = Path(logs) / "clap"
+        reset_counts(swa)
+        t0 = time.perf_counter()
+        state = train_main(args + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        layers = sum(state.model.audio.encoder.depths)
+        rows = [json.loads(x) for x in (run / "results.jsonl").read_text().splitlines()]
+        check(state.step == CLAP_CLI_STEPS, f"CLAP CLI: {state.step} steps in the first epoch")
+        check(bool(rows) and all(math.isfinite(r["train/loss"])
+                                 and abs(r["train/loss"] - math.log(CLAP_CLI_BATCH)) < 1e-2
+                                 for r in rows),
+              f"CLAP CLI: loss {[round(r['train/loss'], 4) for r in rows]} is ln {CLAP_CLI_BATCH} "
+              "on identical samples")
+        check(swa.LAUNCHES == {"fwd": layers * CLAP_CLI_STEPS, "bwd": layers * CLAP_CLI_STEPS},
+              f"CLAP CLI: panel launches {swa.LAUNCHES} in {CLAP_CLI_STEPS} steps")
+        state = train_main(args + ["--epochs", "2", "--resume", "latest"])
+        torch.cuda.synchronize()
+        rows2 = [json.loads(x) for x in (run / "results.jsonl").read_text().splitlines()][len(rows):]
+        check(state.step == 2 * CLAP_CLI_STEPS and bool(rows2)
+              and (run / "checkpoints" / "epoch_1.pt").exists()
+              and (run / "checkpoints" / "epoch_2.pt").exists(),
+              f"CLAP CLI: checkpoint, then --resume latest went on to step {state.step}")
+        last = rows2[-1] if rows2 else {}
+        print("clap_cli " + json.dumps({
+            "steps_per_epoch": CLAP_CLI_STEPS, "batch": CLAP_CLI_BATCH, "first_run_s": first_s,
+            "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
+            "host_batch_ms_per_step": 1e3 * last.get("train/batch_time", float("nan"))}),
+            flush=True)
+
+
+def grads_card_vs_cpu(torch, results, label):
+    """Loss and every gradient of the card run against the CPU run."""
+    (g_gpu, loss_g), (g_cpu, loss_c) = results["cuda"], results["cpu"]
+    check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c),
+          f"{label} loss card vs CPU fp32: {loss_g:.6f} vs {loss_c:.6f} (rel 1e-4)")
+    cos = {k: torch.nn.functional.cosine_similarity(g_gpu[k].flatten(), g_cpu[k].flatten(),
+                                                    dim=0).item() for k in g_cpu}
+    worst = min(cos, key=cos.get)
+    check(set(g_gpu) == set(g_cpu) and all(bool(torch.isfinite(g).all()) for g in g_gpu.values())
+          and cos[worst] >= COSINE_MIN,
+          f"{label} gradients card vs CPU fp32: min cosine {cos[worst]:.7f} at {worst} over "
+          f"{len(cos)} tensors (>= {COSINE_MIN})")
+
+
+def phase_clap_card_vs_cpu(torch, oc, swa):
+    """fp32 with TF32 off: log-mel, audio features and every gradient of the contrastive
+    loss, the card (panel kernels) against the port's CPU path (dense attention)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    audio = clap_audio(torch, 2, 8, device="cpu")
+    texts = torch.as_tensor(oc.get_tokenizer(CLAP_MODEL)(["a dog barks", "rain on a tin roof"]))
+    results, feats, mels = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = oc.create_model(CLAP_MODEL, precision="fp32", seed=1, device=device)
+        batch = {k: v.to(device) for k, v in audio.items()}
+        reset_counts(swa)
+        with torch.inference_mode():
+            mels[device] = model.audio.encoder.mel(batch["waveform"]).cpu()
+            feats[device] = model.encode_audio(batch, normalize=True).cpu()
+        out = oc.clip_forward(model, batch, texts.to(device))
+        loss = oc.clip_loss(out["audio_features"], out["text_features"], model.logit_scale.exp())
+        loss.backward()
+        results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
+                            if p.grad is not None}, loss.item())
+        if device == "cuda":
+            launched = dict(swa.LAUNCHES)
+        del model, out, loss
+    mel_err = (mels["cuda"] - mels["cpu"]).abs().max().item()
+    check(bool(torch.isfinite(mels["cuda"]).all()) and mel_err <= 1e-2,
+          f"CLAP log-mel card vs CPU fp32: max abs {mel_err:.2e} dB (<= 1e-2) over "
+          f"{tuple(mels['cpu'].shape)}, range {mels['cpu'].min().item():.1f}.."
+          f"{mels['cpu'].max().item():.1f} dB")
+    cos = torch.nn.functional.cosine_similarity(feats["cuda"].double(), feats["cpu"].double(),
+                                                dim=-1).min().item()
+    check(bool(torch.isfinite(feats["cuda"]).all()) and cos >= COSINE_MIN,
+          f"CLAP encode_audio card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
+    check(launched == {"fwd": 24, "bwd": 12}, f"CLAP fp32 card run: panel launches {launched} "
+          "(12 serving, 12 in the training forward, 12 backward)")
+    grads_card_vs_cpu(torch, results, "CLAP")
+
+
+def phase_swin_serve(torch, oc, sa, wa):
+    """Swin-B serving: 64 uint8 256x320 images a request, device preprocess,
+    encode_image, logits, top-5. Returns the window forward launches and calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, preprocess = oc.create_model_and_transforms(SWIN_MODEL, precision="pure_bf16", seed=0)
+    blocks = sum(len(stage.blocks) for stage in model.visual.layers)
+    tokenizer = oc.get_tokenizer(SWIN_MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    requests = [torch.randint(0, 256, (SWIN_SERVE_BATCH, *IMAGE_HW, 3), dtype=torch.uint8,
+                              device="cuda", generator=gen) for _ in range(4)]
+    with torch.inference_mode():
+        reset_counts(sa, wa)
+        clf = oc.build_zero_shot_classifier(model, tokenizer, oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                            oc.SIMPLE_IMAGENET_TEMPLATES,
+                                            num_classes_per_batch=CLASSES)
+        clf32 = clf.float()
+
+        def request(i):
+            feats = model.encode_image(preprocess(requests[i % 4]), normalize=True)
+            return feats, (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices.cpu()
+
+        t0 = time.perf_counter()
+        request(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat = []
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < WINDOW_S:
+            t0 = time.perf_counter()
+            feats, top5 = request(len(lat) + 1)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        window_s = time.perf_counter() - t_start
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(3):
+                request(i)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        calls = 1 + len(lat) + 3
+    check(wa.LAUNCHES == {"fwd": blocks * calls, "bwd": 0},
+          f"Swin requests: window launches {wa.LAUNCHES} for {calls} encode_image calls "
+          f"(expect {blocks} forward each)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (SWIN_SERVE_BATCH, model.cfg.embed_dim)
+          and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
+          and tuple(top5.shape) == (SWIN_SERVE_BATCH, 5),
+          f"Swin request output: features {tuple(feats.shape)} finite and unit")
+    print("swin_serve " + json.dumps({
+        "model": SWIN_MODEL, "precision": "pure_bf16", "batch": SWIN_SERVE_BATCH,
+        "image_hw": list(IMAGE_HW), "first_request_ms": first_ms, "window_s": window_s,
+        "window_requests": len(lat), "images_per_s": SWIN_SERVE_BATCH * len(lat) / window_s,
+        "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
+        "window_fwd_launches": wa.LAUNCHES["fwd"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    print("swin_profile " + json.dumps(profile_summary(prof, prof_wall_ms, 3)), flush=True)
+    return wa.LAUNCHES["fwd"], calls
+
+
+def phase_swin_train(torch, oc, sa, wa):
+    """Swin-B training through the existing train step: amp_bf16, AdamW with clipping,
+    one fixed batch; then one step with remat (each block recomputed)."""
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(SWIN_MODEL, precision="amp_bf16", seed=0)
+    blocks = sum(len(stage.blocks) for stage in model.visual.layers)
+    lt = model.cfg.text_cfg.layers
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = train_batch(torch, model.cfg, SWIN_TRAIN_BATCH, "cuda", seed=9)
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S / 2 * 1e3 / warm_ms[-1]))
+    reset_counts(sa, wa)
+    state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    win, short = dict(wa.LAUNCHES), dict(sa.LAUNCHES)
+    losses = [float(m["loss"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"swin_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(win == {"fwd": blocks * n, "bwd": blocks * n} and short == {"fwd": lt * n, "bwd": lt * n},
+          f"swin_train: window launches {win}, short {short} in {n} steps (expect {blocks} and "
+          f"{lt} of each a step)")
+    remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
+    reset_counts(wa)
+    state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 1)
+    check(wa.LAUNCHES == {"fwd": 2 * blocks, "bwd": blocks} and math.isfinite(float(rm[-1]["loss"])),
+          f"swin_train[remat]: window launches {wa.LAUNCHES} in 1 step, loss finite")
+    print("swin_train " + json.dumps({
+        "model": SWIN_MODEL, "precision": "amp_bf16", "batch": SWIN_TRAIN_BATCH, "window_steps": n,
+        "window_s": wall_s, "images_per_s": SWIN_TRAIN_BATCH * n / wall_s,
+        "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+        "median_host_ms_per_step": statistics.median(host_ms), "host_lead_ms_at_end": lead_ms,
+        "first_loss": losses[0], "last_loss": losses[-1], "remat_step_ms": remat_ms[0],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    return win, n
+
+
 def main() -> int:
     import torch
 
@@ -1080,9 +1588,11 @@ def main() -> int:
     from open_clip_tpu_torch.ops import fused_ln as fl
     from open_clip_tpu_torch.ops import layers as layers_mod
     from open_clip_tpu_torch.ops import short_attention as sa
+    from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    sources = ("short_attention", "layer_norm_bwd", "flash_attention")
+    sources = ("short_attention", "layer_norm_bwd", "flash_attention", "window_attention")
     _build.build_all(sources)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -1094,6 +1604,7 @@ def main() -> int:
     bwd_records = phase_attention_bwd_kernels(torch, sa)
     ln_records = phase_ln_bwd_kernels(torch, fl)
     flash_records = phase_flash_kernels(torch, fa)
+    window_records = phase_window_kernels(torch, wa, swa)
     launches, calls = phase_serve(torch, oc, sa)
     phase_card_vs_cpu(torch, oc, sa)
     tally, steps, plain_summary = phase_train(torch, oc, sa, fl, layers_mod, fused_ln=False)
@@ -1116,6 +1627,12 @@ def main() -> int:
     nf_train_launches, nf_steps = phase_naflex_train(torch, oc, sa, fa)
     phase_naflex_cli(torch, fa)
     phase_naflex_card_vs_cpu(torch, oc, sa, fa)
+    clap_serve_launches, clap_calls = phase_clap_serve(torch, oc, sa, swa, wa)
+    clap_train_launches, clap_steps = phase_clap_train(torch, oc, sa, swa, wa)
+    phase_clap_cli(torch, swa)
+    phase_clap_card_vs_cpu(torch, oc, swa)
+    swin_serve_launches, swin_calls = phase_swin_serve(torch, oc, sa, wa)
+    swin_train_launches, swin_steps = phase_swin_train(torch, oc, sa, wa)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -1144,6 +1661,26 @@ def main() -> int:
     for which in ("fwd", "bwd_dq", "bwd_dkv"):
         kernels.append(dict(flash_records["train"][which], launches=nf_train_launches[which],
                             launches_per_train_step=nf_train_launches[which] / nf_steps))
+    # window and panel attention: Swin-B serving and training (the window kernels at
+    # the stage-0 shape, 49-token windows), CLAP serving and training (the panel
+    # kernels at HTSAT's stage-0 shifted shape)
+    kernels.append(dict(window_records["swin_s0_shift"]["fwd"],
+                        launches=swin_serve_launches + swin_train_launches["fwd"],
+                        launches_serving=swin_serve_launches,
+                        launches_training=swin_train_launches["fwd"],
+                        launches_per_call=swin_serve_launches / swin_calls,
+                        launches_per_train_step=swin_train_launches["fwd"] / swin_steps))
+    kernels.append(dict(window_records["swin_s0_train"]["bwd"], launches=swin_train_launches["bwd"],
+                        launches_per_train_step=swin_train_launches["bwd"] / swin_steps))
+    kernels.append(dict(window_records["htsat_s0_shift_serve"]["fwd"],
+                        launches=clap_serve_launches + clap_train_launches["fwd"],
+                        launches_serving=clap_serve_launches,
+                        launches_training=clap_train_launches["fwd"],
+                        launches_per_call=clap_serve_launches / clap_calls,
+                        launches_per_train_step=clap_train_launches["fwd"] / clap_steps))
+    kernels.append(dict(window_records["htsat_s0_shift_train"]["bwd"],
+                        launches=clap_train_launches["bwd"],
+                        launches_per_train_step=clap_train_launches["bwd"] / clap_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Model configuration dataclasses and the model-config registry.
 
 Schema-compatible with the reference open_clip JSON model configs and with the
-JAX package's ``config.py``. The CoCa decoder, audio, GenLIP and GenLAP sections
-are kept as raw dicts: those families are not ported, and a model that has one
-raises at build time.
+JAX package's ``config.py``. The audio section parses into ``CLIPAudioCfg`` (the
+HTSAT towers are ported); the CoCa decoder, NaFlex-audio, GenLIP and GenLAP
+sections are kept as raw dicts: those families are not ported, and a model that
+has one raises at build time.
 """
 
 from __future__ import annotations
@@ -160,6 +161,38 @@ class CLIPTextCfg:
 
 
 @dataclass
+class CLIPAudioCfg:
+    """Audio tower config (the JAX package's ``CLIPAudioCfg``)."""
+
+    model_type: str = "HTSAT"  # HTSAT | whisper | naflexvit
+    model_name: str = "tiny"
+    audio_length: int = 1024
+    clip_samples: int = 480000
+    sample_rate: int = 48000
+    mel_bins: int = 64
+    window_size: int = 1024
+    hop_size: int = 480
+    fmin: int = 50
+    fmax: int = 14000
+    class_num: int = 527
+    enable_fusion: bool = False
+    fusion_type: str = "aff_2d"
+    pre_norm: bool = False
+    proj_act: str = "gelu"
+    training_head: bool = False
+    pretrained: bool = False
+
+    # NaFlexClap (model_type == "naflexvit"): spectrogram-ViT encoder geometry
+    patch_freq: int = 64
+    patch_time: int = 4
+    in_chans: int = 1
+    patch_pad_mode: str = "floor"
+    rope_type: str = "axial"
+    audio_seq_len: Optional[int] = None
+    naflexvit_cfg: Optional[dict] = None
+
+
+@dataclass
 class CLIPModelCfg:
     """Top-level model config: what a ``model_configs/*.json`` file contains."""
 
@@ -167,7 +200,7 @@ class CLIPModelCfg:
     vision_cfg: Optional[CLIPVisionCfg] = None
     text_cfg: Optional[CLIPTextCfg] = None
     multimodal_cfg: Optional[dict] = None
-    audio_cfg: Optional[dict] = None
+    audio_cfg: Optional[CLIPAudioCfg] = None
     audio_naflex_cfg: Optional[dict] = None
     genlip_cfg: Optional[dict] = None
     genlap_cfg: Optional[dict] = None
@@ -181,11 +214,14 @@ class CLIPModelCfg:
         d = dict(d)
         vision = d.pop("vision_cfg", None)
         text = d.pop("text_cfg", None)
+        audio = d.pop("audio_cfg", None)
         out = cls(**_filter_cfg(cls, d))
         if vision is not None:
             out.vision_cfg = CLIPVisionCfg(**_filter_cfg(CLIPVisionCfg, vision))
         if text is not None:
             out.text_cfg = CLIPTextCfg(**_filter_cfg(CLIPTextCfg, text))
+        if audio is not None:
+            out.audio_cfg = CLIPAudioCfg(**_filter_cfg(CLIPAudioCfg, audio))
         return out
 
 

@@ -6,7 +6,13 @@ of ``blocks`` is unstacked, (in, out) kernels become ``nn.Linear``'s (out, in),
 and the patch-embedding kernel keeps its (ph*pw*3, width) patchify layout. The
 keys are the reference checkpoint's, the ones the JAX package's
 ``params_to_torch_state_dict(params, custom_text=False)`` emits; a NaFlex visual
-tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names.
+tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names,
+a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, and the
+CLAP tree of ``init_clap`` (``audio.encoder``, ``audio.proj``, ``text``,
+``logit_scale``) onto ``audio.encoder.*`` (HTSAT, ``models/htsat.py``) and
+``audio.proj.0``/``audio.proj.2``. Convolution kernels (kh, kw, in, out) keep the
+patchify layout (kh*kw*in, out), except the token-semantic head's, which becomes
+``nn.Conv2d``'s (out, in, kh, kw).
 """
 
 from __future__ import annotations
@@ -83,6 +89,9 @@ _EXPECTED = {
                   "proj", "blocks"},
     ("visual", "patch_embed"): {"kernel"},
 }
+_EXPECTED_CLAP = {(): {"audio", "text", "logit_scale", "logit_bias"},
+                  ("audio",): {"encoder", "proj"}, ("text",): _ROOT[("text",)]}
+_EXPECTED_SWIN = {**_ROOT, ("visual",): {"patch_embed", "layers", "norm", "head"}}
 _EXPECTED_NAFLEX = {
     **_ROOT,
     ("visual",): {"patch_embed", "pos_embed", "norm", "norm_pre", "cls_token", "reg_tokens",
@@ -146,14 +155,91 @@ def _naflex_visual(vis: Dict[str, Any], layers: int, out: Dict[str, torch.Tensor
     _linear(vis["head"], "visual.head", out)
 
 
-def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torch.Tensor]:
-    """JAX CLIP params -> ``CLIPModel`` state dict (float32 tensors on the CPU)."""
-    from .models.naflex_vit import is_naflex, parse_naflex_cfg
+_SWIN_BLOCK = {
+    ("norm1",): "norm1", ("norm2",): "norm2", ("attn", "qkv"): "attn.qkv",
+    ("attn", "proj"): "attn.proj", ("mlp", "fc1"): "mlp.fc1", ("mlp", "fc2"): "mlp.fc2",
+}
 
+
+def _swin_block(blk: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    extra = set(blk) - {"norm1", "norm2", "attn", "mlp"}
+    extra |= set(blk["attn"]) - {"qkv", "proj", "rel_bias"}
+    if extra:
+        raise KeyError(f"JAX Swin block {prefix} holds {sorted(extra)}, which the port does not have")
+    for path, name in _SWIN_BLOCK.items():
+        node = blk[path[0]] if len(path) == 1 else blk[path[0]][path[1]]
+        (_norm if path[0].startswith("norm") else _linear)(node, f"{prefix}{name}", out)
+    out[f"{prefix}attn.relative_position_bias_table"] = _t(blk["attn"]["rel_bias"])
+
+
+def _swin_stage(stage: Dict[str, Any], blocks, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for bi, blk in enumerate(blocks):
+        _swin_block(blk, f"{prefix}blocks.{bi}.", out)
+    if "downsample" in stage:
+        _norm(stage["downsample"]["norm"], f"{prefix}downsample.norm", out)
+        _linear(stage["downsample"]["reduction"], f"{prefix}downsample.reduction", out)
+
+
+def _patch_embed(pe: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    kernel = np.asarray(pe["proj"]["kernel"])  # (kh, kw, in, out) -> (kh*kw*in, out)
+    out[f"{prefix}proj.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]))
+    out[f"{prefix}proj.bias"] = _t(pe["proj"]["bias"])
+    _norm(pe["norm"], f"{prefix}norm", out)
+
+
+def _swin_visual(vis: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    _patch_embed(vis["patch_embed"], "visual.patch_embed.", out)
+    for li, layer in enumerate(vis["layers"]):
+        _swin_stage(layer, layer["blocks"], f"visual.layers.{li}.", out)
+    _norm(vis["norm"], "visual.norm", out)
+    _linear(vis["head"]["proj"], "visual.head.proj", out)
+
+
+def _htsat(enc: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    extra = set(enc) - {"bn0", "patch_embed", "stages", "norm", "tscam_conv", "head"}
+    if extra:
+        raise KeyError(f"JAX HTSAT params hold {sorted(extra)} (audio fusion?), which the port "
+                       "does not have")
+    p = "audio.encoder."
+    for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                     ("var", "running_var")):
+        out[f"{p}bn0.{dst}"] = _t(enc["bn0"][src])
+    _patch_embed(enc["patch_embed"], f"{p}patch_embed.", out)
+    for li in range(len(enc["stages"])):
+        stage = enc["stages"][f"stage{li}"]
+        blocks = [stage["blocks"][str(bi)] for bi in range(len(stage["blocks"]))]
+        _swin_stage(stage, blocks, f"{p}layers.{li}.", out)
+    _norm(enc["norm"], f"{p}norm", out)
+    out[f"{p}tscam_conv.weight"] = _t(np.asarray(enc["tscam_conv"]["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{p}tscam_conv.bias"] = _t(enc["tscam_conv"]["bias"])
+    _linear(enc["head"], f"{p}head", out)
+
+
+def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torch.Tensor]:
+    """JAX CLIP or CLAP params -> ``CLIPModel`` state dict (float32 tensors on the CPU)."""
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.audio_cfg is not None:
+        _check_keys(params, _EXPECTED_CLAP)
+        _htsat(params["audio"]["encoder"], out)
+        _linear(params["audio"]["proj"]["fc1"], "audio.proj.0", out)
+        _linear(params["audio"]["proj"]["fc2"], "audio.proj.2", out)
+    else:
+        _visual(params, cfg, out)
+    _text(params, cfg, out)
+    return out
+
+
+def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
+    from .models.naflex_vit import is_naflex, parse_naflex_cfg
+    from .models.swin import is_swin
+
+    vis = params["visual"]
+    if is_swin(cfg.vision_cfg):
+        _check_keys(params, _EXPECTED_SWIN)
+        _swin_visual(vis, out)
+        return
     naflex = is_naflex(cfg.vision_cfg)
     _check_keys(params, _EXPECTED_NAFLEX if naflex else _EXPECTED)
-    out: Dict[str, torch.Tensor] = {}
-    vis = params["visual"]
     if naflex:
         _naflex_visual(vis, parse_naflex_cfg(cfg.vision_cfg).layers, out)
     else:
@@ -166,6 +252,8 @@ def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torc
         out["visual.proj"] = _t(vis["proj"])
         _blocks(vis["blocks"], cfg.vision_cfg.layers, "visual.", out)
 
+
+def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
     txt = params["text"]
     out["token_embedding.weight"] = _t(txt["token_embedding"])
     out["positional_embedding"] = _t(txt["positional_embedding"])
@@ -176,15 +264,16 @@ def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torc
     out["logit_scale"] = _t(params["logit_scale"])
     if "logit_bias" in params:
         out["logit_bias"] = _t(params["logit_bias"])
-    return out
 
 
 @torch.no_grad()
 def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast, in place, the weights and biases of the linear maps (patch embedding,
-    fused qkv, out/MLP projections, the NaFlex tower's pool and head) and the two
-    tower projections to ``dtype``; norms, embeddings, position grids, class,
-    register and latent tokens, layer scales and the logit scale stay fp32. The partition of
+    """Cast, in place, the weights and biases of the linear maps and convolutions
+    (patch embeddings, fused qkv, out/MLP projections, the NaFlex tower's pool and
+    head, Swin patch merging, HTSAT's token-semantic head, the audio projection) and
+    the two tower projections to ``dtype``; norms, embeddings, position grids, class,
+    register and latent tokens, layer scales, relative-position tables, ``bn0`` and
+    the logit scale stay fp32. The partition of
     the JAX package's ``convert_params_dtype`` and the reference's
     ``convert_weights_to_lp``, used for the pure_bf16/pure_fp16 precisions."""
     from .models.blocks import Attention
@@ -192,7 +281,7 @@ def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
     for m in model.modules():
         names = ()
-        if isinstance(m, (nn.Linear, PatchEmbed)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, PatchEmbed)):
             names = ("weight", "bias")
         elif isinstance(m, Attention):
             names = ("in_proj_weight", "in_proj_bias")

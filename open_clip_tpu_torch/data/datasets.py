@@ -1,7 +1,8 @@
-"""Training data (counterpart of ``open_clip_tpu/data/datasets.py``): the two
-synthetic datasets, ``synthetic`` (image tensors) and ``synthetic-naflex`` (NaFlex
-patch dicts in token-budget buckets, ``data/naflex.py``). Real datasets
-(webdataset, CSV, audio) are not ported yet and raise.
+"""Training data (counterpart of ``open_clip_tpu/data/datasets.py``): the three
+synthetic datasets, ``synthetic`` (image tensors), ``synthetic-naflex`` (NaFlex
+patch dicts in token-budget buckets, ``data/naflex.py``) and ``synthetic-audio``
+(waveform dicts for CLAP, ``data/audio.py``). Real datasets (webdataset, CSV,
+webdataset audio) are not ported yet and raise.
 
 ``SyntheticDataset`` yields the JAX class's batches: a blank image, normalised
 with the model's mean and std, and one fixed caption, repeated over the batch.
@@ -14,7 +15,7 @@ be non-blocking.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Iterator
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -60,12 +61,23 @@ class SyntheticDataset:
                    for k, v in self._batch.items()}
 
 
-def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable) -> Dict[str, DataInfo]:
-    """{"train": DataInfo} for ``--dataset-type synthetic`` and ``synthetic-naflex``."""
+def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
+             audio_preprocess: Optional[Callable] = None) -> Dict[str, DataInfo]:
+    """{"train": DataInfo} for ``--dataset-type synthetic``, ``synthetic-naflex`` and
+    ``synthetic-audio`` (which takes the CLAP model's training ``audio_preprocess``)."""
     dstype = getattr(args, "dataset_type", "auto")
     get = lambda k, d: getattr(args, k, d)  # noqa: E731
     pin = torch.device(args.device).type == "cuda"
     batch_size = args.batch_size
+    if dstype == "synthetic-audio":
+        from .audio import SyntheticAudioDataset
+
+        if audio_preprocess is None:
+            raise ValueError("--dataset-type synthetic-audio needs a CLAP model (audio_cfg)")
+        n = get("train_num_samples", None) or 100
+        ds = SyntheticAudioDataset(audio_preprocess, tokenizer, dataset_size=n,
+                                   batch_size=batch_size, pin_memory=pin)
+        return {"train": DataInfo(ds, num_samples=n, num_batches=max(1, n // batch_size))}
     if dstype == "synthetic-naflex":
         from .naflex import NaFlexDataConfig, SyntheticNaFlexDataset
 
@@ -82,7 +94,7 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable) -> D
         return {"train": DataInfo(ds, num_samples=n, num_batches=nb)}
     if dstype != "synthetic":
         raise NotImplementedError(f"dataset type {dstype!r} is not ported yet "
-                                  "(synthetic and synthetic-naflex are)")
+                                  "(synthetic, synthetic-naflex and synthetic-audio are)")
     ds = SyntheticDataset(preprocess_cfg, tokenizer,
                           dataset_size=getattr(args, "train_num_samples", None) or 100,
                           batch_size=batch_size, pin_memory=pin)

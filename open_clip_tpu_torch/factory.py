@@ -6,8 +6,9 @@ Models are built on the card unless the caller asks for another device:
 fallback to the CPU. Weights are random, drawn from a ``torch.Generator``
 seeded by ``seed`` with the JAX package's init distributions; no checkpoint is
 loaded yet (``pretrained=`` raises). The model comes back with every parameter
-trainable; it has no dropout and no batch norm, so serving and training run the
-same forward, and callers that only serve run it under ``torch.inference_mode()``.
+trainable; it has no dropout, and its one batch norm (HTSAT's ``bn0`` in CLAP models)
+uses its stored statistics in training too, so serving and training run the same
+forward, and callers that only serve run it under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -58,15 +59,24 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     model.init_weights(torch.Generator().manual_seed(seed))
     if precision.startswith("pure_"):
         convert_params_dtype_(model, dtype)
-    model.preprocess_cfg = PreprocessCfg(size=cfg.vision_cfg.image_size)
+    if cfg.vision_cfg is not None:
+        model.preprocess_cfg = PreprocessCfg(size=cfg.vision_cfg.image_size)
     return model.to(device)
 
 
 def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None, **kwargs):
-    """(model, preprocess_train, preprocess_val). ``preprocess_val`` is the device-side
-    preprocess: uint8 NHWC on the model's device -> normalized NHWC. The training
-    transform is not ported yet, so ``preprocess_train`` is None."""
+    """(model, preprocess_train, preprocess_val). For an image model
+    ``preprocess_val`` is the device-side preprocess (uint8 NHWC on the model's device
+    -> normalized NHWC); the image training transform is not ported yet, so
+    ``preprocess_train`` is None. For a CLAP model both are the host
+    ``AudioPreprocess`` of ``data/audio.py`` ((waveform, sample rate) -> fixed-length
+    waveform dict): a random window for training, the clip's start for evaluation."""
     model = create_model(model_name, pretrained, **kwargs)
+    if model.cfg.audio_cfg is not None:
+        from .data.audio import audio_transform_v2
+
+        return (model, audio_transform_v2(model.cfg.audio_cfg, is_train=True),
+                audio_transform_v2(model.cfg.audio_cfg, is_train=False))
     return model, None, make_device_preprocess(model.preprocess_cfg)
 
 

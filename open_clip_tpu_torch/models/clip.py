@@ -1,10 +1,14 @@
-"""CLIP model (counterpart of ``open_clip_tpu/models/clip.py``).
+"""CLIP and CLAP models (counterpart of ``open_clip_tpu/models/clip.py``).
 
 ``CLIPModel`` is an ``nn.Module`` holding both towers under the reference
 checkpoint's names (``visual.*``, the text tower's parts at the top level,
-``logit_scale``). The functions ``encode_image``, ``encode_text``,
-``clip_forward`` and ``get_logits`` take the model as their first argument, as
-the JAX functions take (params, cfg); the model's methods call them.
+``logit_scale``). The vision tower is a ViT, a NaFlex ViT (``naflexvit_*``) or a
+Swin tower (``swin_*``). A CLAP config (one with ``audio_cfg``) holds ``audio``, the
+HTSAT audio tower of ``models/clap.py``, in place of ``visual``; its ``bn0`` uses
+stored statistics in training too, so serving and training run the same forward.
+The functions ``encode_image``, ``encode_text``, ``encode_audio``, ``clip_forward``
+and ``get_logits`` take the model as their first argument, as the JAX functions
+take (params, cfg); the model's methods call them.
 """
 
 from __future__ import annotations
@@ -17,8 +21,10 @@ import torch
 from torch import nn
 
 from ..config import CLIPModelCfg
+from . import clap
 from . import text as text_mod
 from .naflex_vit import NaFlexVit, is_naflex, parse_naflex_cfg
+from .swin import SwinTransformer, is_swin
 from .vit import VisionTransformer
 
 DEFAULT_LOGIT_SCALE = math.log(1.0 / 0.07)
@@ -29,13 +35,16 @@ def check_model_cfg(cfg: CLIPModelCfg) -> None:
     """Raise for the model families that are not ported (towers raise for their own).
     ``custom_text`` only names the text tower's keys in an exported state dict and
     changes nothing the model computes, so it is accepted."""
+    first = cfg.audio_cfg if cfg.audio_cfg is not None else cfg.vision_cfg
     unported = [name for name, on in (
         ("CoCa decoder", cfg.multimodal_cfg is not None),
-        ("audio tower", cfg.audio_cfg is not None or cfg.audio_naflex_cfg is not None),
+        ("NaFlex audio tower", cfg.audio_naflex_cfg is not None),
         ("GenLIP/GenLAP", cfg.genlip_cfg is not None or cfg.genlap_cfg is not None),
-        ("model without both towers", cfg.vision_cfg is None or cfg.text_cfg is None)) if on]
+        ("model without both towers", first is None or cfg.text_cfg is None)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+    if cfg.audio_cfg is not None:
+        clap.check_audio_cfg(cfg.audio_cfg)
 
 
 class CLIPModel(nn.Module):
@@ -45,8 +54,12 @@ class CLIPModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         act = "quick_gelu" if cfg.quick_gelu else "gelu"
-        if is_naflex(cfg.vision_cfg):
+        if cfg.audio_cfg is not None:
+            self.audio = clap.AudioTower(cfg.audio_cfg, cfg.embed_dim)
+        elif is_naflex(cfg.vision_cfg):
             self.visual = NaFlexVit(parse_naflex_cfg(cfg.vision_cfg), cfg.embed_dim, act)
+        elif is_swin(cfg.vision_cfg):
+            self.visual = SwinTransformer(cfg.vision_cfg, cfg.embed_dim)
         else:
             self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act)
         text_mod.add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act)
@@ -58,7 +71,7 @@ class CLIPModel(nn.Module):
     def init_weights(self, gen: torch.Generator) -> None:
         """Random weights with the JAX package's ``init_clip`` distributions."""
         cfg = self.cfg
-        self.visual.init_weights(gen)
+        (self.audio if cfg.audio_cfg is not None else self.visual).init_weights(gen)
         text_mod.init_text_tower(self, cfg.text_cfg, gen)
         self.logit_scale.fill_(DEFAULT_LOGIT_SCALE if cfg.init_logit_scale is None
                                else cfg.init_logit_scale)
@@ -74,6 +87,14 @@ class CLIPModel(nn.Module):
 
     def encode_text(self, text, normalize: bool = False) -> torch.Tensor:
         return encode_text(self, text, normalize=normalize)
+
+    def encode_audio(self, audio, normalize: bool = False) -> torch.Tensor:
+        return encode_audio(self, audio, normalize=normalize)
+
+    def params_outside_loss(self) -> set:
+        """Parameters the contrastive loss does not reach; a train step gives them
+        zero gradients, as ``jax.grad`` does."""
+        return clap.params_outside_loss(self) if self.cfg.audio_cfg is not None else set()
 
     def get_logits(self, image, text):
         return get_logits(self, image, text)
@@ -98,6 +119,8 @@ def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: boo
     tower, -> (B, embed_dim) features. ``train`` turns on what only training does
     (patch dropout, which is not ported yet and raises); ``remat`` recomputes each
     block in the backward pass."""
+    if model.cfg.audio_cfg is not None:
+        raise ValueError("a CLAP model encodes audio: use encode_audio")
     if isinstance(image, dict):
         if not is_naflex(model.cfg.vision_cfg):
             raise ValueError(
@@ -119,9 +142,20 @@ def encode_text(model: CLIPModel, text, *, normalize: bool = False,
     return _l2_normalize(pooled) if normalize else pooled
 
 
+def encode_audio(model: CLIPModel, audio, *, normalize: bool = False) -> torch.Tensor:
+    """A waveform dict (or a bare (B, T) waveform) -> (B, embed_dim) features."""
+    if model.cfg.audio_cfg is None:
+        raise ValueError("encode_audio needs a CLAP model (a config with audio_cfg)")
+    return clap.encode_audio(model, audio, normalize=normalize)
+
+
 def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False,
                  remat: bool = False) -> Dict[str, torch.Tensor]:
-    """Dict output of the reference ``CLIP.forward(output_dict=True)``."""
+    """Dict output of the reference ``CLIP.forward(output_dict=True)``. For a CLAP
+    model ``image`` is the audio batch and the output is ``clap_forward``'s (HTSAT
+    has no remat, as in the JAX package)."""
+    if model.cfg.audio_cfg is not None:
+        return clap.clap_forward(model, image, text)
     out: Dict[str, torch.Tensor] = {}
     if image is not None:
         out["image_features"] = encode_image(model, image, normalize=True, train=train,

@@ -18,7 +18,7 @@ from .blocks import LayerNorm, Transformer, check_block_options
 
 
 def patchify(x: torch.Tensor, patch_size) -> torch.Tensor:
-    """(B, H, W, 3) NHWC -> (B, gh*gw, ph*pw*3) patch tokens; trailing pixels that do
+    """(B, H, W, C) NHWC -> (B, gh*gw, ph*pw*C) patch tokens; trailing pixels that do
     not fill a patch are dropped, as a strided convolution would."""
     ph, pw = to_2tuple(patch_size)
     b, h, w, c = x.shape
@@ -29,17 +29,21 @@ def patchify(x: torch.Tensor, patch_size) -> torch.Tensor:
 
 
 class PatchEmbed(nn.Module):
-    """Patch embedding kernel in the patchify layout (ph*pw*3, width), stored under the
-    reference's ``conv1.weight`` name. A reference checkpoint's convolution weight
-    (width, 3, ph, pw) is re-laid out when it is loaded."""
+    """Patch embedding kernel in the patchify layout (ph*pw*in_chans, width), stored
+    under the reference's convolution name (``conv1.weight`` in the ViT,
+    ``patch_embed.proj.weight`` in the Swin towers). A reference checkpoint's
+    convolution weight (width, in_chans, ph, pw) is re-laid out when it is loaded."""
 
-    def __init__(self, patch_size, width: int):
+    def __init__(self, patch_size, width: int, in_chans: int = 3, bias: bool = False):
         super().__init__()
         ph, pw = to_2tuple(patch_size)
-        self.weight = nn.Parameter(torch.empty(ph * pw * 3, width))
+        self.patch_size = (ph, pw)
+        self.weight = nn.Parameter(torch.empty(ph * pw * in_chans, width))
+        self.bias = nn.Parameter(torch.empty(width)) if bias else None
 
     def forward(self, patches: torch.Tensor) -> torch.Tensor:
-        return linear(patches, self.weight)
+        """(B, N, ph*pw*in_chans) patch tokens (``patchify``) -> (B, N, width)."""
+        return linear(patches, self.weight, self.bias)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         w = state_dict.get(prefix + "weight")

@@ -22,6 +22,7 @@ import torch
 
 from ..checkpoint import get_latest_checkpoint, load_native, save_native
 from ..data import get_data
+from ..data.audio import audio_transform_v2
 from ..factory import create_model, get_tokenizer, resolve_device
 from .optim import OptimizerCfg, create_optimizer
 from .params import parse_args
@@ -66,7 +67,12 @@ def main(args=None) -> TrainState:
 
     random_seed(args.seed)
     model = create_model(args.model, precision=args.precision, device=args.device, seed=args.seed)
-    data = get_data(args, model.preprocess_cfg, get_tokenizer(args.model))
+    audio_pp = None
+    if model.cfg.audio_cfg is not None:
+        audio_pp = audio_transform_v2(model.cfg.audio_cfg, is_train=True, audio_aug_cfg=dict(
+            data_fill=args.audio_fill, data_trunc=args.audio_trunc,
+            int16_normalize=args.audio_int16_normalize))
+    data = get_data(args, model.preprocess_cfg, get_tokenizer(args.model), audio_pp)
     writer = JsonlWriter(log_dir / "results.jsonl")
 
     steps_per_epoch = max(data["train"].num_batches, 1)

@@ -23,8 +23,10 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Un
 import torch
 from torch import nn
 
+# the relative-position table of the Swin towers is a bias: the JAX mask leaves it
+# out by its shape, the reference by its name
 NO_WD_NAMES = {"positional_embedding", "class_embedding", "cls_emb", "logit_scale",
-               "logit_bias", "query"}
+               "logit_bias", "query", "relative_position_bias_table"}
 _MU_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

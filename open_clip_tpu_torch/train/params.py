@@ -44,10 +44,7 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--json-text-key",), _STRS),
     (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
     (("--max-image-pixels",), dict(type=int, default=25_000_000)),
-    (("--audio-ext",), dict(type=str, default="flac")),
-    (("--audio-fill",), dict(type=str, default="repeatpad")),
-    (("--audio-trunc",), dict(type=str, default="rand_trunc")),
-    (("--audio-fusion",), _ON), (("--audio-int16-normalize",), _ON),
+    (("--audio-ext",), dict(type=str, default="flac")), (("--audio-fusion",), _ON),
     (("--audio-layer-decay",), _FLOATS), (("--audio-zeroshot-dataset",), _STRS),
     (("--audio-zeroshot-split",), dict(type=str, default="test")),
     (("--audio-zeroshot-audio-key",), dict(type=str, default="audio")),
@@ -126,7 +123,8 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--dataset-type",
                         choices=["webdataset", "csv", "synthetic", "webdataset-audio",
                                  "synthetic-audio", "webdataset-naflex", "synthetic-naflex", "auto"],
-                        default="auto", help="'synthetic' and 'synthetic-naflex' are ported")
+                        default="auto",
+                        help="'synthetic', 'synthetic-naflex' and 'synthetic-audio' are ported")
     parser.add_argument("--train-num-samples", type=int, default=None)
     # NaFlex token-budget batching (--dataset-type synthetic-naflex)
     parser.add_argument("--naflex-seq-lens", type=int, nargs="+", default=[128, 256, 576, 784, 1024])
@@ -138,6 +136,12 @@ def parse_args(args=None) -> argparse.Namespace:
                         choices=["none", "linear", "sqrt"],
                         help="scale the loss by (actual batch / --batch-size) for "
                              "token-budget NaFlex batches")
+    # CLAP training clips (--dataset-type synthetic-audio)
+    parser.add_argument("--audio-fill", type=str, default="repeatpad",
+                        choices=["repeatpad", "repeat", "pad"])
+    parser.add_argument("--audio-trunc", type=str, default="rand_trunc",
+                        choices=["rand_trunc", "trunc"])
+    parser.add_argument("--audio-int16-normalize", action="store_true", default=False)
     parser.add_argument("--workers", type=int, default=4)
 
     # logging / experiment

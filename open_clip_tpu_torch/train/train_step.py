@@ -56,8 +56,10 @@ def create_train_state(model: CLIPModel, optimizer: AdamW) -> TrainState:
 
 
 def _features(model: CLIPModel, batch, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    out = clip_forward(model, batch["image"], batch["text"], train=True, remat=remat)
-    return out["image_features"], out["text_features"]
+    """(primary, text) features; a CLAP batch's audio features take the image slot."""
+    key = "audio" if "audio" in batch else "image"
+    out = clip_forward(model, batch[key], batch["text"], train=True, remat=remat)
+    return out[f"{key}_features"], out["text_features"]
 
 
 def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "clip",
@@ -70,8 +72,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``step(state, batch) -> (state, metrics)`` for a batch
     ``{"image": (B, H, W, 3) normalized NHWC, "text": (B, L) token ids}``; for a
-    ``naflexvit_*`` tower ``image`` is a NaFlex patch dict of (B, N, ...) tensors. The
-    compute dtype is the model's (``create_model(precision=...)``).
+    ``naflexvit_*`` tower ``image`` is a NaFlex patch dict of (B, N, ...) tensors, and
+    a CLAP model takes ``{"audio": {"waveform", "longer"}, "text"}`` (HTSAT ignores
+    ``remat``, as in the JAX package). The compute dtype is the model's
+    (``create_model(precision=...)``).
     ``naflex_loss_scale`` ("none", "linear", "sqrt") scales the loss of a patch-dict
     batch by (its batch size / ``reference_batch_size``), or by the root of that, so
     that the small batches of the long token-budget buckets do not dominate."""
@@ -101,6 +105,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     def _apply_updates(state: TrainState, loss: torch.Tensor):
         model = state.model
         params = state.params
+        outside = model.params_outside_loss()
+        for name, p in model.named_parameters():
+            if p.grad is None and name in outside:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if any(g is None for g in grads):
             missing = [n for n, p in model.named_parameters() if p.grad is None]
@@ -132,7 +140,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
             raise ValueError(f"batch of {n} does not split into {accum_steps} microbatches")
         size = n // accum_steps
 
-        def rows(v, i):  # a patch dict is sliced entry by entry
+        def rows(v, i):  # a patch or waveform dict is sliced entry by entry
             if isinstance(v, dict):
                 return {k: rows(x, i) for k, x in v.items()}
             return v[i * size:(i + 1) * size]
@@ -160,4 +168,5 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
 @torch.no_grad()
 def eval_forward(model: CLIPModel, batch) -> Dict[str, torch.Tensor]:
     """Features and logit scale for validation."""
-    return clip_forward(model, batch.get("image"), batch.get("text"), train=False)
+    return clip_forward(model, batch.get("audio", batch.get("image")), batch.get("text"),
+                        train=False)

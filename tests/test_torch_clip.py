@@ -204,8 +204,11 @@ def test_create_model_runs_on_the_card_unless_told(monkeypatch):
     ("RN50", {}),
     ("coca_ViT-B-32", {}),
     ("naflexgenlip_b16", {}),
-    ("CLAP-HTSAT-tiny", {}),
+    # CLAP-HTSAT-tiny itself is ported: its pretrained weights are not
+    ("CLAP-HTSAT-tiny", {"pretrained": "laion"}),
     ("ViT-B-32", {"pretrained": "openai"}),
+    ("CLAP-Whisper-tiny-Roberta-base", {}),
+    ("CLAP-HTSAT-tiny-Roberta-base-fused", {}),
 ])
 def test_unported_models_raise(name, kwargs):
     with pytest.raises(NotImplementedError):

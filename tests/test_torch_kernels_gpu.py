@@ -387,3 +387,142 @@ def test_dispatch_sends_long_masked_attention_to_flash(cuda):
     assert fa.LAUNCHES["fwd"] == before["fwd"] + 1
     ref, _ = fa.flash_attention_reference(q, k, v, key_valid=valid)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# window and panel attention (csrc/window_attention.cu): forward, and backward with
+# dbias, against the plain versions. Tolerances as for the short kernels; dbias
+# sums ds over up to B*nW windows in fp32, so its relative tolerance is fp32's.
+# ---------------------------------------------------------------------------
+
+def _window_inputs(seed, shape, c, nw, heads, n, dtype, device):
+    """q, k, v as views of one fused (..., 3C) projection, an fp32 bias with shift-mask
+    entries, and do."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((*shape, 3 * c), dtype=np.float32)).to(device, dtype)
+    q, k, v = x.unflatten(-1, (3, c)).unbind(-2)
+    bias = rng.standard_normal((nw, heads, n, n), dtype=np.float32)
+    bias[..., 1::4, ::3] -= 100.0
+    do = torch.from_numpy(rng.standard_normal((*shape, c), dtype=np.float32)).to(device, dtype)
+    return q, k, v, torch.from_numpy(bias).to(device), do
+
+
+def _check_window_pair(got_out, ref_out, got_grads, ref_grads, dtype):
+    torch.cuda.synchronize()
+    assert got_out.dtype == dtype and bool(torch.isfinite(got_out).all())
+    assert (got_out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got_grads, ref_grads):
+        assert bool(torch.isfinite(g).all()), name
+        tol = BWD_RTOL[torch.float32] if name == "dbias" and dtype == torch.float32 else BWD_RTOL[dtype]
+        assert _rel_err(g, r) <= tol, (name, _rel_err(g, r))
+
+
+WINDOW_KERNEL_CASES = [  # (B*nW, N, C, heads, nW)
+    (4 * 64, 49, 128, 4, 64),   # Swin-B stage 0, shifted
+    (4 * 64, 49, 128, 4, 1),    # Swin-B stage 0, unshifted
+    (4 * 4, 49, 512, 16, 4),    # Swin-B stage 2, shifted
+    (4, 49, 1024, 32, 1),       # Swin-B stage 3: one window, 32 heads
+    (8 * 64, 64, 96, 4, 64),    # HTSAT stage 0 windows, partitioned
+    (6, 9, 24, 3, 2),           # tiny windows, odd heads
+    (5, 100, 64, 2, 1),         # N between 64 and 128
+    (2, 128, 256, 8, 2),        # the largest window
+    (3, 33, 40, 5, 1),          # N just past a tile, odd heads, hd 8
+    (2, 16, 1024, 1, 1),        # one head of 1024 columns
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,c,heads,nw", WINDOW_KERNEL_CASES)
+def test_window_kernels_match_plain(cuda, b, n, c, heads, nw, dtype):
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias, do = _window_inputs(b + n + c, (b, n), c, nw, heads, n, dtype, cuda)
+    before = dict(wa.LAUNCHES)
+    out = wa.window_attention_fwd(q, k, v, bias)
+    grads = wa.window_attention_bwd(q, k, v, bias, do)
+    assert wa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    _check_window_pair(out, wa.window_attention_reference(q, k, v, bias), grads,
+                       wa.window_attention_bwd_reference(q, k, v, bias, do), dtype)
+
+
+PANEL_KERNEL_CASES = [  # (B, H, W, C, heads, nW)
+    (2, 64, 64, 96, 4, 64),     # HTSAT-tiny stage 0, shifted
+    (2, 64, 64, 96, 4, 1),      # stage 0, unshifted
+    (2, 32, 32, 192, 8, 16),    # stage 1, shifted
+    (2, 16, 16, 384, 16, 4),    # stage 2, shifted
+    (16, 8, 8, 768, 32, 1),     # stage 3: one window a sample
+    (3, 16, 40, 48, 3, 10),     # a non-square map, odd heads
+    (2, 24, 8, 40, 5, 1),       # a tall map, hd 8
+    (1, 8, 8, 1024, 1, 1),      # one head of 1024 columns
+    (4, 8, 16, 64, 2, 2),
+    (1, 64, 8, 72, 3, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c,heads,nw", PANEL_KERNEL_CASES)
+def test_panel_kernels_match_plain(cuda, b, h, w, c, heads, nw, dtype):
+    from open_clip_tpu_torch.ops import swin_attention as swa
+
+    q, k, v, bias, do = _window_inputs(b + h + w + c, (b, h * w), c, nw, heads, 64, dtype, cuda)
+    kw = dict(hw=(h, w), ws=8)
+    before = dict(swa.LAUNCHES)
+    out = swa.panel_attention_fwd(q, k, v, bias, **kw)
+    grads = swa.panel_attention_bwd(q, k, v, bias, do, **kw)
+    assert swa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    _check_window_pair(out, swa.panel_attention_reference(q, k, v, bias, **kw), grads,
+                       swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw), dtype)
+
+
+def test_window_backward_is_deterministic(cuda):
+    """dbias folds fixed groups' partials in a fixed order: the same bits every run."""
+    from open_clip_tpu_torch.ops import swin_attention as swa
+
+    q, k, v, bias, do = _window_inputs(3, (8, 4096), 96, 1, 4, 64, torch.bfloat16, cuda)
+    runs = [swa.panel_attention_bwd(q, k, v, bias, do, hw=(64, 64), ws=8) for _ in range(3)]
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.parametrize("what", ["fp16", "panel_ws7", "wide", "columns"])
+def test_window_wrappers_raise_on_what_the_kernels_do_not_take(cuda, what):
+    from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias, do = _window_inputs(4, (2, 64), 64, 1, 2, 64, torch.bfloat16, cuda)
+    before = (dict(wa.LAUNCHES), dict(swa.LAUNCHES))
+    with pytest.raises(ValueError):
+        if what == "fp16":
+            wa.window_attention(q.half(), k.half(), v.half(), bias)
+        elif what == "panel_ws7":
+            swa.panel_attention(q.reshape(1, 128, 64)[:, :49], k.reshape(1, 128, 64)[:, :49],
+                                v.reshape(1, 128, 64)[:, :49], bias[:, :, :49, :49], hw=(7, 7), ws=7)
+        elif what == "wide":
+            x = torch.zeros(2, 4, 2048, device=cuda)
+            wa.window_attention(x, x, x, torch.zeros(1, 2, 4, 4, device=cuda))
+        else:
+            t = q.transpose(1, 2).contiguous().transpose(1, 2)  # columns not dense
+            wa.window_attention_fwd(t, k, v, bias)
+    assert (wa.LAUNCHES, swa.LAUNCHES) == before
+
+
+def test_clap_and_swin_paths_launch_the_kernels(cuda):
+    """A HTSAT block on a 64x64 map takes the panel kernel, a Swin block on 7x7
+    windows the window kernel, forward and backward."""
+    from open_clip_tpu_torch.models.htsat import SwinBlock
+    from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(0)
+    for block, hw, ws, shift, mod in ((SwinBlock(96, 4, 8), (64, 64), 8, 4, swa),
+                                      (SwinBlock(128, 4, 7), (56, 56), 7, 3, wa)):
+        block.init_weights(gen)
+        block = block.to(cuda)
+        x = torch.randn(2, hw[0] * hw[1], block.norm1.weight.shape[0], device=cuda,
+                        dtype=torch.bfloat16, requires_grad=True)
+        before = dict(mod.LAUNCHES)
+        block(x, hw, ws, shift).float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+        assert bool(torch.isfinite(x.grad).all())
+        assert block.attn.relative_position_bias_table.grad.abs().sum() > 0
