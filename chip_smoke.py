@@ -64,7 +64,18 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  15. CLAP at fp32 (TF32 off), card against CPU: log-mel, features, every gradient;
  16. Swin-B (swin_base_patch4_window7_224) serving in pure_bf16 (64 images a request)
      and training in amp_bf16 (batch 32): 24 window launches of each kind per
-     encode_image and per step, and a step with remat.
+     encode_image and per step, and a step with remat;
+ 17. (with phase 1) the SwitchBack int8 matmul-dequant against its plain version bit
+     for bit, fp32 and bf16 out, at the MLP shapes of ViT-H-14 (batch 32) and
+     ViT-B-32 (batch 256) and at ragged shapes; kernel, plain, torch._int_mm plus the
+     dequant, and bf16 F.linear time, and the bound;
+ 18. ViT-H-14 training with the switch on: amp_bf16, AdamW, clip 1.0, remat with the
+     names_mm preset, batch 32, timed and profiled like phase 4; the loss falls;
+     then the same step with the switch off, and with it on under full remat;
+ 19. ViT-B-32 at batch 256 with the switch on: library steps, then the CLI with
+     --use-switchback --grad-checkpointing --remat-policy names_mm;
+ 20. ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), card
+     against CPU: features, loss and every gradient.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
 one {"kernels": [...]} JSON line and as the last line {"ok": true, "device": {...}}.
@@ -84,7 +95,8 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # dense bf16 tensor / fp32 non-tensor
+              "int8": 1979e12}  # dense int8 tensor
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # max |kernel - plain|, inputs ~N(0, 1)
 # backward kernels, relative to the plain result's largest entry: fp32 sums of up to
 # 77 (attention) or 19712 (LayerNorm) terms in another order; bf16 rounds ds, p and
@@ -114,7 +126,22 @@ CLAP_CLI_STEPS = 4
 ESC50_CLASSES = ("dog", "rooster", "pig", "cow", "frog", "cat", "hen", "insects", "sheep", "crow")
 SWIN_MODEL = "swin_base_patch4_window7_224"
 SWIN_SERVE_BATCH, SWIN_TRAIN_BATCH = 64, 32
+SB_SOURCE = "open_clip_tpu_torch/csrc/switchback.cu"
+H14_MODEL, H14_BATCH = "ViT-H-14", 32
+# the MLP products (M, K, N) of ViT-H-14 at batch 32 (257 and 77 tokens) and of
+# ViT-B-32 at batch 256 (50 and 77 tokens), then ragged shapes
+SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120, 1280),
+             "h14_text_fc": (2464, 1024, 4096), "h14_text_proj": (2464, 4096, 1024),
+             "b32_vision_fc": (12800, 768, 3072), "b32_vision_proj": (12800, 3072, 768),
+             "b32_text_fc": (19712, 512, 2048), "b32_text_proj": (19712, 2048, 512)}
+SB_RAGGED = [(5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (257, 80, 250), (1, 1, 1)]
+# card against CPU with the int8 forward: a value at a rounding tie of its
+# quantization may land one level apart where the fp32 sums before it ran in
+# another order, which moves that output by one quantum (~1e-2 of the row's
+# largest entry); so a looser bound than COSINE_MIN
+SB_COSINE_MIN, SB_LOSS_RTOL = 0.999, 1e-3
 KERNEL_CLASSES = {  # first match wins
+    "switchback": ("int8_matmul_dequant",),
     "window_attention_bwd": ("win_attn_bwd", "dbias_fold"),
     "window_attention": ("win_attn_fwd",),
     "flash_attention_bwd_dq": ("flash_attn_bwd_dq",),
@@ -533,7 +560,7 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         f"class_ms_per_{unit}": {c: ms / n for c, ms in sorted(by_class.items(), key=lambda x: -x[1])},
         "ms_per_launch": {c: by_class[c] / launches[c] for c in
-                          ("short_attention", "short_attention_bwd", "layer_norm_bwd",
+                          ("switchback", "short_attention", "short_attention_bwd", "layer_norm_bwd",
                            "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                            "window_attention", "window_attention_bwd")
                           if c in by_class},
@@ -1570,6 +1597,239 @@ def phase_swin_train(torch, oc, sa, wa):
     return win, n
 
 
+def phase_switchback_kernels(torch, sb):
+    """The int8 matmul-dequant against its plain version, exactly (atol 0), with fp32
+    and bf16 outputs, at the MLP shapes of ViT-H-14 b32 and ViT-B-32 b256, ragged
+    shapes, a zero row and a zero column; time from one CUDA graph of calls beside
+    the plain version, torch._int_mm plus the dequant, and bf16 F.linear (what
+    SwitchBack replaces). Returns the bf16-output records (the train path asks for
+    its activations' dtype) by shape name."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    records = {}
+    cases = dict(SB_SHAPES, **{f"ragged_{m}x{k}x{n}": (m, k, n) for m, k, n in SB_RAGGED})
+    for name, (m, k, n) in cases.items():
+        qx = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+        qw = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        qx[0], qw[-1] = 0, 0  # a zero row, a zero column of the output
+        sx = torch.rand(m, device="cuda", generator=gen) * 0.1 + 1e-3
+        sw = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
+        err = {}
+        for od in (torch.float32, torch.bfloat16):
+            dn = str(od).split(".")[1]
+            out = sb.int8_matmul_dequant(qx, qw, sx, sw, od)
+            ref = sb.int8_matmul_dequant_plain(qx, qw, sx, sw, od)
+            torch.cuda.synchronize()
+            err[dn] = (out.float() - ref.float()).abs().max().item()
+            check(out.dtype == od and tuple(out.shape) == (m, n) and torch.equal(out, ref),
+                  f"switchback {name} M={m} K={k} N={n} {dn} out: kernel == plain bit for bit "
+                  f"(max |err| {err[dn]:.3e})")
+        if name not in SB_SHAPES:
+            continue
+        ms = {dn: graph_ms(lambda: sb.int8_matmul_dequant(qx, qw, sx, sw, od), iters=20)
+              for dn, od in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+        plain_ms = graph_ms(lambda: sb.int8_matmul_dequant_plain(qx, qw, sx, sw, torch.bfloat16),
+                            iters=3, replays=3)
+        library_ms = graph_ms(lambda: ((torch._int_mm(qx, qw.t()).float() * sx[:, None])
+                                       * sw[None, :]).to(torch.bfloat16), iters=20)
+        int_mm_ms = graph_ms(lambda: torch._int_mm(qx, qw.t()), iters=20)
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        w = torch.randn(n, k, device="cuda", generator=gen).to(torch.bfloat16)
+        linear_ms = graph_ms(lambda: F.linear(x, w), iters=20)
+        quantize_ms = graph_ms(lambda: sb.quantize_rowwise(x), iters=20)
+        flops = 2 * m * n * k
+        rec = {"name": f"int8_matmul_dequant[{name}]", "route": "cuda", "source": SB_SOURCE,
+               "replaces": "open_clip_tpu/ops/switchback.py:42", "shape": [m, k, n],
+               "dtype": "int8 in, bfloat16 out", "max_abs_err": err["bfloat16"],
+               "ms": ms["bfloat16"], "plain_ms": plain_ms,
+               **bound(m * k + n * k + 2 * m * n + 4 * (m + n), flops, "int8"),
+               "library_ms": library_ms, "library": "torch._int_mm + dequant",
+               "ms_fp32_out": ms["float32"], "max_abs_err_fp32_out": err["float32"],
+               "bound_ms_fp32_out": bound(m * k + n * k + 4 * m * n + 4 * (m + n), flops,
+                                          "int8")["bound_ms"],
+               "int_mm_ms": int_mm_ms, "linear_bf16_ms": linear_ms,
+               "linear_bf16_bound_ms": bound(2 * (m * k + n * k + m * n), flops,
+                                             "bfloat16")["bound_ms"],
+               "quantize_activations_ms": quantize_ms}
+        print("kernel_case " + json.dumps(rec), flush=True)
+        records[name] = rec
+    return records
+
+
+def phase_h14_train(torch, oc, sa, sb, blocks):
+    """ViT-H-14 training with --use-switchback: amp_bf16, AdamW at the CLI's defaults
+    (its schedule too), clip 1.0, remat with names_mm, one fixed batch of 32 images and texts; 2 warm-up
+    steps, a window, a profile. Then the same step with the switch off (names_mm) and
+    with the switch on under full remat. Returns the main run's switchback launches
+    and its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY
+    try:
+        model = oc.create_model(H14_MODEL, precision="amp_bf16", seed=0)
+        lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+        # the CLI's defaults: lr 5e-4 under a cosine schedule with 10,000 warm-up steps
+        optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                        model, oc.cosine_lr(5e-4, 10000, 100000))
+        state = oc.create_train_state(model, optimizer)
+        batch = train_batch(torch, model.cfg, H14_BATCH, "cuda")
+        runs, main_run = {}, None
+        # (label, MLP linear, remat policy, switchback launches a block, short forward
+        # launches a text block): names_mm saves c_fc's output and the attention output,
+        # and the recompute reruns c_proj; full remat reruns both
+        for label, impl, policy, sb_per_block, sa_per_block in (
+                ("switchback_names_mm", "switchback", "names_mm", 3, 1),
+                ("dense_names_mm", "dense", "names_mm", 0, 1),
+                ("switchback_full_remat", "switchback", "none", 4, 2)):
+            blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = impl, policy
+            torch.cuda.reset_peak_memory_stats()
+            step = oc.make_train_step(model.cfg, optimizer, remat=True)
+            state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+            main = main_run is None
+            n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1])) if main else 3
+            reset_counts(sa, sb)
+            state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+            launches = {"switchback": sb.LAUNCHES["fwd"], **{f"short_{k}": v
+                                                              for k, v in sa.LAUNCHES.items()}}
+            losses = [float(m["loss"]) for m in warm + window]
+            check(all(math.isfinite(x) for x in losses) and (not main or losses[-1] < losses[0]),
+                  f"h14_train[{label}]: {len(losses)} losses finite"
+                  + (f", fell {losses[0]:.4f} -> {losses[-1]:.4f}" if main else ""))
+            want = {"switchback": sb_per_block * (lv + lt) * n, "short_fwd": sa_per_block * lt * n,
+                    "short_bwd": lt * n}
+            check(launches == want, f"h14_train[{label}]: launches {launches} in {n} steps "
+                  f"(expect {want})")
+            runs[label] = {"window_steps": n, "median_step_ms": statistics.median(step_ms),
+                           "min_step_ms": min(step_ms), "images_per_s": H14_BATCH * n / wall_s,
+                           "median_host_ms_per_step": statistics.median(host_ms),
+                           "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
+                           "last_loss": losses[-1],
+                           "launches_per_step": {k: v / n for k, v in launches.items()},
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if main:
+                main_run = (launches["switchback"], n)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                    state = run_steps(torch, step, state, batch, 1)[0]
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, *_, prof_wall_s = run_steps(torch, step, state, batch,
+                                                       TRAIN_PROFILED_STEPS)
+                summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+                print("h14_train_profile " + json.dumps(summary), flush=True)
+                runs[label]["device_busy_ms_per_step"] = summary["device_busy_ms_per_step"]
+        print("h14_train " + json.dumps({"model": H14_MODEL, "precision": "amp_bf16",
+                                         "batch": H14_BATCH, "runs": runs}), flush=True)
+        return main_run
+    finally:
+        blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = saved
+
+
+def phase_b32_switchback(torch, oc, sa, sb, blocks, dense_first_loss: float):
+    """ViT-B-32 at batch 256 with the switch on: four steps through the library (no
+    remat: 2 launches a block; the first loss within int8 noise of the dense step's
+    on the same model and batch, ``dense_first_loss``), then the CLI with
+    --use-switchback --grad-checkpointing --remat-policy names_mm. Returns the CLI's
+    launches and steps."""
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    saved = blocks.MLP_LINEAR_IMPL
+    try:
+        blocks.MLP_LINEAR_IMPL = "switchback"
+        model = oc.create_model("ViT-B-32", precision="amp_bf16", seed=0)
+        blocks_n = model.cfg.vision_cfg.layers + model.cfg.text_cfg.layers
+        optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                        model, oc.const_lr(5e-4, 0))
+        state = oc.create_train_state(model, optimizer)
+        batch = train_batch(torch, model.cfg, BATCH, "cuda")
+        state, warm, _, _, _, _ = run_steps(torch, oc.make_train_step(model.cfg, optimizer), state,
+                                            batch, 1)
+        reset_counts(sb)
+        state, window, step_ms, *_ = run_steps(torch, oc.make_train_step(model.cfg, optimizer),
+                                               state, batch, 3)
+        losses = [float(m["loss"]) for m in warm + window]
+        check(sb.LAUNCHES["fwd"] == 2 * blocks_n * 3 and all(math.isfinite(x) for x in losses)
+              and abs(losses[0] - dense_first_loss) <= 2e-2,
+              f"b32_switchback: {sb.LAUNCHES['fwd']} launches in 3 steps (expect {6 * blocks_n}), "
+              f"losses finite, first {losses[0]:.4f} vs {dense_first_loss:.4f} dense (int8 "
+              "tolerance 2e-2)")
+    finally:
+        blocks.MLP_LINEAR_IMPL = saved
+    del state, model, optimizer
+    steps = 4
+    with tempfile.TemporaryDirectory() as logs:
+        reset_counts(sb)
+        t0 = time.perf_counter()
+        state = train_main(["--model", "ViT-B-32", "--dataset-type", "synthetic",
+                            "--batch-size", str(BATCH), "--train-num-samples", str(BATCH * steps),
+                            "--epochs", "1", "--precision", "amp_bf16", "--grad-clip-norm", "1.0",
+                            "--lr", "5e-4", "--wd", "0.2", "--warmup", "2", "--workers", "1",
+                            "--use-switchback", "--grad-checkpointing", "--remat-policy",
+                            "names_mm", "--logs", logs, "--name", "sb"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        rows = [json.loads(x) for x in (Path(logs) / "sb" / "results.jsonl").read_text().splitlines()]
+        cli_launches = sb.LAUNCHES["fwd"]
+    check(state.step == steps and bool(rows) and all(
+        abs(r["train/loss"] - math.log(BATCH)) < 1e-2 for r in rows),
+        f"b32_switchback CLI: {state.step} steps, loss {[round(r['train/loss'], 4) for r in rows]} "
+        f"is ln {BATCH} on identical samples")
+    check(cli_launches == 3 * blocks_n * steps and blocks.MLP_LINEAR_IMPL == "dense"
+          and blocks.REMAT_POLICY == "none",
+          f"b32_switchback CLI: {cli_launches} launches in {steps} names_mm steps "
+          f"(expect {3 * blocks_n * steps}), the switch restored after the run")
+    print("b32_switchback " + json.dumps({
+        "batch": BATCH, "median_step_ms_no_remat": statistics.median(step_ms),
+        "first_loss": losses[0], "dense_first_loss": dense_first_loss, "cli_s": cli_s,
+        "cli_launches_per_step": cli_launches / steps}), flush=True)
+    return cli_launches, steps
+
+
+def phase_h14_card_vs_cpu(torch, oc, sb, blocks):
+    """ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), one
+    step at batch 4 on the card and on the CPU: features, loss and every gradient."""
+    from open_clip_tpu_torch.loss import clip_loss
+    from open_clip_tpu_torch.config import get_model_config
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_model_config(H14_MODEL)
+    cfg["vision_cfg"]["layers"] = cfg["text_cfg"]["layers"] = 2
+    name = "ViT-H-14-2-layers"
+    oc.add_model_config(cfg, name=name)
+    saved = blocks.MLP_LINEAR_IMPL
+    results = {}
+    try:
+        blocks.MLP_LINEAR_IMPL = "switchback"
+        for device in ("cuda", "cpu"):
+            model = oc.create_model(name, precision="fp32", seed=3, device=device)
+            batch = {k: v.to(device) for k, v in train_batch(torch, model.cfg, 4, "cpu", seed=3).items()}
+            reset_counts(sb)
+            out = clip_forward(model, batch["image"], batch["text"], train=True)
+            loss = clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp())
+            loss.backward()
+            results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()},
+                               {k: out[k].detach().cpu().double()
+                                for k in ("image_features", "text_features")},
+                               loss.item(), sb.LAUNCHES["fwd"])
+    finally:
+        blocks.MLP_LINEAR_IMPL = saved
+    (g_gpu, f_gpu, loss_g, launched), (g_cpu, f_cpu, loss_c, _) = results["cuda"], results["cpu"]
+    check(launched == 2 * 4, f"h14 card vs CPU: {launched} switchback launches (expect 8)")
+    for key in f_cpu:
+        cos = torch.nn.functional.cosine_similarity(f_gpu[key], f_cpu[key], dim=-1).min().item()
+        check(bool(torch.isfinite(f_gpu[key]).all()) and cos >= SB_COSINE_MIN,
+              f"h14 switchback {key} card vs CPU fp32: min cosine {cos:.7f} (>= {SB_COSINE_MIN})")
+    check(abs(loss_g - loss_c) <= SB_LOSS_RTOL * abs(loss_c),
+          f"h14 switchback loss card vs CPU fp32: {loss_g:.6f} vs {loss_c:.6f} (rel {SB_LOSS_RTOL})")
+    cos = {k: torch.nn.functional.cosine_similarity(g_gpu[k].flatten(), g_cpu[k].flatten(),
+                                                    dim=0).item() for k in g_cpu}
+    worst = min(cos, key=cos.get)
+    check(all(bool(torch.isfinite(g).all()) for g in g_gpu.values()) and cos[worst] >= SB_COSINE_MIN,
+          f"h14 switchback gradients card vs CPU fp32: min cosine {cos[worst]:.7f} at {worst} "
+          f"over {len(cos)} tensors (>= {SB_COSINE_MIN})")
+
+
 def main() -> int:
     import torch
 
@@ -1589,10 +1849,13 @@ def main() -> int:
     from open_clip_tpu_torch.ops import layers as layers_mod
     from open_clip_tpu_torch.ops import short_attention as sa
     from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import switchback as sb
     from open_clip_tpu_torch.ops import window_attention as wa
+    from open_clip_tpu_torch.models import blocks
 
     t0 = time.perf_counter()
-    sources = ("short_attention", "layer_norm_bwd", "flash_attention", "window_attention")
+    sources = ("short_attention", "layer_norm_bwd", "flash_attention", "window_attention",
+               "switchback")
     _build.build_all(sources)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -1605,6 +1868,7 @@ def main() -> int:
     ln_records = phase_ln_bwd_kernels(torch, fl)
     flash_records = phase_flash_kernels(torch, fa)
     window_records = phase_window_kernels(torch, wa, swa)
+    sb_records = phase_switchback_kernels(torch, sb)
     launches, calls = phase_serve(torch, oc, sa)
     phase_card_vs_cpu(torch, oc, sa)
     tally, steps, plain_summary = phase_train(torch, oc, sa, fl, layers_mod, fused_ln=False)
@@ -1633,6 +1897,10 @@ def main() -> int:
     phase_clap_card_vs_cpu(torch, oc, swa)
     swin_serve_launches, swin_calls = phase_swin_serve(torch, oc, sa, wa)
     swin_train_launches, swin_steps = phase_swin_train(torch, oc, sa, wa)
+    h14_launches, h14_steps = phase_h14_train(torch, oc, sa, sb, blocks)
+    b32_sb_launches, b32_sb_steps = phase_b32_switchback(torch, oc, sa, sb, blocks,
+                                                         plain_summary["first_loss"])
+    phase_h14_card_vs_cpu(torch, oc, sb, blocks)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
@@ -1681,6 +1949,12 @@ def main() -> int:
     kernels.append(dict(window_records["htsat_s0_shift_train"]["bwd"],
                         launches=clap_train_launches["bwd"],
                         launches_per_train_step=clap_train_launches["bwd"] / clap_steps))
+    # the int8 matmul: the ViT-H-14 train window (names_mm, the switch on), at the
+    # image tower's c_fc shape; the ViT-B-32 CLI's launches beside it
+    kernels.append(dict(sb_records["h14_vision_fc"], launches=h14_launches,
+                        launches_per_train_step=h14_launches / h14_steps,
+                        launches_b32_cli=b32_sb_launches,
+                        launches_per_b32_cli_step=b32_sb_launches / b32_sb_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

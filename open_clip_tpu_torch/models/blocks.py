@@ -6,19 +6,78 @@ and ``lax.scan``. Names follow the reference checkpoint layout
 so a reference state dict loads by name. Semantics of ``apply_block``:
 
     x = x + ls_1(attn(ln_1(x)));  x = x + ls_2(mlp(ln_2(x)))
+
+Two module globals mirror the JAX package's: ``MLP_LINEAR_IMPL`` ("dense" or
+"switchback", the int8 SwitchBack forward of both MLP linears) and
+``REMAT_POLICY`` (what a rematerialized block saves: "none", "names" or
+"names_mm"). The training CLI sets both from its flags.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..ops import layers as _layers
 from ..ops.attention import multi_head_attention
-from ..ops.layers import ACT_FNS, layer_norm, linear
+from ..ops.layers import ACT_FNS, layer_norm, linear, remat_name
+from ..ops.switchback import switchback_linear
+
+# MLP linear implementation of the transformer blocks: "dense" (default) or
+# "switchback", the int8 forward / bf16 backward of ``ops/switchback.py`` (reference
+# --use-bnb-linear SwitchBackLinearGlobal). Set by the training CLI's
+# --use-switchback. ``SwiGLUMlp`` (NaFlex) does not take it, as in the JAX package.
+MLP_LINEAR_IMPL: str = "dense"
+
+# What a rematerialized block saves (``--remat-policy`` with --grad-checkpointing).
+# "none": nothing but the block's input; the whole block runs again in the backward.
+# "names" and "names_mm" save the outputs of the ops tagged with the named
+# ``remat_name`` tags (the JAX package's ``checkpoint_name`` tags, set in the same
+# places) and recompute the rest: "names" the matmul inputs (LN outputs, attention
+# output, activation), "names_mm" the matmul outputs (fused qkv, attention output,
+# fc1 before its bias). The math does not change. PyTorch's selective checkpoint
+# reruns every op of the block that is not saved, in order, up to the last one whose
+# result the backward needs (it has no dead-code elimination as XLA has): under
+# "names_mm" the qkv and fc1 products and the attention kernel do not run again, the
+# out and c_proj products do.
+REMAT_POLICY: str = "none"
+REMAT_NAME_PRESETS: dict = {
+    "names": ("remat_ln1", "remat_attn_ctx", "remat_ln2", "remat_act"),
+    "names_mm": ("remat_qkv", "remat_attn_ctx", "remat_fc1"),
+}
+UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch")
+
+
+def _save_named(saved: tuple, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if _layers.REMAT_TAG in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context_fn():
+    """``checkpoint``'s ``context_fn`` for ``REMAT_POLICY``, or None for full remat."""
+    if REMAT_POLICY == "none":
+        return None
+    if REMAT_POLICY in REMAT_NAME_PRESETS:
+        policy = functools.partial(_save_named, REMAT_NAME_PRESETS[REMAT_POLICY])
+        return functools.partial(create_selective_checkpoint_contexts, policy)
+    if REMAT_POLICY in UNPORTED_REMAT_POLICIES:
+        raise NotImplementedError(f"remat policy {REMAT_POLICY!r} is not ported yet "
+                                  f"(none, {', '.join(REMAT_NAME_PRESETS)} are)")
+    raise ValueError(f"unknown remat policy {REMAT_POLICY!r}")
+
+
+def remat_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under activation checkpointing with ``REMAT_POLICY``."""
+    context_fn = remat_context_fn()
+    if context_fn is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
 UNPORTED_BLOCK_OPTIONS = ("qk_norm", "scaled_cosine_attn", "scale_heads",
                           "scale_attn_inner", "scale_attn", "scale_fc")
@@ -33,10 +92,11 @@ def check_block_options(tower_cfg) -> None:
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics; output in the input dtype."""
+    """LayerNorm with fp32 statistics; output in the input dtype. ``name``: the
+    output's remat tag."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, name=name)
 
 
 class LayerScale(nn.Module):
@@ -73,8 +133,12 @@ class Mlp(nn.Module):
         self.act = ACT_FNS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = linear(x, self.c_fc.weight, self.c_fc.bias, transposed=True)
-        return linear(self.act(h), self.c_proj.weight, self.c_proj.bias, transposed=True)
+        proj = switchback_linear if MLP_LINEAR_IMPL == "switchback" else functools.partial(
+            linear, transposed=True)
+        h = proj(x, self.c_fc.weight, self.c_fc.bias, name="remat_fc1")
+        with remat_name("remat_act"):
+            h = self.act(h)
+        return proj(h, self.c_proj.weight, self.c_proj.bias)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -92,11 +156,11 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, causal: bool = False,
                 key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.attn(self.ln_1(x), causal=causal, key_valid=key_valid)
+        h = self.attn(self.ln_1(x, "remat_ln1"), causal=causal, key_valid=key_valid)
         if self.ls_init_value is not None:
             h = self.ls_1(h)
         x = x + h
-        h = self.mlp(self.ln_2(x))
+        h = self.mlp(self.ln_2(x, "remat_ln2"))
         if self.ls_init_value is not None:
             h = self.ls_2(h)
         return x + h
@@ -137,8 +201,8 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     """A stack of per-layer blocks (``apply_transformer``). With ``remat`` each block
-    is recomputed in the backward pass and saves nothing but its input (the JAX
-    package's ``jax.checkpoint`` with the policy ``none``)."""
+    is recomputed in the backward pass and saves its input and what ``REMAT_POLICY``
+    names (the JAX package's ``jax.checkpoint`` with ``remat_policy()``)."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_width: int, **block_kw):
         super().__init__()
@@ -150,7 +214,7 @@ class Transformer(nn.Module):
         """``key_valid``: optional (B, L) key-padding mask, the same for every block."""
         for block in self.resblocks:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, causal=causal, key_valid=key_valid, use_reentrant=False)
+                x = remat_call(block, x, causal=causal, key_valid=key_valid)
             else:
                 x = block(x, causal=causal, key_valid=key_valid)
         return x

@@ -7,7 +7,9 @@ shift 3 on odd blocks where the map is wider than a window) with patch merging
 between them, a final LayerNorm, the mean over tokens and a linear projection.
 Names follow timm's keys (``patch_embed.proj``, ``layers.{i}.blocks.{j}``,
 ``layers.{i}.downsample``, ``norm``, ``head.proj``). With ``remat`` each block is
-recomputed in the backward pass. Windows of 7x7 fail the panel kernel's gate, so
+recomputed in the backward pass under ``blocks.REMAT_POLICY``, as the JAX Swin does
+(its blocks carry no remat tags, so the ``names`` presets save what full remat
+saves). Windows of 7x7 fail the panel kernel's gate, so
 on the card every block takes the window kernel (``ops/window_attention.py``).
 """
 
@@ -17,11 +19,10 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..config import CLIPVisionCfg, to_2tuple
 from ..ops.layers import linear
-from .blocks import LayerNorm
+from .blocks import LayerNorm, remat_call
 from .htsat import SwinStage, _trunc_normal_
 from .vit import PatchEmbed, patchify
 
@@ -95,7 +96,7 @@ class SwinTransformer(nn.Module):
                 shift = ws // 2 if bi % 2 == 1 and min(h, w) > ws else 0
                 args = ((h, w), min(ws, h, w), shift)
                 if remat and torch.is_grad_enabled():
-                    x = checkpoint(blk, x, *args, use_reentrant=False)
+                    x = remat_call(blk, x, *args)
                 else:
                     x = blk(x, *args)
             if stage.downsample is not None:

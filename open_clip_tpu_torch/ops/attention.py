@@ -20,7 +20,7 @@ import torch
 
 from . import flash_attention as fa
 from . import short_attention as sa
-from .layers import linear
+from .layers import linear, remat_name
 
 _FLASH_MIN_SEQ = 512
 _NEG = torch.finfo(torch.float32).min
@@ -61,20 +61,26 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, causal: bool = False,
                           scale: Optional[float] = None,
-                          key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          key_valid: Optional[torch.Tensor] = None,
+                          name: Optional[str] = None) -> torch.Tensor:
     """Scaled dot-product attention with an fp32 softmax, dispatched by
-    ``select_impl``. ``key_valid``: optional (B, Lk) key-padding mask."""
+    ``select_impl``. ``key_valid``: optional (B, Lk) key-padding mask. ``name``
+    tags the output for remat: the kernel's launch, or on the dense path the copy
+    that makes the output contiguous (the logits are recomputed, as in JAX)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     impl = select_impl(q.is_cuda, q.shape[1], k.shape[1], q.shape[2], q.shape[3], bias, key_valid)
-    if impl == "short":
-        return sa.short_attention(q, k, v, causal=causal, scale=scale)
-    if impl == "flash":
-        return fa.flash_attention(q, k, v, causal=causal, scale=scale, key_valid=key_valid)
+    if impl in ("short", "flash"):
+        with remat_name(name):
+            if impl == "short":
+                return sa.short_attention(q, k, v, causal=causal, scale=scale)
+            return fa.flash_attention(q, k, v, causal=causal, scale=scale, key_valid=key_valid)
     if key_valid is not None:
         kv_bias = torch.where(key_valid.bool(), 0.0, _NEG * 0.5).float()[:, None, None, :]
         bias = kv_bias if bias is None else bias + kv_bias
-    return dense_attention(q, k, v, bias, causal=causal, scale=scale)
+    out = dense_attention(q, k, v, bias, causal=causal, scale=scale)
+    with remat_name(name):
+        return out.contiguous()
 
 
 def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
@@ -83,10 +89,13 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
                          causal: bool = False,
                          key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused-qkv self-attention with torch-layout (out, in) weights: (B, L, D) -> (B, L, D).
-    ``key_valid``: optional (B, L) key-padding mask."""
+    ``key_valid``: optional (B, L) key-padding mask. The fused projection and the
+    attention output carry the JAX package's remat tags ``remat_qkv`` and
+    ``remat_attn_ctx``."""
     b, l, d = x.shape
     hd = d // num_heads
-    qkv = linear(x, in_proj_weight, in_proj_bias, transposed=True)
+    qkv = linear(x, in_proj_weight, in_proj_bias, transposed=True, name="remat_qkv")
     q, k, v = qkv.view(b, l, 3, num_heads, hd).unbind(2)  # views: no copies
-    out = dot_product_attention(q, k, v, causal=causal, key_valid=key_valid).reshape(b, l, d)
+    out = dot_product_attention(q, k, v, causal=causal, key_valid=key_valid,
+                                name="remat_attn_ctx").reshape(b, l, d)
     return linear(out, out_weight, out_bias, transposed=True)

@@ -268,14 +268,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     return dq, dk, dv
 
 
+@torch.library.custom_op("oct::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_valid: Optional[torch.Tensor], causal: bool, scale: float,
+                  prefix_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a custom op, so that a selective remat policy can
+    save its outputs (a ctypes launch is invisible to it)."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale, key_valid=key_valid,
+                               prefix_len=prefix_len)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward and backward are the kernels on CUDA tensors and the plain versions on
     CPU tensors. Saves q, k, v, out, lse and the validity bytes."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, causal: bool, scale: float, prefix_len: int):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale, key_valid=key_valid,
-                                       prefix_len=prefix_len)
+        out, lse = torch.ops.oct.flash_attention_fwd(q, k, v, key_valid, causal, scale, prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.key_valid = key_valid  # a mask, not a differentiable input
         ctx.causal, ctx.scale, ctx.prefix_len = causal, scale, prefix_len

@@ -7,6 +7,7 @@ rule: the tanh form in bf16/fp16, the exact erf form in fp32.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,23 +19,50 @@ import torch.nn.functional as F
 FUSED_LN_BWD = False
 
 
+# The remat tag of the op running now (see ``remat_name``); None outside any tag.
+REMAT_TAG: Optional[str] = None
+
+
+@contextlib.contextmanager
+def remat_name(name: Optional[str]):
+    """Tag the ops run inside with ``name``, the JAX package's ``checkpoint_name``:
+    a selective remat policy (``models/blocks.py``) saves the outputs of the ops
+    whose tag it names. Callers wrap only the op(s) that make the named tensor
+    (the product, not the weight's cast or the view of its input), so that what a
+    policy saves is that tensor and nothing more."""
+    global REMAT_TAG
+    outer, REMAT_TAG = REMAT_TAG, name
+    try:
+        yield
+    finally:
+        REMAT_TAG = outer
+
+
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-                     eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics and affine, output in x.dtype."""
+                     eps: float = 1e-5, *, name: Optional[str] = None) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics and affine, output in x.dtype.
+    ``name`` tags the op that makes the output: the final cast, or in fp32 (where
+    the cast is no op) the norm itself."""
+    if x.dtype == torch.float32:
+        with remat_name(name):
+            return F.layer_norm(x, x.shape[-1:], scale.float(),
+                                None if bias is None else bias.float(), eps)
     y = F.layer_norm(x.float(), x.shape[-1:], scale.float(),
                      None if bias is None else bias.float(), eps)
-    return y.to(x.dtype)
+    with remat_name(name):
+        return y.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, *, name: Optional[str] = None) -> torch.Tensor:
     """``layer_norm_plain``, or with ``FUSED_LN_BWD`` the same forward with the fused
-    backward kernel of ``ops/fused_ln.py``."""
+    backward kernel of ``ops/fused_ln.py``. ``name``: the output's remat tag."""
     if FUSED_LN_BWD:
         from .fused_ln import layer_norm_fused_bwd
 
-        return layer_norm_fused_bwd(x, scale, bias, eps)
-    return layer_norm_plain(x, scale, bias, eps)
+        with remat_name(name):
+            return layer_norm_fused_bwd(x, scale, bias, eps)
+    return layer_norm_plain(x, scale, bias, eps, name=name)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -57,15 +85,20 @@ ACT_FNS = {"gelu": gelu, "quick_gelu": quick_gelu}
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-           transposed: bool = False) -> torch.Tensor:
+           transposed: bool = False, name: Optional[str] = None) -> torch.Tensor:
     """y = x @ W (+ bias), the one place every projection of the port goes through.
 
     ``weight`` is the JAX package's (in, out) kernel, or with ``transposed=True``
     ``nn.Linear``'s (out, in) weight. The product runs in x.dtype without the bias,
     and the bias is added after it in the same dtype: two roundings, as in the JAX
-    package, so bf16 outputs match it."""
-    w = weight.to(x.dtype)
-    y = F.linear(x, w) if transposed else x @ w
+    package, so bf16 outputs match it. The product is the one ``mm`` that
+    ``F.linear`` or ``@`` would make of it, called directly so that ``name`` (its
+    remat tag) covers that op alone, not the views around it."""
+    wt = weight.to(x.dtype)
+    wt, x2 = (wt.t() if transposed else wt), x.reshape(-1, x.shape[-1])
+    with remat_name(name):
+        y = torch.mm(x2, wt)
+    y = y.view(*x.shape[:-1], wt.shape[1])
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

@@ -174,6 +174,17 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: t
     return dq, dk, dv
 
 
+@torch.library.custom_op("oct::short_attention_fwd", mutates_args=())
+def short_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        scale: float) -> torch.Tensor:
+    """The forward without autograd: the kernel for CUDA tensors, the plain version
+    for CPU tensors. A custom op, so that a selective remat policy can save its
+    output (a ctypes launch is invisible to it)."""
+    if q.device.type == "cpu":
+        return short_attention_reference(q, k, v, causal=causal, scale=scale)
+    return _launch_fwd(q, k, v, causal, scale)
+
+
 class _ShortAttention(torch.autograd.Function):
     """Forward and backward are the kernels on CUDA tensors and the plain versions
     on CPU tensors. Saves q, k and v only: the backward recomputes the softmax."""
@@ -182,9 +193,7 @@ class _ShortAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, scale: float):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
-        if q.device.type == "cpu":
-            return short_attention_reference(q, k, v, causal=causal, scale=scale)
-        return _launch_fwd(q, k, v, causal, scale)
+        return torch.ops.oct.short_attention_fwd(q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, do):

@@ -24,6 +24,7 @@ from ..checkpoint import get_latest_checkpoint, load_native, save_native
 from ..data import get_data
 from ..data.audio import audio_transform_v2
 from ..factory import create_model, get_tokenizer, resolve_device
+from ..models import blocks
 from .optim import OptimizerCfg, create_optimizer
 from .params import parse_args
 from .scheduler import create_scheduler
@@ -49,7 +50,20 @@ def random_seed(seed: int = 42) -> None:
 
 
 def main(args=None) -> TrainState:
+    """Train as the flags say. ``--use-switchback`` and ``--remat-policy`` set
+    ``models/blocks.py``'s ``MLP_LINEAR_IMPL`` and ``REMAT_POLICY`` for the run, and
+    the run restores them when it ends."""
     args = parse_args(args)
+    saved = blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY
+    blocks.MLP_LINEAR_IMPL = "switchback" if args.use_switchback else "dense"
+    blocks.REMAT_POLICY = args.remat_policy
+    try:
+        return _run(args)
+    finally:
+        blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = saved
+
+
+def _run(args) -> TrainState:
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format="%(asctime)s | %(levelname)s | %(message)s")
     args.device = str(resolve_device(args.device))

@@ -68,17 +68,24 @@ def wd_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], extra_names: Sequ
             patterns: Sequence[str] = ()) -> Dict[str, bool]:
     """name -> True where weight decay applies: tensors of 2 or more dimensions whose
     dotted name holds none of the excluded names and matches none of the glob
-    ``patterns``. The port has one module per layer, so the JAX mask's special cases
-    for layer-stacked leaves have no counterpart."""
+    ``patterns``, as the JAX package's mask answers for the same parameter.
+
+    The JAX mask takes every leaf under a ``blocks`` key for a layer-stacked one and
+    counts one dimension less. The port's ViT and text stacks are ``resblocks`` (one
+    module per layer, no stacked axis), where both rules agree; the Swin and HTSAT
+    blocks are ``blocks`` lists in both packages, unstacked in JAX too, so their 2-D
+    weights count as 1-D there and get no decay. The port follows the JAX package
+    (the upstream reference decays them; ROADMAP Queue C 4)."""
     exclude = NO_WD_NAMES | set(extra_names)
     regexes = [re.compile(p.replace(".", r"\.").replace("*", ".*")) for p in patterns]
 
     def decays(name: str, p: torch.Tensor) -> bool:
-        if any(part in exclude for part in name.split(".")):
+        parts = name.split(".")
+        if any(part in exclude for part in parts):
             return False
         if any(r.fullmatch(name) for r in regexes):
             return False
-        return p.ndim > 1
+        return p.ndim - ("blocks" in parts) > 1
 
     return {name: decays(name, p) for name, p in _named(params).items()}
 

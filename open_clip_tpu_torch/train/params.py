@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Tuple
 
+from ..models.blocks import UNPORTED_REMAT_POLICIES
 from .optim import get_default_params
 
 _INTS = dict(type=int, default=None)
@@ -77,7 +78,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--image-std",), dict(type=float, nargs="+", default=None)),
     (("--image-interpolation",), _STRS), (("--image-resize-mode",), _STRS),
     (("--aug-cfg",), dict(nargs="*", default={})),
-    (("--use-switchback",), _ON), (("--use-bnb-linear",), _STRS),
     (("--scan-unroll",), dict(type=int, default=1)),
     # optimizer
     (("--momentum",), dict(type=float, default=0.9)),
@@ -184,8 +184,16 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--grad-checkpointing", action="store_true", default=False)
     parser.add_argument("--remat-policy", type=str, default="none",
                         choices=["none", "names", "names_mm", "dots", "dots_no_batch"],
-                        help="what --grad-checkpointing saves: only 'none' (recompute the "
-                             "whole block) is ported")
+                        help="what --grad-checkpointing saves: 'none' (recompute the whole "
+                             "block), 'names' (LN outputs, attention output, activation) or "
+                             "'names_mm' (fused qkv, attention output, fc1); the dots "
+                             "policies are not ported")
+    parser.add_argument("--use-switchback", action="store_true", default=False,
+                        help="int8 SwitchBack forward for the transformer MLP linears "
+                             "(reference --use-bnb-linear)")
+    parser.add_argument("--use-bnb-linear", type=str, default=None,
+                        help="reference int8 flag; maps onto the SwitchBack path "
+                             "(same as --use-switchback)")
 
     # single process: these change nothing and are accepted
     parser.add_argument("--local-loss", action="store_true", default=True)
@@ -209,11 +217,13 @@ def parse_args(args=None) -> argparse.Namespace:
 
     ns = parser.parse_args(args)
     used = [flag for flag, dest, default in unported if getattr(ns, dest) != default]
-    if ns.remat_policy != "none":
+    if ns.remat_policy in UNPORTED_REMAT_POLICIES:
         used.append(f"--remat-policy {ns.remat_policy}")
     if used:
         raise NotImplementedError(f"not ported yet: {', '.join(used)}")
 
+    if ns.use_bnb_linear:
+        ns.use_switchback = True
     for k, v in get_default_params(ns.model).items():
         if getattr(ns, k, None) is None:
             setattr(ns, k, v)

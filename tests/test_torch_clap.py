@@ -279,12 +279,13 @@ def _states(params, cfg, wd, jcfg):
     return jts.create_train_state(jparams, jopt), jopt, pts.create_train_state(model, opt), opt
 
 
-def test_one_and_three_steps_match_jax(setup):
+@pytest.mark.parametrize("wd", [0.0, 0.2])
+def test_one_and_three_steps_match_jax(setup, wd):
     """Loss, grad_norm, gradients (through the first step) and parameters after steps
-    1 and 3. Weight decay 0: the JAX package's mask skips every Swin block weight
-    (see test_weight_decay_mask_of_the_swin_blocks)."""
+    1 and 3, without and with weight decay (the two masks agree:
+    test_weight_decay_mask_of_the_swin_blocks)."""
     jcfg, params, cfg, wav, texts = setup
-    jstate, jopt, state, opt = _states(params, cfg, 0.0, jcfg)
+    jstate, jopt, state, opt = _states(params, cfg, wd, jcfg)
     jstep = jax.jit(jts.make_train_step(jcfg, jopt, compute_dtype=jnp.float32))
     jbatch = {"audio": {"waveform": jnp.asarray(wav), "longer": jnp.zeros(BATCH, bool)},
               "text": jnp.asarray(texts)}
@@ -343,25 +344,56 @@ def test_accumulation_equals_the_simple_step(setup):
     _assert_tensors_close(s2, s1, atol=2e-2 * LR)
 
 
-def test_weight_decay_mask_of_the_swin_blocks(setup):
-    """The JAX package's mask takes a leaf under ``blocks`` for a stacked layer and
-    so skips every Swin block weight (a fault of the reference, ROADMAP Queue C); the
-    port decays them, as the upstream reference does. Both skip the relative-position
-    table, norms and biases, and decay the patch embedding and projections."""
-    _, params, cfg, _, _ = setup
+def _jax_mask_by_port_name(params, cfg):
+    """The JAX package's weight-decay mask, a bool per leaf, carried through
+    ``params_from_jax``'s key map as arrays of the leaf's shape filled with it."""
     jmask = params_from_jax(jax.tree.map(lambda m, x: np.full(np.shape(x), float(m), np.float32),
                                          joptim.wd_mask(params), params), cfg)
-    jmask = {k: bool(v.flatten()[0]) for k, v in jmask.items()}
+    return {k: bool(v.flatten()[0]) for k, v in jmask.items()}
+
+
+def test_weight_decay_mask_of_the_swin_blocks(setup):
+    """The port's mask equals the JAX package's for every parameter of CLAP and of a
+    Swin image tower. The JAX mask takes a leaf under ``blocks`` for a stacked layer,
+    so neither package decays a 2-D Swin or HTSAT block weight (the upstream
+    reference does: ROADMAP Queue C 4). Both skip the relative-position table, norms
+    and biases, and decay the patch embedding and projections."""
+    _, params, cfg, _, _ = setup
+    jmask = _jax_mask_by_port_name(params, cfg)
     mine = poptim.wd_mask(_port_model(params, cfg))
-    differ = {k for k in mine if mine[k] != jmask[k]}
-    assert differ == {k for k in mine if ".blocks." in k and k.startswith("audio.")
-                      and k.endswith(".weight") and "norm" not in k}
+    assert mine == jmask
     for key in ("audio.encoder.layers.0.blocks.0.attn.relative_position_bias_table",
-                "audio.encoder.bn0.running_mean", "audio.encoder.layers.0.blocks.0.norm1.weight"):
-        assert not mine[key] and not jmask[key]
+                "audio.encoder.bn0.running_mean", "audio.encoder.layers.0.blocks.0.norm1.weight",
+                "audio.encoder.layers.0.blocks.0.attn.qkv.weight",
+                "audio.encoder.layers.1.blocks.1.mlp.fc2.weight"):
+        assert not mine[key], key
     for key in ("audio.encoder.patch_embed.proj.weight", "audio.proj.0.weight",
-                "audio.encoder.layers.0.downsample.reduction.weight"):
-        assert mine[key] and jmask[key]
+                "audio.encoder.layers.0.downsample.reduction.weight",
+                "transformer.resblocks.0.mlp.c_fc.weight"):
+        assert mine[key], key
+
+    from open_clip_tpu.models import swin as jswin
+    from open_clip_tpu_torch.models import swin as pswin
+
+    name = "swin_micro_wd_patch4_window7_56"
+    swin = {"embed_dim": 24, "text_cfg": {"context_length": 16, "width": 32, "heads": 2,
+                                          "layers": 1},
+            "vision_cfg": {"image_size": 56, "timm_model_name": name,
+                           "timm_model_pretrained": False, "timm_pool": "", "timm_proj": "linear"}}
+    micro = dict(patch_size=4, embed_dim=24, depths=(2, 2), heads=(3, 3), window=7, mlp_ratio=4.0)
+    for configs in (jswin.SWIN_CONFIGS, pswin.SWIN_CONFIGS):
+        configs[name] = micro
+    try:
+        jcfg = JaxCfg.from_dict(swin)
+        sparams = jax.tree.map(np.asarray, jclip.init_clip(jax.random.PRNGKey(0), jcfg))
+        scfg = oc.CLIPModelCfg.from_dict(swin)
+        smask = poptim.wd_mask(_port_model(sparams, scfg))
+        assert smask == _jax_mask_by_port_name(sparams, scfg)
+    finally:
+        for configs in (jswin.SWIN_CONFIGS, pswin.SWIN_CONFIGS):
+            configs.pop(name, None)
+    assert not smask["visual.layers.0.blocks.1.attn.qkv.weight"]
+    assert smask["visual.layers.0.downsample.reduction.weight"] and smask["visual.head.proj.weight"]
 
 
 def test_synthetic_audio_cli_with_resume(tmp_path):

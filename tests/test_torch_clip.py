@@ -248,6 +248,8 @@ from open_clip_tpu_torch import checkpoint, data, loss
 from open_clip_tpu_torch.data import naflex
 from open_clip_tpu_torch.models import naflex_vit
 from open_clip_tpu_torch.ops import _build, attention, flash_attention, fused_ln, layers, short_attention
+from open_clip_tpu_torch.ops import switchback
+from open_clip_tpu_torch.models import blocks
 from open_clip_tpu_torch.train import main, optim, params, scheduler, train_loop, train_step
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
@@ -265,6 +267,10 @@ state = train_step.create_train_state(model, opt)
 batch = {{"image": torch.randn(4, 32, 32, 3), "text": torch.randint(1, 1000, (4, 16))}}
 state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = "switchback", "names_mm"
+state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
+assert state.step == 2 and bool(torch.isfinite(metrics["loss"]))
+blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = "dense", "none"
 ncfg = oc.CLIPModelCfg.from_dict({{"embed_dim": 32, "custom_text": True, "vision_cfg": {{
     "image_size": 32, "timm_model_name": "naflexvit_tiny_patch16_gap",
     "timm_model_kwargs": {{"embed_dim": 64, "depth": 1, "num_heads": 1}}}}, "text_cfg": cfg.text_cfg.__dict__}})

@@ -13,6 +13,8 @@ relative to the largest entry of the plain result, fp32 1e-4 (sums over up to 28
 terms in other orders), bf16 2e-2 (ds, p and the outputs are rounded to bf16: a
 probability that rounds the other way moves a term by 2**-8). The flash kernels
 sum over up to 1024 keys tile by tile, with a running max: the same tolerances hold.
+The SwitchBack int8 matmul is held to its plain version exactly (integer sums,
+then the same fp32 roundings).
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ import torch
 from open_clip_tpu_torch.ops import flash_attention as fa
 from open_clip_tpu_torch.ops import fused_ln, layers
 from open_clip_tpu_torch.ops import short_attention as sa
+from open_clip_tpu_torch.ops import switchback as sb
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -526,3 +529,96 @@ def test_clap_and_swin_paths_launch_the_kernels(cuda):
         assert mod.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
         assert bool(torch.isfinite(x.grad).all())
         assert block.attn.relative_position_bias_table.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# SwitchBack int8 matmul-dequant
+# ---------------------------------------------------------------------------
+
+SWITCHBACK_CASES = [  # (M, K, N)
+    (8224, 1280, 5120), (8224, 5120, 1280),  # ViT-H-14 image tower MLP, batch 32
+    (2464, 1024, 4096), (2464, 4096, 1024),  # ViT-H-14 text tower MLP, batch 32
+    (12800, 768, 3072), (12800, 3072, 768),  # ViT-B-32 image tower, batch 256
+    (19712, 512, 2048), (19712, 2048, 512),  # ViT-B-32 text tower, batch 256
+    (5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (1, 1, 1), (257, 80, 250),
+]
+
+
+def _int8_operands(seed, m, k, n, device):
+    g = torch.Generator().manual_seed(seed)
+    qx = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    qx[0] = 0  # a zero row
+    qw[-1] = 0  # a zero column of the output
+    sx = torch.rand(m, generator=g) * 0.1 + 1e-3
+    sw = torch.rand(n, generator=g) * 0.1 + 1e-3
+    return [t.to(device) for t in (qx, qw, sx, sw)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", SWITCHBACK_CASES)
+def test_switchback_kernel_matches_plain_exactly(cuda, m, k, n, out_dtype):
+    args = _int8_operands(m + k + n, m, k, n, cuda)
+    before = sb.LAUNCHES["fwd"]
+    out = sb.int8_matmul_dequant(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES["fwd"] == before + 1
+    ref = sb.int8_matmul_dequant_plain(*args, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+def test_switchback_bf16_output_is_the_fp32_output_rounded_once(cuda):
+    args = _int8_operands(7, 2464, 1024, 4096, cuda)
+    out32 = sb.int8_matmul_dequant(*args, out_dtype=torch.float32)
+    out16 = sb.int8_matmul_dequant(*args, out_dtype=torch.bfloat16)
+    assert torch.equal(out16, out32.to(torch.bfloat16))
+
+
+def test_switchback_kernel_raises_past_the_int32_limit(cuda):
+    k = sb.MAX_K + 1
+    qx = torch.ones(1, k, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        sb.int8_matmul_dequant(qx, qx, torch.ones(1, device=cuda), torch.ones(1, device=cuda))
+    # at the limit itself the sum of 127 * 127 * K still fits, and the kernel is exact
+    k = sb.MAX_K
+    qx = torch.full((2, k), 127, dtype=torch.int8, device=cuda)
+    ones = torch.ones(2, device=cuda)
+    out = sb.int8_matmul_dequant(qx, qx, ones, ones)
+    assert torch.equal(out, sb.int8_matmul_dequant_plain(qx, qx, ones, ones))
+
+
+def test_switchback_linear_on_the_card_matches_the_cpu(cuda):
+    """The custom op and its gradients: bf16 activations, an fp32 master weight."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 77, 1024, generator=g)
+    w = torch.randn(4096, 1024, generator=g) * 0.02
+    b = torch.randn(4096, generator=g) * 0.02
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, torch.bfloat16).detach().requires_grad_()
+        wd, bd = (t.to(dev).detach().requires_grad_() for t in (w, b))
+        y = sb.switchback_linear(xd, wd, bd)
+        y.float().square().mean().backward()
+        outs[dev] = [t.detach().float().cpu() for t in (y, xd.grad, wd.grad, bd.grad)]
+    y_g, y_c = outs["cuda"][0], outs["cpu"][0]
+    # the same int8 values and scales; the bf16 bias add may round at another place
+    assert (y_g - y_c).abs().max().item() <= 2e-2 * y_c.abs().max().item()
+    for got, ref in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("what", ["not_int8", "transposed", "fp16_out", "scales_fp16"])
+def test_switchback_wrapper_raises_on_what_the_kernel_does_not_take(cuda, what):
+    qx, qw, sx, sw = _int8_operands(1, 64, 64, 32, cuda)
+    kw = {}
+    if what == "not_int8":
+        qx = qx.float()
+    elif what == "transposed":
+        qw = qw.t()
+    elif what == "fp16_out":
+        kw["out_dtype"] = torch.float16
+    else:
+        sx = sx.half()
+    with pytest.raises(ValueError):
+        sb.int8_matmul_dequant(qx, qw, sx, sw, **kw)

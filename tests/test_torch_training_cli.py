@@ -96,13 +96,27 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
     ["--siglip"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
     ["--train-data", "shards-{000..010}.tar"], ["--val-data", "val.csv"],
     ["--imagenet-val", "imagenet/val"], ["--mesh-fsdp", "2"], ["--distill-model", "ViT-B-32"],
-    ["--pretrained", "openai"], ["--remat-policy", "names"], ["--device-preprocess"],
-    ["--use-switchback"], ["--report-to", "wandb"], ["--save-most-recent"],
+    ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--device-preprocess"],
+    ["--remat-policy", "dots_no_batch"], ["--report-to", "wandb"], ["--save-most-recent"],
     ["--force-patch-dropout", "0.5"], ["--torchcompile"], ["--momentum", "0.8"],
 ])
 def test_unported_flags_raise(extra):
     with pytest.raises(NotImplementedError, match=extra[0]):
         pparams.parse_args(["--model", "ViT-B-32", *extra])
+
+
+def test_use_switchback_runs(tmp_path):
+    """--use-switchback trains (the int8 forward of every MLP linear; on the CPU its
+    plain version) with the names_mm remat preset, and the run restores the switch."""
+    from open_clip_tpu_torch.models import blocks
+
+    state = main(_args(tmp_path, "sb", "--epochs", "1", "--use-switchback", "--grad-checkpointing",
+                       "--remat-policy", "names_mm"))
+    assert state.step == 4
+    rows = [json.loads(line) for line in (tmp_path / "sb" / "results.jsonl").read_text().splitlines()]
+    assert all(r["train/loss"] == pytest.approx(math.log(8), abs=1e-4) for r in rows)
+    assert "use_switchback: True" in (tmp_path / "sb" / "params.txt").read_text()
+    assert (blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY) == ("dense", "none")
 
 
 @pytest.mark.parametrize("extra,where", [(["--opt", "lion"], "optimizer"),
