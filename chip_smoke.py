@@ -7,8 +7,9 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
   0. build the CUDA kernels from csrc/ with nvcc, one process per source, together;
   1. each kernel against its plain PyTorch version on the card, at the shapes the
      main paths give it (bf16 and fp32): the short attention forward and backward,
-     each also where one head's logits sit ~100 below its neighbour's, the LayerNorm
-     backward, and the three flash attention kernels (forward with logsumexp, dq,
+     each also where one head's logits sit ~100 below its neighbour's, the backward
+     also at L=128 (the longest its fused tensor-core body takes) and L=257 (its
+     two-kernel CUDA-core body), the LayerNorm backward, and the three flash attention kernels (forward with logsumexp, dq,
      dk/dv) at the NaFlex train and serve buckets, a length that is no multiple of a
      tile, causal, prefix-LM and hd=128; kernel, plain and library-call device time,
      each from one CUDA graph of calls (no host work between launches), and the bound;
@@ -26,7 +27,8 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      with clipping, make_train_step on one fixed batch of 256 random images and
      token ids: 2 warm-up steps, a window of at least 2 s, a few steps under
      torch.profiler. Every loss is finite, the loss falls, and each step launches
-     the attention forward and backward kernels 24 times each. Then a few steps
+     the attention forward and backward kernels 24 times each, every backward on the
+     fused tensor-core body. Then a few steps
      with remat, and the same run with the fused LayerNorm backward switched on
      (51 launches of that kernel a step, the same first loss), timed and profiled
      in the same way so that the two step times stand side by side;
@@ -52,14 +54,17 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  11. (with phase 1) the window and panel attention kernels, forward and backward
      (dq, dk, dv, dbias), bf16 and fp32, against their plain versions at HTSAT-tiny's
      stage-0 (shifted and not) and stage-3 shapes at the serve and train batches,
-     Swin-B's stage-0 and stage-2 windows, a non-square map and odd head counts;
-     kernel, plain, library (SDPA with the bias as attn_mask) time and the bound;
+     stages 1 and 2 (shifted) at the train batch, Swin-B's stage-0 and stage-2
+     windows, a non-square map and odd head counts; kernel, plain, library (SDPA with
+     the bias as attn_mask) time and the bound. The bf16 panel backward takes the
+     tensor-core body, every other case the CUDA-core one;
  12. CLAP serving: CLAP-HTSAT-tiny in pure_bf16, requests of 64 ten-second clips
      (host AudioPreprocess, pinned copy, log-mel and encode_audio on the card, an
      ESC-50-template classifier, top-5), timed and profiled like phase 2; 12 panel
      forward launches a request;
  13. CLAP training at batch 128 (amp_bf16, AdamW, clipping): 12 panel forward and
-     backward launches a step, the loss falls;
+     backward launches a step, every backward on the tensor-core bodies, the loss
+     falls;
  14. the CLI with --dataset-type synthetic-audio, a checkpoint and a resume;
  15. CLAP at fp32 (TF32 off), card against CPU: log-mel, features, every gradient;
  16. Swin-B (swin_base_patch4_window7_224) serving in pure_bf16 (64 images a request)
@@ -76,6 +81,10 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      --use-switchback --grad-checkpointing --remat-policy names_mm;
  20. ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), card
      against CPU: features, loss and every gradient.
+
+Every kernel record names its body: "mma" (bf16 on the tensor cores, mma.sync) or
+"simt" (CUDA cores); the train lines give the backward launches by body and the
+kernel ms of a step beside the step time.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
 one {"kernels": [...]} JSON line and as the last line {"ok": true, "device": {...}}.
@@ -166,10 +175,11 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_counts(*modules) -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and every count by backward body, to 0."""
     for mod in modules:
-        for key in mod.LAUNCHES:
-            mod.LAUNCHES[key] = 0
+        for counts in (mod.LAUNCHES, getattr(mod, "BWD_BODIES", {})):
+            for key in counts:
+                counts[key] = 0
 
 
 def rel_err(got, ref) -> float:
@@ -286,7 +296,7 @@ def phase_kernels(torch, sa, text_batch):
             nbytes = 4 * b * l * h * hd * q.element_size()
             pairs = l * (l + 1) // 2 if causal else l * l  # (query, key) pairs the mask keeps
             flops = 4 * b * h * hd * pairs
-            rec = {"name": f"short_attention_fwd[{name}]", "route": "cuda",
+            rec = {"name": f"short_attention_fwd[{name}]", "route": "cuda", "body": "simt",
                    "source": "open_clip_tpu_torch/csrc/short_attention.cu",
                    "replaces": "open_clip_tpu/ops/short_attention.py:262",
                    "shape": [b, l, h, hd], "causal": causal, "dtype": dn,
@@ -307,25 +317,33 @@ def phase_kernels(torch, sa, text_batch):
 
 
 def phase_attention_bwd_kernels(torch, sa):
-    """Backward kernel vs plain version at the train step's shapes; per-shape records."""
+    """Backward kernel vs plain version at the train step's shapes, and at L=128 (the
+    longest the fused tensor-core body takes) and L=257 (ViT-L-14's image tower, the
+    two-kernel body); per-shape records, keyed by (name, dtype)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = {}
-    for name, b, l, h, hd, causal in (("vision", BATCH, 50, 12, 64, False),
-                                      ("text", BATCH, 77, 8, 64, True)):
-        for dtype in (torch.bfloat16, torch.float32):
+    both = (torch.bfloat16, torch.float32)
+    for name, b, l, h, hd, causal, dtypes in (("vision", BATCH, 50, 12, 64, False, both),
+                                              ("text", BATCH, 77, 8, 64, True, both),
+                                              ("l128", 128, 128, 12, 64, False, (torch.bfloat16,)),
+                                              ("l257", 64, 257, 16, 64, False, (torch.bfloat16,))):
+        for dtype in dtypes:
             dn = str(dtype).split(".")[1]
+            body = sa.bwd_body(l, hd, dtype)
             q, k, v = attention_inputs(b, l, h, hd, dtype, gen)
             do = torch.randn(b, l, h, hd, generator=gen, device="cuda").to(dtype)
+            before = dict(sa.BWD_BODIES)
             grads = sa.short_attention_bwd(q, k, v, do, causal=causal)
             refs = sa.short_attention_bwd_reference(q, k, v, do, causal=causal)
             torch.cuda.synchronize()
             errs = [rel_err(g, r) for g, r in zip(grads, refs)]
             abs_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
-            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
-                  f"backward kernel {name} B={b} L={l} H={h} hd={hd} causal={causal} {dn}: "
-                  f"rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
+            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn]
+                  and sa.BWD_BODIES[body] == before[body] + 1,
+                  f"backward kernel ({body}) {name} B={b} L={l} H={h} hd={hd} causal={causal} "
+                  f"{dn}: rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
                   f"(tol {BWD_RTOL[dn]:.0e})")
             ms = graph_ms(lambda: sa.short_attention_bwd(q, k, v, do, causal=causal))
             plain_ms = graph_ms(
@@ -341,7 +359,7 @@ def phase_attention_bwd_kernels(torch, sa):
             library_ms = (graph_ms(sdpa_both) - graph_ms(
                 lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)))
             pairs = l * (l + 1) // 2 if causal else l * l
-            rec = {"name": f"short_attention_bwd[{name}]", "route": "cuda",
+            rec = {"name": f"short_attention_bwd[{name}]", "route": "cuda", "body": body,
                    "source": "open_clip_tpu_torch/csrc/short_attention.cu",
                    "replaces": "open_clip_tpu/ops/short_attention.py:296",
                    "shape": [b, l, h, hd], "causal": causal, "dtype": dn,
@@ -350,8 +368,7 @@ def phase_attention_bwd_kernels(torch, sa):
                    **bound(7 * b * l * h * hd * q.element_size(), 10 * b * h * hd * pairs, dn),
                    "library_ms": library_ms}
             print("kernel_case " + json.dumps(rec), flush=True)
-            if dtype == torch.bfloat16:  # the train step's dtype
-                records[name] = rec
+            records[(name, dn)] = rec
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         q, k, v = attention_inputs(4, 50, 12, 64, dtype, gen, c2=True)
@@ -360,8 +377,8 @@ def phase_attention_bwd_kernels(torch, sa):
         refs = sa.short_attention_bwd_reference(q, k, v, do)
         errs = [rel_err(g, r) for g, r in zip(grads, refs)]
         check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
-              f"backward kernel C2 regime (head 0 logits ~100 below head 1) {dn}: "
-              f"rel err {max(errs):.2e}")
+              f"backward kernel ({sa.bwd_body(50, 64, dtype)}) C2 regime (head 0 logits ~100 "
+              f"below head 1) {dn}: rel err {max(errs):.2e}")
     return records
 
 
@@ -391,7 +408,7 @@ def phase_ln_bwd_kernels(torch, fl):
             _, mean, rstd = torch.native_layer_norm(x, [w], wt, bt, 1e-5)
             library_ms = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [w], mean, rstd, wt, bt, [True, True, True]))
-            rec = {"name": f"layer_norm_bwd[{name}]", "route": "cuda",
+            rec = {"name": f"layer_norm_bwd[{name}]", "route": "cuda", "body": "simt",
                    "source": "open_clip_tpu_torch/csrc/layer_norm_bwd.cu",
                    "replaces": "open_clip_tpu/ops/fused_ln.py:39",
                    "shape": [rows, w], "dtype": dn, "max_abs_err": abs_err,
@@ -453,7 +470,8 @@ def phase_flash_kernels(torch, fa):
                   f"flash backward {name} {dn}: rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/"
                   f"{errs[2]:.2e} (tol {BWD_RTOL[dn]:.0e})")
             size, n = q.element_size(), b * l * h * hd
-            common = {"route": "cuda", "source": FLASH_SOURCE, "shape": [b, l, h, hd],
+            common = {"route": "cuda", "body": "mma" if dtype == torch.bfloat16 else "simt",
+                      "source": FLASH_SOURCE, "shape": [b, l, h, hd],
                       "causal": causal, "prefix_len": prefix, "valid": lens, "dtype": dn,
                       "visible_pairs": pairs}
             it = dict(iters=10, replays=3)
@@ -498,12 +516,12 @@ def phase_flash_kernels(torch, fa):
                                replaces="open_clip_tpu/ops/flash_attention.py:161",
                                max_abs_err=abs_errs[0], max_rel_err=errs[0], ms=ms_dq,
                                plain_ms=plain_bwd, **bound(5 * n * size, 6 * h * hd * pairs, dn),
-                               library_ms=None),
+                               library_ms=None, library_whole_bwd_ms=lib_bwd),
                 "bwd_dkv": dict(common, name=f"flash_attention_bwd_dkv[{name}]",
                                 replaces="open_clip_tpu/ops/flash_attention.py:218",
                                 max_abs_err=max(abs_errs[1:]), max_rel_err=max(errs[1:]), ms=ms_dkv,
                                 plain_ms=plain_bwd, **bound(6 * n * size, 8 * h * hd * pairs, dn),
-                                library_ms=None),
+                                library_ms=None, library_whole_bwd_ms=lib_bwd),
             }
             for rec in recs.values():
                 print("kernel_case " + json.dumps(rec), flush=True)
@@ -734,6 +752,7 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
         with tally_by_shape(sa, fl) as tally:
             state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
         counts = {"fwd": sa.LAUNCHES["fwd"], "bwd": sa.LAUNCHES["bwd"], "ln": fl.LAUNCHES["bwd"]}
+        bodies = dict(sa.BWD_BODIES)
         losses = [float(m["loss"]) for m in warm + window]
         norms = [float(m["grad_norm"]) for m in warm + window]
         scale = float(window[-1]["logit_scale"])
@@ -748,24 +767,30 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
         check(tally.get(("fwd", "vision"), 0) == lv * n and tally.get(("bwd", "vision"), 0) == lv * n
               and tally.get(("fwd", "text"), 0) == lt * n and tally.get(("bwd", "text"), 0) == lt * n,
               f"{label}: per tower and step {lv} vision and {lt} text launches of each kernel")
+        check(bodies == {"mma": (lv + lt) * n, "simt": 0},
+              f"{label}: short-attention backward launches by body {bodies} in {n} steps "
+              f"(expect all {(lv + lt) * n} on the fused tensor-core body)")
         ln_expect = (2 * lv + 2 + 2 * lt + 1) * n if fused_ln else 0
         check(counts["ln"] == ln_expect,
               f"{label}: {counts['ln']} LayerNorm backward launches in {n} steps (expect {ln_expect})")
-        summary = {"model": "ViT-B-32", "precision": "amp_bf16", "batch": BATCH,
-                   "fused_ln_bwd": fused_ln, "window_steps": n, "window_s": wall_s,
-                   "images_per_s": BATCH * n / wall_s, "median_step_ms": statistics.median(step_ms),
-                   "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
-                   "median_host_ms_per_step": statistics.median(host_ms),
-                   "host_lead_ms_at_end": lead_ms,
-                   "first_loss": losses[0], "last_loss": losses[-1], "logit_scale": scale,
-                   "launches_per_step": {k: v / n for k, v in counts.items()}}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
         prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
         print(f"{label.replace('train', 'train_profile')} " + json.dumps(prof_summary), flush=True)
-        summary["device_busy_ms_per_step"] = prof_summary["device_busy_ms_per_step"]
+        # kernel ms: the device-busy time of the profiled steps (the sum of their kernels)
+        summary = {"model": "ViT-B-32", "precision": "amp_bf16", "batch": BATCH,
+                   "fused_ln_bwd": fused_ln, "window_steps": n, "window_s": wall_s,
+                   "images_per_s": BATCH * n / wall_s, "median_step_ms": statistics.median(step_ms),
+                   "kernel_ms_per_step": prof_summary["device_busy_ms_per_step"],
+                   "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+                   "median_host_ms_per_step": statistics.median(host_ms),
+                   "host_lead_ms_at_end": lead_ms,
+                   "first_loss": losses[0], "last_loss": losses[-1], "logit_scale": scale,
+                   "launches_per_step": {k: v / n for k, v in counts.items()},
+                   "short_bwd_launches_per_step_by_body": {k: v / n for k, v in bodies.items()},
+                   "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"]}
         if not fused_ln:
             # remat: every block's forward runs again in the backward pass
             remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
@@ -840,9 +865,13 @@ def phase_train_card_vs_cpu(torch, oc, sa):
         state = oc.create_train_state(model, optimizer)
         reset_counts(sa)
         state, m = oc.make_train_step(model.cfg, optimizer)(state, batch)
-        results[device] = (grads, float(m["loss"]), float(m["grad_norm"]), dict(sa.LAUNCHES))
+        results[device] = (grads, float(m["loss"]), float(m["grad_norm"]),
+                           (dict(sa.LAUNCHES), dict(sa.BWD_BODIES)))
     (g_gpu, loss_g, norm_g, launched), (g_cpu, loss_c, norm_c, _) = results["cuda"], results["cpu"]
-    check(launched == {"fwd": 24, "bwd": 24}, f"fp32 card train step launched {launched}")
+    check(launched == ({"fwd": 24, "bwd": 24}, {"mma": 0, "simt": 24}),
+          f"fp32 card train step launched {launched[0]}, backward by body {launched[1]} "
+          "(fp32 takes the CUDA-core body)")
+    simt_launches = launched[1]["simt"]
     check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) and abs(norm_g - norm_c) <= 1e-3 * norm_c,
           f"train step card vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} (rel 1e-4), "
           f"grad_norm {norm_g:.6f} vs {norm_c:.6f} (rel 1e-3)")
@@ -852,6 +881,7 @@ def phase_train_card_vs_cpu(torch, oc, sa):
     check(all(bool(torch.isfinite(g).all()) for g in g_gpu.values()) and cos[worst] >= COSINE_MIN,
           f"gradients card vs CPU fp32: min cosine {cos[worst]:.7f} at {worst} "
           f"over {len(cos)} tensors (>= {COSINE_MIN})")
+    return simt_launches
 
 
 def naflex_batch(torch, n, seq_len, grids, device, seed=0, vocab=49408, context=77):
@@ -1144,6 +1174,8 @@ def phase_window_kernels(torch, wa, swa):
              ("htsat_s3_serve", "panel", b_s, (8, 8), 768, 32, 1),
              ("htsat_s0_shift_train", "panel", b_t, (64, 64), 96, 4, 64),
              ("htsat_s0_train", "panel", b_t, (64, 64), 96, 4, 1),
+             ("htsat_s1_shift_train", "panel", b_t, (32, 32), 192, 8, 16),
+             ("htsat_s2_shift_train", "panel", b_t, (16, 16), 384, 16, 4),
              ("htsat_s3_train", "panel", b_t, (8, 8), 768, 32, 1),
              ("nonsquare_odd_heads", "panel", 8, (16, 40), 48, 3, 10),
              ("swin_s0_shift", "window", b_w * 64, 49, 128, 4, 64),
@@ -1151,6 +1183,9 @@ def phase_window_kernels(torch, wa, swa):
              ("swin_s0_train", "window", SWIN_TRAIN_BATCH * 64, 49, 128, 4, 64),
              ("odd_heads", "window", 96, 49, 72, 3, 1)]
     it = dict(iters=10, replays=3)
+    # fp32 cases whose plain and library times are taken too: the kernels line's record
+    # of the CUDA-core panel backward, which the fp32 CLAP step runs
+    fp32_timed = {"htsat_s0_shift_train"}
     records = {}
     for name, kind, b, geo, c, heads, nw in cases:
         panel = kind == "panel"
@@ -1158,6 +1193,7 @@ def phase_window_kernels(torch, wa, swa):
         hd = c // heads
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
+            body = wa.bwd_body(wa.PANEL if panel else wa.PARTITIONED, hd, dtype)
             if panel:
                 hw = geo
                 q, k, v, bias, do = window_inputs(torch, (b, hw[0] * hw[1]), c, nw, heads, 64,
@@ -1184,22 +1220,25 @@ def phase_window_kernels(torch, wa, swa):
                 replaces = ("open_clip_tpu/ops/window_attention.py:141",
                             "open_clip_tpu/ops/window_attention.py:175")
                 label = "window_attention"
+            before = dict((swa if panel else wa).BWD_BODIES)
             out, grads = fwd(), bwd()
             ref, refs = ref_f(), ref_b()
             torch.cuda.synchronize()
+            took = {k: v - before[k] for k, v in (swa if panel else wa).BWD_BODIES.items()}
             err = (out.float() - ref.float()).abs().max().item()
             errs = [rel_err(g, r) for g, r in zip(grads, refs)]
             abs_errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
             shape = f"B={b} {'map' if panel else 'N'}={geo} C={c} H={heads} nW={nw} {dn}"
             check(bool(torch.isfinite(out).all()) and err <= TOL[dn],
                   f"{label} forward {name} {shape}: max_abs_err={err:.3e} (tol {TOL[dn]:.0e})")
-            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
-                  f"{label} backward {name} {shape}: rel err dq/dk/dv/dbias="
+            check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn]
+                  and took[body] == 1,
+                  f"{label} backward ({body}) {name} {shape}: rel err dq/dk/dv/dbias="
                   f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}/{errs[3]:.2e} (tol {BWD_RTOL[dn]:.0e})")
             del out, grads, ref, refs
             ms_fwd, ms_bwd = graph_ms(fwd, **it), graph_ms(bwd, **it)
             plain_fwd = plain_bwd = lib_fwd = lib_bwd = copies = None
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or name in fp32_timed:
                 plain_fwd, plain_bwd = graph_ms(ref_f, **it), graph_ms(ref_b, **it)
                 nb = windows // nw
                 heads_first = lambda x: part(x).reshape(nb, nw, n, heads, hd).permute(  # noqa: E731
@@ -1239,11 +1278,11 @@ def phase_window_kernels(torch, wa, swa):
                       "map_or_n": geo, "channels": c, "heads": heads, "bias_windows": nw,
                       "windows": windows, "dtype": dn}
             recs = {
-                "fwd": dict(common, name=f"{label}_fwd[{name}]", replaces=replaces[0],
+                "fwd": dict(common, name=f"{label}_fwd[{name}]", replaces=replaces[0], body="simt",
                             max_abs_err=err, ms=ms_fwd, plain_ms=plain_fwd,
                             **bound(4 * blc * size + bias_bytes, 4 * windows * n * n * c, dn),
                             library_ms=lib_fwd, library_partition_copies_ms=copies),
-                "bwd": dict(common, name=f"{label}_bwd[{name}]", replaces=replaces[1],
+                "bwd": dict(common, name=f"{label}_bwd[{name}]", replaces=replaces[1], body=body,
                             max_abs_err=max(abs_errs), max_rel_err=max(errs), ms=ms_bwd,
                             plain_ms=plain_bwd,
                             **bound(7 * blc * size + 2 * bias_bytes, 10 * windows * n * n * c, dn),
@@ -1251,8 +1290,7 @@ def phase_window_kernels(torch, wa, swa):
             }
             for rec in recs.values():
                 print("kernel_case " + json.dumps(rec), flush=True)
-            if dtype == torch.bfloat16:
-                records[name] = recs
+            records[(name, dn)] = recs
             del q, k, v, bias, do
         torch.cuda.empty_cache()
     return records
@@ -1377,6 +1415,7 @@ def phase_clap_train(torch, oc, sa, swa, wa):
     reset_counts(sa, swa, wa)
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
     panel, short = dict(swa.LAUNCHES), dict(sa.LAUNCHES)
+    panel_bodies, short_bodies = dict(swa.BWD_BODIES), dict(sa.BWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     norms = [float(m["grad_norm"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses), f"clap_train: {len(losses)} losses finite")
@@ -1388,23 +1427,32 @@ def phase_clap_train(torch, oc, sa, swa, wa):
           f"(expect {layers * n} panel forward and backward)")
     check(short == {"fwd": lt * n, "bwd": lt * n},
           f"clap_train: short-kernel launches {short} in {n} steps (the text tower)")
-    summary = {"model": CLAP_MODEL, "precision": "amp_bf16", "batch": CLAP_TRAIN_BATCH,
-               "clip_seconds": CLAP_SECONDS, "window_steps": n, "window_s": wall_s,
-               "clips_per_s": CLAP_TRAIN_BATCH * n / wall_s,
-               "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
-               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
-               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
-               "panel_launches_per_step": {k: v / n for k, v in panel.items()},
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    check(panel_bodies == {"mma": layers * n, "simt": 0} and short_bodies == {"mma": lt * n, "simt": 0},
+          f"clap_train: backward launches by body, panel {panel_bodies}, short {short_bodies} in "
+          f"{n} steps (expect every one on the tensor-core bodies)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
     prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
     print("clap_train_profile " + json.dumps(prof_summary), flush=True)
-    summary["device_busy_ms_per_step"] = prof_summary["device_busy_ms_per_step"]
+    # kernel ms: the device-busy time of the profiled steps (the sum of their kernels)
+    summary = {"model": CLAP_MODEL, "precision": "amp_bf16", "batch": CLAP_TRAIN_BATCH,
+               "clip_seconds": CLAP_SECONDS, "window_steps": n, "window_s": wall_s,
+               "clips_per_s": CLAP_TRAIN_BATCH * n / wall_s,
+               "median_step_ms": statistics.median(step_ms),
+               "kernel_ms_per_step": prof_summary["device_busy_ms_per_step"],
+               "min_step_ms": min(step_ms),
+               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+               "panel_launches_per_step": {k: v / n for k, v in panel.items()},
+               "panel_bwd_launches_per_step_by_body": {k: v / n for k, v in panel_bodies.items()},
+               "short_bwd_launches_per_step_by_body": {k: v / n for k, v in short_bodies.items()},
+               "peak_mem_gib": peak,
+               "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"]}
     print("clap_train " + json.dumps(summary), flush=True)
-    return panel, n
+    return panel, panel_bodies, n
 
 
 def phase_clap_cli(torch, swa):
@@ -1485,7 +1533,7 @@ def phase_clap_card_vs_cpu(torch, oc, swa):
         results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
                             if p.grad is not None}, loss.item())
         if device == "cuda":
-            launched = dict(swa.LAUNCHES)
+            launched, bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES)
         del model, out, loss
     mel_err = (mels["cuda"] - mels["cpu"]).abs().max().item()
     check(bool(torch.isfinite(mels["cuda"]).all()) and mel_err <= 1e-2,
@@ -1496,9 +1544,11 @@ def phase_clap_card_vs_cpu(torch, oc, swa):
                                                 dim=-1).min().item()
     check(bool(torch.isfinite(feats["cuda"]).all()) and cos >= COSINE_MIN,
           f"CLAP encode_audio card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
-    check(launched == {"fwd": 24, "bwd": 12}, f"CLAP fp32 card run: panel launches {launched} "
-          "(12 serving, 12 in the training forward, 12 backward)")
+    check(launched == {"fwd": 24, "bwd": 12} and bodies == {"mma": 0, "simt": 12},
+          f"CLAP fp32 card run: panel launches {launched}, backward by body {bodies} "
+          "(12 serving, 12 in the training forward, 12 backward on the CUDA-core body)")
     grads_card_vs_cpu(torch, results, "CLAP")
+    return bodies["simt"]
 
 
 def phase_swin_serve(torch, oc, sa, wa):
@@ -1582,6 +1632,9 @@ def phase_swin_train(torch, oc, sa, wa):
     check(win == {"fwd": blocks * n, "bwd": blocks * n} and short == {"fwd": lt * n, "bwd": lt * n},
           f"swin_train: window launches {win}, short {short} in {n} steps (expect {blocks} and "
           f"{lt} of each a step)")
+    check(wa.BWD_BODIES == {"mma": 0, "simt": blocks * n} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0},
+          f"swin_train: backward launches by body, window {wa.BWD_BODIES} (49-token windows keep "
+          f"the CUDA-core body), short {sa.BWD_BODIES}")
     remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
     reset_counts(wa)
     state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 1)
@@ -1639,7 +1692,8 @@ def phase_switchback_kernels(torch, sb):
         linear_ms = graph_ms(lambda: F.linear(x, w), iters=20)
         quantize_ms = graph_ms(lambda: sb.quantize_rowwise(x), iters=20)
         flops = 2 * m * n * k
-        rec = {"name": f"int8_matmul_dequant[{name}]", "route": "cuda", "source": SB_SOURCE,
+        rec = {"name": f"int8_matmul_dequant[{name}]", "route": "cuda", "body": "mma",
+               "source": SB_SOURCE,
                "replaces": "open_clip_tpu/ops/switchback.py:42", "shape": [m, k, n],
                "dtype": "int8 in, bfloat16 out", "max_abs_err": err["bfloat16"],
                "ms": ms["bfloat16"], "plain_ms": plain_ms,
@@ -1886,15 +1940,15 @@ def main() -> int:
         "peak_mem_gib_off": plain_summary["peak_mem_gib"],
         "peak_mem_gib_on": fused_summary["peak_mem_gib"]}), flush=True)
     phase_cli(torch)
-    phase_train_card_vs_cpu(torch, oc, sa)
+    short_simt_launches = phase_train_card_vs_cpu(torch, oc, sa)
     nf_serve_launches, nf_serve_calls = phase_naflex_serve(torch, oc, sa, fa)
     nf_train_launches, nf_steps = phase_naflex_train(torch, oc, sa, fa)
     phase_naflex_cli(torch, fa)
     phase_naflex_card_vs_cpu(torch, oc, sa, fa)
     clap_serve_launches, clap_calls = phase_clap_serve(torch, oc, sa, swa, wa)
-    clap_train_launches, clap_steps = phase_clap_train(torch, oc, sa, swa, wa)
+    clap_train_launches, clap_bodies, clap_steps = phase_clap_train(torch, oc, sa, swa, wa)
     phase_clap_cli(torch, swa)
-    phase_clap_card_vs_cpu(torch, oc, swa)
+    panel_simt_launches = phase_clap_card_vs_cpu(torch, oc, swa)
     swin_serve_launches, swin_calls = phase_swin_serve(torch, oc, sa, wa)
     swin_train_launches, swin_steps = phase_swin_train(torch, oc, sa, wa)
     h14_launches, h14_steps = phase_h14_train(torch, oc, sa, sb, blocks)
@@ -1916,9 +1970,13 @@ def main() -> int:
                             launches_serving=launches[tower], launches_training=n_train,
                             launches_per_call=launches[tower] / calls[tower],
                             launches_per_train_step=n_train / steps))
+    # the short backward: the fused tensor-core body in the bf16 train window; the
+    # two-kernel CUDA-core body in the fp32 train step of phase 6 (B=8)
     for tower in ("vision", "text"):
-        kernels.append(dict(bwd_records[tower], launches=tally[("bwd", tower)],
+        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=tally[("bwd", tower)],
                             launches_per_train_step=tally[("bwd", tower)] / steps))
+    kernels.append(dict(bwd_records[("vision", "float32")], launches=short_simt_launches,
+                        launches_path="fp32 train step, B=8 (phase 6)"))
     for tower, width in (("vision", 768), ("text", 512)):
         kernels.append(dict(ln_records[tower], launches=tally_ln[("ln", width)],
                             launches_per_train_step=tally_ln[("ln", width)] / steps_ln))
@@ -1932,23 +1990,29 @@ def main() -> int:
     # window and panel attention: Swin-B serving and training (the window kernels at
     # the stage-0 shape, 49-token windows), CLAP serving and training (the panel
     # kernels at HTSAT's stage-0 shifted shape)
-    kernels.append(dict(window_records["swin_s0_shift"]["fwd"],
+    kernels.append(dict(window_records[("swin_s0_shift", "bfloat16")]["fwd"],
                         launches=swin_serve_launches + swin_train_launches["fwd"],
                         launches_serving=swin_serve_launches,
                         launches_training=swin_train_launches["fwd"],
                         launches_per_call=swin_serve_launches / swin_calls,
                         launches_per_train_step=swin_train_launches["fwd"] / swin_steps))
-    kernels.append(dict(window_records["swin_s0_train"]["bwd"], launches=swin_train_launches["bwd"],
+    kernels.append(dict(window_records[("swin_s0_train", "bfloat16")]["bwd"],
+                        launches=swin_train_launches["bwd"],
                         launches_per_train_step=swin_train_launches["bwd"] / swin_steps))
-    kernels.append(dict(window_records["htsat_s0_shift_serve"]["fwd"],
+    kernels.append(dict(window_records[("htsat_s0_shift_serve", "bfloat16")]["fwd"],
                         launches=clap_serve_launches + clap_train_launches["fwd"],
                         launches_serving=clap_serve_launches,
                         launches_training=clap_train_launches["fwd"],
                         launches_per_call=clap_serve_launches / clap_calls,
                         launches_per_train_step=clap_train_launches["fwd"] / clap_steps))
-    kernels.append(dict(window_records["htsat_s0_shift_train"]["bwd"],
-                        launches=clap_train_launches["bwd"],
-                        launches_per_train_step=clap_train_launches["bwd"] / clap_steps))
+    # the panel backward: the tensor-core body in the bf16 CLAP train window; the
+    # CUDA-core body in the fp32 CLAP step of phase 15 (B=2)
+    kernels.append(dict(window_records[("htsat_s0_shift_train", "bfloat16")]["bwd"],
+                        launches=clap_bodies["mma"],
+                        launches_per_train_step=clap_bodies["mma"] / clap_steps))
+    kernels.append(dict(window_records[("htsat_s0_shift_train", "float32")]["bwd"],
+                        launches=panel_simt_launches,
+                        launches_path="fp32 CLAP step, B=2 (phase 15)"))
     # the int8 matmul: the ViT-H-14 train window (names_mm, the switch on), at the
     # image tower's c_fc shape; the ViT-B-32 CLI's launches beside it
     kernels.append(dict(sb_records["h14_vision_fc"], launches=h14_launches,

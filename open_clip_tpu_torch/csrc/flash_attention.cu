@@ -71,6 +71,8 @@
 
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int BM = 64;  // query rows per tile
@@ -600,36 +602,16 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // probabilities and every accumulator stay in registers: the accumulator fragment
 // of one product is, two 8-column tiles at a time, the A fragment of the next.
 // A warp owns 16 rows; in a fragment a lane holds, for rows g = lane / 4 and g + 8,
-// the columns 2t and 2t + 1 (t = lane % 4) of every 8-column tile.
+// the columns 2t and 2t + 1 (t = lane % 4) of every 8-column tile. The warp-level
+// helpers (cp.async, ldmatrix, mma.sync, the products) are in mma_bf16.cuh.
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
-// Asynchronous copies global -> shared (cp.async): the next tile is on its way while
-// the block computes on the current one. A copy whose row lies at or past L reads
-// nothing and fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool inside) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int bytes = inside ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
+// cp_async16 for 4 bytes
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool inside) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int bytes = inside ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until all but the newest PENDING groups of this thread have landed
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // stage_tile, asynchronously
@@ -653,102 +635,7 @@ __device__ __forceinline__ void stage_rows_async(float* dst, const float* src, i
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2**x on the special-function unit (two ulp): the bf16 kernels spend as many
-// instruction slots on exponentials as on products, so they take the logits in base 2
-// (scale * log2(e) folded into one multiply) and skip expf's range reduction.
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-}
-
-// acc[16 x 8*NT] += a[16 x 16*KS] . b[8*NT x 16*KS]^T, one warp; a and b row-major
-// bf16 tiles in shared memory.
-template <int KS, int NT>
-__device__ __forceinline__ void gemm_nt(float (&acc)[NT][4], const bf16* a, int lda, const bf16* b,
-                                        int ldb) {
-  const int lane = threadIdx.x & 31;
-  const bf16* ap = a + (lane % 8 + 8 * ((lane / 8) % 2)) * lda + 8 * (lane / 16);
-  const bf16* bp = b + (lane % 8 + 8 * (lane / 16)) * ldb + 8 * ((lane / 8) % 2);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, ap + 16 * ks);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t fb[4];
-      ldmatrix_x4(fb, bp + n * 8 * ldb + 16 * ks);
-      mma_bf16(acc[n], fa, fb[0], fb[1]);
-      mma_bf16(acc[n + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc[16 x 8*NT] += a . b, one warp; a: 16 x 16*KS as A fragments in registers,
-// b: (16*KS, 8*NT) row-major bf16 tile in shared memory.
-template <int KS, int NT>
-__device__ __forceinline__ void gemm_nn(float (&acc)[NT][4], const uint32_t (&a)[KS][4],
-                                        const bf16* b, int ldb) {
-  const int lane = threadIdx.x & 31;
-  const bf16* bp = b + (lane % 8 + 8 * ((lane / 8) % 2)) * ldb + 8 * (lane / 16);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, bp + 16 * ks * ldb + n * 8);
-      mma_bf16(acc[n], a[ks], fb[0], fb[1]);
-      mma_bf16(acc[n + 1], a[ks], fb[2], fb[3]);
-    }
-  }
-}
 
 // The warp's accumulator times `mul` into rows row_lo and row_lo + 8 of one head's
 // (L, HD) slice of an output.

@@ -60,14 +60,30 @@
 // hd = 128, so the launcher opts in above 48 KB; the dk/dv kernel takes
 // (2*16*hd + 2*32*(hd+4) + 2*16*32) floats, at most 53 KB.
 //
-// C interface, loaded with ctypes: oct_short_attention_fwd and
-// oct_short_attention_bwd return the cudaError_t of the launch (0 on success).
+// FUSED BACKWARD (bf16, L <= 128; the "mma" body, at the end of the file). At these
+// lengths a whole (sample, head) fits one block, so the backward is one kernel with
+// the same rounding points and no scratch: one block of L/16 warps per (head,
+// sample) stages Q, K, V and dO whole with 16-byte cp.async (L padded to a multiple
+// of 16 with zero rows, rows padded by 16 bytes for ldmatrix); warp w owns queries
+// 16w..16w+15 and computes S = q.k^T and dP = do.v^T on the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulate), the softmax with its own max per row and
+// head, delta and ds in the accumulator registers; p and ds go to shared memory as
+// bf16 tiles, dq = ds.k reads them back; then warp w owns keys 16w..16w+15 for
+// dk = ds^T.q and dv = p^T.do (ldmatrix.trans). The causal mask is applied in
+// registers and the tiles above the diagonal are skipped. Every output is written
+// once: the same bits every run. Shared memory: (4*LP*(hd+8) + 2*LP*(LP+8)) bf16,
+// 74 KB at L = 77 (LP = 80), hd = 64, and 204 KB at L = 128, hd = 128 (opted in).
+//
+// C interface, loaded with ctypes: oct_short_attention_fwd, oct_short_attention_bwd
+// and oct_short_attention_bwd_fused return the cudaError_t of the launch (0 on success).
 // They launch on the given stream, do not synchronise and allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -550,6 +566,176 @@ cudaError_t launch_bwd_hd(int hd, const void* q, const void* k, const void* v, c
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward, fused, on the tensor cores (the "mma" body): L <= 128
+// ---------------------------------------------------------------------------
+
+constexpr int FUSED_MAX_L = 128;
+
+// offset (elements) of row r from the first row: r times a row stride
+struct RowStride {
+  long long rs;
+  __device__ __forceinline__ long long operator()(int r) const { return r * rs; }
+};
+
+// Shared memory of the fused kernel: Q, K, V and dO whole, (LP, HD + 8) bf16 each, and
+// the (LP, LP + 8) bf16 p and ds tiles; LP = L rounded up to 16.
+template <int HD>
+size_t fused_smem(int L) {
+  const int LP = (L + 15) / 16 * 16;
+  return (size_t)(4 * LP * (HD + 8) + 2 * LP * (LP + 8)) * sizeof(bf16);
+}
+
+// One block per (head, sample), LP / 16 warps; NT >= LP / 8 sizes the score fragments.
+template <int HD, int NT>
+__global__ void __launch_bounds__(2 * FUSED_MAX_L)
+short_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int L, long long qbs, long long qrs, long long kbs, long long krs,
+                          long long vbs, long long vrs, long long gbs, long long grs,
+                          long long dqbs, long long dqrs, long long dkbs, long long dkrs,
+                          long long dvbs, long long dvrs, float scale, int causal) {
+  constexpr int LDT = HD + 8, KS = HD / 16, ND = HD / 8, VPR = HD / 8;
+  extern __shared__ __align__(128) unsigned char short_smem[];
+  const int LP = (L + 15) / 16 * 16, LDP = LP + 8, nw = LP / 16, nt = LP / 8;
+  bf16* qs = reinterpret_cast<bf16*>(short_smem);  // (LP, LDT)
+  bf16* ks = qs + LP * LDT;                        // (LP, LDT)
+  bf16* vs = ks + LP * LDT;                        // (LP, LDT)
+  bf16* gs = vs + LP * LDT;                        // (LP, LDT): dO
+  bf16* ps = gs + LP * LDT;                        // (LP, LDP): p, rounded
+  bf16* dss = ps + LP * LDP;                       // (LP, LDP): ds, rounded
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * warp, row_lo = r0 + (lane >> 2);
+  // key tiles of 8 that the warp's rows see: under the causal mask the tiles above
+  // the diagonal are skipped
+  const int ntw = causal ? min(nt, 2 * warp + 2) : nt;
+
+  const auto stage = [&](bf16* dst, const bf16* src, long long bs, long long rs) {
+    const bf16* base = src + b * bs + (long long)h * HD;
+    for (int i = threadIdx.x; i < LP * VPR; i += blockDim.x) {
+      const int r = i / VPR, c = (i % VPR) * 8;
+      cp_async16(dst + r * LDT + c, base + min(r, L - 1) * rs + c, r < L);  // rows >= L: zeros
+    }
+  };
+  stage(qs, q, qbs, qrs);
+  stage(ks, k, kbs, krs);
+  cp_async_commit();
+  stage(gs, dout, gbs, grs);
+  stage(vs, v, vbs, vrs);
+  cp_async_commit();
+
+  // S = q.k^T while dO and V are still on their way, then dP = do.v^T
+  float sa[NT][4], dp[NT][4];
+  zero_acc(sa);
+  zero_acc(dp);
+  cp_async_wait<1>();
+  __syncthreads();
+  gemm_nt<KS, NT>(sa, qs + r0 * LDT, LDT, ks, LDT, ntw);
+  cp_async_wait<0>();
+  __syncthreads();
+  gemm_nt<KS, NT>(dp, gs + r0 * LDT, LDT, vs, LDT, ntw);
+
+  // softmax of rows row_lo (entries 0, 1) and row_lo + 8 (entries 2, 3), base 2, a max
+  // per row and head; entries of keys or rows past L, or above the diagonal, are 0
+  const float scale2 = scale * LOG2E;
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < ntw)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1), row = row_lo + 8 * (c >> 1);
+        const bool vis = row < L && col < L && (!causal || col <= row);
+        sa[j][c] = vis ? sa[j][c] * scale2 : -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], sa[j][c]);
+      }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < ntw)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] = sa[j][c] == -INFINITY ? 0.f : fast_exp2(sa[j][c] - mx[c >> 1]);
+        sum[c >> 1] += sa[j][c];
+      }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  const float inv[2] = {sum[0] > 0.f ? 1.f / sum[0] : 0.f, sum[1] > 0.f ? 1.f / sum[1] : 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < ntw)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] *= inv[c >> 1];  // p, fp32
+        delta[c >> 1] = fmaf(dp[j][c], sa[j][c], delta[c >> 1]);
+      }
+  delta[0] = quad_sum(delta[0]);
+  delta[1] = quad_sum(delta[1]);
+
+  // ds = p * (dp - delta) * scale; p and ds, rounded, to shared memory
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (j < ntw) {
+      float d[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) d[c] = sa[j][c] * (dp[j][c] - delta[c >> 1]) * scale;
+      const int col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(ps + row_lo * LDP + col) = pack_bf16(sa[j][0], sa[j][1]);
+      *reinterpret_cast<uint32_t*>(ps + (row_lo + 8) * LDP + col) = pack_bf16(sa[j][2], sa[j][3]);
+      *reinterpret_cast<uint32_t*>(dss + row_lo * LDP + col) = pack_bf16(d[0], d[1]);
+      *reinterpret_cast<uint32_t*>(dss + (row_lo + 8) * LDP + col) = pack_bf16(d[2], d[3]);
+    }
+  __syncwarp();
+
+  // dq = ds . k over the keys the warp's rows see
+  float acc[ND][4];
+  zero_acc(acc);
+  gemm_smem<ND, false>(acc, dss + r0 * LDP, LDP, ks, LDT, 0, ntw / 2);
+  store_acc<ND>(dq + b * dqbs + (long long)h * HD, RowStride{dqrs}, acc, row_lo, L, 1.f);
+  __syncthreads();  // every warp's rows of p and ds are in
+
+  // the warp owns keys r0..r0 + 15: dk = ds^T . q, dv = p^T . do over the queries that
+  // see them (under the causal mask, from the warp's own tile on)
+  const int first = causal ? warp : 0;
+  zero_acc(acc);
+  gemm_smem<ND, true>(acc, dss + r0, LDP, qs, LDT, first, nw);
+  store_acc<ND>(dk + b * dkbs + (long long)h * HD, RowStride{dkrs}, acc, row_lo, L, 1.f);
+  zero_acc(acc);
+  gemm_smem<ND, true>(acc, ps + r0, LDP, gs, LDT, first, nw);
+  store_acc<ND>(dv + b * dvbs + (long long)h * HD, RowStride{dvrs}, acc, row_lo, L, 1.f);
+}
+
+template <int HD, int NT>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                           void* dq, void* dk, void* dv, int B, int L, int H,
+                           const long long* st, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = fused_smem<HD>(L);
+  auto kern = short_attn_bwd_mma_kernel<HD, NT>;
+  const cudaError_t e = opt_in_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int LP = (L + 15) / 16 * 16;
+  const dim3 grid(H, B);  // the head fastest: the heads of a sample share its rows in L2
+  kern<<<grid, 2 * LP, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], st[12], st[13], scale, causal);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_mma_l(const void* q, const void* k, const void* v, const void* dout,
+                             void* dq, void* dk, void* dv, int B, int L, int H,
+                             const long long* st, float scale, int causal, cudaStream_t stream) {
+  if (L <= 64)
+    return launch_bwd_mma<HD, 8>(q, k, v, dout, dq, dk, dv, B, L, H, st, scale, causal, stream);
+  return launch_bwd_mma<HD, 16>(q, k, v, dout, dq, dk, dv, B, L, H, st, scale, causal, stream);
+}
+
 }  // namespace
 
 // q, k, v, o: (B, L, H, hd) with the (H, hd) block dense; strides (in
@@ -586,4 +772,29 @@ extern "C" int oct_short_attention_bwd(const void* q, const void* k, const void*
     return launch_bwd_hd<__nv_bfloat16>(hd, q, k, v, dout, dq, dk, dv, st, B, L, H, strides,
                                         scale, causal, s);
   return cudaErrorInvalidValue;
+}
+
+// The fused backward (bf16 only, L <= 128): the same tensors and strides as
+// oct_short_attention_bwd, no scratch. Every pointer 16-byte aligned and every stride
+// (in elements) a multiple of 8, or the call is refused.
+extern "C" int oct_short_attention_bwd_fused(const void* q, const void* k, const void* v,
+                                             const void* dout, void* dq, void* dk, void* dv,
+                                             int B, int L, int H, int hd,
+                                             const long long* strides, float scale, int causal,
+                                             void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || L < 1 || L > FUSED_MAX_L) return cudaErrorInvalidValue;
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  for (int i = 0; i < 7; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || strides[2 * i] % 8 || strides[2 * i + 1] % 8)
+      return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return launch_bwd_mma_l<32>(q, k, v, dout, dq, dk, dv, B, L, H, strides, scale, causal, s);
+    case 64:
+      return launch_bwd_mma_l<64>(q, k, v, dout, dq, dk, dv, B, L, H, strides, scale, causal, s);
+    case 128:
+      return launch_bwd_mma_l<128>(q, k, v, dout, dq, dk, dv, B, L, H, strides, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

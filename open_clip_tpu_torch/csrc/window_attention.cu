@@ -18,8 +18,10 @@
 //
 // Bound on this card: at Swin's shapes (N = 49 or 64, hd = 24 or 32) a window does
 // ~4*N^2*hd operations on ~4*N*hd*size bytes, N/2 = 25..32 operations per byte in
-// fp32 terms, so fp32 CUDA cores and memory are both near their limit; tensor cores
-// (mma.sync/wgmma) are the next step and are not used yet. What the design does:
+// fp32 terms, so fp32 CUDA cores and memory are both near their limit. The bf16
+// PANEL backward therefore has a second body on the tensor cores (mma.sync; "the
+// mma body", further down); the forward, the fp32 backward and the PARTITIONED
+// backward run the CUDA-core kernels described here. What their design does:
 //   - q, k, v are read in place through a (window, row) -> address map: strided
 //     views of the fused qkv projection (row stride 3C) and, in PANEL mode, the
 //     token map itself, so neither a partition copy nor a head transpose is made;
@@ -42,6 +44,10 @@
 // probabilities, 33 KB at NP = 64; backward 4 tiles and 2 (NP, NP+1) buffers, 67 KB
 // at NP = 64 and 200 KB at NP = 128 (the launcher opts in above 48 KB).
 //
+// The mma body keeps the same math and rounding points (p and ds rounded to bf16
+// before their products, fp32 accumulators, dbias from the unrounded fp32 ds) and
+// the same dbias partials and fold, so it is deterministic too.
+//
 // C interface, loaded with ctypes: the functions return the cudaError_t of the
 // launches (0 on success). They launch on the given stream, do not synchronise
 // and allocate nothing.
@@ -50,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -394,6 +402,242 @@ win_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores (the "mma" body). One block of 4 warps per
+// (head, bias window, group of G windows), the head the fastest grid index, so the
+// blocks of one window's heads run together and share its token rows in L2. Per
+// window of the group:
+//   - q, k, v and do (64 rows of hd) are staged once, with 16-byte cp.async, the next
+//     window's while this one computes (two buffers). A window row's address is
+//     worked out once per thread and kernel (PANEL: 8 consecutive tokens of the map
+//     per window row), not once per element;
+//   - warp w owns queries 16w..16w+15: S = q.k^T and dP = do.v^T on the tensor cores
+//     (hd padded with zero columns to a multiple of 16 for these two), then softmax,
+//     delta and ds in the accumulator registers, and dq = scale * round(ds).k with
+//     ds's fragments as the A operand;
+//   - p and ds go to shared memory as bf16 tiles; warp w then owns keys
+//     16w..16w+15: dk = scale * round(ds)^T.q and dv = round(p)^T.do, the transposes
+//     read with ldmatrix.trans. The outputs go in 8-column tiles (hd = 24 is 3 tiles);
+//   - the bias tile (times log2 e) and the running dbias sum stay in the S-fragment
+//     registers across the group's windows, which share one bias window.
+// Takes bf16, N = 64 (PANEL, ws = 8), hd % 8 == 0 and hd <= 64, 16-byte aligned rows.
+// Written for both modes: PARTITIONED needs only the padding of N = 49 to 64 (rows
+// past N are staged as zeros already; their keys would need masking) and dispatch.
+// Shared memory: 2 x 4 staged (64, HDP + 8) tiles and the (64, 72) p and ds tiles,
+// 59,392 bytes at hd = 24 (HDP = 32).
+// ---------------------------------------------------------------------------
+
+constexpr int MN = 64;  // tokens per window
+constexpr int MMA_THREADS = 128;
+constexpr int LDP = MN + 8;  // row stride of the p and ds tiles
+
+template <int HD>
+struct MmaTile {
+  static constexpr int HDP = (HD + 15) / 16 * 16;  // depth of q.k^T and do.v^T
+  static constexpr int LDT = HDP + 8;              // row stride of a staged tile
+  static constexpr int ELEMS = MN * LDT;
+  static constexpr int VPR = HD / 8;  // 16-byte chunks in a row
+  static constexpr int SLOTS = (MN * VPR + MMA_THREADS - 1) / MMA_THREADS;  // chunks a thread
+};
+
+template <int HD>
+constexpr size_t bwd_mma_smem() {
+  return (size_t)(8 * MmaTile<HD>::ELEMS + 2 * MN * LDP) * sizeof(bf16);
+}
+
+// First row of window (s, p), in elements from the tensor's base
+template <int MODE>
+__device__ __forceinline__ long long window_base(const Geom& g, Strides t, int s, int p) {
+  if (MODE == PARTITIONED) return (long long)(s * g.P + p) * t.bs;
+  const int wy = p / g.nWx, wx = p - wy * g.nWx;
+  return (long long)s * t.bs + (long long)(wy * 8 * g.W + wx * 8) * t.rs;
+}
+
+// Row r of a window, in rows of the tensor from the window's first row
+template <int MODE>
+__device__ __forceinline__ int window_row(const Geom& g, int r) {
+  return MODE == PANEL ? (r >> 3) * g.W + (r & 7) : r;
+}
+
+// offset (elements) of a window's row r from the window's first row
+template <int MODE>
+struct WindowRows {
+  const Geom* g;
+  long long rs;
+  __device__ __forceinline__ long long operator()(int r) const {
+    return (long long)window_row<MODE>(*g, r) * rs;
+  }
+};
+
+template <int HD, int MODE>
+__global__ void __launch_bounds__(MMA_THREADS)
+win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ bias,
+                        const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        float* __restrict__ partials, Geom g, int G, Strides sq, Strides sk,
+                        Strides sv, Strides sg, Strides sdq, Strides sdk, Strides sdv) {
+  using D = MmaTile<HD>;
+  constexpr int KS = D::HDP / 16, ND = HD / 8, NT = MN / 8, LDT = D::LDT;
+  extern __shared__ __align__(128) unsigned char win_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(win_smem);  // 2 buffers x (q, k, v, do)
+  bf16* ps = tiles + 8 * D::ELEMS;                  // (MN, LDP): p, rounded
+  bf16* dss = ps + MN * LDP;                        // (MN, LDP): ds, rounded
+
+  const int h = blockIdx.x, wb = blockIdx.y, grp = blockIdx.z;
+  const int count = g.nWb == 1 ? g.S * g.P : g.S;  // windows that share bias window wb
+  const int j0 = grp * G, j1 = min(count, j0 + G);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = warp * 16, row_lo = r0 + (lane >> 2);
+  const float scale2 = g.scale * LOG2E;
+
+  // the staged tiles' pad columns [HD, HDP) are zeros for the whole kernel
+  if (D::HDP > HD)
+    for (int r = threadIdx.x; r < 8 * MN; r += MMA_THREADS)
+      *reinterpret_cast<uint4*>(tiles + r * LDT + HD) = make_uint4(0u, 0u, 0u, 0u);
+
+  // this thread's 16-byte chunks of a tile: row (-1: none), column, and the row's
+  // offset from its window's first row in rows of the tensor
+  int crow[D::SLOTS], ccol[D::SLOTS], ctok[D::SLOTS];
+#pragma unroll
+  for (int m = 0; m < D::SLOTS; ++m) {
+    const int i = threadIdx.x + m * MMA_THREADS;
+    crow[m] = i < MN * D::VPR ? i / D::VPR : -1;
+    ccol[m] = (i % D::VPR) * 8;
+    ctok[m] = window_row<MODE>(g, min(max(crow[m], 0), g.N - 1));
+  }
+  const auto window_of = [&](int jw, int& s, int& p) {
+    s = g.nWb == 1 ? jw / g.P : jw;
+    p = g.nWb == 1 ? jw - s * g.P : wb;
+  };
+  const auto stage = [&](int jw, int buf) {
+    int s, p;
+    window_of(jw, s, p);
+    const bf16* src[4] = {q, k, v, dout};
+    const Strides st[4] = {sq, sk, sv, sg};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      bf16* dst = tiles + (buf * 4 + x) * D::ELEMS;
+      const bf16* base = src[x] + window_base<MODE>(g, st[x], s, p) + h * HD;
+#pragma unroll
+      for (int m = 0; m < D::SLOTS; ++m)
+        if (crow[m] >= 0)
+          cp_async16(dst + crow[m] * LDT + ccol[m], base + (long long)ctok[m] * st[x].rs + ccol[m],
+                     crow[m] < g.N);
+    }
+  };
+
+  // the bias of the lane's S-fragment entries in base 2, and their dbias sums
+  const float* bw = bias + ((long long)wb * g.H + h) * MN * MN;
+  float b2[NT][4], db[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 x = *reinterpret_cast<const float2*>(bw + (row_lo + 8 * half) * MN + 8 * j + 2 * t);
+      b2[j][2 * half] = x.x * LOG2E;
+      b2[j][2 * half + 1] = x.y * LOG2E;
+      db[j][2 * half] = db[j][2 * half + 1] = 0.f;
+    }
+
+  stage(j0, 0);
+  cp_async_commit();
+  for (int jw = j0; jw < j1; ++jw) {
+    const int buf = (jw - j0) & 1;
+    if (jw + 1 < j1) stage(jw + 1, buf ^ 1);  // the next window into the other buffer
+    cp_async_commit();
+    cp_async_wait<1>();  // this window has landed; the next may still be in flight
+    __syncthreads();
+    const bf16* qs = tiles + buf * 4 * D::ELEMS;
+    const bf16* ks = qs + D::ELEMS;
+    const bf16* vs = ks + D::ELEMS;
+    const bf16* gs = vs + D::ELEMS;
+
+    float sa[NT][4], dp[NT][4];
+    zero_acc(sa);
+    zero_acc(dp);
+    gemm_nt<KS, NT>(sa, qs + r0 * LDT, LDT, ks, LDT);
+    gemm_nt<KS, NT>(dp, gs + r0 * LDT, LDT, vs, LDT);
+
+    // softmax of rows row_lo (entries 0, 1) and row_lo + 8 (entries 2, 3), base 2
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] = fmaf(sa[j][c], scale2, b2[j][c]);
+        mx[c >> 1] = fmaxf(mx[c >> 1], sa[j][c]);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] = fast_exp2(sa[j][c] - mx[c >> 1]);
+        sum[c >> 1] += sa[j][c];
+      }
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] *= inv[c >> 1];  // p, fp32
+        delta[c >> 1] = fmaf(dp[j][c], sa[j][c], delta[c >> 1]);
+      }
+    delta[0] = quad_sum(delta[0]);
+    delta[1] = quad_sum(delta[1]);
+
+    // ds = p * (dp - delta) into dbias (fp32) and, rounded, into the A fragments of dq;
+    // p and ds to shared memory for dk and dv
+    uint32_t dsa[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float d[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        d[c] = sa[j][c] * (dp[j][c] - delta[c >> 1]);
+        db[j][c] += d[c];
+      }
+      dsa[j / 2][(j % 2) * 2] = pack_bf16(d[0], d[1]);
+      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
+      const int col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(ps + row_lo * LDP + col) = pack_bf16(sa[j][0], sa[j][1]);
+      *reinterpret_cast<uint32_t*>(ps + (row_lo + 8) * LDP + col) = pack_bf16(sa[j][2], sa[j][3]);
+      *reinterpret_cast<uint32_t*>(dss + row_lo * LDP + col) = dsa[j / 2][(j % 2) * 2];
+      *reinterpret_cast<uint32_t*>(dss + (row_lo + 8) * LDP + col) = dsa[j / 2][(j % 2) * 2 + 1];
+    }
+
+    int s, p;
+    window_of(jw, s, p);
+    float acc[ND][4];
+    zero_acc(acc);
+    gemm_nn<NT / 2, ND>(acc, dsa, ks, LDT);  // dq = scale * ds . k
+    store_acc<ND>(dq + window_base<MODE>(g, sdq, s, p) + h * HD,
+                  WindowRows<MODE>{&g, sdq.rs}, acc, row_lo, g.N, g.scale);
+    __syncthreads();  // every warp's rows of p and ds are in
+
+    zero_acc(acc);
+    gemm_smem<ND, true>(acc, dss + r0, LDP, qs, LDT, 0, MN / 16);  // dk = scale * ds^T . q
+    store_acc<ND>(dk + window_base<MODE>(g, sdk, s, p) + h * HD,
+                  WindowRows<MODE>{&g, sdk.rs}, acc, row_lo, g.N, g.scale);
+    zero_acc(acc);
+    gemm_smem<ND, true>(acc, ps + r0, LDP, gs, LDT, 0, MN / 16);  // dv = p^T . do
+    store_acc<ND>(dv + window_base<MODE>(g, sdv, s, p) + h * HD,
+                  WindowRows<MODE>{&g, sdv.rs}, acc, row_lo, g.N, 1.f);
+    __syncthreads();  // every warp is done with this buffer and with p and ds
+  }
+
+  // this group's dbias partial: partials is (nG, nWb, H, N, N)
+  float* out = partials + (((long long)grp * g.nWb + wb) * g.H + h) * MN * MN;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(out + (row_lo + 8 * half) * MN + 8 * j + 2 * t) =
+          make_float2(db[j][2 * half], db[j][2 * half + 1]);
+}
+
 // out[e] = sum over groups, in order, of partials[grp][e]; E = nWb * H * N * N
 __global__ void __launch_bounds__(256)
 dbias_fold_kernel(const float* __restrict__ partials, float* __restrict__ out, int nG,
@@ -451,6 +695,61 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const float*
   const long long E = (long long)g.nWb * g.H * g.N * g.N;
   dbias_fold_kernel<<<(unsigned)((E + 255) / 256), 256, 0, stream>>>(partials, dbias, nG, E);
   return cudaGetLastError();
+}
+
+template <int HD, int MODE>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const float* bias,
+                           const void* dout, void* dq, void* dk, void* dv, float* partials,
+                           float* dbias, const Geom& g, int G, int nG, const long long* st,
+                           cudaStream_t stream) {
+  const size_t smem = bwd_mma_smem<HD>();
+  auto kern = win_attn_bwd_mma_kernel<HD, MODE>;
+  cudaError_t e = opt_in_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  float* part = nG == 1 ? dbias : partials;
+  const dim3 grid(g.H, g.nWb, nG);  // the head fastest
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), part, g, G, Strides{st[0], st[1]}, Strides{st[2], st[3]},
+      Strides{st[4], st[5]}, Strides{st[6], st[7]}, Strides{st[8], st[9]},
+      Strides{st[10], st[11]}, Strides{st[12], st[13]});
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nG == 1) return e;
+  const long long E = (long long)g.nWb * g.H * g.N * g.N;
+  dbias_fold_kernel<<<(unsigned)((E + 255) / 256), 256, 0, stream>>>(partials, dbias, nG, E);
+  return cudaGetLastError();
+}
+
+// the mma body's shapes: bf16 PANEL windows of 64 tokens, hd % 8 == 0 and hd <= 64,
+// every row 16-byte aligned (pointers, and strides in elements, multiples of 8)
+bool mma_fits(int mode, const Geom& g, const void* const* ptrs, const long long* st) {
+  if (mode != PANEL || g.N != MN || g.hd % 8 || g.hd > 64) return false;
+  for (int i = 0; i < 7; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || st[2 * i] % 8 || st[2 * i + 1] % 8)
+      return false;
+  return true;
+}
+
+cudaError_t bwd_mma(const void* q, const void* k, const void* v, const float* bias,
+                    const void* dout, void* dq, void* dk, void* dv, float* partials, float* dbias,
+                    const Geom& g, int G, int nG, const long long* st, cudaStream_t s) {
+#define OCT_BWD_MMA(HD)                                                                       \
+  case HD:                                                                                    \
+    return launch_bwd_mma<HD, PANEL>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, g, G, \
+                                     nG, st, s);
+  switch (g.hd) {
+    OCT_BWD_MMA(8)
+    OCT_BWD_MMA(16)
+    OCT_BWD_MMA(24)
+    OCT_BWD_MMA(32)
+    OCT_BWD_MMA(40)
+    OCT_BWD_MMA(48)
+    OCT_BWD_MMA(56)
+    OCT_BWD_MMA(64)
+    default: return cudaErrorInvalidValue;
+  }
+#undef OCT_BWD_MMA
 }
 
 template <typename T, int MODE>
@@ -527,22 +826,31 @@ extern "C" int oct_window_attention_fwd(const void* q, const void* k, const void
 // [batch, row] of q, k, v, dout, dq, dk, dv (14 values). G: windows per group,
 // nG: groups per bias window (nG * G >= the windows that share one). partials:
 // (nG, nWb, H, N, N) fp32 scratch (unused when nG == 1); dbias: (nWb, H, N, N)
-// fp32, written.
+// fp32, written. body: 0 = the CUDA-core kernel (any shape, fp32 or bf16), 1 = the
+// tensor-core kernel (bf16 only, the shapes of mma_fits; anything else is refused).
 extern "C" int oct_window_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* bias, const void* dout, void* dq, void* dk,
                                         void* dv, void* partials, void* dbias,
                                         const long long* geom, const long long* strides,
-                                        int G, int nG, float scale, int dtype, void* stream) {
+                                        int G, int nG, float scale, int dtype, int body,
+                                        void* stream) {
   Geom g;
   int mode;
   if (!make_geom(geom, scale, &g, &mode) || G < 1 || nG < 1) return cudaErrorInvalidValue;
   const long long count = g.nWb == 1 ? (long long)g.S * g.P : g.S;
   if ((long long)G * nG < count || (long long)G * (nG - 1) >= count) return cudaErrorInvalidValue;
+  if (nG > 65535 || g.nWb > 65535) return cudaErrorInvalidValue;
   const int np = padded(g.N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   float* pp = static_cast<float*>(partials);
   float* db = static_cast<float*>(dbias);
+  if (body == 1) {
+    const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+    if (dtype != 1 || !mma_fits(mode, g, ptrs, strides)) return cudaErrorInvalidValue;
+    return bwd_mma(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s);
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return mode == PANEL
                ? bwd_np<float, PANEL>(np, q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s)

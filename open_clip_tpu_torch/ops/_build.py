@@ -2,8 +2,9 @@
 
 ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``. Libraries go to ``build/open_clip_tpu_torch/``
-at the root of the checkout, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. Nothing is built when a
+at the root of the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged one
+is reused. Nothing is built when a
 module is imported: the first launch builds what it needs. A missing ``nvcc`` or
 a failed build raises.
 """
@@ -41,6 +42,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources include the shared headers
+        digest.update(header.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

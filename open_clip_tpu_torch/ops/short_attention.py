@@ -16,10 +16,18 @@ The TPU kernel's head pairing, lane masks and VMEM budgeting are layout tricks
 of the TPU and are left out: any head count is served, and each row has its own
 softmax max.
 
+The backward has two bodies, chosen by ``bwd_body`` from the dtype and the shape
+alone: "mma", one fused kernel on the tensor cores for bf16 at L <= 128 (one block
+per sample and head holds Q, K, V and dO whole), and "simt", the two CUDA-core
+kernels with a row-statistics scratch, for fp32 and for bf16 at 128 < L <= 288.
+Inputs the chosen body cannot read (rows not 16-byte aligned for "mma") raise; they
+are never sent to the other body.
+
 ``short_attention`` is differentiable. For CUDA tensors it launches the forward
 kernel and, in autograd's backward, the backward kernel, or raises; for CPU
 tensors, and only for them, it computes ``short_attention_reference`` and
-``short_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each.
+``short_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each, and
+``BWD_BODIES`` the backward's launches by body.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ from typing import Optional
 import torch
 
 MAX_SEQ = 288
+FUSED_MAX_SEQ = 128  # the longest sequence of the fused tensor-core backward
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each kernel since the last reset; chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of the backward by body;
+# chip_smoke.py sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+BWD_BODIES = {"mma": 0, "simt": 0}
 
 _fns = {}
 
@@ -42,6 +53,13 @@ _fns = {}
 def supports(l: int, h: int, hd: int, bias) -> bool:
     """Can the kernel serve self-attention of this shape? (Dispatch gate.)"""
     return bias is None and 1 <= l <= MAX_SEQ and hd in HEAD_DIMS and h >= 1
+
+
+def bwd_body(l: int, hd: int, dtype: torch.dtype) -> str:
+    """Which backward body serves a shape the kernels take: "mma" (the fused
+    tensor-core kernel) for bf16 at L <= 128, "simt" (the two CUDA-core kernels)
+    for fp32 and for bf16 at 128 < L <= 288."""
+    return "mma" if dtype == torch.bfloat16 and l <= FUSED_MAX_SEQ and hd in HEAD_DIMS else "simt"
 
 
 def short_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,26 +108,41 @@ def _kernel(which: str):
         if which == "fwd":
             fn = lib.oct_short_attention_fwd
             fn.argtypes = [ctypes.c_void_p] * 4 + tail
-        else:
+        elif which == "bwd":
             fn = lib.oct_short_attention_bwd
             fn.argtypes = [ctypes.c_void_p] * 8 + tail
+        else:  # the fused bf16 backward: no scratch, no dtype
+            fn = lib.oct_short_attention_bwd_fused
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[which] = fn
     return fn
 
 
-def _check(x: torch.Tensor, name: str, shape, dtype, device) -> None:
+def _check(x: torch.Tensor, name: str, shape, dtype, device, vec: int = 4) -> None:
     b, l, h, hd = shape
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(f"short_attention: {name} is {tuple(x.shape)} {x.dtype} on {x.device}; "
                          f"expected {tuple(shape)} {dtype} on {device}")
     # the (H, hd) block of each row must be dense; batch and row strides are free,
     # so q/k/v may be the three slices of one fused (B, L, 3, H, hd) projection.
-    # The kernel reads 4 elements at a time, so every row starts 4-element aligned.
-    if (x.stride(3) != 1 or x.stride(2) != hd or x.stride(0) % 4 or x.stride(1) % 4
+    # The CUDA-core kernels read 4 elements at a time (vec = 4), the fused kernel 16
+    # bytes (vec = 8 bf16 elements), so every row starts vec-element aligned.
+    if (x.stride(3) != 1 or x.stride(2) != hd or x.stride(0) % vec or x.stride(1) % vec
             or x.data_ptr() % 16):
         raise ValueError(f"short_attention: {name} must have a dense, 16-byte aligned (H, hd) "
-                         f"block per row; got strides {x.stride()}")
+                         f"block per row with strides in multiples of {vec}; "
+                         f"got strides {x.stride()}")
+
+
+def check_bwd_inputs(q, k, v, do, body: str) -> None:
+    """Raise unless q, k, v and do are what ``body``'s kernels read: q's shape, dtype
+    and device, a dense (H, hd) block per row, every row aligned (16 bytes for
+    "mma"). An input that does not fit raises; it is never sent to the other body."""
+    vec = 16 // q.element_size() if body == "mma" else 4
+    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
+        _check(x, name, q.shape, q.dtype, q.device, vec)
 
 
 def _check_cuda_call(q: torch.Tensor) -> None:
@@ -157,20 +190,28 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: t
         return short_attention_bwd_reference(q, k, v, do, causal=causal, scale=scale)
     _check_cuda_call(q)
     do = do.contiguous()  # the gradient of a reshape: dense already, or made so here
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
-        _check(x, name, q.shape, q.dtype, q.device)
+    body = bwd_body(l, hd, q.dtype)
+    check_bwd_inputs(q, k, v, do, body)
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format) for _ in range(3))
-    stats = torch.empty((b, h, 3, l), dtype=torch.float32, device=q.device)  # row max, sum, delta
-    fn = _kernel("bwd")
+    strides = _strides(q, k, v, do, dq, dk, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, l, h, hd,
-                 _strides(q, k, v, do, dq, dk, dv), float(scale), int(causal),
-                 _DTYPE_CODES[q.dtype], stream)
+        if body == "mma":
+            err = _kernel("bwd_fused")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, l, h, hd, strides, float(scale), int(causal),
+                stream)
+        else:
+            stats = torch.empty((b, h, 3, l), dtype=torch.float32, device=q.device)  # max, sum, delta
+            err = _kernel("bwd")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, l, h, hd, strides,
+                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"short_attention backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"short_attention backward kernel ({body}) launch failed: "
+                           f"cudaError {err}")
     LAUNCHES["bwd"] += 1
+    BWD_BODIES[body] += 1
     return dq, dk, dv
 
 

@@ -15,7 +15,10 @@ C % heads == 0, head width >= 8, C <= 1024); the TPU row-pairing bound it also
 checks holds for every such shape. ``panel_attention`` is differentiable in q, k,
 v and the bias; for CPU tensors, and only for them, it computes the plain versions
 ``panel_attention_reference`` and ``panel_attention_bwd_reference`` (partition,
-the plain window attention, reverse). ``LAUNCHES`` counts the kernel launches.
+the plain window attention, reverse). ``LAUNCHES`` counts the kernel launches and
+``BWD_BODIES`` the backward's by body: bf16 at head widths that are multiples of 8
+up to 64 (HTSAT's 24 at every stage) takes the tensor-core body, every other shape
+and fp32 the CUDA-core one (``window_attention.bwd_body``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import torch
 
 from . import window_attention as wa
 
-# launches of each kernel since the last reset; chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of the backward by body;
+# chip_smoke.py sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+BWD_BODIES = {"mma": 0, "simt": 0}
 
 
 def supports(h: int, w: int, ws: int, heads: int, c: int) -> bool:
@@ -106,7 +111,8 @@ def panel_attention_bwd(q, k, v, bias, do, *, hw: Tuple[int, int], ws: int,
     if q.device.type == "cpu":
         return panel_attention_bwd_reference(q, k, v, bias, do, hw=hw, ws=ws, scale=scale)
     _check_cuda_call(q, bias, hw, ws)
-    return wa.launch_bwd(wa.PANEL, q, k, v, bias, do, _geom(q, bias, hw, ws), scale, LAUNCHES)
+    return wa.launch_bwd(wa.PANEL, q, k, v, bias, do, _geom(q, bias, hw, ws), scale, LAUNCHES,
+                         BWD_BODIES)
 
 
 class _PanelAttention(torch.autograd.Function):

@@ -20,6 +20,13 @@ forward and backward launch the kernels or raise; for CPU tensors, and only for
 them, they compute ``window_attention_reference`` and
 ``window_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each. The
 panel form (``ops/swin_attention.py``) launches the same source in PANEL mode.
+
+The backward has two bodies, chosen by ``bwd_body`` from the mode, the dtype and the
+head width alone: "mma" (bf16 on the tensor cores; PANEL windows, hd % 8 == 0,
+hd <= 64) and "simt" (fp32 CUDA cores; every other shape and dtype, PARTITIONED
+windows among them). Inputs the chosen body cannot read (rows not 16-byte aligned
+for "mma") raise; they are never sent to the other body. ``BWD_BODIES`` counts the
+backward's launches by body, here and in the panel form.
 """
 
 from __future__ import annotations
@@ -38,8 +45,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # this many blocks run even where every window shares one bias window
 _BWD_TARGET_BLOCKS = 1056
 
-# launches of each kernel since the last reset; chip_smoke.py sets and reads them
+# the widest head of the tensor-core backward
+MMA_MAX_HD = 64
+
+# launches of each kernel since the last reset, and of the backward by body;
+# chip_smoke.py sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+BWD_BODIES = {"mma": 0, "simt": 0}
 
 _fns = {}
 
@@ -48,6 +60,15 @@ def supports(n: int, heads: int, c: int) -> bool:
     """Can the kernel serve this window-attention shape? (Dispatch gate; every batch
     and bias-window count is served.)"""
     return 1 <= n <= MAX_N and 1 <= c <= MAX_C and heads >= 1 and c % heads == 0
+
+
+def bwd_body(mode: int, hd: int, dtype: torch.dtype) -> str:
+    """Which backward body serves a shape the kernels take: "mma" (tensor cores) for
+    bf16 PANEL windows with hd % 8 == 0 and hd <= 64, "simt" (CUDA cores) for every
+    other: fp32, PARTITIONED windows, and head widths such as 12 or 72."""
+    if dtype == torch.bfloat16 and mode == PANEL and hd % 8 == 0 and hd <= MMA_MAX_HD:
+        return "mma"
+    return "simt"
 
 
 def _scale(c: int, heads: int, scale: Optional[float]) -> float:
@@ -113,7 +134,7 @@ def _kernel(which: str):
         else:
             fn = lib.oct_window_attention_bwd
             fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                                      ctypes.c_int, ctypes.c_void_p])
+                                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[which] = fn
     return fn
@@ -123,13 +144,26 @@ def _longs(values):
     return (ctypes.c_longlong * len(values))(*[int(x) for x in values])
 
 
-def _check_rows(x: torch.Tensor, name: str, like: torch.Tensor) -> None:
-    """A 3-D q/k/v/do-like tensor: like's shape, dtype and device, dense columns."""
+def _check_rows(x: torch.Tensor, name: str, like: torch.Tensor, aligned: bool = False) -> None:
+    """A 3-D q/k/v/do-like tensor: like's shape, dtype and device, dense columns; with
+    ``aligned``, every row 16-byte aligned (pointer and strides)."""
     if x.shape != like.shape or x.dtype != like.dtype or x.device != like.device:
         raise ValueError(f"window attention: {name} is {tuple(x.shape)} {x.dtype} on {x.device}; "
                          f"expected {tuple(like.shape)} {like.dtype} on {like.device}")
     if x.stride(2) != 1:
         raise ValueError(f"window attention: {name} needs dense columns; strides {x.stride()}")
+    vec = 16 // x.element_size()
+    if aligned and (x.data_ptr() % 16 or x.stride(0) % vec or x.stride(1) % vec):
+        raise ValueError(f"window attention: the tensor-core backward needs 16-byte aligned rows "
+                         f"of {name}; got strides {x.stride()}")
+
+
+def check_bwd_inputs(q, k, v, do, body: str) -> None:
+    """Raise unless q, k, v and do are what ``body``'s kernel reads: q's shape, dtype
+    and device, dense columns, and for "mma" every row 16-byte aligned. An input
+    that does not fit raises; it is never sent to the other body."""
+    for x, name in ((k, "k"), (v, "v"), (do, "do"), (q, "q")):
+        _check_rows(x, name, q, aligned=body == "mma")
 
 
 def check_cuda_call(q: torch.Tensor, bias: torch.Tensor, n: int, heads: int) -> None:
@@ -174,11 +208,12 @@ def bwd_groups(geom) -> tuple:
     return size, math.ceil(count / size)
 
 
-def launch_bwd(mode: int, q, k, v, bias, do, geom, scale: float, launches):
-    """The backward kernels: (dq, dk, dv shaped as q, dbias (nWb, H, N, N) fp32)."""
+def launch_bwd(mode: int, q, k, v, bias, do, geom, scale: float, launches, bodies):
+    """The backward kernels of the body ``bwd_body`` picks: (dq, dk, dv shaped as q,
+    dbias (nWb, H, N, N) fp32). Counts the launch in ``launches`` and ``bodies``."""
     do = do.contiguous()
-    for x, name in ((k, "k"), (v, "v"), (do, "do"), (q, "q")):
-        _check_rows(x, name, q)
+    body = bwd_body(mode, geom[4], q.dtype)
+    check_bwd_inputs(q, k, v, do, body)
     bias = bias.float().contiguous()
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
@@ -191,10 +226,13 @@ def launch_bwd(mode: int, q, k, v, bias, do, geom, scale: float, launches):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partials.data_ptr(),
                  dbias.data_ptr(), _longs([mode, *geom]), _longs(strides), size, groups,
-                 float(scale), _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+                 float(scale), _DTYPE_CODES[q.dtype], int(body == "mma"),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"window attention backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"window attention backward kernel ({body}) launch failed: "
+                           f"cudaError {err}")
     launches["bwd"] += 1
+    bodies[body] += 1
     return dq, dk, dv, dbias
 
 
@@ -225,7 +263,8 @@ def window_attention_bwd(q, k, v, bias, do, *, scale: Optional[float] = None):
     if q.device.type == "cpu":
         return window_attention_bwd_reference(q, k, v, bias, do, scale=scale)
     check_cuda_call(q, bias, n, heads)
-    return launch_bwd(PARTITIONED, q, k, v, bias, do, _geom(q, bias), scale, LAUNCHES)
+    return launch_bwd(PARTITIONED, q, k, v, bias, do, _geom(q, bias), scale, LAUNCHES,
+                      BWD_BODIES)
 
 
 class _WindowAttention(torch.autograd.Function):

@@ -1,0 +1,117 @@
+"""Which backward body the port's attention kernels take, and what each refuses.
+
+The short-attention and panel-attention backwards have two bodies each on the card:
+"mma", a bf16 kernel on the tensor cores, and "simt", the CUDA-core kernel that also
+serves fp32. The choice is a pure function of the mode, the dtype and the shape
+(``short_attention.bwd_body``, ``window_attention.bwd_body``); alignment does not
+move it: inputs whose rows the chosen body cannot read raise. These tests pin both
+rules on the CPU, where the rules and the input checks run without a card; the
+bodies themselves are held to their plain versions on the card
+(``test_torch_kernels_gpu.py``).
+"""
+
+import pytest
+import torch
+
+from open_clip_tpu_torch.ops import short_attention as sa
+from open_clip_tpu_torch.ops import window_attention as wa
+
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("l,hd,dtype,body", [
+    (50, 64, BF16, "mma"),     # ViT-B-32 image tower
+    (77, 64, BF16, "mma"),     # CLIP text tower
+    (128, 64, BF16, "mma"),    # the longest the fused kernel takes
+    (1, 32, BF16, "mma"),
+    (77, 128, BF16, "mma"),
+    (129, 64, BF16, "simt"),   # past the fused kernel: the two-kernel body
+    (257, 64, BF16, "simt"),   # ViT-L-14's image tower
+    (288, 128, BF16, "simt"),
+    (50, 64, FP32, "simt"),    # fp32 always takes the CUDA-core body
+    (77, 64, FP32, "simt"),
+    (128, 32, FP32, "simt"),
+])
+def test_short_backward_body(l, hd, dtype, body):
+    assert sa.supports(l, 4, hd, None)
+    assert sa.bwd_body(l, hd, dtype) == body
+
+
+@pytest.mark.parametrize("mode,hd,dtype,body", [
+    (wa.PANEL, 24, BF16, "mma"),        # HTSAT-tiny, every stage (96/4 ... 768/32)
+    (wa.PANEL, 16, BF16, "mma"),        # a non-square map with odd heads (48/3)
+    (wa.PANEL, 8, BF16, "mma"),
+    (wa.PANEL, 32, BF16, "mma"),
+    (wa.PANEL, 64, BF16, "mma"),
+    (wa.PANEL, 12, BF16, "simt"),       # hd % 8 != 0
+    (wa.PANEL, 72, BF16, "simt"),       # wider than the tensor-core body's tiles
+    (wa.PANEL, 1024, BF16, "simt"),
+    (wa.PANEL, 24, FP32, "simt"),       # fp32 keeps the CUDA-core body
+    (wa.PARTITIONED, 32, BF16, "simt"),  # Swin-B's windows keep it too, for now
+    (wa.PARTITIONED, 24, BF16, "simt"),
+])
+def test_window_backward_body(mode, hd, dtype, body):
+    assert wa.bwd_body(mode, hd, dtype) == body
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_every_htsat_stage_takes_the_tensor_core_backward(stage):
+    """HTSAT-tiny: width 96 * 2**i and 4 * 2**i heads, head width 24 at every stage."""
+    c, heads = 96 * 2 ** stage, 4 * 2 ** stage
+    assert wa.bwd_body(wa.PANEL, c // heads, BF16) == "mma"
+
+
+def _short_views(b, l, h, hd, dtype, pad=0, offset=0):
+    """q, k, v as the views of one fused (B, L, 3*H*hd + pad) projection, starting
+    ``offset`` elements into its storage."""
+    width = 3 * h * hd + pad
+    flat = torch.zeros(offset + b * l * width, dtype=dtype)[offset:]
+    qkv = flat.view(b, l, width)[..., :3 * h * hd].unflatten(-1, (3, h, hd))
+    return qkv.unbind(2)
+
+
+def test_short_fused_views_fit_the_mma_body():
+    q, k, v = _short_views(2, 50, 12, 64, BF16)
+    sa.check_bwd_inputs(q, k, v, torch.zeros_like(q), "mma")
+
+
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_short_misaligned_inputs_raise_for_the_mma_body(what):
+    """A bf16 row at an 8-byte boundary: the CUDA-core kernels could read it, but the
+    shape takes the fused kernel, so the call raises; it is not sent to the other body."""
+    if what == "row_stride":  # 3*H*hd + 4 elements a row
+        q, k, v = _short_views(2, 50, 2, 32, BF16, pad=4)
+    else:  # the storage starts 8 bytes past a 16-byte boundary
+        q, k, v = _short_views(2, 50, 2, 32, BF16, offset=4)
+    do = torch.zeros(q.shape, dtype=BF16)
+    assert sa.bwd_body(50, 32, BF16) == "mma"
+    with pytest.raises(ValueError, match="aligned"):
+        sa.check_bwd_inputs(q, k, v, do, "mma")
+    if what == "row_stride":
+        sa.check_bwd_inputs(q, k, v, do, "simt")  # 4-element rows: what "simt" reads
+
+
+def _panel_views(b, tokens, c, dtype, pad=0, offset=0):
+    """q, k, v as the views of one fused (B, tokens, 3C + pad) projection."""
+    width = 3 * c + pad
+    flat = torch.zeros(offset + b * tokens * width, dtype=dtype)[offset:]
+    return flat.view(b, tokens, width)[..., :3 * c].unflatten(-1, (3, c)).unbind(-2)
+
+
+def test_panel_fused_views_fit_the_mma_body():
+    for c in (96, 192, 384, 768, 48):
+        q, k, v = _panel_views(2, 64, c, BF16)
+        wa.check_bwd_inputs(q, k, v, torch.zeros(q.shape, dtype=BF16), "mma")
+
+
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_panel_misaligned_inputs_raise_for_the_mma_body(what):
+    if what == "row_stride":  # 3C + 4 elements a row
+        q, k, v = _panel_views(2, 64, 96, BF16, pad=4)
+    else:
+        q, k, v = _panel_views(2, 64, 96, BF16, offset=4)
+    do = torch.zeros(q.shape, dtype=BF16)
+    assert wa.bwd_body(wa.PANEL, 24, BF16) == "mma"
+    with pytest.raises(ValueError, match="aligned"):
+        wa.check_bwd_inputs(q, k, v, do, "mma")
+    wa.check_bwd_inputs(q, k, v, do, "simt")  # the CUDA-core body reads any row

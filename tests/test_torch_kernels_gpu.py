@@ -14,7 +14,10 @@ terms in other orders), bf16 2e-2 (ds, p and the outputs are rounded to bf16: a
 probability that rounds the other way moves a term by 2**-8). The flash kernels
 sum over up to 1024 keys tile by tile, with a running max: the same tolerances hold.
 The SwitchBack int8 matmul is held to its plain version exactly (integer sums,
-then the same fp32 roundings).
+then the same fp32 roundings). The short and panel attention backwards have two
+bodies each ("mma" on the tensor cores for bf16, "simt" on CUDA cores); each test
+of them also checks which body its shape took (``bwd_body``), under the same
+tolerances: the two bodies round at the same points.
 """
 
 import numpy as np
@@ -132,11 +135,13 @@ def _check_bwd(q, k, v, causal):
     do = torch.from_numpy(np.random.default_rng(7).standard_normal(tuple(q.shape), dtype=np.float32))
     do = do.to(q.device, q.dtype)
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
-    before = dict(sa.LAUNCHES)
+    before, bodies = dict(sa.LAUNCHES), dict(sa.BWD_BODIES)
     out = sa.short_attention(q, k, v, causal=causal)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert sa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    body = sa.bwd_body(q.shape[1], q.shape[3], q.dtype)
+    assert sa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     refs = sa.short_attention_bwd_reference(q.detach(), k.detach(), v.detach(), do, causal=causal)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         assert got.dtype == q.dtype and got.shape == q.shape
@@ -158,6 +163,28 @@ def _check_bwd(q, k, v, causal):
 ])
 def test_backward_kernel_matches_plain(cuda, b, l, h, hd, causal, dtype):
     _check_bwd(*_fused_qkv(l + h, b, l, h, hd, dtype, cuda), causal)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("l", [1, 50, 77, 128])
+def test_fused_backward_matches_plain(cuda, l, hd, causal):
+    """The bf16 fused tensor-core body at every sequence length class it takes (one
+    row, the image tower, the text tower, its longest), on strided views of a fused
+    qkv projection."""
+    assert sa.bwd_body(l, hd, torch.bfloat16) == "mma"
+    _check_bwd(*_fused_qkv(l + hd, 3, l, 4, hd, torch.bfloat16, cuda), causal)
+
+
+def test_fused_backward_raises_on_misaligned_rows(cuda):
+    """Rows 8 bytes past a 16-byte boundary: the shape takes the fused body, which
+    cannot read them, so the call raises and nothing is launched."""
+    qkv = torch.zeros(2, 50, 3 * 2 * 32 + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :3 * 2 * 32].unflatten(-1, (3, 2, 32)).unbind(2)
+    before = (dict(sa.LAUNCHES), dict(sa.BWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        sa.short_attention_bwd(q, k, v, torch.zeros_like(q))
+    assert (sa.LAUNCHES, sa.BWD_BODIES) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -452,7 +479,9 @@ PANEL_KERNEL_CASES = [  # (B, H, W, C, heads, nW)
     (2, 64, 64, 96, 4, 64),     # HTSAT-tiny stage 0, shifted
     (2, 64, 64, 96, 4, 1),      # stage 0, unshifted
     (2, 32, 32, 192, 8, 16),    # stage 1, shifted
+    (2, 32, 32, 192, 8, 1),     # stage 1, unshifted
     (2, 16, 16, 384, 16, 4),    # stage 2, shifted
+    (2, 16, 16, 384, 16, 1),    # stage 2, unshifted
     (16, 8, 8, 768, 32, 1),     # stage 3: one window a sample
     (3, 16, 40, 48, 3, 10),     # a non-square map, odd heads
     (2, 24, 8, 40, 5, 1),       # a tall map, hd 8
@@ -466,25 +495,57 @@ PANEL_KERNEL_CASES = [  # (B, H, W, C, heads, nW)
 @pytest.mark.parametrize("b,h,w,c,heads,nw", PANEL_KERNEL_CASES)
 def test_panel_kernels_match_plain(cuda, b, h, w, c, heads, nw, dtype):
     from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
 
     q, k, v, bias, do = _window_inputs(b + h + w + c, (b, h * w), c, nw, heads, 64, dtype, cuda)
     kw = dict(hw=(h, w), ws=8)
-    before = dict(swa.LAUNCHES)
+    before, bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES)
     out = swa.panel_attention_fwd(q, k, v, bias, **kw)
     grads = swa.panel_attention_bwd(q, k, v, bias, do, **kw)
     assert swa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    body = wa.bwd_body(wa.PANEL, c // heads, dtype)  # bf16: "mma" up to hd 64, then "simt"
+    assert swa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     _check_window_pair(out, swa.panel_attention_reference(q, k, v, bias, **kw), grads,
                        swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw), dtype)
 
 
-def test_window_backward_is_deterministic(cuda):
-    """dbias folds fixed groups' partials in a fixed order: the same bits every run."""
+@pytest.mark.parametrize("route", ["panel_mma", "panel_simt", "short_mma", "short_simt"])
+def test_window_backward_is_deterministic(cuda, route):
+    """No atomics on either body: dbias folds fixed groups' partials in a fixed order,
+    every other output is written once. The same bits every run."""
     from open_clip_tpu_torch.ops import swin_attention as swa
 
-    q, k, v, bias, do = _window_inputs(3, (8, 4096), 96, 1, 4, 64, torch.bfloat16, cuda)
-    runs = [swa.panel_attention_bwd(q, k, v, bias, do, hw=(64, 64), ws=8) for _ in range(3)]
+    if route.startswith("panel"):
+        dtype = torch.bfloat16 if route == "panel_mma" else torch.float32
+        q, k, v, bias, do = _window_inputs(3, (8, 4096), 96, 1, 4, 64, dtype, cuda)
+        before = dict(swa.BWD_BODIES)
+        runs = [swa.panel_attention_bwd(q, k, v, bias, do, hw=(64, 64), ws=8) for _ in range(3)]
+        assert swa.BWD_BODIES[route[6:]] == before[route[6:]] + 3
+    else:
+        l = 77 if route == "short_mma" else 257
+        q, k, v = _fused_qkv(3, 4, l, 8, 64, torch.bfloat16, cuda)
+        do = torch.ones_like(q)
+        before = dict(sa.BWD_BODIES)
+        runs = [sa.short_attention_bwd(q, k, v, do, causal=True) for _ in range(3)]
+        assert sa.BWD_BODIES[route[6:]] == before[route[6:]] + 3
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+def test_panel_mma_backward_raises_on_misaligned_rows(cuda):
+    """A bf16 panel whose rows sit 8 bytes past a 16-byte boundary: the shape takes
+    the tensor-core body, which cannot read them, so the call raises and nothing is
+    launched (it is not sent to the CUDA-core body)."""
+    from open_clip_tpu_torch.ops import swin_attention as swa
+
+    x = torch.zeros(2, 64, 3 * 96 + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = x[..., :3 * 96].unflatten(-1, (3, 96)).unbind(-2)
+    bias = torch.zeros(1, 4, 64, 64, device=cuda)
+    before = (dict(swa.LAUNCHES), dict(swa.BWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        swa.panel_attention_bwd(q, k, v, bias, torch.zeros(q.shape, device=cuda,
+                                                           dtype=torch.bfloat16), hw=(8, 8), ws=8)
+    assert (swa.LAUNCHES, swa.BWD_BODIES) == before
 
 
 @pytest.mark.parametrize("what", ["fp16", "panel_ws7", "wide", "columns"])
