@@ -7,9 +7,11 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
   0. build the CUDA kernels from csrc/ with nvcc, one process per source, together;
   1. each kernel against its plain PyTorch version on the card, at the shapes the
      main paths give it (bf16 and fp32): the short attention forward and backward,
-     each also where one head's logits sit ~100 below its neighbour's, the backward
-     also at L=128 (the longest its fused tensor-core body takes) and L=257 (its
-     two-kernel CUDA-core body), the LayerNorm backward, and the three flash attention kernels (forward with logsumexp, dq,
+     each also where one head's logits sit ~100 below its neighbour's (at L=50 and
+     L=257), both also at L=129 and 257 (ViT-L-14's image tower: the two-pass forward
+     and the two-kernel backward on the tensor cores) and 288 with hd=128, the
+     backward also at L=128 (the longest its fused body takes), the LayerNorm
+     backward, and the three flash attention kernels (forward with logsumexp, dq,
      dk/dv) at the NaFlex train and serve buckets, a length that is no multiple of a
      tile, causal, prefix-LM and hd=128; kernel, plain and library-call device time,
      each from one CUDA graph of calls (no host work between launches), and the bound;
@@ -27,8 +29,8 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      with clipping, make_train_step on one fixed batch of 256 random images and
      token ids: 2 warm-up steps, a window of at least 2 s, a few steps under
      torch.profiler. Every loss is finite, the loss falls, and each step launches
-     the attention forward and backward kernels 24 times each, every backward on the
-     fused tensor-core body. Then a few steps
+     the attention forward and backward kernels 24 times each, all on the tensor-core
+     bodies. Then a few steps
      with remat, and the same run with the fused LayerNorm backward switched on
      (51 launches of that kernel a step, the same first loss), timed and profiled
      in the same way so that the two step times stand side by side;
@@ -80,11 +82,16 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  19. ViT-B-32 at batch 256 with the switch on: library steps, then the CLI with
      --use-switchback --grad-checkpointing --remat-policy names_mm;
  20. ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), card
-     against CPU: features, loss and every gradient.
+     against CPU: features, loss and every gradient;
+ 21. ViT-L-14 training, the JAX package's bench_vit_l14 step: batch 64, amp_bf16,
+     AdamW, clip 1.0, timed and profiled like phase 4, the loss falls; 24 + 12 short
+     forward and backward launches a step, all on the tensor-core bodies (the image
+     tower's 257 tokens on the two-pass forward and the two-kernel backward); then 2
+     steps under names_mm from the same initial weights, with the same first loss.
 
 Every kernel record names its body: "mma" (bf16 on the tensor cores, mma.sync) or
-"simt" (CUDA cores); the train lines give the backward launches by body and the
-kernel ms of a step beside the step time.
+"simt" (CUDA cores); the train lines give the short forward and backward launches by
+body and the kernel ms of a step beside the step time.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
 one {"kernels": [...]} JSON line and as the last line {"ok": true, "device": {...}}.
@@ -137,6 +144,7 @@ SWIN_MODEL = "swin_base_patch4_window7_224"
 SWIN_SERVE_BATCH, SWIN_TRAIN_BATCH = 64, 32
 SB_SOURCE = "open_clip_tpu_torch/csrc/switchback.cu"
 H14_MODEL, H14_BATCH = "ViT-H-14", 32
+L14_MODEL, L14_BATCH = "ViT-L-14", 64  # the JAX package's bench_vit_l14 step
 # the MLP products (M, K, N) of ViT-H-14 at batch 32 (257 and 77 tokens) and of
 # ViT-B-32 at batch 256 (50 and 77 tokens), then ragged shapes
 SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120, 1280),
@@ -166,6 +174,16 @@ KERNEL_CLASSES = {  # first match wins
 }
 
 FAILURES = []
+PHASE_S = {}  # seconds of each phase, printed with the result
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds recorded in PHASE_S under name."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
 
 
 def check(ok: bool, what: str) -> None:
@@ -175,9 +193,10 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_counts(*modules) -> None:
-    """Set every kernel's launch count, and every count by backward body, to 0."""
+    """Set every kernel's launch count, and every count by body, to 0."""
     for mod in modules:
-        for counts in (mod.LAUNCHES, getattr(mod, "BWD_BODIES", {})):
+        for counts in (mod.LAUNCHES, getattr(mod, "FWD_BODIES", {}),
+                       getattr(mod, "BWD_BODIES", {})):
             for key in counts:
                 counts[key] = 0
 
@@ -273,21 +292,29 @@ def phase_kernels(torch, sa, text_batch):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     both = (torch.bfloat16, torch.float32)
-    # the text tower at the serving batch as well: the classifier's batch is small
+    # the text tower at the serving batch as well: the classifier's batch is small; ViT-L-14's
+    # image tower (L=257), the shortest two-pass length (129) and the most shared memory
+    bf16 = (torch.bfloat16,)
     cases = [("vision", BATCH, 50, 12, 64, False, both),
              ("text", text_batch, 77, 8, 64, True, both),
-             ("text_b256", BATCH, 77, 8, 64, True, (torch.bfloat16,))]
+             ("text_b256", BATCH, 77, 8, 64, True, bf16),
+             ("l257", L14_BATCH, 257, 16, 64, False, bf16),
+             ("l129", L14_BATCH, 129, 16, 64, False, bf16),
+             ("l288_hd128", 16, 288, 8, 128, True, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
+            body = sa.fwd_body(l, hd, dtype)
             q, k, v = attention_inputs(b, l, h, hd, dtype, gen)
+            before = dict(sa.FWD_BODIES)
             out = sa.short_attention(q, k, v, causal=causal)
             ref = sa.short_attention_reference(q, k, v, causal=causal)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            check(bool(torch.isfinite(out).all()) and err <= TOL[dn],
-                  f"kernel {name} B={b} L={l} H={h} hd={hd} causal={causal} {dn}: "
+            check(bool(torch.isfinite(out).all()) and err <= TOL[dn]
+                  and sa.FWD_BODIES[body] == before[body] + 1,
+                  f"kernel ({body}) {name} B={b} L={l} H={h} hd={hd} causal={causal} {dn}: "
                   f"max_abs_err={err:.3e} (tol {TOL[dn]:.0e})")
             ms = graph_ms(lambda: sa.short_attention(q, k, v, causal=causal))
             plain_ms = graph_ms(lambda: sa.short_attention_reference(q, k, v, causal=causal))
@@ -296,7 +323,7 @@ def phase_kernels(torch, sa, text_batch):
             nbytes = 4 * b * l * h * hd * q.element_size()
             pairs = l * (l + 1) // 2 if causal else l * l  # (query, key) pairs the mask keeps
             flops = 4 * b * h * hd * pairs
-            rec = {"name": f"short_attention_fwd[{name}]", "route": "cuda", "body": "simt",
+            rec = {"name": f"short_attention_fwd[{name}]", "route": "cuda", "body": body,
                    "source": "open_clip_tpu_torch/csrc/short_attention.cu",
                    "replaces": "open_clip_tpu/ops/short_attention.py:262",
                    "shape": [b, l, h, hd], "causal": causal, "dtype": dn,
@@ -305,30 +332,34 @@ def phase_kernels(torch, sa, text_batch):
             print("kernel_case " + json.dumps(rec), flush=True)
             if dtype == torch.bfloat16:  # the serving path's dtype
                 records[name] = rec
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = attention_inputs(4, 50, 12, 64, dtype, gen, c2=True)
+    for l, dtype in ((50, torch.bfloat16), (50, torch.float32), (257, torch.bfloat16)):
+        q, k, v = attention_inputs(4, l, 12, 64, dtype, gen, c2=True)
         out = sa.short_attention(q, k, v)
         ref = sa.short_attention_reference(q, k, v)
         err = (out.float() - ref.float()).abs().max().item()
         dn = str(dtype).split(".")[1]
         check(bool(torch.isfinite(out).all()) and err <= TOL[dn],
-              f"kernel C2 regime (head 0 logits ~100 below head 1) {dn}: max_abs_err={err:.3e}")
+              f"kernel ({sa.fwd_body(l, 64, dtype)}) C2 regime (head 0 logits ~100 below head 1) "
+              f"L={l} {dn}: max_abs_err={err:.3e}")
     return records
 
 
 def phase_attention_bwd_kernels(torch, sa):
-    """Backward kernel vs plain version at the train step's shapes, and at L=128 (the
-    longest the fused tensor-core body takes) and L=257 (ViT-L-14's image tower, the
-    two-kernel body); per-shape records, keyed by (name, dtype)."""
+    """Backward kernel vs plain version at the train step's shapes, at L=128 (the
+    longest the fused tensor-core body takes), and at L=129, 257 (ViT-L-14's image
+    tower) and 288 with hd=128, which take the two tensor-core kernels; per-shape
+    records, keyed by (name, dtype)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = {}
-    both = (torch.bfloat16, torch.float32)
+    both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
     for name, b, l, h, hd, causal, dtypes in (("vision", BATCH, 50, 12, 64, False, both),
                                               ("text", BATCH, 77, 8, 64, True, both),
-                                              ("l128", 128, 128, 12, 64, False, (torch.bfloat16,)),
-                                              ("l257", 64, 257, 16, 64, False, (torch.bfloat16,))):
+                                              ("l128", 128, 128, 12, 64, False, bf16),
+                                              ("l129", L14_BATCH, 129, 16, 64, False, bf16),
+                                              ("l257", L14_BATCH, 257, 16, 64, False, bf16),
+                                              ("l288_hd128", 16, 288, 8, 128, True, bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             body = sa.bwd_body(l, hd, dtype)
@@ -369,16 +400,16 @@ def phase_attention_bwd_kernels(torch, sa):
                    "library_ms": library_ms}
             print("kernel_case " + json.dumps(rec), flush=True)
             records[(name, dn)] = rec
-    for dtype in (torch.bfloat16, torch.float32):
+    for l, dtype in ((50, torch.bfloat16), (50, torch.float32), (257, torch.bfloat16)):
         dn = str(dtype).split(".")[1]
-        q, k, v = attention_inputs(4, 50, 12, 64, dtype, gen, c2=True)
-        do = torch.randn(4, 50, 12, 64, generator=gen, device="cuda").to(dtype)
+        q, k, v = attention_inputs(4, l, 12, 64, dtype, gen, c2=True)
+        do = torch.randn(4, l, 12, 64, generator=gen, device="cuda").to(dtype)
         grads = sa.short_attention_bwd(q, k, v, do)
         refs = sa.short_attention_bwd_reference(q, k, v, do)
         errs = [rel_err(g, r) for g, r in zip(grads, refs)]
         check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
-              f"backward kernel ({sa.bwd_body(50, 64, dtype)}) C2 regime (head 0 logits ~100 "
-              f"below head 1) {dn}: rel err {max(errs):.2e}")
+              f"backward kernel ({sa.bwd_body(l, 64, dtype)}) C2 regime (head 0 logits ~100 "
+              f"below head 1) L={l} {dn}: rel err {max(errs):.2e}")
     return records
 
 
@@ -752,7 +783,7 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
         with tally_by_shape(sa, fl) as tally:
             state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
         counts = {"fwd": sa.LAUNCHES["fwd"], "bwd": sa.LAUNCHES["bwd"], "ln": fl.LAUNCHES["bwd"]}
-        bodies = dict(sa.BWD_BODIES)
+        bodies, fwd_bodies = dict(sa.BWD_BODIES), dict(sa.FWD_BODIES)
         losses = [float(m["loss"]) for m in warm + window]
         norms = [float(m["grad_norm"]) for m in warm + window]
         scale = float(window[-1]["logit_scale"])
@@ -767,9 +798,9 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
         check(tally.get(("fwd", "vision"), 0) == lv * n and tally.get(("bwd", "vision"), 0) == lv * n
               and tally.get(("fwd", "text"), 0) == lt * n and tally.get(("bwd", "text"), 0) == lt * n,
               f"{label}: per tower and step {lv} vision and {lt} text launches of each kernel")
-        check(bodies == {"mma": (lv + lt) * n, "simt": 0},
-              f"{label}: short-attention backward launches by body {bodies} in {n} steps "
-              f"(expect all {(lv + lt) * n} on the fused tensor-core body)")
+        check(bodies == {"mma": (lv + lt) * n, "simt": 0} and fwd_bodies == bodies,
+              f"{label}: short-attention launches by body, forward {fwd_bodies}, backward "
+              f"{bodies} in {n} steps (expect all {(lv + lt) * n} of each on the tensor cores)")
         ln_expect = (2 * lv + 2 + 2 * lt + 1) * n if fused_ln else 0
         check(counts["ln"] == ln_expect,
               f"{label}: {counts['ln']} LayerNorm backward launches in {n} steps (expect {ln_expect})")
@@ -789,6 +820,7 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
                    "host_lead_ms_at_end": lead_ms,
                    "first_loss": losses[0], "last_loss": losses[-1], "logit_scale": scale,
                    "launches_per_step": {k: v / n for k, v in counts.items()},
+                   "short_fwd_launches_per_step_by_body": {k: v / n for k, v in fwd_bodies.items()},
                    "short_bwd_launches_per_step_by_body": {k: v / n for k, v in bodies.items()},
                    "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"]}
         if not fused_ln:
@@ -866,11 +898,11 @@ def phase_train_card_vs_cpu(torch, oc, sa):
         reset_counts(sa)
         state, m = oc.make_train_step(model.cfg, optimizer)(state, batch)
         results[device] = (grads, float(m["loss"]), float(m["grad_norm"]),
-                           (dict(sa.LAUNCHES), dict(sa.BWD_BODIES)))
+                           (dict(sa.LAUNCHES), dict(sa.BWD_BODIES), dict(sa.FWD_BODIES)))
     (g_gpu, loss_g, norm_g, launched), (g_cpu, loss_c, norm_c, _) = results["cuda"], results["cpu"]
-    check(launched == ({"fwd": 24, "bwd": 24}, {"mma": 0, "simt": 24}),
-          f"fp32 card train step launched {launched[0]}, backward by body {launched[1]} "
-          "(fp32 takes the CUDA-core body)")
+    check(launched == ({"fwd": 24, "bwd": 24}, {"mma": 0, "simt": 24}, {"mma": 0, "simt": 24}),
+          f"fp32 card train step launched {launched[0]}, backward by body {launched[1]}, "
+          f"forward by body {launched[2]} (fp32 takes the CUDA-core bodies)")
     simt_launches = launched[1]["simt"]
     check(abs(loss_g - loss_c) <= 1e-4 * abs(loss_c) and abs(norm_g - norm_c) <= 1e-3 * norm_c,
           f"train step card vs CPU fp32: loss {loss_g:.6f} vs {loss_c:.6f} (rel 1e-4), "
@@ -1416,6 +1448,7 @@ def phase_clap_train(torch, oc, sa, swa, wa):
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
     panel, short = dict(swa.LAUNCHES), dict(sa.LAUNCHES)
     panel_bodies, short_bodies = dict(swa.BWD_BODIES), dict(sa.BWD_BODIES)
+    short_fwd_bodies = dict(sa.FWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     norms = [float(m["grad_norm"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses), f"clap_train: {len(losses)} losses finite")
@@ -1427,9 +1460,11 @@ def phase_clap_train(torch, oc, sa, swa, wa):
           f"(expect {layers * n} panel forward and backward)")
     check(short == {"fwd": lt * n, "bwd": lt * n},
           f"clap_train: short-kernel launches {short} in {n} steps (the text tower)")
-    check(panel_bodies == {"mma": layers * n, "simt": 0} and short_bodies == {"mma": lt * n, "simt": 0},
-          f"clap_train: backward launches by body, panel {panel_bodies}, short {short_bodies} in "
-          f"{n} steps (expect every one on the tensor-core bodies)")
+    check(panel_bodies == {"mma": layers * n, "simt": 0} and short_bodies == {"mma": lt * n, "simt": 0}
+          and short_fwd_bodies == short_bodies,
+          f"clap_train: backward launches by body, panel {panel_bodies}, short {short_bodies} "
+          f"(short forward {short_fwd_bodies}) in {n} steps (expect every one on the tensor-core "
+          "bodies)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
@@ -1448,6 +1483,7 @@ def phase_clap_train(torch, oc, sa, swa, wa):
                "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
                "panel_launches_per_step": {k: v / n for k, v in panel.items()},
                "panel_bwd_launches_per_step_by_body": {k: v / n for k, v in panel_bodies.items()},
+               "short_fwd_launches_per_step_by_body": {k: v / n for k, v in short_fwd_bodies.items()},
                "short_bwd_launches_per_step_by_body": {k: v / n for k, v in short_bodies.items()},
                "peak_mem_gib": peak,
                "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"]}
@@ -1632,9 +1668,10 @@ def phase_swin_train(torch, oc, sa, wa):
     check(win == {"fwd": blocks * n, "bwd": blocks * n} and short == {"fwd": lt * n, "bwd": lt * n},
           f"swin_train: window launches {win}, short {short} in {n} steps (expect {blocks} and "
           f"{lt} of each a step)")
-    check(wa.BWD_BODIES == {"mma": 0, "simt": blocks * n} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0},
+    check(wa.BWD_BODIES == {"mma": 0, "simt": blocks * n} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0}
+          and sa.FWD_BODIES == sa.BWD_BODIES,
           f"swin_train: backward launches by body, window {wa.BWD_BODIES} (49-token windows keep "
-          f"the CUDA-core body), short {sa.BWD_BODIES}")
+          f"the CUDA-core body), short {sa.BWD_BODIES}, short forward {sa.FWD_BODIES}")
     remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
     reset_counts(wa)
     state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 1)
@@ -1778,6 +1815,91 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
         blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = saved
 
 
+def phase_l14_train(torch, oc, sa, fl, blocks):
+    """ViT-L-14 training, the step of the JAX package's bench_vit_l14: batch 64, amp_bf16,
+    AdamW (lr 5e-4, wd 0.2), clip 1.0, one fixed batch; 2 warm-up steps, a window, a
+    profile; then 2 steps under names_mm from the same initial weights, which must give
+    the same first loss. The image tower's 257 tokens take the short kernels' two-pass
+    forward and two-kernel backward, the text tower's 77 the one-pass forward and the
+    fused backward, all on the tensor cores. Returns the window's launches by tower and
+    its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = blocks.REMAT_POLICY
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model = oc.create_model(L14_MODEL, precision="amp_bf16", seed=0)
+        lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def fresh(remat=False):
+            optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                            model, oc.const_lr(5e-4, 0))
+            return oc.create_train_state(model, optimizer), oc.make_train_step(
+                model.cfg, optimizer, remat=remat)
+
+        state, step = fresh()
+        batch = train_batch(torch, model.cfg, L14_BATCH, "cuda")
+        state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+        n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+        reset_counts(sa)
+        with tally_by_shape(sa, fl) as tally:
+            state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+        counts, fwd_bodies, bwd_bodies = dict(sa.LAUNCHES), dict(sa.FWD_BODIES), dict(sa.BWD_BODIES)
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"l14_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f}")
+        want = (lv + lt) * n
+        check(counts == {"fwd": want, "bwd": want} and fwd_bodies == {"mma": want, "simt": 0}
+              and bwd_bodies == fwd_bodies,
+              f"l14_train: short launches {counts}, forward by body {fwd_bodies}, backward by "
+              f"body {bwd_bodies} in {n} steps (expect {want} of each, all on the tensor cores)")
+        check(all(tally.get((d, "vision"), 0) == lv * n and tally.get((d, "text"), 0) == lt * n
+                  for d in ("fwd", "bwd")),
+              f"l14_train: per step {lv} vision and {lt} text launches of each kernel")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+        prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+        print("l14_train_profile " + json.dumps(prof_summary), flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # names_mm: remat that saves the products' and the attention forward's outputs
+        with torch.no_grad():
+            model.load_state_dict(init)
+        del init, state
+        blocks.REMAT_POLICY = "names_mm"
+        state, step = fresh(remat=True)
+        reset_counts(sa)
+        state, rm, rm_ms, *_ = run_steps(torch, step, state, batch, 2)
+        rm_losses = [float(m["loss"]) for m in rm]
+        check(sa.LAUNCHES == {"fwd": 2 * (lv + lt), "bwd": 2 * (lv + lt)}
+              and all(math.isfinite(x) for x in rm_losses)
+              and abs(rm_losses[0] - losses[0]) <= 1e-3 * abs(losses[0]),
+              f"l14_train[names_mm]: launches {sa.LAUNCHES} in 2 steps (the attention forward "
+              f"saved), first loss {rm_losses[0]:.6f} vs {losses[0]:.6f} (rel 1e-3)")
+        summary = {"model": L14_MODEL, "precision": "amp_bf16", "batch": L14_BATCH,
+                   "window_steps": n, "window_s": wall_s, "images_per_s": L14_BATCH * n / wall_s,
+                   "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+                   "max_step_ms": max(step_ms),
+                   "kernel_ms_per_step": prof_summary["device_busy_ms_per_step"],
+                   "device_idle_share": prof_summary["device_idle_share"],
+                   "median_host_ms_per_step": statistics.median(host_ms),
+                   "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
+                   "last_loss": losses[-1], "peak_mem_gib": peak,
+                   "short_launches_per_step": {f"{d}_{tower}": tally.get((d, tower), 0) / n
+                                               for d in ("fwd", "bwd")
+                                               for tower in ("vision", "text")},
+                   "short_fwd_launches_per_step_by_body": {k: v / n for k, v in fwd_bodies.items()},
+                   "short_bwd_launches_per_step_by_body": {k: v / n for k, v in bwd_bodies.items()},
+                   "names_mm_step_ms": rm_ms, "names_mm_losses": rm_losses}
+        print("l14_train " + json.dumps(summary), flush=True)
+        return tally, n
+    finally:
+        blocks.REMAT_POLICY = saved
+
+
 def phase_b32_switchback(torch, oc, sa, sb, blocks, dense_first_loss: float):
     """ViT-B-32 at batch 256 with the switch on: four steps through the library (no
     remat: 2 launches a block; the first loss within int8 noise of the dense step's
@@ -1907,26 +2029,28 @@ def main() -> int:
     from open_clip_tpu_torch.ops import window_attention as wa
     from open_clip_tpu_torch.models import blocks
 
-    t0 = time.perf_counter()
     sources = ("short_attention", "layer_norm_bwd", "flash_attention", "window_attention",
                "switchback")
-    _build.build_all(sources)
-    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    timed("build", _build.build_all, sources)
+    print(f"build {PHASE_S['build']:.1f} s", flush=True)
     for name in sources:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    fwd_records = phase_kernels(torch, sa, text_batch=CLASSES * len(oc.SIMPLE_IMAGENET_TEMPLATES))
-    bwd_records = phase_attention_bwd_kernels(torch, sa)
-    ln_records = phase_ln_bwd_kernels(torch, fl)
-    flash_records = phase_flash_kernels(torch, fa)
-    window_records = phase_window_kernels(torch, wa, swa)
-    sb_records = phase_switchback_kernels(torch, sb)
-    launches, calls = phase_serve(torch, oc, sa)
-    phase_card_vs_cpu(torch, oc, sa)
-    tally, steps, plain_summary = phase_train(torch, oc, sa, fl, layers_mod, fused_ln=False)
-    tally_ln, steps_ln, fused_summary = phase_train(torch, oc, sa, fl, layers_mod, fused_ln=True)
+    fwd_records = timed("kernels", phase_kernels, torch, sa,
+                        text_batch=CLASSES * len(oc.SIMPLE_IMAGENET_TEMPLATES))
+    bwd_records = timed("attention_bwd_kernels", phase_attention_bwd_kernels, torch, sa)
+    ln_records = timed("ln_bwd_kernels", phase_ln_bwd_kernels, torch, fl)
+    flash_records = timed("flash_kernels", phase_flash_kernels, torch, fa)
+    window_records = timed("window_kernels", phase_window_kernels, torch, wa, swa)
+    sb_records = timed("switchback_kernels", phase_switchback_kernels, torch, sb)
+    launches, calls = timed("serve", phase_serve, torch, oc, sa)
+    timed("card_vs_cpu", phase_card_vs_cpu, torch, oc, sa)
+    tally, steps, plain_summary = timed("train", phase_train, torch, oc, sa, fl, layers_mod,
+                                        fused_ln=False)
+    tally_ln, steps_ln, fused_summary = timed("train_fused_ln", phase_train, torch, oc, sa, fl,
+                                              layers_mod, fused_ln=True)
     check(abs(fused_summary["first_loss"] - plain_summary["first_loss"]) <= 2e-2,
           f"first loss with the fused LayerNorm backward {fused_summary['first_loss']:.4f} vs "
           f"{plain_summary['first_loss']:.4f} without (bf16 tolerance 2e-2)")
@@ -1939,23 +2063,28 @@ def main() -> int:
         "median_host_ms_per_step_on": fused_summary["median_host_ms_per_step"],
         "peak_mem_gib_off": plain_summary["peak_mem_gib"],
         "peak_mem_gib_on": fused_summary["peak_mem_gib"]}), flush=True)
-    phase_cli(torch)
-    short_simt_launches = phase_train_card_vs_cpu(torch, oc, sa)
-    nf_serve_launches, nf_serve_calls = phase_naflex_serve(torch, oc, sa, fa)
-    nf_train_launches, nf_steps = phase_naflex_train(torch, oc, sa, fa)
-    phase_naflex_cli(torch, fa)
-    phase_naflex_card_vs_cpu(torch, oc, sa, fa)
-    clap_serve_launches, clap_calls = phase_clap_serve(torch, oc, sa, swa, wa)
-    clap_train_launches, clap_bodies, clap_steps = phase_clap_train(torch, oc, sa, swa, wa)
-    phase_clap_cli(torch, swa)
-    panel_simt_launches = phase_clap_card_vs_cpu(torch, oc, swa)
-    swin_serve_launches, swin_calls = phase_swin_serve(torch, oc, sa, wa)
-    swin_train_launches, swin_steps = phase_swin_train(torch, oc, sa, wa)
-    h14_launches, h14_steps = phase_h14_train(torch, oc, sa, sb, blocks)
-    b32_sb_launches, b32_sb_steps = phase_b32_switchback(torch, oc, sa, sb, blocks,
-                                                         plain_summary["first_loss"])
-    phase_h14_card_vs_cpu(torch, oc, sb, blocks)
+    timed("cli", phase_cli, torch)
+    short_simt_launches = timed("train_card_vs_cpu", phase_train_card_vs_cpu, torch, oc, sa)
+    nf_serve_launches, nf_serve_calls = timed("naflex_serve", phase_naflex_serve, torch, oc, sa,
+                                              fa)
+    nf_train_launches, nf_steps = timed("naflex_train", phase_naflex_train, torch, oc, sa, fa)
+    timed("naflex_cli", phase_naflex_cli, torch, fa)
+    timed("naflex_card_vs_cpu", phase_naflex_card_vs_cpu, torch, oc, sa, fa)
+    clap_serve_launches, clap_calls = timed("clap_serve", phase_clap_serve, torch, oc, sa, swa,
+                                            wa)
+    clap_train_launches, clap_bodies, clap_steps = timed("clap_train", phase_clap_train, torch, oc,
+                                                         sa, swa, wa)
+    timed("clap_cli", phase_clap_cli, torch, swa)
+    panel_simt_launches = timed("clap_card_vs_cpu", phase_clap_card_vs_cpu, torch, oc, swa)
+    swin_serve_launches, swin_calls = timed("swin_serve", phase_swin_serve, torch, oc, sa, wa)
+    swin_train_launches, swin_steps = timed("swin_train", phase_swin_train, torch, oc, sa, wa)
+    h14_launches, h14_steps = timed("h14_train", phase_h14_train, torch, oc, sa, sb, blocks)
+    l14_tally, l14_steps = timed("l14_train", phase_l14_train, torch, oc, sa, fl, blocks)
+    b32_sb_launches, b32_sb_steps = timed("b32_switchback", phase_b32_switchback, torch, oc, sa,
+                                          sb, blocks, plain_summary["first_loss"])
+    timed("h14_card_vs_cpu", phase_h14_card_vs_cpu, torch, oc, sb, blocks)
 
+    print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
@@ -1977,6 +2106,12 @@ def main() -> int:
                             launches_per_train_step=tally[("bwd", tower)] / steps))
     kernels.append(dict(bwd_records[("vision", "float32")], launches=short_simt_launches,
                         launches_path="fp32 train step, B=8 (phase 6)"))
+    # ViT-L-14's image tower (L=257): the two-pass forward and the two-kernel backward in
+    # the ViT-L-14 train window
+    kernels.append(dict(fwd_records["l257"], launches=l14_tally[("fwd", "vision")],
+                        launches_per_train_step=l14_tally[("fwd", "vision")] / l14_steps))
+    kernels.append(dict(bwd_records[("l257", "bfloat16")], launches=l14_tally[("bwd", "vision")],
+                        launches_per_train_step=l14_tally[("bwd", "vision")] / l14_steps))
     for tower, width in (("vision", 768), ("text", 512)):
         kernels.append(dict(ln_records[tower], launches=tally_ln[("ln", width)],
                             launches_per_train_step=tally_ln[("ln", width)] / steps_ln))

@@ -8,26 +8,29 @@ CLIP's shapes they do ~L operations per byte, far below the ~295 where the bf16
 tensor cores would be the limit), so the design moves the fewest bytes: q/k/v
 are read in place from the tower's (B, L, H*hd) layout with strides, so the
 slices of one fused qkv projection need no copy and no (B, H, L, hd) transpose,
-logits and probabilities stay in shared memory, and only the outputs are
-written. The backward recomputes the softmax from q, k and v, as the TPU kernel
-does: the forward saves nothing else. The source file says more.
+logits and probabilities stay on the chip (registers in the tensor-core bodies,
+shared memory in the CUDA-core ones), and only the outputs are written. The
+backward recomputes the softmax from q, k and v, as the TPU kernel does: the
+forward saves nothing else. The source file says more.
 
 The TPU kernel's head pairing, lane masks and VMEM budgeting are layout tricks
 of the TPU and are left out: any head count is served, and each row has its own
 softmax max.
 
-The backward has two bodies, chosen by ``bwd_body`` from the dtype and the shape
-alone: "mma", one fused kernel on the tensor cores for bf16 at L <= 128 (one block
-per sample and head holds Q, K, V and dO whole), and "simt", the two CUDA-core
-kernels with a row-statistics scratch, for fp32 and for bf16 at 128 < L <= 288.
-Inputs the chosen body cannot read (rows not 16-byte aligned for "mma") raise; they
-are never sent to the other body.
+The forward and the backward have two bodies each, chosen by ``fwd_body`` and
+``bwd_body`` from the dtype alone: "mma", bf16 on the tensor cores, and "simt", fp32
+on CUDA cores. The bf16 backward is one fused kernel at L <= 128 (one block per
+sample and head holds Q, K, V and dO whole) and two kernels with a row-statistics
+scratch at 128 < L <= 288 (dq, then dk and dv, each block keeping the operand its
+rows share whole); the C side picks by L. The fp32 backward is always the two
+CUDA-core kernels. Inputs the chosen body cannot read (rows not 16-byte aligned for
+"mma") raise; they are never sent to the other body.
 
 ``short_attention`` is differentiable. For CUDA tensors it launches the forward
 kernel and, in autograd's backward, the backward kernel, or raises; for CPU
 tensors, and only for them, it computes ``short_attention_reference`` and
 ``short_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each, and
-``BWD_BODIES`` the backward's launches by body.
+``FWD_BODIES`` and ``BWD_BODIES`` the launches of each by body.
 """
 
 from __future__ import annotations
@@ -38,13 +41,13 @@ from typing import Optional
 import torch
 
 MAX_SEQ = 288
-FUSED_MAX_SEQ = 128  # the longest sequence of the fused tensor-core backward
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 
-# launches of each kernel since the last reset, and of the backward by body;
-# chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of each by body; chip_smoke.py
+# sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+FWD_BODIES = {"mma": 0, "simt": 0}
 BWD_BODIES = {"mma": 0, "simt": 0}
 
 _fns = {}
@@ -55,11 +58,17 @@ def supports(l: int, h: int, hd: int, bias) -> bool:
     return bias is None and 1 <= l <= MAX_SEQ and hd in HEAD_DIMS and h >= 1
 
 
+def fwd_body(l: int, hd: int, dtype: torch.dtype) -> str:
+    """Which forward body serves a shape the kernel takes: "mma" (tensor cores) for
+    bf16, "simt" (CUDA cores) for fp32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
 def bwd_body(l: int, hd: int, dtype: torch.dtype) -> str:
-    """Which backward body serves a shape the kernels take: "mma" (the fused
-    tensor-core kernel) for bf16 at L <= 128, "simt" (the two CUDA-core kernels)
-    for fp32 and for bf16 at 128 < L <= 288."""
-    return "mma" if dtype == torch.bfloat16 and l <= FUSED_MAX_SEQ and hd in HEAD_DIMS else "simt"
+    """Which backward body serves a shape the kernels take: "mma" (tensor cores: the
+    fused kernel at L <= 128, two kernels above) for bf16, "simt" (the two CUDA-core
+    kernels) for fp32."""
+    return fwd_body(l, hd, dtype)
 
 
 def short_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -103,18 +112,10 @@ def _kernel(which: str):
         from ._build import load
 
         lib = load("short_attention")
-        tail = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-        if which == "fwd":
-            fn = lib.oct_short_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + tail
-        elif which == "bwd":
-            fn = lib.oct_short_attention_bwd
-            fn.argtypes = [ctypes.c_void_p] * 8 + tail
-        else:  # the fused bf16 backward: no scratch, no dtype
-            fn = lib.oct_short_attention_bwd_fused
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        pointers = 4 if which.startswith("fwd") else 8  # tensors (and the bwd's scratch)
+        fn = getattr(lib, f"oct_short_attention_{which}")
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[which] = fn
     return fn
@@ -136,13 +137,22 @@ def _check(x: torch.Tensor, name: str, shape, dtype, device, vec: int = 4) -> No
                          f"got strides {x.stride()}")
 
 
-def check_bwd_inputs(q, k, v, do, body: str) -> None:
-    """Raise unless q, k, v and do are what ``body``'s kernels read: q's shape, dtype
-    and device, a dense (H, hd) block per row, every row aligned (16 bytes for
+def check_inputs(tensors, names, body: str) -> None:
+    """Raise unless every tensor is what ``body``'s kernels read: the first one's shape,
+    dtype and device, a dense (H, hd) block per row, every row aligned (16 bytes for
     "mma"). An input that does not fit raises; it is never sent to the other body."""
-    vec = 16 // q.element_size() if body == "mma" else 4
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "do")):
-        _check(x, name, q.shape, q.dtype, q.device, vec)
+    first = tensors[0]
+    vec = 16 // first.element_size() if body == "mma" else 4
+    for x, name in zip(tensors, names):
+        _check(x, name, first.shape, first.dtype, first.device, vec)
+
+
+def check_fwd_inputs(q, k, v, body: str) -> None:
+    check_inputs((q, k, v), ("q", "k", "v"), body)
+
+
+def check_bwd_inputs(q, k, v, do, body: str) -> None:
+    check_inputs((q, k, v, do), ("q", "k", "v", "do"), body)
 
 
 def _check_cuda_call(q: torch.Tensor) -> None:
@@ -153,7 +163,7 @@ def _check_cuda_call(q: torch.Tensor) -> None:
     if not supports(l, h, hd, None):
         raise ValueError(f"short_attention: unsupported shape L={l}, H={h}, hd={hd} "
                          f"(needs L <= {MAX_SEQ}, hd in {HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPES:
         raise ValueError(f"short_attention: dtype {q.dtype} unsupported (float32, bfloat16)")
 
 
@@ -165,17 +175,18 @@ def _strides(*tensors):
 
 def _launch_fwd(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     b, l, h, hd = q.shape
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(x, name, q.shape, q.dtype, q.device)
+    body = fwd_body(l, hd, q.dtype)
+    check_fwd_inputs(q, k, v, body)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    fn = _kernel("fwd")
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, hd,
+            _strides(q, k, v, out), float(scale), int(causal)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, hd,
-                 _strides(q, k, v, out), float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+        err = _kernel("fwd_mma" if body == "mma" else "fwd")(*args, stream)
     if err != 0:
-        raise RuntimeError(f"short_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"short_attention kernel ({body}) launch failed: cudaError {err}")
     LAUNCHES["fwd"] += 1
+    FWD_BODIES[body] += 1
     return out
 
 
@@ -193,20 +204,14 @@ def short_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: t
     body = bwd_body(l, hd, q.dtype)
     check_bwd_inputs(q, k, v, do, body)
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format) for _ in range(3))
-    strides = _strides(q, k, v, do, dq, dk, dv)
+    # row statistics (max, sum, delta) of the two-kernel bodies; the fused one leaves it
+    stats = torch.empty((b, h, 3, l), dtype=torch.float32, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, l, h, hd,
+            _strides(q, k, v, do, dq, dk, dv), float(scale), int(causal)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if body == "mma":
-            err = _kernel("bwd_fused")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, l, h, hd, strides, float(scale), int(causal),
-                stream)
-        else:
-            stats = torch.empty((b, h, 3, l), dtype=torch.float32, device=q.device)  # max, sum, delta
-            err = _kernel("bwd")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, l, h, hd, strides,
-                float(scale), int(causal), _DTYPE_CODES[q.dtype], stream)
+        err = _kernel("bwd_mma" if body == "mma" else "bwd")(*args, stream)
     if err != 0:
         raise RuntimeError(f"short_attention backward kernel ({body}) launch failed: "
                            f"cudaError {err}")

@@ -1,13 +1,13 @@
-"""Which backward body the port's attention kernels take, and what each refuses.
+"""Which body the port's attention kernels take, and what each refuses.
 
-The short-attention and panel-attention backwards have two bodies each on the card:
-"mma", a bf16 kernel on the tensor cores, and "simt", the CUDA-core kernel that also
-serves fp32. The choice is a pure function of the mode, the dtype and the shape
-(``short_attention.bwd_body``, ``window_attention.bwd_body``); alignment does not
-move it: inputs whose rows the chosen body cannot read raise. These tests pin both
-rules on the CPU, where the rules and the input checks run without a card; the
-bodies themselves are held to their plain versions on the card
-(``test_torch_kernels_gpu.py``).
+The short-attention forward and backward and the panel-attention backward have two
+bodies each on the card: "mma", a bf16 kernel on the tensor cores, and "simt", the
+CUDA-core kernel that also serves fp32. The choice is a pure function of the mode,
+the dtype and the shape (``short_attention.fwd_body`` and ``bwd_body``,
+``window_attention.bwd_body``); alignment does not move it: inputs whose rows the
+chosen body cannot read raise. These tests pin both rules on the CPU, where the rules
+and the input checks run without a card; the bodies themselves are held to their
+plain versions on the card (``test_torch_kernels_gpu.py``).
 """
 
 import pytest
@@ -25,9 +25,9 @@ BF16, FP32 = torch.bfloat16, torch.float32
     (128, 64, BF16, "mma"),    # the longest the fused kernel takes
     (1, 32, BF16, "mma"),
     (77, 128, BF16, "mma"),
-    (129, 64, BF16, "simt"),   # past the fused kernel: the two-kernel body
-    (257, 64, BF16, "simt"),   # ViT-L-14's image tower
-    (288, 128, BF16, "simt"),
+    (129, 64, BF16, "mma"),    # past the fused kernel: the two tensor-core kernels
+    (257, 64, BF16, "mma"),    # ViT-L-14's image tower
+    (288, 128, BF16, "mma"),
     (50, 64, FP32, "simt"),    # fp32 always takes the CUDA-core body
     (77, 64, FP32, "simt"),
     (128, 32, FP32, "simt"),
@@ -35,6 +35,24 @@ BF16, FP32 = torch.bfloat16, torch.float32
 def test_short_backward_body(l, hd, dtype, body):
     assert sa.supports(l, 4, hd, None)
     assert sa.bwd_body(l, hd, dtype) == body
+
+
+@pytest.mark.parametrize("l,hd,dtype,body", [
+    (50, 64, BF16, "mma"),     # ViT-B-32 image tower
+    (77, 64, BF16, "mma"),     # CLIP text tower
+    (1, 32, BF16, "mma"),
+    (128, 128, BF16, "mma"),   # the longest whole row in registers
+    (129, 64, BF16, "mma"),    # the two-pass body
+    (197, 64, BF16, "mma"),    # ViT-B-16
+    (257, 64, BF16, "mma"),    # ViT-L-14
+    (288, 128, BF16, "mma"),
+    (50, 64, FP32, "simt"),    # fp32 keeps the CUDA-core body
+    (257, 64, FP32, "simt"),
+    (288, 32, FP32, "simt"),
+])
+def test_short_forward_body(l, hd, dtype, body):
+    assert sa.supports(l, 4, hd, None)
+    assert sa.fwd_body(l, hd, dtype) == body
 
 
 @pytest.mark.parametrize("mode,hd,dtype,body", [
@@ -75,6 +93,13 @@ def test_short_fused_views_fit_the_mma_body():
     sa.check_bwd_inputs(q, k, v, torch.zeros_like(q), "mma")
 
 
+@pytest.mark.parametrize("l,h,hd", [(50, 12, 64), (77, 8, 64), (257, 16, 64), (288, 2, 128)])
+def test_short_fused_views_fit_both_mma_bodies(l, h, hd):
+    q, k, v = _short_views(2, l, h, hd, BF16)
+    sa.check_fwd_inputs(q, k, v, "mma")
+    sa.check_bwd_inputs(q, k, v, torch.zeros_like(q), "mma")
+
+
 @pytest.mark.parametrize("what", ["row_stride", "pointer"])
 def test_short_misaligned_inputs_raise_for_the_mma_body(what):
     """A bf16 row at an 8-byte boundary: the CUDA-core kernels could read it, but the
@@ -89,6 +114,22 @@ def test_short_misaligned_inputs_raise_for_the_mma_body(what):
         sa.check_bwd_inputs(q, k, v, do, "mma")
     if what == "row_stride":
         sa.check_bwd_inputs(q, k, v, do, "simt")  # 4-element rows: what "simt" reads
+
+
+@pytest.mark.parametrize("l", [50, 257])
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_short_misaligned_inputs_raise_for_the_mma_forward(what, l):
+    """The forward's mma body reads 16 bytes at a time too: a row 8 bytes past a
+    16-byte boundary raises, and is not sent to the CUDA-core forward."""
+    if what == "row_stride":
+        q, k, v = _short_views(2, l, 2, 32, BF16, pad=4)
+    else:
+        q, k, v = _short_views(2, l, 2, 32, BF16, offset=4)
+    assert sa.fwd_body(l, 32, BF16) == "mma"
+    with pytest.raises(ValueError, match="aligned"):
+        sa.check_fwd_inputs(q, k, v, "mma")
+    if what == "row_stride":
+        sa.check_fwd_inputs(q, k, v, "simt")
 
 
 def _panel_views(b, tokens, c, dtype, pad=0, offset=0):

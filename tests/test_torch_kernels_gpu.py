@@ -14,10 +14,13 @@ terms in other orders), bf16 2e-2 (ds, p and the outputs are rounded to bf16: a
 probability that rounds the other way moves a term by 2**-8). The flash kernels
 sum over up to 1024 keys tile by tile, with a running max: the same tolerances hold.
 The SwitchBack int8 matmul is held to its plain version exactly (integer sums,
-then the same fp32 roundings). The short and panel attention backwards have two
-bodies each ("mma" on the tensor cores for bf16, "simt" on CUDA cores); each test
-of them also checks which body its shape took (``bwd_body``), under the same
-tolerances: the two bodies round at the same points.
+then the same fp32 roundings). The short attention forward and backward and the
+panel attention backward have two bodies each ("mma" on the tensor cores for bf16,
+"simt" on CUDA cores); each test of them also checks which body its shape took
+(``fwd_body``, ``bwd_body``), under the same tolerances: the two bodies round at the
+same points, but for the bf16 forward, whose mma body rounds the unnormalised
+exponentials (as the TPU kernel does) where the plain version rounds the
+probabilities: both within 2e-2.
 """
 
 import numpy as np
@@ -50,10 +53,12 @@ def _fused_qkv(seed, b, l, h, hd, dtype, device):
 
 
 def _check(q, k, v, causal):
-    before = dict(sa.LAUNCHES)
+    before, bodies = dict(sa.LAUNCHES), dict(sa.FWD_BODIES)
     out = sa.short_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert sa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"]}
+    body = sa.fwd_body(q.shape[1], q.shape[3], q.dtype)
+    assert sa.FWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     ref = sa.short_attention_reference(q, k, v, causal=causal)
     assert out.dtype == q.dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
@@ -81,6 +86,47 @@ def test_kernel_keeps_a_max_per_head(cuda, dtype):
     q[:, :, 0] = 1.0 + 0.1 * q[:, :, 0]
     k[:, :, 0] = -100.0 / (64 * 64 ** -0.5) + 0.01 * k[:, :, 0]
     _check(q.to(dtype), k.to(dtype), v.to(dtype), False)
+
+
+@pytest.mark.parametrize("b,l,h,hd,causal", [
+    (8, 50, 12, 64, False),   # ViT-B-32 image tower: one 4-warp block, the row in registers
+    (8, 77, 8, 64, True),     # CLIP text tower: a row of 80 keys in registers
+    (4, 65, 2, 32, False),    # the shortest row of 80 keys
+    (4, 90, 4, 64, True),     # a row of 96 keys
+    (4, 128, 4, 128, False),  # the longest row held whole in registers, 8 warps
+    (4, 129, 4, 64, False),   # the shortest two-pass length: 3 query tiles
+    (4, 129, 2, 32, True),
+    (2, 257, 16, 64, False),  # ViT-L-14 image tower: 5 query tiles of 4 warps
+    (2, 257, 4, 64, True),
+    (2, 197, 3, 64, False),   # ViT-B-16
+    (2, 288, 2, 128, True),   # the most shared memory
+    (2, 288, 2, 128, False),
+])
+def test_mma_forward_matches_plain(cuda, b, l, h, hd, causal):
+    """The bf16 tensor-core forward on strided views of a fused qkv projection."""
+    assert sa.fwd_body(l, hd, torch.bfloat16) == "mma"
+    _check(*_fused_qkv(l + hd + h, b, l, h, hd, torch.bfloat16, cuda), causal)
+
+
+@pytest.mark.parametrize("l", [77, 257])
+def test_mma_forward_keeps_a_max_per_head(cuda, l):
+    """Head 0's logits ~100 below head 1's, at a one-pass and a two-pass length."""
+    q, k, v = (x.float().clone() for x in _fused_qkv(0, 4, l, 2, 64, torch.float32, cuda))
+    q[:, :, 0] = 1.0 + 0.1 * q[:, :, 0]
+    k[:, :, 0] = -100.0 / (64 * 64 ** -0.5) + 0.01 * k[:, :, 0]
+    _check(q.bfloat16(), k.bfloat16(), v.bfloat16(), False)
+
+
+@pytest.mark.parametrize("l", [50, 257])
+def test_mma_forward_raises_on_misaligned_rows(cuda, l):
+    """Rows 8 bytes past a 16-byte boundary: bf16 takes the mma forward, which cannot
+    read them, so the call raises and nothing is launched."""
+    qkv = torch.zeros(2, l, 3 * 2 * 32 + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :3 * 2 * 32].unflatten(-1, (3, 2, 32)).unbind(2)
+    before = (dict(sa.LAUNCHES), dict(sa.FWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        sa.short_attention(q, k, v)
+    assert (sa.LAUNCHES, sa.FWD_BODIES) == before
 
 
 def test_kernel_takes_contiguous_inputs(cuda):
@@ -174,6 +220,28 @@ def test_fused_backward_matches_plain(cuda, l, hd, causal):
     qkv projection."""
     assert sa.bwd_body(l, hd, torch.bfloat16) == "mma"
     _check_bwd(*_fused_qkv(l + hd, 3, l, 4, hd, torch.bfloat16, cuda), causal)
+
+
+@pytest.mark.parametrize("b,l,h,hd,causal", [
+    (4, 129, 4, 64, False),   # the shortest length of the two kernels
+    (4, 129, 2, 32, True),
+    (2, 257, 16, 64, False),  # ViT-L-14's image tower
+    (2, 257, 4, 64, True),
+    (2, 288, 2, 128, False),  # the most shared memory
+    (2, 288, 2, 128, True),
+])
+def test_long_mma_backward_matches_plain(cuda, b, l, h, hd, causal):
+    """The bf16 backward past L = 128: two tensor-core kernels and the statistics
+    scratch, on strided views of a fused qkv projection."""
+    assert sa.bwd_body(l, hd, torch.bfloat16) == "mma"
+    _check_bwd(*_fused_qkv(l + hd, b, l, h, hd, torch.bfloat16, cuda), causal)
+
+
+def test_long_mma_backward_keeps_a_max_per_head(cuda):
+    q, k, v = (x.float().clone() for x in _fused_qkv(5, 2, 257, 2, 64, torch.float32, cuda))
+    q[:, :, 0] = 1.0 + 0.1 * q[:, :, 0]
+    k[:, :, 0] = -100.0 / (64 * 64 ** -0.5) + 0.01 * k[:, :, 0]
+    _check_bwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), False)
 
 
 def test_fused_backward_raises_on_misaligned_rows(cuda):
@@ -509,7 +577,8 @@ def test_panel_kernels_match_plain(cuda, b, h, w, c, heads, nw, dtype):
                        swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw), dtype)
 
 
-@pytest.mark.parametrize("route", ["panel_mma", "panel_simt", "short_mma", "short_simt"])
+@pytest.mark.parametrize("route", ["panel_mma", "panel_simt", "short_mma", "short_simt",
+                                   "short_mma_long"])
 def test_window_backward_is_deterministic(cuda, route):
     """No atomics on either body: dbias folds fixed groups' partials in a fixed order,
     every other output is written once. The same bits every run."""
@@ -522,12 +591,16 @@ def test_window_backward_is_deterministic(cuda, route):
         runs = [swa.panel_attention_bwd(q, k, v, bias, do, hw=(64, 64), ws=8) for _ in range(3)]
         assert swa.BWD_BODIES[route[6:]] == before[route[6:]] + 3
     else:
+        # bf16 takes the mma bodies at every length (77: the fused kernel, 257: the two
+        # kernels); fp32 the CUDA-core one
         l = 77 if route == "short_mma" else 257
-        q, k, v = _fused_qkv(3, 4, l, 8, 64, torch.bfloat16, cuda)
+        dtype = torch.float32 if route == "short_simt" else torch.bfloat16
+        body = "simt" if route == "short_simt" else "mma"
+        q, k, v = _fused_qkv(3, 4, l, 8, 64, dtype, cuda)
         do = torch.ones_like(q)
         before = dict(sa.BWD_BODIES)
         runs = [sa.short_attention_bwd(q, k, v, do, causal=True) for _ in range(3)]
-        assert sa.BWD_BODIES[route[6:]] == before[route[6:]] + 3
+        assert sa.BWD_BODIES[body] == before[body] + 3
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
 

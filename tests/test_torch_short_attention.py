@@ -51,7 +51,7 @@ def _port(q, k, v, dtype, causal):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("l,h", [(17, 2), (50, 2), (17, 4), (50, 4)])
+@pytest.mark.parametrize("l,h", [(17, 2), (50, 2), (17, 4), (50, 4), (129, 1), (257, 2)])
 def test_plain_matches_jax_kernel(interpret, l, h, causal, dtype):
     q, k, v = _qkv(l * 10 + h, 2, l, h, 64)
     j = [jnp.asarray(x, JAX_DTYPES[dtype]) for x in (q, k, v)]

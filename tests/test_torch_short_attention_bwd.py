@@ -52,7 +52,7 @@ def _jax_grads(fn, q, k, v, do, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("l,h", [(50, 2), (77, 2), (197, 2), (50, 4)])
+@pytest.mark.parametrize("l,h", [(50, 2), (77, 2), (197, 2), (50, 4), (129, 1), (257, 2)])
 def test_plain_backward_matches_jax_kernel(interpret, l, h, causal, dtype):
     q, k, v, do = _inputs(l + h, 2, l, h, 64)
     ref = _jax_grads(lambda a, b, c: jsa.short_attention(a, b, c, causal=causal), q, k, v, do, dtype)

@@ -276,3 +276,64 @@ def test_patch_dropout_in_training_raises(setup):
         clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts))  # serving: fine
     with pytest.raises(NotImplementedError, match="patch dropout"):
         clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts), train=True)
+
+
+# ViT-L-14's token count at a tiny width: a 64-pixel image in 4-pixel patches is a
+# 16 x 16 grid plus the class token, 257 tokens, the length the short-attention
+# kernels serve with their two-pass forward and two-kernel backward on the card
+TINY_257 = {
+    "embed_dim": 32,
+    "vision_cfg": {"image_size": 64, "layers": 2, "width": 64, "patch_size": 4, "head_width": 32},
+    "text_cfg": {"context_length": 16, "width": 64, "heads": 2, "layers": 2},
+}
+
+
+@pytest.fixture(scope="module")
+def setup_257():
+    jcfg = JaxCfg.from_dict(TINY_257)
+    params = jax.tree.map(np.asarray, jclip.init_clip(jax.random.PRNGKey(1), jcfg))
+    cfg = oc.CLIPModelCfg.from_dict(TINY_257)
+    rng = np.random.default_rng(1)
+    images = rng.standard_normal((BATCH, 64, 64, 3)).astype(np.float32)
+    texts = rng.integers(1, 49406, (BATCH, 16)).astype(np.int32)
+    texts[:, 0] = 49406
+    texts[np.arange(BATCH), rng.integers(2, 16, BATCH)] = 49407
+    return jcfg, params, cfg, images, texts
+
+
+def test_257_token_tower_gradients_match_jax(setup_257):
+    """Loss and every gradient at 257 image tokens, fp32, tolerances as above."""
+    jcfg, params, cfg, images, texts = setup_257
+    assert (64 // 4) ** 2 + 1 == 257
+
+    def loss_fn(p):
+        out = jclip.clip_forward(p, jcfg, jnp.asarray(images), jnp.asarray(texts), train=True,
+                                 compute_dtype=jnp.float32)
+        return jax_clip_loss(out["image_features"], out["text_features"],
+                             jnp.exp(p["logit_scale"].astype(jnp.float32)))
+
+    want_loss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jax.tree.map(jnp.asarray, params))
+    model = _port_model(params, cfg)
+    out = clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts), train=True)
+    loss = clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp())
+    loss.backward()
+    assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)
+    got = {k: p.grad for k, p in model.named_parameters()}
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads), cfg)
+    _assert_tensors_close(got, want, atol=2e-6, rtol=1e-4)
+
+
+def test_257_token_tower_step_matches_jax(setup_257):
+    """One step of each train step at 257 image tokens: loss, grad_norm and the
+    updated parameters, at the tolerances of the module docstring."""
+    jcfg, params, cfg, images, texts = setup_257
+    jstate, jopt = _jax_state(params)
+    jstep = jax.jit(jts.make_train_step(jcfg, jopt, compute_dtype=jnp.float32))
+    jstate, jm = jstep(jstate, {"image": jnp.asarray(images), "text": jnp.asarray(texts)},
+                       jax.random.PRNGKey(0))
+    state, opt = _port_state(params, cfg)
+    state, m = pts.make_train_step(cfg, opt)(state, _batch(images, texts))
+    assert m["loss"].item() == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert m["grad_norm"].item() == pytest.approx(float(jm["grad_norm"]), rel=1e-5)
+    want = params_from_jax(jax.tree.map(np.asarray, jstate.params), cfg)
+    _assert_tensors_close(state.model.state_dict(), want, atol=2e-2 * LR)
