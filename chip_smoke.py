@@ -13,7 +13,9 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      backward also at L=128 (the longest its fused body takes), the LayerNorm
      backward, and the three flash attention kernels (forward with logsumexp, dq,
      dk/dv) at the NaFlex train and serve buckets, a length that is no multiple of a
-     tile, causal, prefix-LM and hd=128; kernel, plain and library-call device time,
+     tile, causal, prefix-LM, hd=128 and samples with whole key tiles of invalid keys
+     (the bf16 forward on wgmma fed by TMA, which skips them), a sample with no valid
+     key and misaligned rows (which raise); kernel, plain and library-call device time,
      each from one CUDA graph of calls (no host work between launches), and the bound;
   2. serving: ViT-B-32 from create_model_and_transforms in pure_bf16 with random
      weights from a seed, a zero-shot classifier over 10 ImageNet classes (one
@@ -42,12 +44,12 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      requests of 32 synthetic 384x512 uint8 images (NaFlexTransform(576, 16) on the
      card: a 20x27 grid, 540 valid patches of 576 -> encode_image(patch dict) ->
      logits -> top-5), timed and profiled like phase 2; 12 flash forward launches a
-     request and no backward launch;
+     request, every one on the wgmma body, and no backward launch;
   8. NaFlex training: amp_bf16, AdamW with clipping, make_train_step on one fixed
      batch of 16 patch dicts at 1024 tokens (32x32 grids, all valid, alternating with
      24x32 grids, 768 valid) and 16 token rows, timed and profiled like phase 4; a
-     step launches each flash kernel 12 times and the short kernels 12 + 12 times
-     (the text tower); then two steps with remat;
+     step launches each flash kernel 12 times (the forward on the wgmma body) and the
+     short kernels 12 + 12 times (the text tower); then two steps with remat;
   9. the CLI with --dataset-type synthetic-naflex at the 1024-token bucket (batch 16
      from the token budget), one short epoch;
  10. NaFlex at fp32 (TF32 off), card against CPU: image features of a ragged batch
@@ -56,10 +58,13 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  11. (with phase 1) the window and panel attention kernels, forward and backward
      (dq, dk, dv, dbias), bf16 and fp32, against their plain versions at HTSAT-tiny's
      stage-0 (shifted and not) and stage-3 shapes at the serve and train batches,
-     stages 1 and 2 (shifted) at the train batch, Swin-B's stage-0 and stage-2
-     windows, a non-square map and odd head counts; kernel, plain, library (SDPA with
-     the bias as attn_mask) time and the bound. The bf16 panel backward takes the
-     tensor-core body, every other case the CUDA-core one;
+     stages 1 and 2 (shifted) at the train batch, Swin-B's four stages' windows at
+     the train batch (and stages 0 and 2 at the serve batch), a non-square map and odd
+     head counts; kernel, plain, library (SDPA with the bias as attn_mask) time and
+     the bound. The bf16 backward takes the tensor-core body (the panel's 64-token
+     windows and Swin-B's 49-token ones, padded to 64), fp32 the CUDA-core one; then
+     the tensor-core window and panel backwards at Swin-B's and HTSAT's four stage
+     shapes under five group splits (the window_bwd_groups line);
  12. CLAP serving: CLAP-HTSAT-tiny in pure_bf16, requests of 64 ten-second clips
      (host AudioPreprocess, pinned copy, log-mel and encode_audio on the card, an
      ESC-50-template classifier, top-5), timed and profiled like phase 2; 12 panel
@@ -71,7 +76,10 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  15. CLAP at fp32 (TF32 off), card against CPU: log-mel, features, every gradient;
  16. Swin-B (swin_base_patch4_window7_224) serving in pure_bf16 (64 images a request)
      and training in amp_bf16 (batch 32): 24 window launches of each kind per
-     encode_image and per step, and a step with remat;
+     encode_image and per step, every backward on the tensor-core body; profiled
+     steps (kernel ms a step, the window backward's ms a step), the same steps with the
+     window backward sent to its CUDA-core body for a before and after within the run,
+     and a step with remat;
  17. (with phase 1) the SwitchBack int8 matmul-dequant against its plain version bit
      for bit, fp32 and bf16 out, at the MLP shapes of ViT-H-14 (batch 32) and
      ViT-B-32 (batch 256) and at ragged shapes; kernel, plain, torch._int_mm plus the
@@ -89,9 +97,10 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      tower's 257 tokens on the two-pass forward and the two-kernel backward); then 2
      steps under names_mm from the same initial weights, with the same first loss.
 
-Every kernel record names its body: "mma" (bf16 on the tensor cores, mma.sync) or
-"simt" (CUDA cores); the train lines give the short forward and backward launches by
-body and the kernel ms of a step beside the step time.
+Every kernel record names its body: "wgmma" (bf16 on the tensor cores, warpgroup
+products fed by TMA: the flash forward), "mma" (bf16 on the tensor cores, mma.sync)
+or "simt" (CUDA cores); the train lines give the launches by body and the kernel ms
+of a step beside the step time.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
 one {"kernels": [...]} JSON line and as the last line {"ok": true, "device": {...}}.
@@ -473,7 +482,9 @@ def phase_flash_kernels(torch, fa):
              ("l577", 8, 577, 12, 64, False, 0, None, False),
              ("causal640", 8, 640, 12, 64, True, 0, None, False),
              ("prefix256", 4, 1024, 12, 64, True, 256, None, False),
-             ("hd128", 4, 512, 8, 128, False, 0, None, False)]
+             ("hd128", 4, 512, 8, 128, False, 0, None, False),
+             # whole key tiles with no valid key, which the wgmma forward skips
+             ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), False)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -485,7 +496,11 @@ def phase_flash_kernels(torch, fa):
             dn = str(dtype).split(".")[1]
             q, k, v = attention_inputs(b, l, h, hd, dtype, gen)
             do = torch.randn(b, l, h, hd, generator=gen, device="cuda").to(dtype)
+            fwd_body, before = fa.fwd_body(hd, dtype), dict(fa.FWD_BODIES)
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            check(fa.FWD_BODIES[fwd_body] == before[fwd_body] + 1
+                  and fwd_body == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+                  f"flash forward {name} {dtype}: took the {fwd_body} body")
             ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
             grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             refs = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do, **kw)
@@ -501,8 +516,8 @@ def phase_flash_kernels(torch, fa):
                   f"flash backward {name} {dn}: rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/"
                   f"{errs[2]:.2e} (tol {BWD_RTOL[dn]:.0e})")
             size, n = q.element_size(), b * l * h * hd
-            common = {"route": "cuda", "body": "mma" if dtype == torch.bfloat16 else "simt",
-                      "source": FLASH_SOURCE, "shape": [b, l, h, hd],
+            bwd_body = "mma" if dtype == torch.bfloat16 else "simt"
+            common = {"route": "cuda", "body": bwd_body, "source": FLASH_SOURCE, "shape": [b, l, h, hd],
                       "causal": causal, "prefix_len": prefix, "valid": lens, "dtype": dn,
                       "visible_pairs": pairs}
             it = dict(iters=10, replays=3)
@@ -535,7 +550,7 @@ def phase_flash_kernels(torch, fa):
                     lib_fwd = graph_ms(sdpa, **it)
                 lib_bwd = graph_ms(sdpa_both, **it) - graph_ms(sdpa, **it)
             recs = {
-                "fwd": dict(common, name=f"flash_attention_fwd[{name}]",
+                "fwd": dict(common, name=f"flash_attention_fwd[{name}]", body=fwd_body,
                             replaces="open_clip_tpu/ops/flash_attention.py:45",
                             max_abs_err=err, lse_abs_err=lse_err, ms=ms_fwd, plain_ms=plain_fwd,
                             **bound(4 * n * size, 4 * h * hd * pairs, dn),
@@ -571,8 +586,21 @@ def phase_flash_kernels(torch, fa):
     ref, _ = fa.flash_attention_reference(q, k, v, key_valid=valid)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out), key_valid=valid)
     check(bool((out[1] == 0).all()) and bool((ref[1] == 0).all()) and bool(torch.isfinite(lse).all())
-          and all(bool(torch.isfinite(g).all()) and bool((g[1] == 0).all()) for g in grads),
+          and all(bool(torch.isfinite(g).all()) and bool((g[1] == 0).all()) for g in grads)
+          and (out[0].float() - ref[0].float()).abs().max().item() <= TOL["bfloat16"],
           "flash kernels: a sample with no valid key gives zero rows, a finite lse and zero gradients")
+    # rows 8 bytes past a 16-byte boundary: no tensor map can read them, so the call
+    # raises and nothing launches (no other body takes them)
+    x = torch.zeros(2, 520, 3 * 4 * 64 + 4, device="cuda", dtype=torch.bfloat16)
+    q, k, v = x[..., :3 * 4 * 64].unflatten(-1, (3, 4, 64)).unbind(2)
+    before = dict(fa.LAUNCHES)
+    try:
+        fa.flash_attention_fwd(q, k, v)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and fa.LAUNCHES == before,
+          "flash forward: misaligned rows raise, nothing launched")
     return records
 
 
@@ -1000,9 +1028,11 @@ def phase_naflex_serve(torch, oc, sa, fa):
           f"{int(n_valid[0])} valid of {NF_SERVE_SEQ} (a 20x27 grid)")
     check(text_launches == layers_t and sa.LAUNCHES["fwd"] == layers_t,
           f"NaFlex classifier: {text_launches} short-kernel launches for 1 encode_text call")
-    check(fa.LAUNCHES == {"fwd": layers_v * image_calls, "bwd_dq": 0, "bwd_dkv": 0},
-          f"NaFlex requests: flash launches {fa.LAUNCHES} for {image_calls} encode_image calls "
-          f"(expect {layers_v * image_calls} forward, no backward)")
+    check(fa.LAUNCHES == {"fwd": layers_v * image_calls, "bwd_dq": 0, "bwd_dkv": 0}
+          and fa.FWD_BODIES == {"wgmma": layers_v * image_calls, "simt": 0},
+          f"NaFlex requests: flash launches {fa.LAUNCHES}, forward by body {fa.FWD_BODIES} for "
+          f"{image_calls} encode_image calls (expect {layers_v * image_calls} wgmma forwards, "
+          f"no backward)")
     fn = torch.linalg.vector_norm(feats.float(), dim=-1)
     check(tuple(feats.shape) == (NF_SERVE_BATCH, model.cfg.embed_dim)
           and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
@@ -1018,7 +1048,7 @@ def phase_naflex_serve(torch, oc, sa, fa):
         "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
         "max_request_ms": max(lat),
         "device_ms_median": {n: statistics.median(v) for n, v in phase_ms.items()},
-        "flash_fwd_launches": fa.LAUNCHES["fwd"],
+        "flash_fwd_launches": fa.LAUNCHES["fwd"], "flash_fwd_bodies": dict(fa.FWD_BODIES),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
     print("naflex_profile " + json.dumps(profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)),
           flush=True)
@@ -1043,15 +1073,17 @@ def phase_naflex_train(torch, oc, sa, fa):
     n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
     reset_counts(sa, fa)
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
-    flash, short = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
+    flash, short, flash_bodies = dict(fa.LAUNCHES), dict(sa.LAUNCHES), dict(fa.FWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     norms = [float(m["grad_norm"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses), f"naflex_train: {len(losses)} losses finite")
     check(losses[-1] < losses[0], f"naflex_train: loss fell on the fixed batch, "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
     check(all(math.isfinite(x) and x > 0 for x in norms), "naflex_train: grad_norm finite, positive")
-    check(flash == {"fwd": lv * n, "bwd_dq": lv * n, "bwd_dkv": lv * n},
-          f"naflex_train: flash launches {flash} in {n} steps (expect {lv * n} of each)")
+    check(flash == {"fwd": lv * n, "bwd_dq": lv * n, "bwd_dkv": lv * n}
+          and flash_bodies == {"wgmma": lv * n, "simt": 0},
+          f"naflex_train: flash launches {flash}, forward by body {flash_bodies} in {n} steps "
+          f"(expect {lv * n} of each, every forward wgmma)")
     check(short == {"fwd": lt * n, "bwd": lt * n},
           f"naflex_train: short-kernel launches {short} in {n} steps (the text tower: "
           f"{lt * n} of each)")
@@ -1063,6 +1095,7 @@ def phase_naflex_train(torch, oc, sa, fa):
                "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
                "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
                "flash_launches_per_step": {k: v / n for k, v in flash.items()},
+               "flash_fwd_launches_per_step_by_body": {k: v / n for k, v in flash_bodies.items()},
                "short_launches_per_step": {k: v / n for k, v in short.items()}}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
@@ -1076,6 +1109,7 @@ def phase_naflex_train(torch, oc, sa, fa):
     reset_counts(sa, fa)
     state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 2)
     check(fa.LAUNCHES == {"fwd": 2 * lv * 2, "bwd_dq": lv * 2, "bwd_dkv": lv * 2}
+          and fa.FWD_BODIES == {"wgmma": 2 * lv * 2, "simt": 0}
           and math.isfinite(float(rm[-1]["loss"])),
           f"naflex_train[remat]: flash launches {fa.LAUNCHES} in 2 steps, loss finite")
     summary["remat_median_step_ms"] = statistics.median(remat_ms)
@@ -1111,12 +1145,14 @@ def phase_naflex_cli(torch, fa):
                                  for r in rows),
               f"NaFlex CLI: loss {[round(r['train/loss'], 4) for r in rows]} is ln "
               f"{NF_TRAIN_BATCH} on identical samples")
-        check(fa.LAUNCHES == {k: layers * NF_CLI_STEPS for k in fa.LAUNCHES},
-              f"NaFlex CLI: flash launches {fa.LAUNCHES} in {NF_CLI_STEPS} steps")
+        check(fa.LAUNCHES == {k: layers * NF_CLI_STEPS for k in fa.LAUNCHES}
+              and fa.FWD_BODIES == {"wgmma": layers * NF_CLI_STEPS, "simt": 0},
+              f"NaFlex CLI: flash launches {fa.LAUNCHES}, forward by body {fa.FWD_BODIES} in "
+              f"{NF_CLI_STEPS} steps")
         check((run / "checkpoints" / "epoch_1.pt").exists(), "NaFlex CLI: checkpoint epoch_1.pt written")
         last = rows[-1] if rows else {}
         print("naflex_cli " + json.dumps({
-            "steps": NF_CLI_STEPS, "run_s": wall_s,
+            "steps": NF_CLI_STEPS, "run_s": wall_s, "flash_fwd_bodies": dict(fa.FWD_BODIES),
             "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
             "host_batch_ms_per_step": 1e3 * last.get("train/batch_time", float("nan"))}), flush=True)
 
@@ -1213,6 +1249,9 @@ def phase_window_kernels(torch, wa, swa):
              ("swin_s0_shift", "window", b_w * 64, 49, 128, 4, 64),
              ("swin_s2_shift", "window", b_w * 4, 49, 512, 16, 4),
              ("swin_s0_train", "window", SWIN_TRAIN_BATCH * 64, 49, 128, 4, 64),
+             ("swin_s1_train", "window", SWIN_TRAIN_BATCH * 16, 49, 256, 8, 16),
+             ("swin_s2_train", "window", SWIN_TRAIN_BATCH * 4, 49, 512, 16, 4),
+             ("swin_s3_train", "window", SWIN_TRAIN_BATCH, 49, 1024, 32, 1),
              ("odd_heads", "window", 96, 49, 72, 3, 1)]
     it = dict(iters=10, replays=3)
     # fp32 cases whose plain and library times are taken too: the kernels line's record
@@ -1225,7 +1264,7 @@ def phase_window_kernels(torch, wa, swa):
         hd = c // heads
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
-            body = wa.bwd_body(wa.PANEL if panel else wa.PARTITIONED, hd, dtype)
+            body = wa.bwd_body(wa.PANEL if panel else wa.PARTITIONED, n, hd, dtype)
             if panel:
                 hw = geo
                 q, k, v, bias, do = window_inputs(torch, (b, hw[0] * hw[1]), c, nw, heads, 64,
@@ -1267,6 +1306,9 @@ def phase_window_kernels(torch, wa, swa):
                   and took[body] == 1,
                   f"{label} backward ({body}) {name} {shape}: rel err dq/dk/dv/dbias="
                   f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e}/{errs[3]:.2e} (tol {BWD_RTOL[dn]:.0e})")
+            if name.startswith("swin") and dtype == torch.bfloat16:
+                check(body == "mma", f"{label} backward {name}: Swin-B's 49-token windows take "
+                                     f"the tensor-core body ({body})")
             del out, grads, ref, refs
             ms_fwd, ms_bwd = graph_ms(fwd, **it), graph_ms(bwd, **it)
             plain_fwd = plain_bwd = lib_fwd = lib_bwd = copies = None
@@ -1326,6 +1368,41 @@ def phase_window_kernels(torch, wa, swa):
             del q, k, v, bias, do
         torch.cuda.empty_cache()
     return records
+
+
+def phase_window_groups(torch, wa, swa):
+    """The tensor-core window backward at Swin-B's four stage shapes and HTSAT's panel
+    backward at its four (train batches) under other group splits: ``bwd_groups``
+    aims at ``bwd_target(mode, body)`` blocks. Prints the device ms of each target
+    beside the one the port takes."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    result = {}
+    own_target = wa.bwd_target
+    cases = [("swin_s0", 49, SWIN_TRAIN_BATCH * 64, None, 128, 4, 64),
+             ("swin_s1", 49, SWIN_TRAIN_BATCH * 16, None, 256, 8, 16),
+             ("swin_s2", 49, SWIN_TRAIN_BATCH * 4, None, 512, 16, 4),
+             ("swin_s3", 49, SWIN_TRAIN_BATCH, None, 1024, 32, 1),
+             ("htsat_s0_shift", 64, CLAP_TRAIN_BATCH, (64, 64), 96, 4, 64),
+             ("htsat_s1_shift", 64, CLAP_TRAIN_BATCH, (32, 32), 192, 8, 16),
+             ("htsat_s2_shift", 64, CLAP_TRAIN_BATCH, (16, 16), 384, 16, 4),
+             ("htsat_s3", 64, CLAP_TRAIN_BATCH, (8, 8), 768, 32, 1)]
+    for name, n, b, hw, c, heads, nw in cases:
+        mode = wa.PARTITIONED if hw is None else wa.PANEL
+        lead = (b, n) if hw is None else (b, hw[0] * hw[1])
+        q, k, v, bias, do = window_inputs(torch, lead, c, nw, heads, n, torch.bfloat16, gen)
+        if hw is None:
+            bwd = lambda: wa.window_attention_bwd(q, k, v, bias, do)  # noqa: E731
+        else:
+            bwd = lambda: swa.panel_attention_bwd(q, k, v, bias, do, hw=hw, ws=8)  # noqa: E731
+        times = {"target_in_use": own_target(mode, "mma")}
+        try:
+            for target in (132, 264, 528, 1056, 2112):
+                wa.bwd_target = lambda mode_, body, t=target: t  # noqa: E731
+                times[str(target)] = graph_ms(bwd, iters=10, replays=3)
+        finally:
+            wa.bwd_target = own_target
+        result[name] = times
+    print("window_bwd_groups " + json.dumps(result), flush=True)
 
 
 def clap_audio(torch, n, seed, device="cuda"):
@@ -1647,7 +1724,10 @@ def phase_swin_serve(torch, oc, sa, wa):
 
 def phase_swin_train(torch, oc, sa, wa):
     """Swin-B training through the existing train step: amp_bf16, AdamW with clipping,
-    one fixed batch; then one step with remat (each block recomputed)."""
+    one fixed batch; a few profiled steps, the same with the window backward on its
+    CUDA-core body; then one step with remat (each block recomputed)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.reset_peak_memory_stats()
     model = oc.create_model(SWIN_MODEL, precision="amp_bf16", seed=0)
     blocks = sum(len(stage.blocks) for stage in model.visual.layers)
@@ -1661,17 +1741,42 @@ def phase_swin_train(torch, oc, sa, wa):
     n = max(3, math.ceil(TRAIN_WINDOW_S / 2 * 1e3 / warm_ms[-1]))
     reset_counts(sa, wa)
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
-    win, short = dict(wa.LAUNCHES), dict(sa.LAUNCHES)
+    win, short, bodies = dict(wa.LAUNCHES), dict(sa.LAUNCHES), dict(wa.BWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"swin_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f}")
     check(win == {"fwd": blocks * n, "bwd": blocks * n} and short == {"fwd": lt * n, "bwd": lt * n},
           f"swin_train: window launches {win}, short {short} in {n} steps (expect {blocks} and "
           f"{lt} of each a step)")
-    check(wa.BWD_BODIES == {"mma": 0, "simt": blocks * n} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0}
+    check(wa.BWD_BODIES == {"mma": blocks * n, "simt": 0} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0}
           and sa.FWD_BODIES == sa.BWD_BODIES,
-          f"swin_train: backward launches by body, window {wa.BWD_BODIES} (49-token windows keep "
-          f"the CUDA-core body), short {sa.BWD_BODIES}, short forward {sa.FWD_BODIES}")
+          f"swin_train: backward launches by body, window {wa.BWD_BODIES} (49-token windows on "
+          f"the tensor-core body), short {sa.BWD_BODIES}, short forward {sa.FWD_BODIES}")
+
+    def profiled():
+        """kernel ms a step, by class, over TRAIN_PROFILED_STEPS profiled steps"""
+        nonlocal state
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+        return profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+
+    summary = profiled()
+    # the same steps with the window backward sent to the CUDA-core body, the one it
+    # took before the tensor-core body served 49-token windows: a before and after
+    # of the step's kernels within one run
+    body_of = wa.bwd_body
+    wa.bwd_body = lambda mode, n_, hd, dtype: "simt"  # noqa: E731
+    try:
+        reset_counts(wa)
+        simt_summary = profiled()
+        simt_launches = dict(wa.BWD_BODIES)
+    finally:
+        wa.bwd_body = body_of
+    check(simt_launches == {"mma": 0, "simt": blocks * (TRAIN_PROFILED_STEPS + 1)},
+          f"swin_train[CUDA-core window backward]: backward launches by body {simt_launches}")
+    print("swin_train_profile " + json.dumps(summary), flush=True)
     remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
     reset_counts(wa)
     state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 1)
@@ -1683,6 +1788,13 @@ def phase_swin_train(torch, oc, sa, wa):
         "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
         "median_host_ms_per_step": statistics.median(host_ms), "host_lead_ms_at_end": lead_ms,
         "first_loss": losses[0], "last_loss": losses[-1], "remat_step_ms": remat_ms[0],
+        "window_bwd_launches_per_step_by_body": {k: v / n for k, v in bodies.items()},
+        "kernel_ms_per_step": summary["device_busy_ms_per_step"],
+        "window_bwd_ms_per_step": summary["class_ms_per_step"].get("window_attention_bwd"),
+        "kernel_ms_per_step_cuda_core_window_bwd": simt_summary["device_busy_ms_per_step"],
+        "window_bwd_ms_per_step_cuda_core": simt_summary["class_ms_per_step"].get(
+            "window_attention_bwd"),
+        "device_idle_share": summary["device_idle_share"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
     return win, n
 
@@ -2044,6 +2156,7 @@ def main() -> int:
     ln_records = timed("ln_bwd_kernels", phase_ln_bwd_kernels, torch, fl)
     flash_records = timed("flash_kernels", phase_flash_kernels, torch, fa)
     window_records = timed("window_kernels", phase_window_kernels, torch, wa, swa)
+    timed("window_groups", phase_window_groups, torch, wa, swa)
     sb_records = timed("switchback_kernels", phase_switchback_kernels, torch, sb)
     launches, calls = timed("serve", phase_serve, torch, oc, sa)
     timed("card_vs_cpu", phase_card_vs_cpu, torch, oc, sa)

@@ -29,34 +29,37 @@
 // Bound on this card: operations. At L = 1024, hd = 64 a forward call does
 // 4*B*H*L^2*hd operations on 4*B*L*H*hd*size bytes, L/size = 512 operations per
 // byte in bf16, above the ~295 where the bf16 tensor cores become the limit. So
-// the matrix products of the bf16 kernels run on the tensor cores (mma.sync
-// m16n8k16 with fp32 accumulators, operands loaded with ldmatrix), and what lies
+// the matrix products of the bf16 kernels run on the tensor cores, and what lies
 // between two products never leaves the registers: the logits, the probabilities,
 // ds and every accumulator; the accumulator fragment of q.k^T is, rounded to bf16,
-// the A operand of p.v. The fp32 kernels keep full fp32 and run the same products
-// on CUDA cores, with the score tile in shared memory. What else the design does:
+// the A operand of p.v. At hd = 64 the forward's exponentials (one per logit, on
+// the 16-a-clock special-function unit) cost as much time as its products. The fp32
+// kernels keep full fp32 and run the same products on CUDA cores, with the score
+// tile in shared memory. What else the design does:
 //   - q, k, v are read in place from the tower's (B, L, H*hd) layout with a batch
 //     and a row stride per tensor, so the three slices of a fused projection need
 //     no transpose, no copy and no padding of L; the tail tile is staged as zeros
 //     and masked in the kernel;
-//   - key validity is one byte per (sample, key), staged per key tile;
-//   - one block of 4 warps per (64-row tile, head, sample); each warp owns 16 rows
-//     of the tile, so between the loads of two tiles no warp waits for another;
-//   - K/V (or Q/dO) stream through shared memory in 64-row tiles, rows padded by 16
-//     bytes so that ldmatrix reads no bank twice; in the bf16 kernels the tiles are
-//     double-buffered and copied with cp.async, so the next tile travels while the
-//     block computes on this one; the running max and sum live in registers (the
-//     sum as per-lane shares, added up once at the end);
+//   - the bf16 forward (the "wgmma" body, further down) is Hopper's: warpgroup
+//     products (wgmma) on tiles that TMA copies into shared memory, a producer warp
+//     and two consumer warpgroups on mbarriers, a persistent grid, and key tiles that
+//     hold no valid key neither loaded nor multiplied;
+//   - the backward kernels (bf16: mma.sync m16n8k16, operands loaded with ldmatrix)
+//     and the fp32 forward: one block of 4 warps per (64-row tile, head, sample);
+//     each warp owns 16 rows of the tile, so between the loads of two tiles no warp
+//     waits for another; K/V (or Q/dO) stream through shared memory in 64-row tiles,
+//     rows padded by 16 bytes so that ldmatrix reads no bank twice; in the bf16
+//     kernels the tiles are double-buffered and copied with cp.async; key validity is
+//     one byte per (sample, key), staged per key tile;
 //   - the bf16 kernels take exponentials in base 2 on the special-function unit,
 //     and a tile that every row of the block sees whole skips the mask arithmetic;
 //   - under the causal mask the tiles no row of the block can see are skipped,
 //     and the prefix tiles are kept.
-// Not done yet (a later change): wgmma and TMA, deeper pipelines, skipping key
-// tiles that hold no valid key. Tried and dropped: 128 query rows and 8 warps a
-// block (half the L2 traffic, but slower: more warps wait at each barrier).
+// Not done yet (a later change): the backward kernels on wgmma and TMA.
 //
 // Shared memory per block (bytes), dynamic, opted in above 48 KB:
-//   forward   bf16 hd=64  46,336   hd=128  87,296   fp32 hd=64 106,752  hd=128 172,288
+//   forward   bf16 hd=64 181,248 or 164,864 (192- or 128-row items)  hd=128 230,400
+//             fp32 hd=64 106,752  hd=128 172,288
 //   dq        bf16 hd=64  55,552   hd=128 104,704   fp32 hd=64 124,672  hd=128 190,208
 //   dk/dv     bf16 hd=64  56,576   hd=128 105,728   fp32 hd=64 142,080  hd=128 207,616
 //
@@ -72,6 +75,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -706,134 +710,527 @@ __device__ __forceinline__ void backward_tile(const float (&s)[NT][4], const flo
   }
 }
 
-template <int HD>
-constexpr size_t fwd_mma_smem() {
-  return (size_t)(5 * BM * (HD + 8)) * sizeof(bf16) + BN * sizeof(int);
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma fed by TMA (the "wgmma" body). A persistent grid, one block
+// on each SM; a block walks work items (BM = 64 * CWG query rows of one head and
+// sample), the query block fastest, so the blocks running at one time share their
+// heads' K and V in L2. A block is a producer warpgroup and CWG consumer warpgroups:
+//   - the producer warpgroup gives its registers to the others (setmaxnreg) and one
+//     warp of it issues every copy. For each item: its Q rows into one of Q_BUFS Q
+//     buffers (with two, the next item's Q lands while this one is computed), then its
+//     key tiles of 128 keys into a ring of STAGES K/V stages, each completing on the
+//     stage's "full" mbarrier, refilled once every consumer warp released it on its
+//     "empty" one. Before a tile the warp reads the tile's 128 validity bytes (four per
+//     lane, into four ballot words, a tile ahead): a tile with no valid key is neither
+//     loaded nor multiplied. The stage's slot tells the consumers which key tile landed
+//     and which of its keys are valid; a slot with tile -1 ends the item;
+//   - a consumer warpgroup owns 64 query rows. S = Q.K^T by wgmma m64n128k16 from
+//     shared memory (Q and K K-major); the online softmax on the S accumulators in
+//     registers (base-2 logits; a tile whose keys all are valid and that every row of
+//     the warpgroup sees whole skips the mask); the unnormalised exponentials rounded
+//     to bf16 and packed, in registers, as the A operand of O += P.V by wgmma
+//     m64n64k16 (V read in its (key, hd) layout through an MN-major descriptor). The
+//     products of one tile overlap the softmax of the next: S of tile j+1 and P.V of
+//     tile j are issued together, and the softmax of j+1 runs while P.V of j does.
+//     The warpgroups take turns, in a ring, to issue (an mbarrier each), so one's
+//     softmax runs while another's products do;
+//   - q, k and v stay strided views of the fused projection: one 3-D tensor map each
+//     (columns H*hd, rows L, batch B), boxes of 64 columns by BM (Q) or 128 (K, V)
+//     rows in the 128-byte swizzle; rows past L come back as zeros.
+// CWG is 3 (BM = 192) at hd = 64 where 192-row items pad L no more than 128-row ones
+// (NaFlex serving's 576 tokens: a third less K/V read, a third more warps to hide the
+// softmax's latency), else 2. The consumers' instruction latency bounds the kernel,
+// not its copies: an experimental build without the loads ran as long. The warpgroups wait
+// only on mbarriers, never on a block-wide barrier. Shared memory, bf16, 1024-byte
+// aligned: Q_BUFS Q buffers BM x hd and STAGES x (K, V) 128 x hd: 181,248 bytes at
+// hd = 64 and CWG = 3, 164,864 at CWG = 2 (2 Q buffers and 4 stages), 230,400 at hd =
+// 128 (1 and 3: the next item's Q waits for this one's end there). A consumer
+// warpgroup holds two stages at a time (K of tile j+1, V of tile j), so it takes
+// three for the producer to run a tile ahead.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BN = 128;  // keys a tile
+
+template <int HD, int CWG_>
+struct WgTile {
+  static constexpr int CWG = CWG_;                    // consumer warpgroups, 64 rows each
+  static constexpr int BM = 64 * CWG;                 // query rows an item
+  static constexpr int CONSUMERS = 128 * CWG;         // consumer threads
+  static constexpr int THREADS = CONSUMERS + 128;     // and the producer warpgroup
+  // registers a thread after setmaxnreg: 128 * (launch - producer) >= consumers * (consumer - launch)
+  static constexpr int PRODUCER_REGS = CWG == 3 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = CWG == 3 ? 160 : 232;
+  static constexpr int HALVES = HD / 64;              // 64-column (128-byte) boxes a row
+  static constexpr int Q_BUFS = HD == 64 ? 2 : 1;     // Q buffers
+  static constexpr int STAGES = HD == 64 ? 4 : 3;     // K/V stages
+  static constexpr int BOX = 64 * 128 * 2;            // bytes of one 64 x 128 box
+  static constexpr int Q_BYTES = HALVES * BM * 128;   // BM rows
+  static constexpr int KV_BYTES = 2 * HALVES * BOX;   // WG_BN keys of K and of V
+  static constexpr size_t SMEM = (size_t)Q_BUFS * Q_BYTES + STAGES * KV_BYTES + 1024;  // + alignment
+};
+
+// what the producer tells the consumers about a stage: the key tile in it (-1: the
+// item has no more tiles) and which of its keys exist and are valid (bit j of word w:
+// key 32w + j)
+struct KeyTile {
+  int tile;
+  uint32_t valid[4];
+};
+
+// work item -> (first query row, head, sample)
+__device__ __forceinline__ void wg_item(int item, int nq, int bm, int H, int& q0, int& h,
+                                        int& b) {
+  const int qb = item % nq, rest = item / nq;
+  q0 = qb * bm;
+  h = rest % H;
+  b = rest / H;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const unsigned char* __restrict__ valid,
-                          bf16* __restrict__ o, float* __restrict__ lse, int L, long long qbs,
-                          long long qrs, long long kbs, long long krs, long long vbs,
-                          long long vrs, long long obs, long long ors, float scale, int causal,
-                          int prefix) {
-  constexpr int LDT = HD + 8;
-  constexpr int KS = HD / 16, NT = BN / 8, ND = HD / 8;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(flash_smem);  // (BM, LDT)
-  bf16* kbuf = qs + BM * LDT;                      // 2 x (BN, LDT): K tiles, double-buffered
-  bf16* vbuf = kbuf + 2 * BN * LDT;                // 2 x (BN, LDT): V tiles
-  int* kvs = reinterpret_cast<int*>(vbuf + 2 * BN * LDT);  // (BN,)
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int H = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int qi_lo = q0 + warp * WR + g, qi_hi = qi_lo + 8;
-  const bf16* kh = k + b * kbs + (long long)h * HD;
-  const bf16* vh = v + b * vbs + (long long)h * HD;
-  const unsigned char* valid_b = valid == nullptr ? nullptr : valid + (long long)b * L;
-
-  int ntiles = (L + BN - 1) / BN;
+// the key tiles of an item: up to the diagonal of its last row and the prefix's
+// under the causal mask
+__device__ __forceinline__ int wg_key_tiles(int q0, int bm, int L, int causal, int prefix) {
+  int ntiles = (L + WG_BN - 1) / WG_BN;
   if (causal) {
-    const int diag = min((q0 + BM + BN - 1) / BN, ntiles);
-    const int pre = min((prefix + BN - 1) / BN, ntiles);
+    const int diag = min((q0 + bm + WG_BN - 1) / WG_BN, ntiles);
+    const int pre = min((prefix + WG_BN - 1) / WG_BN, ntiles);
     ntiles = max(diag, pre);
   }
+  return ntiles;
+}
 
-  stage_tile<bf16, HD>(qs, q + b * qbs + (long long)h * HD, qrs, q0, L);
-  const bf16* qw = qs + warp * WR * LDT;
-  float o_acc[ND][4];
-  zero_acc(o_acc);
-  // running max (of the base-2 logits) and this lane's share of the row sum
-  float m_lo = NEG, m_hi = NEG, l_lo = 0.f, l_hi = 0.f;
-  const float scale2 = scale * LOG2E;
-
-  stage_tile_async<HD>(kbuf, kh, krs, 0, L);
-  stage_tile_async<HD>(vbuf, vh, vrs, 0, L);
-  cp_async_commit();
-  int ok_cur = key_flag(valid_b, 0, L);
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BN;
-    const bf16* ks = kbuf + (tile & 1) * BN * LDT;
-    const bf16* vs = vbuf + (tile & 1) * BN * LDT;
-    int ok_next = 1;
-    if (tile + 1 < ntiles) {  // the next tile goes into the other buffer
-      stage_tile_async<HD>(kbuf + ((tile + 1) & 1) * BN * LDT, kh, krs, k0 + BN, L);
-      stage_tile_async<HD>(vbuf + ((tile + 1) & 1) * BN * LDT, vh, vrs, k0 + BN, L);
-      ok_next = key_flag(valid_b, k0 + BN, L);
+// One tile's online softmax on the S accumulators of a warp's 16 rows (qi_lo, qi_hi):
+// base-2 logits, masked entries at NEG; updates the running max and this lane's row
+// sums, leaves the unnormalised exponentials in s (a masked entry's exactly 0) and
+// gives the factors that rescale O.
+template <int NT>
+__device__ __forceinline__ void wg_softmax(float (&s)[NT][4], const uint32_t (&kv_ok)[4], int k0,
+                                           int row0, int qi_lo, int qi_hi, int causal, int prefix,
+                                           float scale2, float& m_lo, float& m_hi, float& l_lo,
+                                           float& l_hi, float& alpha_lo, float& alpha_hi) {
+  const int t = threadIdx.x & 3;
+  const bool all_valid = (kv_ok[0] & kv_ok[1] & kv_ok[2] & kv_ok[3]) == 0xffffffffu;
+  const bool full = all_valid && (!causal || k0 + WG_BN - 1 <= row0 || k0 + WG_BN <= prefix);
+  float mx_lo = NEG, mx_hi = NEG;
+  if (full) {  // the max of the raw products, scaled once (scale2 > 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
     }
-    cp_async_commit();
-    if (threadIdx.x < BN) kvs[threadIdx.x] = ok_cur;
-    cp_async_wait<1>();  // this tile has landed; the next may still be in flight
-    const int all_valid = __syncthreads_and(ok_cur);
-    const bool full = all_valid && (!causal || k0 + BN - 1 <= q0 || k0 + BN <= prefix);
-
-    float s[NT][4];
-    zero_acc(s);
-    gemm_nt<KS, NT>(s, qw, LDT, ks, LDT);
-
-    // Base-2 logits, masked entries at NEG. A tile that every row of the block sees
-    // whole (most tiles: no padding in it, not on the diagonal) skips the mask.
-    float mx_lo = NEG, mx_hi = NEG;
-    if (full) {
+    mx_lo *= scale2;
+    mx_hi *= scale2;
+  } else {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] *= scale2;
-        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const int kj = k0 + col;
+        const bool ok = (kv_ok[j >> 2] >> (col & 31)) & 1u;
+        const bool vis_lo = ok && (!causal || kj <= qi_lo || kj < prefix);
+        const bool vis_hi = ok && (!causal || kj <= qi_hi || kj < prefix);
+        s[j][e] = vis_lo ? s[j][e] * scale2 : NEG;
+        s[j][2 + e] = vis_hi ? s[j][2 + e] * scale2 : NEG;
+        mx_lo = fmaxf(mx_lo, s[j][e]);
+        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
       }
-    } else {
+    }
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+  alpha_lo = fast_exp2(m_lo - mn_lo);
+  alpha_hi = fast_exp2(m_hi - mn_hi);
+  float sum_lo = 0.f, sum_hi = 0.f;
+  if (full) {  // exp2(scale2 * s - max), one fused multiply-add an entry
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * t + e;
-          const int kj = k0 + col;
-          const bool ok = kvs[col] != 0;
-          const bool vis_lo = ok && (!causal || kj <= qi_lo || kj < prefix);
-          const bool vis_hi = ok && (!causal || kj <= qi_hi || kj < prefix);
-          s[j][e] = vis_lo ? s[j][e] * scale2 : NEG;
-          s[j][2 + e] = vis_hi ? s[j][2 + e] * scale2 : NEG;
-          mx_lo = fmaxf(mx_lo, s[j][e]);
-          mx_hi = fmaxf(mx_hi, s[j][2 + e]);
+      for (int c = 0; c < 4; ++c) s[j][c] = fast_exp2(fmaf(s[j][c], scale2, -(c < 2 ? mn_lo : mn_hi)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float e = fast_exp2(s[j][c] - (c < 2 ? mn_lo : mn_hi));
+        s[j][c] = s[j][c] > NEG ? e : 0.f;  // masked: exactly 0
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    sum_lo += s[j][0] + s[j][1];
+    sum_hi += s[j][2] + s[j][3];
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+}
+
+// wg_softmax, with the exponentials rounded to bf16 and packed into p as they are
+// taken (two consumer warpgroups have the registers for it, and the next P is ready
+// when the P.V that reads the current one is done)
+template <int NT>
+__device__ __forceinline__ void wg_softmax_packed(float (&s)[NT][4], const uint32_t (&kv_ok)[4], int k0,
+                                           int row0, int qi_lo, int qi_hi, int causal, int prefix,
+                                           float scale2, float& m_lo, float& m_hi, float& l_lo,
+                                           float& l_hi, uint32_t (&p)[NT / 2][4], float& alpha_lo,
+                                           float& alpha_hi) {
+  const int t = threadIdx.x & 3;
+  const bool all_valid = (kv_ok[0] & kv_ok[1] & kv_ok[2] & kv_ok[3]) == 0xffffffffu;
+  const bool full = all_valid && (!causal || k0 + WG_BN - 1 <= row0 || k0 + WG_BN <= prefix);
+  float mx_lo = NEG, mx_hi = NEG;
+  if (full) {  // the max of the raw products, scaled once (scale2 > 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    mx_lo *= scale2;
+    mx_hi *= scale2;
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const int kj = k0 + col;
+        const bool ok = (kv_ok[j >> 2] >> (col & 31)) & 1u;
+        const bool vis_lo = ok && (!causal || kj <= qi_lo || kj < prefix);
+        const bool vis_hi = ok && (!causal || kj <= qi_hi || kj < prefix);
+        s[j][e] = vis_lo ? s[j][e] * scale2 : NEG;
+        s[j][2 + e] = vis_hi ? s[j][2 + e] * scale2 : NEG;
+        mx_lo = fmaxf(mx_lo, s[j][e]);
+        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
+      }
+    }
+  }
+  const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+  alpha_lo = fast_exp2(m_lo - mn_lo);
+  alpha_hi = fast_exp2(m_hi - mn_hi);
+  float sum_lo = 0.f, sum_hi = 0.f;
+  if (full) {  // exp2(scale2 * s - max), one fused multiply-add an entry
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float x[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[c] = fast_exp2(fmaf(s[j][c], scale2, -(c < 2 ? mn_lo : mn_hi)));
+      sum_lo += x[0] + x[1];
+      sum_hi += x[2] + x[3];
+      p[j / 2][(j % 2) * 2] = pack_bf16(x[0], x[1]);
+      p[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[2], x[3]);
+    }
+  } else {
+    probabilities<true>(s, mn_lo, mn_hi, p, sum_lo, sum_hi);
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+}
+
+// The exponentials of wg_softmax, rounded to bf16 and packed as the A fragments of P.V.
+template <int NT>
+__device__ __forceinline__ void pack_p(const float (&s)[NT][4], uint32_t (&p)[NT / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    p[j / 2][(j % 2) * 2] = pack_bf16(s[j][0], s[j][1]);
+    p[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+  }
+}
+
+template <int HD, int CWG>
+__global__ void __launch_bounds__(WgTile<HD, CWG>::THREADS, 1)
+flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const unsigned char* __restrict__ valid, bf16* __restrict__ o,
+                            float* __restrict__ lse, int B, int L, int H, long long obs,
+                            long long ors, float scale, int causal, int prefix) {
+  using W = WgTile<HD, CWG>;
+  constexpr int NT = WG_BN / 8, KS = HD / 16, ND = 64 / 8;
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[W::STAGES], empty_bar[W::STAGES];
+  __shared__ __align__(8) uint64_t q_full[W::Q_BUFS], q_empty[W::Q_BUFS];
+  __shared__ __align__(8) uint64_t turn_bar[W::CWG];  // consumer warpgroup w may issue products
+  __shared__ KeyTile slots[W::STAGES];
+  // the swizzle repeats every 1024 bytes: every box starts on such a boundary
+  unsigned char* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(smem);    // [Q_BUFS][HALVES][BM][64]
+  bf16* kvs = qs + W::Q_BUFS * W::Q_BYTES / 2;  // [STAGES][K, V][HALVES][WG_BN][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (L + W::BM - 1) / W::BM, items = nq * H * B;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < W::STAGES; ++st) {
+      mbar_init(&full_bar[st], 1);
+      mbar_init(&empty_bar[st], W::CONSUMERS);
+    }
+    for (int i = 0; i < W::Q_BUFS; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], W::CONSUMERS);
+    }
+    for (int i = 0; i < W::CWG; ++i) mbar_init(&turn_bar[i], 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: warp 0 issues the copies ----
+    regs_dec<W::PRODUCER_REGS>();
+    if (warp != 0) return;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      int q0, h, b;
+      wg_item(item, nq, W::BM, H, q0, h, b);
+      const int qbuf = it % W::Q_BUFS;
+      if (lane == 0) {  // the Q buffer's previous item is done with it
+        mbar_wait(&q_empty[qbuf], ((it / W::Q_BUFS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full[qbuf], W::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < W::HALVES; ++c)
+          tma_load_3d(qs + (qbuf * W::HALVES + c) * W::BM * 64, &tq, &q_full[qbuf], h * HD + 64 * c,
+                      q0, b);
+      }
+      const unsigned char* valid_b = valid == nullptr ? nullptr : valid + (long long)b * L;
+      const int ntiles = wg_key_tiles(q0, W::BM, L, causal, prefix);
+      // does key 32 w + lane of tile tt exist and is it valid?
+      const auto key_ok = [&](int tt, int w) -> uint32_t {
+        const int key = tt * WG_BN + 32 * w + lane;
+        if (tt >= ntiles || key >= L) return 0u;
+        return valid_b == nullptr ? 1u : (uint32_t)valid_b[key];
+      };
+      uint32_t words[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) words[w] = __ballot_sync(0xffffffffu, key_ok(0, w) != 0u);
+      for (int t = 0; t <= ntiles; ++t) {  // t == ntiles: the end of the item
+        // the next tile's validity bytes, read now and used once this tile's copies are
+        // issued: the loads travel while lane 0 waits for a free stage
+        uint32_t next[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) next[w] = key_ok(t + 1, w);
+        if (t == ntiles || (words[0] | words[1] | words[2] | words[3]) != 0u) {  // else: no valid key
+          if (lane == 0) {
+            mbar_wait(&empty_bar[stage], phase ^ 1);  // both consumer warpgroups released it
+            slots[stage].tile = t < ntiles ? t : -1;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) slots[stage].valid[w] = words[w];
+            if (t < ntiles) {
+              mbar_arrive_expect_tx(&full_bar[stage], W::KV_BYTES);
+              bf16* ks = kvs + (size_t)stage * W::KV_BYTES / 2;
+              bf16* vs = ks + W::HALVES * WG_BN * 64;
+#pragma unroll
+              for (int c = 0; c < W::HALVES; ++c) {
+                tma_load_3d(ks + c * WG_BN * 64, &tk, &full_bar[stage], h * HD + 64 * c,
+                            t * WG_BN, b);
+                tma_load_3d(vs + c * WG_BN * 64, &tv, &full_bar[stage], h * HD + 64 * c,
+                            t * WG_BN, b);
+              }
+            } else {
+              mbar_arrive(&full_bar[stage]);
+            }
+          }
+          __syncwarp();
+          if (++stage == W::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
+#pragma unroll
+        for (int w = 0; w < 4; ++w) words[w] = __ballot_sync(0xffffffffu, next[w] != 0u);
       }
     }
-    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
-    const float alpha_lo = fast_exp2(m_lo - mn_lo), alpha_hi = fast_exp2(m_hi - mn_hi);
-    uint32_t p[NT / 2][4];
-    float sum_lo = 0.f, sum_hi = 0.f;
-    if (full) {
-      probabilities<false>(s, mn_lo, mn_hi, p, sum_lo, sum_hi);
-    } else {
-      probabilities<true>(s, mn_lo, mn_hi, p, sum_lo, sum_hi);
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o_acc[n][0] *= alpha_lo;
-      o_acc[n][1] *= alpha_lo;
-      o_acc[n][2] *= alpha_hi;
-      o_acc[n][3] *= alpha_hi;
-    }
-    gemm_nn<NT / 2, ND>(o_acc, p, vs, LDT);
-    __syncthreads();  // every warp is done with this buffer before it is filled again
-    ok_cur = ok_next;
+    return;
   }
 
-  const float ls_lo = fmaxf(quad_sum(l_lo), 1e-30f), ls_hi = fmaxf(quad_sum(l_hi), 1e-30f);
-  write_acc<HD>(o + b * obs + (long long)h * HD, ors, o_acc, qi_lo, L, 1.f / ls_lo, 1.f / ls_hi);
-  if (t == 0) {
-    float* lse_h = lse + ((long long)b * H + h) * L;
-    if (qi_lo < L) lse_h[qi_lo] = m_lo * LN2 + logf(ls_lo);
-    if (qi_hi < L) lse_h[qi_hi] = m_hi * LN2 + logf(ls_hi);
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item ----
+  regs_inc<W::CONSUMER_REGS>();
+  const int wg = (warp >> 2) - 1, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * LOG2E;
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  const auto advance = [&]() {
+    if (++stage == W::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  const auto kv_addr = [&](int st) { return smem_u32(kvs) + st * W::KV_BYTES; };
+  // The warpgroups take turns, in a ring, to issue their products, so that one's
+  // softmax runs while another's products do: a warpgroup waits for its turn, issues,
+  // and hands the turn on. Each takes one turn a key tile and one for an item's last
+  // P.V, its rows past L or not.
+  uint32_t turn_phase = 0;
+  const auto take_turn = [&]() {
+    mbar_wait(&turn_bar[wg], turn_phase);
+    turn_phase ^= 1;
+  };
+  const auto pass_turn = [&]() { mbar_arrive(&turn_bar[(wg + 1) % W::CWG]); };
+  if (wg == W::CWG - 1) pass_turn();  // the first turn is warpgroup 0's
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    int q0, h, b;
+    wg_item(item, nq, W::BM, H, q0, h, b);
+    const int qbuf = it % W::Q_BUFS;
+    const int row0 = q0 + 64 * wg;
+    const int qi_lo = row0 + 16 * (warp & 3) + g, qi_hi = qi_lo + 8;
+    const uint32_t q_addr = smem_u32(qs) + qbuf * W::Q_BYTES + wg * 64 * 128;
+    const auto qk = [&](float (&s)[NT][4], int st) {  // issue S = Q.K^T of stage st
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {  // 16 columns of hd a step: box ks / 4, 32 bytes in
+        const uint32_t qoff = (ks >> 2) * W::BM * 128 + (ks & 3) * 32;
+        const uint32_t koff = (ks >> 2) * WG_BN * 128 + (ks & 3) * 32;
+        wgmma_m64n128k16_ss(s, wgmma_desc(q_addr + qoff, false),
+                            wgmma_desc(kv_addr(st) + koff, false), ks > 0);
+      }
+    };
+    float o_acc[W::HALVES][ND][4];
+    const auto pv = [&](const uint32_t (&p)[NT / 2][4], int st) {  // issue O += P.V of stage st
+      const uint32_t v_addr = kv_addr(st) + W::KV_BYTES / 2;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)  // 16 keys a step: two 8-row swizzle groups
+#pragma unroll
+        for (int c = 0; c < W::HALVES; ++c)
+          wgmma_m64n64k16_rs(o_acc[c], p[kk],
+                             wgmma_desc(v_addr + c * WG_BN * 128 + kk * 16 * 128, true));
+    };
+    const auto rescale = [&](float a_lo, float a_hi) {
+#pragma unroll
+      for (int c = 0; c < W::HALVES; ++c)
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          o_acc[c][n][0] *= a_lo;
+          o_acc[c][n][1] *= a_lo;
+          o_acc[c][n][2] *= a_hi;
+          o_acc[c][n][3] *= a_hi;
+        }
+    };
+#pragma unroll
+    for (int c = 0; c < W::HALVES; ++c) zero_acc(o_acc[c]);
+    // running max (of the base-2 logits) and this lane's share of the row sums
+    float m_lo = NEG, m_hi = NEG, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
+    uint32_t kv_ok[4];
+    mbar_wait(&q_full[qbuf], (it / W::Q_BUFS) & 1);
+    mbar_wait(&full_bar[stage], phase);
+    int tile = slots[stage].tile;
+    if (row0 >= L) {  // a warpgroup of a head's last item whose rows all lie past L
+      const bool any = tile >= 0;
+      while (tile >= 0) {  // its turns, without products
+        take_turn();
+        pass_turn();
+        mbar_arrive(&empty_bar[stage]);
+        advance();
+        mbar_wait(&full_bar[stage], phase);
+        tile = slots[stage].tile;
+      }
+      if (any) {
+        take_turn();
+        pass_turn();
+      }
+    } else if (tile >= 0) {
+      // the first tile: S, softmax
+      float s[NT][4];
+      uint32_t p[NT / 2][4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) kv_ok[w] = slots[stage].valid[w];
+      take_turn();
+      wgmma_fence();
+      qk(s, stage);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      pin(s);
+      // Three consumer warpgroups (a 512-thread block) have registers for one P at a
+      // time: the exponentials stay fp32 in S and are packed once the P.V that reads
+      // the current P is done. Two have room to pack the next P as they go, under it.
+      if constexpr (CWG == 3) {
+        wg_softmax(s, kv_ok, tile * WG_BN, row0, qi_lo, qi_hi, causal, prefix, scale2, m_lo,
+                   m_hi, l_lo, l_hi, a_lo, a_hi);
+        pack_p(s, p);
+      } else {
+        wg_softmax_packed(s, kv_ok, tile * WG_BN, row0, qi_lo, qi_hi, causal, prefix, scale2,
+                          m_lo, m_hi, l_lo, l_hi, p, a_lo, a_hi);
+      }
+      int prev = stage;
+      advance();
+      for (;;) {
+        mbar_wait(&full_bar[stage], phase);
+        tile = slots[stage].tile;
+        if (tile < 0) break;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) kv_ok[w] = slots[stage].valid[w];
+        // S of this tile and P.V of the previous one, then this tile's softmax while
+        // the P.V runs
+        float s2[NT][4];
+        uint32_t p2[NT / 2][4];
+        take_turn();
+        wgmma_fence();
+        qk(s2, stage);
+        wgmma_commit();
+        pv(p, prev);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<1>();
+        pin(s2);
+        if constexpr (CWG == 3) {
+          wg_softmax(s2, kv_ok, tile * WG_BN, row0, qi_lo, qi_hi, causal, prefix, scale2, m_lo,
+                     m_hi, l_lo, l_hi, a_lo, a_hi);
+        } else {
+          wg_softmax_packed(s2, kv_ok, tile * WG_BN, row0, qi_lo, qi_hi, causal, prefix, scale2,
+                            m_lo, m_hi, l_lo, l_hi, p2, a_lo, a_hi);
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < W::HALVES; ++c) pin(o_acc[c]);
+        pin(p);
+        mbar_arrive(&empty_bar[prev]);  // this thread is done with the previous stage
+        rescale(a_lo, a_hi);
+        if constexpr (CWG == 3) {
+          pack_p(s2, p);  // the P.V that read p is done
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) p[kk][c] = p2[kk][c];
+        }
+        prev = stage;
+        advance();
+      }
+      take_turn();
+      wgmma_fence();
+      pv(p, prev);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < W::HALVES; ++c) pin(o_acc[c]);
+      pin(p);
+      mbar_arrive(&empty_bar[prev]);
+    }
+    mbar_arrive(&empty_bar[stage]);  // the end-of-item slot
+    advance();
+    mbar_arrive(&q_empty[qbuf]);     // no more products read this Q buffer
+
+    const float ls_lo = fmaxf(quad_sum(l_lo), 1e-30f), ls_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+    bf16* oh = o + b * obs + (long long)h * HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? qi_hi : qi_lo;
+      const float inv = 1.f / (half ? ls_hi : ls_lo);
+      if (row < L) {
+        bf16* out = oh + row * ors + 2 * t;
+#pragma unroll
+        for (int c = 0; c < W::HALVES; ++c)
+#pragma unroll
+          for (int n = 0; n < ND; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * n) = __floats2bfloat162_rn(
+                o_acc[c][n][2 * half] * inv, o_acc[c][n][2 * half + 1] * inv);
+      }
+    }
+    if (t == 0) {
+      float* lse_h = lse + ((long long)b * H + h) * L;
+      if (qi_lo < L) lse_h[qi_lo] = m_lo * LN2 + logf(ls_lo);
+      if (qi_hi < L) lse_h[qi_hi] = m_hi * LN2 + logf(ls_hi);
+    }
   }
 }
 
@@ -1105,6 +1502,48 @@ cudaError_t launch_dkv(K kern, size_t smem, const Args& a) {
   return cudaGetLastError();
 }
 
+// q, k, v as TMA tensor maps over their (B, L, H*hd) views, strides from a.st; one
+// block a multiprocessor, or one an item where there are fewer items
+template <int HD, int CWG>
+cudaError_t launch_fwd_wgmma_cwg(const Args& a) {
+  using W = WgTile<HD, CWG>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  for (int i = 0; i < 3; ++i)
+    if (!encode_rows_3d(&maps[i], ptrs[i], (long long)a.H * HD, a.L, a.B,
+                        a.st[2 * i + 1] * (long long)sizeof(bf16),
+                        a.st[2 * i] * (long long)sizeof(bf16), i == 0 ? W::BM : WG_BN))
+      return cudaErrorInvalidValue;
+  auto kern = flash_attn_fwd_wgmma_kernel<HD, CWG>;
+  cudaError_t e = opt_in_smem(kern, W::SMEM);
+  if (e != cudaSuccess) return e;
+  int device, sms;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  const long long items = (long long)((a.L + W::BM - 1) / W::BM) * a.H * a.B;
+  if (items > 2147483647LL) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  kern<<<grid, W::THREADS, W::SMEM, a.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const unsigned char*>(a.valid),
+      static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.B, a.L, a.H, a.st[6], a.st[7],
+      a.scale, a.causal, a.prefix);
+  return cudaGetLastError();
+}
+
+// hd = 64: items of 192 rows (three consumer warpgroups: more warps to hide latency and
+// a third less K/V read a query row) where they pad L no more than 128-row items do
+// (NaFlex's 576-token bucket), else 128 rows (its 1024: 192-row items would leave two
+// warpgroups idle in a head's last item). hd = 128 takes 128 rows: its accumulators
+// do not fit the registers of three consumer warpgroups.
+template <int HD>
+cudaError_t launch_fwd_wgmma(const Args& a) {
+  const long long rows3 = (a.L + 191) / 192 * 192LL, rows2 = (a.L + 127) / 128 * 128LL;
+  if constexpr (HD == 64)
+    if (rows3 <= rows2) return launch_fwd_wgmma_cwg<HD, 3>(a);
+  return launch_fwd_wgmma_cwg<HD, 2>(a);
+}
+
 enum Which { FWD, DQ, DKV };
 
 // bf16 takes the tensor-core kernels, fp32 the CUDA-core ones
@@ -1112,7 +1551,7 @@ template <typename T, int HD>
 cudaError_t launch_one(Which which, const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     switch (which) {
-      case FWD: return launch_fwd<T>(flash_attn_fwd_mma_kernel<HD>, fwd_mma_smem<HD>(), a);
+      case FWD: return launch_fwd_wgmma<HD>(a);
       case DQ: return launch_dq<T>(flash_attn_bwd_dq_mma_kernel<HD>, dq_mma_smem<HD>(), a);
       default: return launch_dkv<T>(flash_attn_bwd_dkv_mma_kernel<HD>, dkv_mma_smem<HD>(), a);
     }

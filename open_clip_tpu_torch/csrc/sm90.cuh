@@ -1,0 +1,254 @@
+// Hopper (sm_90a) building blocks: warpgroup matrix multiply (wgmma), mbarriers and
+// the Tensor Memory Accelerator (TMA), device side and host side. Included by the
+// kernels that stage tiles with TMA and multiply them with wgmma (flash_attention.cu).
+//
+// Shared-memory tiles are rows of 128 bytes (64 bf16) in the 128-byte swizzle that TMA
+// writes with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
+// c ^ (r % 8), the pattern repeating every 8 rows (1024 bytes). Every tile starts at a
+// 1024-byte boundary, so the swizzle of the address bits is the same for TMA and for
+// the wgmma descriptors below. A wider row (hd = 128) is kept as two such tiles.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand at shared address addr. K-major (the
+// operand's rows are its M or N index, 16 k a step inside the 128-byte row): 8-row
+// groups 1024 bytes apart (stride byte offset), the leading offset unused. MN-major
+// (the rows are the k, 8 of them a group): the same 1024 bytes between k groups; the
+// leading offset (between 64-column blocks along M or N) is never needed, as no
+// instruction here is wider than 64 MN-major columns, and is set to the same value.
+// A k step inside a K-major row advances the address by 32 bytes; the hardware
+// applies the swizzle to the address bits, so the descriptor's base offset stays 0.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, bool mn_major) {
+  const uint64_t sbo = 1024 >> 4, lbo = mn_major ? sbo : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (1ull << 62);
+}
+
+// Orders this warpgroup's register and shared-memory writes before the wgmma that
+// read them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The compiler does not know that a wgmma reads and writes its registers after the
+// instruction issues: pinning them here, after wgmma_wait, keeps every use of an
+// accumulator after the wait and every operand register alive until it.
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[i][c])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void pin(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[i][c])::"memory");
+}
+
+// d[64 x 128] (+)= A . B on the tensor cores, one warpgroup; A (64 x 16) and B (128 x 16)
+// both K-major in shared memory (descriptors); d is the m64nNk16 fragment:
+// d[j][c] holds row 16*(warp % 4) + lane/4 + 8*(c/2), column 8*j + 2*(lane%4) + c%2.
+// scale_d = 0 overwrites d, 1 accumulates.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 64] += A . B, one warpgroup; A (64 x 16, bf16) in registers as the
+// mma.sync m16n8k16 A fragment of each warp's 16 rows, B (16 x N) in shared memory,
+// MN-major (its rows are the 16 k: the transpose bit of the descriptor form).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Warp specialisation: a warpgroup that only issues copies gives registers back, and
+// the warpgroups that multiply take them (counts: multiples of 8 in [24, 256]; every
+// warp of the warpgroup executes the instruction).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA) and the other threads
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` more to land from TMA copies before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of the given parity to complete. A wait of ~2**34 cycles (about
+// 9 s) is a fault of the pipeline: trap, so that the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  if (mbar_try_wait(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(b, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// One box of a 3-D tensor map into shared memory at dst, completing `bytes` (the
+// whole box, rows past the tensor's end included: TMA fills them with zeros) on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the library
+// needs no link to libcuda; null if the driver has none
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `batches` x `rows` rows of `cols` dense columns, with row and
+// batch strides in bytes, read in boxes of 64 columns (128 bytes, 128-byte swizzle)
+// by box_rows rows of one batch. TMA needs a 16-byte aligned base and strides that
+// are multiples of 16 bytes; false where the driver refuses the map.
+inline bool encode_rows_3d(CUtensorMap* map, const void* base, long long cols, long long rows,
+                           long long batches, long long row_bytes, long long batch_bytes,
+                           int box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)batch_bytes};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

@@ -19,9 +19,10 @@
 // Bound on this card: at Swin's shapes (N = 49 or 64, hd = 24 or 32) a window does
 // ~4*N^2*hd operations on ~4*N*hd*size bytes, N/2 = 25..32 operations per byte in
 // fp32 terms, so fp32 CUDA cores and memory are both near their limit. The bf16
-// PANEL backward therefore has a second body on the tensor cores (mma.sync; "the
-// mma body", further down); the forward, the fp32 backward and the PARTITIONED
-// backward run the CUDA-core kernels described here. What their design does:
+// backward of windows of at most 64 tokens (PANEL, and PARTITIONED with N <= 64)
+// therefore has a second body on the tensor cores (mma.sync; "the mma body", further
+// down); the forward, the fp32 backward and the other shapes run the CUDA-core
+// kernels described here. What their design does:
 //   - q, k, v are read in place through a (window, row) -> address map: strided
 //     views of the fused qkv projection (row stride 3C) and, in PANEL mode, the
 //     token map itself, so neither a partition copy nor a head transpose is made;
@@ -420,14 +421,21 @@ win_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 //     read with ldmatrix.trans. The outputs go in 8-column tiles (hd = 24 is 3 tiles);
 //   - the bias tile (times log2 e) and the running dbias sum stay in the S-fragment
 //     registers across the group's windows, which share one bias window.
-// Takes bf16, N = 64 (PANEL, ws = 8), hd % 8 == 0 and hd <= 64, 16-byte aligned rows.
-// Written for both modes: PARTITIONED needs only the padding of N = 49 to 64 (rows
-// past N are staged as zeros already; their keys would need masking) and dispatch.
+// Takes bf16 windows of N <= 64 tokens (PANEL: ws = 8; PARTITIONED: Swin's 7x7 = 49,
+// or HTSAT's 64 when it falls back to partitioned windows), hd % 8 == 0 and hd <= 64,
+// 16-byte aligned rows. The tile is padded to MN = 64 rows and keys:
+//   - rows past N of q, k, v and do are staged as zeros (cp.async reads nothing for
+//     them), so a padded query's dp and delta are 0, its ds is 0, and it adds nothing
+//     to dk or dv (its do row is 0); it still sees the N valid keys, so its softmax
+//     stays finite;
+//   - a padded key gets bias -inf: probability exactly 0, ds exactly 0;
+//   - the bias and dbias rows are N floats long: only entries inside N x N are read
+//     or written (N = 49 puts a row at an odd float, so scalar loads and stores).
 // Shared memory: 2 x 4 staged (64, HDP + 8) tiles and the (64, 72) p and ds tiles,
-// 59,392 bytes at hd = 24 (HDP = 32).
+// 59,392 bytes at hd = 24 or 32 (HDP = 32).
 // ---------------------------------------------------------------------------
 
-constexpr int MN = 64;  // tokens per window
+constexpr int MN = 64;  // the padded window: rows and keys of the tile
 constexpr int MMA_THREADS = 128;
 constexpr int LDP = MN + 8;  // row stride of the p and ds tiles
 
@@ -527,17 +535,17 @@ win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  // the bias of the lane's S-fragment entries in base 2, and their dbias sums
-  const float* bw = bias + ((long long)wb * g.H + h) * MN * MN;
+  // the bias of the lane's S-fragment entries in base 2 (-inf for a padded key, 0
+  // for a padded query, whose row the bias does not have), and their dbias sums
+  const float* bw = bias + ((long long)wb * g.H + h) * g.N * g.N;
   float b2[NT][4], db[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const float2 x = *reinterpret_cast<const float2*>(bw + (row_lo + 8 * half) * MN + 8 * j + 2 * t);
-      b2[j][2 * half] = x.x * LOG2E;
-      b2[j][2 * half + 1] = x.y * LOG2E;
-      db[j][2 * half] = db[j][2 * half + 1] = 0.f;
+    for (int c = 0; c < 4; ++c) {
+      const int row = row_lo + 8 * (c >> 1), col = 8 * j + 2 * t + (c & 1);
+      b2[j][c] = col >= g.N ? -INFINITY : (row < g.N ? bw[row * g.N + col] * LOG2E : 0.f);
+      db[j][c] = 0.f;
     }
 
   stage(j0, 0);
@@ -629,13 +637,14 @@ win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // this group's dbias partial: partials is (nG, nWb, H, N, N)
-  float* out = partials + (((long long)grp * g.nWb + wb) * g.H + h) * MN * MN;
+  float* out = partials + (((long long)grp * g.nWb + wb) * g.H + h) * g.N * g.N;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float2*>(out + (row_lo + 8 * half) * MN + 8 * j + 2 * t) =
-          make_float2(db[j][2 * half], db[j][2 * half + 1]);
+    for (int c = 0; c < 4; ++c) {
+      const int row = row_lo + 8 * (c >> 1), col = 8 * j + 2 * t + (c & 1);
+      if (row < g.N && col < g.N) out[row * g.N + col] = db[j][c];
+    }
 }
 
 // out[e] = sum over groups, in order, of partials[grp][e]; E = nWb * H * N * N
@@ -721,23 +730,26 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const fl
   return cudaGetLastError();
 }
 
-// the mma body's shapes: bf16 PANEL windows of 64 tokens, hd % 8 == 0 and hd <= 64,
-// every row 16-byte aligned (pointers, and strides in elements, multiples of 8)
+// the mma body's shapes: bf16 windows of PANEL's 64 tokens or of PARTITIONED's
+// N <= 64, hd % 8 == 0 and hd <= 64, every row 16-byte aligned (pointers, and
+// strides in elements, multiples of 8)
 bool mma_fits(int mode, const Geom& g, const void* const* ptrs, const long long* st) {
-  if (mode != PANEL || g.N != MN || g.hd % 8 || g.hd > 64) return false;
+  if (mode == PANEL ? g.N != MN : g.N > MN) return false;
+  if (g.hd % 8 || g.hd > 64) return false;
   for (int i = 0; i < 7; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || st[2 * i] % 8 || st[2 * i + 1] % 8)
       return false;
   return true;
 }
 
+template <int MODE>
 cudaError_t bwd_mma(const void* q, const void* k, const void* v, const float* bias,
                     const void* dout, void* dq, void* dk, void* dv, float* partials, float* dbias,
                     const Geom& g, int G, int nG, const long long* st, cudaStream_t s) {
-#define OCT_BWD_MMA(HD)                                                                       \
-  case HD:                                                                                    \
-    return launch_bwd_mma<HD, PANEL>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, g, G, \
-                                     nG, st, s);
+#define OCT_BWD_MMA(HD)                                                                      \
+  case HD:                                                                                   \
+    return launch_bwd_mma<HD, MODE>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, g, G, \
+                                    nG, st, s);
   switch (g.hd) {
     OCT_BWD_MMA(8)
     OCT_BWD_MMA(16)
@@ -848,7 +860,9 @@ extern "C" int oct_window_attention_bwd(const void* q, const void* k, const void
   if (body == 1) {
     const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
     if (dtype != 1 || !mma_fits(mode, g, ptrs, strides)) return cudaErrorInvalidValue;
-    return bwd_mma(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s);
+    return mode == PANEL
+               ? bwd_mma<PANEL>(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s)
+               : bwd_mma<PARTITIONED>(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s);
   }
   if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0)

@@ -26,6 +26,13 @@ the plain versions alike. Padded queries are computed like any other row.
 tensors it launches the kernels or raises; for CPU tensors, and only for them, it
 computes ``flash_attention_reference`` and ``flash_attention_bwd_reference``.
 ``LAUNCHES`` counts the launches of each kernel.
+
+The forward has two bodies, chosen by ``fwd_body`` from the dtype: "wgmma" (bf16:
+Hopper's warpgroup products fed by TMA copies, which skips the key tiles that hold no
+valid key) and "simt" (fp32 on CUDA cores). ``FWD_BODIES`` counts the forward's
+launches by body. TMA reads q, k and v through tensor maps over their strided views,
+which need every row 16-byte aligned; ``check_inputs`` raises where they are not
+(every body reads 16 bytes at a time), and no input is sent to another body.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ HEAD_DIMS = (64, 128)
 NEG_INF = torch.finfo(torch.float32).min * 0.5  # large negative, not -inf: no NaN from inf - inf
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each kernel since the last reset; chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of the forward by body;
+# chip_smoke.py sets and reads them
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+FWD_BODIES = {"wgmma": 0, "simt": 0}
 
 _fns = {}
 
@@ -48,6 +57,12 @@ _fns = {}
 def supports(l: int, h: int, hd: int, bias) -> bool:
     """Can the kernels serve self-attention of this shape? (Dispatch gate.)"""
     return bias is None and l >= 1 and h >= 1 and hd in HEAD_DIMS
+
+
+def fwd_body(hd: int, dtype: torch.dtype) -> str:
+    """Which forward body serves a shape the kernels take: "wgmma" (tensor cores,
+    TMA) for bf16, "simt" (CUDA cores) for fp32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _visible(l: int, causal: bool, prefix_len: int, key_valid: Optional[torch.Tensor],
@@ -154,6 +169,15 @@ def _check(x: torch.Tensor, name: str, shape, dtype, device) -> None:
                          f"block per row; got strides {x.stride()}")
 
 
+def check_inputs(tensors, names) -> None:
+    """Raise unless every tensor has the first one's shape, dtype and device and a
+    dense, 16-byte aligned (H, hd) block per row: what the kernels (and the forward's
+    TMA tensor maps) read. Runs on tensors of any device."""
+    q = tensors[0]
+    for x, name in zip(tensors, names):
+        _check(x, name, q.shape, q.dtype, q.device)
+
+
 def _check_cuda_call(q: torch.Tensor) -> None:
     """Raise for what no kernel takes: device, shape, dtype."""
     _, l, h, hd = q.shape
@@ -203,8 +227,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_reference(q, k, v, causal=causal, scale=scale,
                                          key_valid=key_valid, prefix_len=prefix_len)
     _check_cuda_call(q)
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(x, name, q.shape, q.dtype, q.device)
+    check_inputs((q, k, v), ("q", "k", "v"))
     valid = _valid_bytes(key_valid, q)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
@@ -214,9 +237,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
                  lse.data_ptr(), b, l, h, hd, _strides(q, k, v, out), float(scale), int(causal),
                  int(prefix_len), _DTYPE_CODES[q.dtype], stream)
+    body = fwd_body(hd, q.dtype)
     if err != 0:
-        raise RuntimeError(f"flash_attention forward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention forward kernel ({body}) launch failed: "
+                           f"cudaError {err}")
     LAUNCHES["fwd"] += 1
+    FWD_BODIES[body] += 1
     return out, lse
 
 
@@ -256,8 +282,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                                              key_valid=key_valid, prefix_len=prefix_len)
     _check_cuda_call(q)
     do = do.contiguous()  # the gradient of a reshape: dense already, or made so here
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"), (do, "do")):
-        _check(x, name, q.shape, q.dtype, q.device)
+    check_inputs((q, k, v, out, do), ("q", "k", "v", "out", "do"))
     if lse.shape != (b, h, l) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention: lse must be a contiguous fp32 {(b, h, l)} tensor")
     valid = _valid_bytes(key_valid, q)

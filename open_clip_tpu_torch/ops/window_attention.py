@@ -21,12 +21,13 @@ them, they compute ``window_attention_reference`` and
 ``window_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each. The
 panel form (``ops/swin_attention.py``) launches the same source in PANEL mode.
 
-The backward has two bodies, chosen by ``bwd_body`` from the mode, the dtype and the
-head width alone: "mma" (bf16 on the tensor cores; PANEL windows, hd % 8 == 0,
-hd <= 64) and "simt" (fp32 CUDA cores; every other shape and dtype, PARTITIONED
-windows among them). Inputs the chosen body cannot read (rows not 16-byte aligned
-for "mma") raise; they are never sent to the other body. ``BWD_BODIES`` counts the
-backward's launches by body, here and in the panel form.
+The backward has two bodies, chosen by ``bwd_body`` from the mode, the window length,
+the head width and the dtype alone: "mma" (bf16 on the tensor cores; hd % 8 == 0,
+hd <= 64, PANEL windows or PARTITIONED windows of N <= 64 tokens, padded to 64 in
+the kernel: Swin's 49-token windows) and "simt" (fp32 CUDA cores; every other shape
+and dtype). Inputs the chosen body cannot read (rows not 16-byte aligned for "mma")
+raise; they are never sent to the other body. ``BWD_BODIES`` counts the backward's
+launches by body, here and in the panel form.
 """
 
 from __future__ import annotations
@@ -42,11 +43,18 @@ MAX_C = 1024
 PARTITIONED, PANEL = 0, 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward walks windows that share a bias window in groups, so that at least
-# this many blocks run even where every window shares one bias window
+# this many blocks run even where every window shares one bias window: 1056 for the
+# CUDA-core body and the panel form (at HTSAT's stages no other target wins at every
+# one); 264 for the tensor-core body over partitioned windows, whose blocks
+# (three an SM) then fill about one wave with the fewest partials to fold (Swin-B's
+# four stages at batch 32, H100: 0.132 / 0.059 / 0.039 / 0.023 ms against 0.132 /
+# 0.081 / 0.054 / 0.043 at 1056; chip_smoke.py's window_bwd_groups line)
 _BWD_TARGET_BLOCKS = 1056
+_BWD_TARGET_BLOCKS_MMA = 264
 
-# the widest head of the tensor-core backward
+# the widest head and the longest window of the tensor-core backward
 MMA_MAX_HD = 64
+MMA_MAX_N = 64
 
 # launches of each kernel since the last reset, and of the backward by body;
 # chip_smoke.py sets and reads them
@@ -62,11 +70,13 @@ def supports(n: int, heads: int, c: int) -> bool:
     return 1 <= n <= MAX_N and 1 <= c <= MAX_C and heads >= 1 and c % heads == 0
 
 
-def bwd_body(mode: int, hd: int, dtype: torch.dtype) -> str:
-    """Which backward body serves a shape the kernels take: "mma" (tensor cores) for
-    bf16 PANEL windows with hd % 8 == 0 and hd <= 64, "simt" (CUDA cores) for every
-    other: fp32, PARTITIONED windows, and head widths such as 12 or 72."""
-    if dtype == torch.bfloat16 and mode == PANEL and hd % 8 == 0 and hd <= MMA_MAX_HD:
+def bwd_body(mode: int, n: int, hd: int, dtype: torch.dtype) -> str:
+    """Which backward body serves a shape the kernels take, for windows of ``n``
+    tokens: "mma" (tensor cores) for bf16 with hd % 8 == 0 and hd <= 64, PANEL
+    windows or PARTITIONED ones of n <= 64; "simt" (CUDA cores) for every other:
+    fp32, longer windows, and head widths such as 12 or 72."""
+    fits = mode == PANEL or n <= MMA_MAX_N
+    if dtype == torch.bfloat16 and fits and hd % 8 == 0 and hd <= MMA_MAX_HD:
         return "mma"
     return "simt"
 
@@ -199,11 +209,18 @@ def launch_fwd(mode: int, q, k, v, bias, geom, scale: float, launches) -> torch.
     return out
 
 
-def bwd_groups(geom) -> tuple:
-    """(G, nG): windows per group and groups per bias window of the backward."""
+def bwd_target(mode: int, body: str) -> int:
+    """The blocks the backward's group split aims at, for a mode and body."""
+    return _BWD_TARGET_BLOCKS_MMA if mode == PARTITIONED and body == "mma" else _BWD_TARGET_BLOCKS
+
+
+def bwd_groups(geom, target: Optional[int] = None) -> tuple:
+    """(G, nG): windows per group and groups per bias window of the backward, for
+    ``target`` blocks (the CUDA-core body's by default)."""
     s, p, _, heads, _, nwb = geom[:6]
     count = s * p if nwb == 1 else s
-    groups = min(count, max(1, math.ceil(_BWD_TARGET_BLOCKS / (nwb * heads))))
+    target = _BWD_TARGET_BLOCKS if target is None else target
+    groups = min(count, max(1, math.ceil(target / (nwb * heads))))
     size = math.ceil(count / groups)
     return size, math.ceil(count / size)
 
@@ -212,12 +229,12 @@ def launch_bwd(mode: int, q, k, v, bias, do, geom, scale: float, launches, bodie
     """The backward kernels of the body ``bwd_body`` picks: (dq, dk, dv shaped as q,
     dbias (nWb, H, N, N) fp32). Counts the launch in ``launches`` and ``bodies``."""
     do = do.contiguous()
-    body = bwd_body(mode, geom[4], q.dtype)
+    body = bwd_body(mode, geom[2], geom[4], q.dtype)
     check_bwd_inputs(q, k, v, do, body)
     bias = bias.float().contiguous()
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
-    size, groups = bwd_groups(geom)
+    size, groups = bwd_groups(geom, bwd_target(mode, body))
     partials = (torch.empty((groups, *bias.shape), dtype=torch.float32, device=q.device)
                 if groups > 1 else dbias)
     fn = _kernel("bwd")

@@ -1,9 +1,9 @@
 """Which body the port's attention kernels take, and what each refuses.
 
-The short-attention forward and backward and the panel-attention backward have two
-bodies each on the card: "mma", a bf16 kernel on the tensor cores, and "simt", the
-CUDA-core kernel that also serves fp32. The choice is a pure function of the mode,
-the dtype and the shape (``short_attention.fwd_body`` and ``bwd_body``,
+The short-attention forward and backward and the window/panel-attention backward
+have two bodies each on the card: "mma", a bf16 kernel on the tensor cores, and
+"simt", the CUDA-core kernel that also serves fp32. The choice is a pure function of
+the mode, the dtype and the shape (``short_attention.fwd_body`` and ``bwd_body``,
 ``window_attention.bwd_body``); alignment does not move it: inputs whose rows the
 chosen body cannot read raise. These tests pin both rules on the CPU, where the rules
 and the input checks run without a card; the bodies themselves are held to their
@@ -65,18 +65,43 @@ def test_short_forward_body(l, hd, dtype, body):
     (wa.PANEL, 72, BF16, "simt"),       # wider than the tensor-core body's tiles
     (wa.PANEL, 1024, BF16, "simt"),
     (wa.PANEL, 24, FP32, "simt"),       # fp32 keeps the CUDA-core body
-    (wa.PARTITIONED, 32, BF16, "simt"),  # Swin-B's windows keep it too, for now
-    (wa.PARTITIONED, 24, BF16, "simt"),
+    (wa.PARTITIONED, 32, BF16, "mma"),  # Swin-B's 49-token windows, hd 32 at every stage
+    (wa.PARTITIONED, 24, BF16, "mma"),  # HTSAT's 64-token windows, partitioned
 ])
 def test_window_backward_body(mode, hd, dtype, body):
-    assert wa.bwd_body(mode, hd, dtype) == body
+    """PANEL windows have 64 tokens; the PARTITIONED cases are Swin's 49."""
+    n = 64 if mode == wa.PANEL else 49
+    assert wa.bwd_body(mode, n, hd, dtype) == body
+
+
+@pytest.mark.parametrize("n,hd,dtype,body", [
+    (49, 32, BF16, "mma"),     # Swin-B, padded to 64 in the kernel
+    (64, 24, BF16, "mma"),     # HTSAT's windows where they fall back to partitions
+    (9, 8, BF16, "mma"),
+    (33, 40, BF16, "mma"),
+    (65, 32, BF16, "simt"),    # past the 64-token tile
+    (128, 32, BF16, "simt"),
+    (49, 32, FP32, "simt"),    # fp32 keeps the CUDA-core body
+    (49, 72, BF16, "simt"),    # wider than the tensor-core body's tiles
+    (49, 12, BF16, "simt"),    # hd % 8 != 0
+])
+def test_partitioned_backward_body_by_window_length(n, hd, dtype, body):
+    assert wa.supports(n, 4, 4 * hd)
+    assert wa.bwd_body(wa.PARTITIONED, n, hd, dtype) == body
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_every_swin_b_stage_takes_the_tensor_core_backward(stage):
+    """Swin-B: width 128 * 2**i and 4 * 2**i heads (hd 32), 7x7 windows."""
+    c, heads = 128 * 2 ** stage, 4 * 2 ** stage
+    assert wa.bwd_body(wa.PARTITIONED, 49, c // heads, BF16) == "mma"
 
 
 @pytest.mark.parametrize("stage", range(4))
 def test_every_htsat_stage_takes_the_tensor_core_backward(stage):
     """HTSAT-tiny: width 96 * 2**i and 4 * 2**i heads, head width 24 at every stage."""
     c, heads = 96 * 2 ** stage, 4 * 2 ** stage
-    assert wa.bwd_body(wa.PANEL, c // heads, BF16) == "mma"
+    assert wa.bwd_body(wa.PANEL, 64, c // heads, BF16) == "mma"
 
 
 def _short_views(b, l, h, hd, dtype, pad=0, offset=0):
@@ -152,7 +177,29 @@ def test_panel_misaligned_inputs_raise_for_the_mma_body(what):
     else:
         q, k, v = _panel_views(2, 64, 96, BF16, offset=4)
     do = torch.zeros(q.shape, dtype=BF16)
-    assert wa.bwd_body(wa.PANEL, 24, BF16) == "mma"
+    assert wa.bwd_body(wa.PANEL, 64, 24, BF16) == "mma"
     with pytest.raises(ValueError, match="aligned"):
         wa.check_bwd_inputs(q, k, v, do, "mma")
     wa.check_bwd_inputs(q, k, v, do, "simt")  # the CUDA-core body reads any row
+
+
+def test_swin_fused_views_fit_the_mma_body():
+    """Swin-B's windows as the tower hands them over: views of the (B*nW, 49, 3C)
+    projection of each stage, every row 16-byte aligned."""
+    for c in (128, 256, 512, 1024):
+        q, k, v = _panel_views(4, 49, c, BF16)
+        wa.check_bwd_inputs(q, k, v, torch.zeros(q.shape, dtype=BF16), "mma")
+
+
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_window_misaligned_inputs_raise_for_the_mma_body(what):
+    """49-token windows whose rows sit 8 bytes past a 16-byte boundary: the shape
+    takes the tensor-core body, which cannot read them, so the check raises."""
+    if what == "row_stride":
+        q, k, v = _panel_views(4, 49, 128, BF16, pad=4)
+    else:
+        q, k, v = _panel_views(4, 49, 128, BF16, offset=4)
+    do = torch.zeros(q.shape, dtype=BF16)
+    assert wa.bwd_body(wa.PARTITIONED, 49, 32, BF16) == "mma"
+    with pytest.raises(ValueError, match="aligned"):
+        wa.check_bwd_inputs(q, k, v, do, "mma")

@@ -204,3 +204,45 @@ def test_multi_head_attention_takes_key_valid():
                                         key_valid=valid)
     short = pattn.multi_head_attention(x[:, :8], w_in, b_in, w_out, b_out, num_heads=heads)
     assert (padded[:, :8] - short).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_forward_body(hd, dtype, body):
+    """bf16 takes the wgmma forward (TMA, skipped invalid key tiles) at every L and
+    mask; fp32 keeps the CUDA-core one."""
+    assert pfa.fwd_body(hd, dtype) == body
+
+
+def _fused_views(b, l, h, hd, dtype, pad=0, offset=0):
+    """q, k, v as the views of one fused (B, L, 3*H*hd + pad) projection, starting
+    ``offset`` elements into its storage: the layout NaFlex's tower hands over."""
+    width = 3 * h * hd + pad
+    flat = torch.zeros(offset + b * l * width, dtype=dtype)[offset:]
+    return flat.view(b, l, width)[..., :3 * h * hd].unflatten(-1, (3, h, hd)).unbind(2)
+
+
+@pytest.mark.parametrize("l,h,hd", [(1024, 12, 64), (576, 12, 64), (577, 2, 128)])
+def test_fused_views_fit_the_tensor_maps(l, h, hd):
+    """NaFlex's q, k, v: a row stride of 3*768 bf16 (4608 bytes), 16-byte aligned."""
+    q, k, v = _fused_views(2, l, h, hd, torch.bfloat16)
+    assert q.stride(1) * 2 % 16 == 0
+    pfa.check_inputs((q, k, v), ("q", "k", "v"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("what", ["row_stride", "pointer", "batch_stride"])
+def test_misaligned_views_raise(what, dtype):
+    """A row that starts off a 16-byte boundary cannot be read by TMA (nor 16 bytes
+    at a time by the other kernels): the check raises, on any device."""
+    off = 8 // torch.tensor([], dtype=dtype).element_size()  # 8 bytes
+    if what == "row_stride":  # rows of 3*H*hd elements and 8 bytes
+        q, k, v = _fused_views(2, 520, 2, 64, dtype, pad=off)
+    elif what == "pointer":  # the storage starts 8 bytes past a 16-byte boundary
+        q, k, v = _fused_views(2, 520, 2, 64, dtype, offset=off)
+    else:  # 8 bytes more than whole rows between samples
+        flat = torch.zeros(2 * 521 * 384, dtype=dtype)
+        qkv = flat.as_strided((2, 520, 3, 2, 64), (520 * 384 + off, 384, 128, 64, 1))
+        q, k, v = qkv.unbind(2)
+    with pytest.raises(ValueError, match="aligned"):
+        pfa.check_inputs((q, k, v), ("q", "k", "v"))

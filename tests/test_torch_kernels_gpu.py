@@ -404,11 +404,13 @@ def test_flash_kernels_match_plain(cuda, b, l, h, hd, causal, prefix_len, masked
     do = torch.from_numpy(np.random.default_rng(7).standard_normal((b, l, h, hd), dtype=np.float32))
     do = do.to(cuda, dtype)
     kw = dict(causal=causal, key_valid=valid, prefix_len=prefix_len)
-    before = dict(fa.LAUNCHES)
+    before, bodies = dict(fa.LAUNCHES), dict(fa.FWD_BODIES)
     out = fa.flash_attention(q, k, v, **kw)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {key: n + 1 for key, n in before.items()}
+    body = fa.fwd_body(hd, dtype)  # bf16: the wgmma forward at every L and mask
+    assert fa.FWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     ref, ref_lse = fa.flash_attention_reference(qd, kd, vd, **kw)
     out2, lse = fa.flash_attention_fwd(qd, kd, vd, **kw)
@@ -441,6 +443,46 @@ def test_flash_row_without_a_visible_key_is_zero(cuda, causal):
     assert (out[0] - ref[0]).abs().max().item() <= TOL[torch.float32]
     for g in grads:
         assert bool(torch.isfinite(g).all()) and bool((g[1] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("l", [1024, 576])  # 128-row items, and 192-row items
+def test_flash_wgmma_forward_skips_tiles_without_a_valid_key(cuda, l, causal):
+    """Samples with 300, all, 0 and 129 valid keys: whole 128-key tiles hold no valid
+    key, which the wgmma forward neither loads nor multiplies; the result is the plain
+    version's, and the sample with none gives zero rows and a finite lse."""
+    b, h, hd = 4, 4, 64
+    q, k, v = _fused_qkv(31, b, l, h, hd, torch.bfloat16, cuda)
+    lens = torch.tensor([300, l, 0, 129], device=cuda)
+    valid = torch.arange(l, device=cuda)[None, :] < lens[:, None]
+    bodies = dict(fa.FWD_BODIES)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, key_valid=valid)
+    torch.cuda.synchronize()
+    assert fa.FWD_BODIES["wgmma"] == bodies["wgmma"] + 1
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, key_valid=valid)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    assert bool((out[2] == 0).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    seen = [0, 1, 3]  # lse of the rows that see a key
+    assert (lse[seen] - ref_lse[seen]).abs().max().item() <= 1e-4
+    again, _ = fa.flash_attention_fwd(q, k, v, causal=causal, key_valid=valid)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_flash_wgmma_forward_raises_on_misaligned_rows(cuda, what):
+    """bf16 rows 8 bytes past a 16-byte boundary: no TMA tensor map can describe
+    them, so the call raises and nothing launches (no other body takes them)."""
+    if what == "row_stride":
+        x = torch.zeros(2, 520, 3 * 4 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+        q, k, v = x[..., :3 * 4 * 64].unflatten(-1, (3, 4, 64)).unbind(2)
+    else:
+        x = torch.zeros(2 * 520 * 768 + 4, device=cuda, dtype=torch.bfloat16)[4:]
+        q = k = v = x.view(2, 520, 12, 64)
+    before = (dict(fa.LAUNCHES), dict(fa.FWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(q, k, v)
+    assert (fa.LAUNCHES, fa.FWD_BODIES) == before
 
 
 def test_flash_backward_is_deterministic(cuda):
@@ -515,6 +557,50 @@ def _check_window_pair(got_out, ref_out, got_grads, ref_grads, dtype):
         assert _rel_err(g, r) <= tol, (name, _rel_err(g, r))
 
 
+SWIN_MMA_CASES = [  # (B*nW, N, C, heads, nW): bf16 windows the tensor-core backward takes
+    (32 * 64, 49, 128, 4, 64),  # Swin-B stage 0 at the train batch, shifted
+    (32 * 16, 49, 256, 8, 16),  # stage 1
+    (32 * 4, 49, 512, 16, 4),   # stage 2
+    (32, 49, 1024, 32, 1),      # stage 3: 7x7, one window a sample, unshifted
+    (8 * 64, 64, 96, 4, 64),    # HTSAT's 64-token windows, partitioned
+    (6, 9, 24, 3, 2),           # short windows, hd 8
+]
+
+
+@pytest.mark.parametrize("b,n,c,heads,nw", SWIN_MMA_CASES)
+def test_partitioned_mma_backward_matches_plain(cuda, b, n, c, heads, nw):
+    """Windows of N <= 64 tokens padded to the 64-token tile: dq, dk, dv and dbias
+    against the plain version, on the tensor-core body."""
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    q, k, v, bias, do = _window_inputs(b + n + 7, (b, n), c, nw, heads, n, torch.bfloat16, cuda)
+    assert wa.bwd_body(wa.PARTITIONED, n, c // heads, torch.bfloat16) == "mma"
+    bodies = dict(wa.BWD_BODIES)
+    grads = wa.window_attention_bwd(q, k, v, bias, do)
+    torch.cuda.synchronize()
+    assert wa.BWD_BODIES == dict(bodies, mma=bodies["mma"] + 1)
+    refs = wa.window_attention_bwd_reference(q, k, v, bias, do)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), grads, refs):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        assert _rel_err(g, r) <= BWD_RTOL[torch.bfloat16], (name, _rel_err(g, r))
+
+
+def test_partitioned_mma_backward_raises_on_misaligned_rows(cuda):
+    """49-token windows whose rows sit 8 bytes past a 16-byte boundary: the shape takes
+    the tensor-core body, which cannot read them, so the call raises and nothing is
+    launched (it is not sent to the CUDA-core body)."""
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    x = torch.zeros(64, 49, 3 * 128 + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = x[..., :3 * 128].unflatten(-1, (3, 128)).unbind(-2)
+    bias = torch.zeros(64, 4, 49, 49, device=cuda)
+    before = (dict(wa.LAUNCHES), dict(wa.BWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        wa.window_attention_bwd(q, k, v, bias, torch.zeros(q.shape, device=cuda,
+                                                           dtype=torch.bfloat16))
+    assert (wa.LAUNCHES, wa.BWD_BODIES) == before
+
+
 WINDOW_KERNEL_CASES = [  # (B*nW, N, C, heads, nW)
     (4 * 64, 49, 128, 4, 64),   # Swin-B stage 0, shifted
     (4 * 64, 49, 128, 4, 1),    # Swin-B stage 0, unshifted
@@ -535,10 +621,12 @@ def test_window_kernels_match_plain(cuda, b, n, c, heads, nw, dtype):
     from open_clip_tpu_torch.ops import window_attention as wa
 
     q, k, v, bias, do = _window_inputs(b + n + c, (b, n), c, nw, heads, n, dtype, cuda)
-    before = dict(wa.LAUNCHES)
+    before, bodies = dict(wa.LAUNCHES), dict(wa.BWD_BODIES)
     out = wa.window_attention_fwd(q, k, v, bias)
     grads = wa.window_attention_bwd(q, k, v, bias, do)
     assert wa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    body = wa.bwd_body(wa.PARTITIONED, n, c // heads, dtype)  # bf16 N <= 64, hd <= 64: "mma"
+    assert wa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     _check_window_pair(out, wa.window_attention_reference(q, k, v, bias), grads,
                        wa.window_attention_bwd_reference(q, k, v, bias, do), dtype)
 
@@ -571,20 +659,27 @@ def test_panel_kernels_match_plain(cuda, b, h, w, c, heads, nw, dtype):
     out = swa.panel_attention_fwd(q, k, v, bias, **kw)
     grads = swa.panel_attention_bwd(q, k, v, bias, do, **kw)
     assert swa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
-    body = wa.bwd_body(wa.PANEL, c // heads, dtype)  # bf16: "mma" up to hd 64, then "simt"
+    body = wa.bwd_body(wa.PANEL, 64, c // heads, dtype)  # bf16: "mma" up to hd 64, then "simt"
     assert swa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
     _check_window_pair(out, swa.panel_attention_reference(q, k, v, bias, **kw), grads,
                        swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw), dtype)
 
 
 @pytest.mark.parametrize("route", ["panel_mma", "panel_simt", "short_mma", "short_simt",
-                                   "short_mma_long"])
+                                   "short_mma_long", "window_mma"])
 def test_window_backward_is_deterministic(cuda, route):
     """No atomics on either body: dbias folds fixed groups' partials in a fixed order,
     every other output is written once. The same bits every run."""
     from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
 
-    if route.startswith("panel"):
+    if route == "window_mma":  # Swin-B stage 0, 49-token windows on the tensor cores
+        q, k, v, bias, do = _window_inputs(3, (32 * 64, 49), 128, 64, 4, 49, torch.bfloat16,
+                                           cuda)
+        before = dict(wa.BWD_BODIES)
+        runs = [wa.window_attention_bwd(q, k, v, bias, do) for _ in range(3)]
+        assert wa.BWD_BODIES["mma"] == before["mma"] + 3
+    elif route.startswith("panel"):
         dtype = torch.bfloat16 if route == "panel_mma" else torch.float32
         q, k, v, bias, do = _window_inputs(3, (8, 4096), 96, 1, 4, 64, dtype, cuda)
         before = dict(swa.BWD_BODIES)

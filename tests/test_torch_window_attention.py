@@ -146,6 +146,28 @@ def test_backward_groups_cover_every_window_once(geom):
     assert 2 * groups * nwb * heads >= min(count * nwb * heads, wa._BWD_TARGET_BLOCKS)
 
 
+@pytest.mark.parametrize("mode,body,target", [
+    (wa.PARTITIONED, "mma", 264),   # Swin-B's windows on the tensor cores
+    (wa.PARTITIONED, "simt", 1056),
+    (wa.PANEL, "mma", 1056),
+    (wa.PANEL, "simt", 1056),
+])
+def test_backward_group_target_by_body(mode, body, target):
+    assert wa.bwd_target(mode, body) == target
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_swin_b_groups_at_the_tensor_core_target(stage):
+    """Swin-B at batch 32 (nW 64/16/4 shifted, 1 at 7x7): every window in exactly one
+    group, and at least half the tensor-core target's blocks."""
+    nw, heads = (64, 16, 4, 1)[stage], 4 * 2 ** stage
+    geom = [32, nw, 49, heads, 32, nw, 0, 0, 1]  # 32 samples, or 32 windows of one
+    size, groups = wa.bwd_groups(geom, wa.bwd_target(wa.PARTITIONED, "mma"))
+    count = 32
+    assert size * groups >= count > size * (groups - 1)
+    assert groups * nw * heads >= min(count * nw * heads, 264) // 2
+
+
 @pytest.mark.parametrize("what", ["meta", "half_on_cpu"])
 def test_wrappers_take_the_plain_path_only_on_the_cpu(what):
     """A tensor on another device than the CPU gets the kernel or an error, never the
@@ -172,3 +194,30 @@ def test_shapes_that_do_not_fit_raise():
         swa.panel_attention(q, k, v, bias, hw=(8, 16), ws=8)
     with pytest.raises(ValueError):
         wa.window_attention(q, k, v, bias[:, :, :49, :49])
+
+
+@pytest.mark.parametrize("nw,heads", [(4, 2), (1, 3)])
+def test_padding_49_token_windows_to_64_is_exact(nw, heads):
+    """The tensor-core backward pads Swin's 49-token windows to a 64-token tile: rows
+    past 49 of q, k, v and do are zeros, the padded keys get bias -inf and the padded
+    queries bias 0. The plain backward on the padded windows, cut back to the first
+    49 rows and the 49 x 49 dbias, equals the plain backward on the windows as they
+    are: dq, dk, dv and dbias, fp32."""
+    n, pad, hd = 49, 64, 8
+    q, k, v, bias, do = _inputs(11 + nw, (2 * nw, n, heads * hd), nw, heads, n)
+    want = wa.window_attention_bwd_reference(T(q), T(k), T(v), T(bias), T(do))
+
+    def rows(x):
+        return np.concatenate([x, np.zeros((x.shape[0], pad - n, x.shape[2]), np.float32)], 1)
+
+    big = np.zeros((nw, heads, pad, pad), np.float32)
+    big[:, :, :n, :n] = bias
+    big[:, :, :, n:] = -np.inf
+    got = wa.window_attention_bwd_reference(T(rows(q)), T(rows(k)), T(rows(v)), T(big),
+                                            T(rows(do)))
+    for g, w in zip(got[:3], want[:3]):
+        assert bool(torch.isfinite(g).all())
+        _close(g[:, :n], w)
+        assert float(g[:, n:].abs().max()) == 0.0  # padded rows get no gradient
+    assert bool(torch.isfinite(got[3][:, :, :n, :n]).all())
+    _close(got[3][:, :, :n, :n], want[3])
