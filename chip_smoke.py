@@ -14,9 +14,10 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      backward, and the three flash attention kernels (forward with logsumexp, dq,
      dk/dv) at the NaFlex train and serve buckets, a length that is no multiple of a
      tile, causal, prefix-LM, hd=128 and samples with whole key tiles of invalid keys
-     (the bf16 forward on wgmma fed by TMA, which skips them), a sample with no valid
-     key and misaligned rows (which raise); kernel, plain and library-call device time,
-     each from one CUDA graph of calls (no host work between launches), and the bound;
+     (the bf16 kernels on wgmma fed by TMA, which skip them; dq also takes di), a
+     sample with no valid key and misaligned rows (which raise); kernel, plain and
+     library-call device time (the whole backward beside SDPA's), each from one CUDA
+     graph of calls (no host work between launches), and the bound;
   2. serving: ViT-B-32 from create_model_and_transforms in pure_bf16 with random
      weights from a seed, a zero-shot classifier over 10 ImageNet classes (one
      encode_text call), and requests of 256 synthetic 256x320 uint8 images (device
@@ -48,7 +49,7 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
   8. NaFlex training: amp_bf16, AdamW with clipping, make_train_step on one fixed
      batch of 16 patch dicts at 1024 tokens (32x32 grids, all valid, alternating with
      24x32 grids, 768 valid) and 16 token rows, timed and profiled like phase 4; a
-     step launches each flash kernel 12 times (the forward on the wgmma body) and the
+     step launches each flash kernel 12 times (all three on the wgmma bodies) and the
      short kernels 12 + 12 times (the text tower); then two steps with remat;
   9. the CLI with --dataset-type synthetic-naflex at the 1024-token bucket (batch 16
      from the token budget), one short epoch;
@@ -98,7 +99,7 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      steps under names_mm from the same initial weights, with the same first loss.
 
 Every kernel record names its body: "wgmma" (bf16 on the tensor cores, warpgroup
-products fed by TMA: the flash forward), "mma" (bf16 on the tensor cores, mma.sync)
+products fed by TMA: the flash kernels), "mma" (bf16 on the tensor cores, mma.sync)
 or "simt" (CUDA cores); the train lines give the launches by body and the kernel ms
 of a step beside the step time.
 
@@ -483,8 +484,8 @@ def phase_flash_kernels(torch, fa):
              ("causal640", 8, 640, 12, 64, True, 0, None, False),
              ("prefix256", 4, 1024, 12, 64, True, 256, None, False),
              ("hd128", 4, 512, 8, 128, False, 0, None, False),
-             # whole key tiles with no valid key, which the wgmma forward skips
-             ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), False)]
+             # whole key tiles with no valid key, which the wgmma kernels skip
+             ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), True)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -502,7 +503,16 @@ def phase_flash_kernels(torch, fa):
                   and fwd_body == ("wgmma" if dtype == torch.bfloat16 else "simt"),
                   f"flash forward {name} {dtype}: took the {fwd_body} body")
             ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+            bwd_body = fa.bwd_body(hd, dtype)
+            before, before_bodies = dict(fa.LAUNCHES), dict(fa.BWD_BODIES)
             grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            check(fa.LAUNCHES["bwd_dq"] == before["bwd_dq"] + 1
+                  and fa.LAUNCHES["bwd_dkv"] == before["bwd_dkv"] + 1
+                  and fa.BWD_BODIES == dict(before_bodies,
+                                            **{bwd_body: before_bodies[bwd_body] + 1})
+                  and bwd_body == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+                  f"flash backward {name} {dtype}: one dq and one dk/dv launch on the "
+                  f"{bwd_body} body")
             refs = fa.flash_attention_bwd_reference(q, k, v, ref, ref_lse, do, **kw)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -515,20 +525,20 @@ def phase_flash_kernels(torch, fa):
             check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn],
                   f"flash backward {name} {dn}: rel err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/"
                   f"{errs[2]:.2e} (tol {BWD_RTOL[dn]:.0e})")
-            size, n = q.element_size(), b * l * h * hd
-            bwd_body = "mma" if dtype == torch.bfloat16 else "simt"
+            size, n, rows = q.element_size(), b * l * h * hd, b * h * l
             common = {"route": "cuda", "body": bwd_body, "source": FLASH_SOURCE, "shape": [b, l, h, hd],
                       "causal": causal, "prefix_len": prefix, "valid": lens, "dtype": dn,
                       "visible_pairs": pairs}
             it = dict(iters=10, replays=3)
             do_c = do.contiguous()
             vb = fa._valid_bytes(valid, q)
-            di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+            args = (q, k, v, out, do_c, lse)
+            _, di = fa._launch_bwd("bwd_dq", *args, None, vb, causal, hd ** -0.5, prefix)
             ms_fwd = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), **it)
-            ms_dq = graph_ms(lambda: fa._launch_bwd("bwd_dq", q, k, v, do_c, lse, di, vb, causal,
-                                                    hd ** -0.5, prefix), **it)
-            ms_dkv = graph_ms(lambda: fa._launch_bwd("bwd_dkv", q, k, v, do_c, lse, di, vb, causal,
-                                                     hd ** -0.5, prefix), **it)
+            ms_dq = graph_ms(lambda: fa._launch_bwd("bwd_dq", *args, None, vb, causal, hd ** -0.5,
+                                                    prefix), **it)
+            ms_dkv = graph_ms(lambda: fa._launch_bwd("bwd_dkv", *args, di, vb, causal, hd ** -0.5,
+                                                     prefix), **it)
             ms_bwd = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), **it)
             plain_fwd = plain_bwd = lib_fwd = lib_bwd = None
             if timed:
@@ -555,26 +565,31 @@ def phase_flash_kernels(torch, fa):
                             max_abs_err=err, lse_abs_err=lse_err, ms=ms_fwd, plain_ms=plain_fwd,
                             **bound(4 * n * size, 4 * h * hd * pairs, dn),
                             library_ms=lib_fwd),
-                # each backward kernel alone: dq reads q, k, v, do and writes dq, with three
-                # products; dk/dv reads the same and writes two, with four. No single
-                # PyTorch call computes one of them alone.
+                # each backward kernel alone: dq reads q, k, v, do, out and lse and writes
+                # dq and di, with three products; dk/dv reads q, k, v, do, lse and di and
+                # writes dk and dv, with four. No single PyTorch call computes one of them
+                # alone.
                 "bwd_dq": dict(common, name=f"flash_attention_bwd_dq[{name}]",
                                replaces="open_clip_tpu/ops/flash_attention.py:161",
                                max_abs_err=abs_errs[0], max_rel_err=errs[0], ms=ms_dq,
-                               plain_ms=plain_bwd, **bound(5 * n * size, 6 * h * hd * pairs, dn),
+                               plain_ms=plain_bwd,
+                               **bound(6 * n * size + 8 * rows, 6 * h * hd * pairs, dn),
                                library_ms=None, library_whole_bwd_ms=lib_bwd),
                 "bwd_dkv": dict(common, name=f"flash_attention_bwd_dkv[{name}]",
                                 replaces="open_clip_tpu/ops/flash_attention.py:218",
                                 max_abs_err=max(abs_errs[1:]), max_rel_err=max(errs[1:]), ms=ms_dkv,
-                                plain_ms=plain_bwd, **bound(6 * n * size, 8 * h * hd * pairs, dn),
+                                plain_ms=plain_bwd,
+                                **bound(6 * n * size + 8 * rows, 8 * h * hd * pairs, dn),
                                 library_ms=None, library_whole_bwd_ms=lib_bwd),
             }
             for rec in recs.values():
                 print("kernel_case " + json.dumps(rec), flush=True)
-            # the whole backward (di, dq, dk/dv) against the convention of the short kernels
+            # the whole backward (di, dq, dk/dv): reads q, k, v, out, do and lse, writes
+            # dq, dk and dv; SDPA's whole backward beside it
             print("kernel_case " + json.dumps(dict(
                 common, name=f"flash_attention_bwd[{name}]", ms=ms_bwd, plain_ms=plain_bwd,
-                **bound(7 * n * size, 10 * h * hd * pairs, dn), library_ms=lib_bwd)), flush=True)
+                **bound(8 * n * size + 4 * rows, 10 * h * hd * pairs, dn), library_ms=lib_bwd)),
+                flush=True)
             if dtype == torch.bfloat16 and timed:  # the main paths' dtype
                 records[name] = recs
             del q, k, v, do, out, lse, ref, ref_lse, grads, refs
@@ -1074,6 +1089,7 @@ def phase_naflex_train(torch, oc, sa, fa):
     reset_counts(sa, fa)
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
     flash, short, flash_bodies = dict(fa.LAUNCHES), dict(sa.LAUNCHES), dict(fa.FWD_BODIES)
+    flash_bwd_bodies = dict(fa.BWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     norms = [float(m["grad_norm"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses), f"naflex_train: {len(losses)} losses finite")
@@ -1084,6 +1100,9 @@ def phase_naflex_train(torch, oc, sa, fa):
           and flash_bodies == {"wgmma": lv * n, "simt": 0},
           f"naflex_train: flash launches {flash}, forward by body {flash_bodies} in {n} steps "
           f"(expect {lv * n} of each, every forward wgmma)")
+    check(flash_bwd_bodies == {"wgmma": lv * n, "simt": 0},
+          f"naflex_train: flash backward passes by body {flash_bwd_bodies} in {n} steps (expect "
+          f"{lv * n}, each a wgmma dq and a wgmma dk/dv launch)")
     check(short == {"fwd": lt * n, "bwd": lt * n},
           f"naflex_train: short-kernel launches {short} in {n} steps (the text tower: "
           f"{lt * n} of each)")
@@ -1096,6 +1115,7 @@ def phase_naflex_train(torch, oc, sa, fa):
                "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
                "flash_launches_per_step": {k: v / n for k, v in flash.items()},
                "flash_fwd_launches_per_step_by_body": {k: v / n for k, v in flash_bodies.items()},
+               "flash_bwd_passes_per_step_by_body": {k: v / n for k, v in flash_bwd_bodies.items()},
                "short_launches_per_step": {k: v / n for k, v in short.items()}}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
@@ -1110,6 +1130,7 @@ def phase_naflex_train(torch, oc, sa, fa):
     state, rm, remat_ms, *_ = run_steps(torch, remat_step, state, batch, 2)
     check(fa.LAUNCHES == {"fwd": 2 * lv * 2, "bwd_dq": lv * 2, "bwd_dkv": lv * 2}
           and fa.FWD_BODIES == {"wgmma": 2 * lv * 2, "simt": 0}
+          and fa.BWD_BODIES == {"wgmma": lv * 2, "simt": 0}
           and math.isfinite(float(rm[-1]["loss"])),
           f"naflex_train[remat]: flash launches {fa.LAUNCHES} in 2 steps, loss finite")
     summary["remat_median_step_ms"] = statistics.median(remat_ms)
@@ -1146,13 +1167,15 @@ def phase_naflex_cli(torch, fa):
               f"NaFlex CLI: loss {[round(r['train/loss'], 4) for r in rows]} is ln "
               f"{NF_TRAIN_BATCH} on identical samples")
         check(fa.LAUNCHES == {k: layers * NF_CLI_STEPS for k in fa.LAUNCHES}
-              and fa.FWD_BODIES == {"wgmma": layers * NF_CLI_STEPS, "simt": 0},
-              f"NaFlex CLI: flash launches {fa.LAUNCHES}, forward by body {fa.FWD_BODIES} in "
-              f"{NF_CLI_STEPS} steps")
+              and fa.FWD_BODIES == {"wgmma": layers * NF_CLI_STEPS, "simt": 0}
+              and fa.BWD_BODIES == {"wgmma": layers * NF_CLI_STEPS, "simt": 0},
+              f"NaFlex CLI: flash launches {fa.LAUNCHES}, forward by body {fa.FWD_BODIES}, "
+              f"backward by body {fa.BWD_BODIES} in {NF_CLI_STEPS} steps")
         check((run / "checkpoints" / "epoch_1.pt").exists(), "NaFlex CLI: checkpoint epoch_1.pt written")
         last = rows[-1] if rows else {}
         print("naflex_cli " + json.dumps({
             "steps": NF_CLI_STEPS, "run_s": wall_s, "flash_fwd_bodies": dict(fa.FWD_BODIES),
+            "flash_bwd_bodies": dict(fa.BWD_BODIES),
             "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
             "host_batch_ms_per_step": 1e3 * last.get("train/batch_time", float("nan"))}), flush=True)
 

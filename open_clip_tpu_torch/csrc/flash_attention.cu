@@ -16,15 +16,16 @@
 // output row (sum is clamped at 1e-30), a finite lse, and zero gradients.
 // Padded queries (valid[b, i] false) are computed like any other row.
 //
-// BACKWARD: from q, k, v, do, lse and di = rowsum(out * do) (fp32 (B, H, L), made
-// by the caller):  p = exp(q.k * scale - lse) where visible, else 0;
-// dp = do.v^T;  ds = p * (dp - di) rounded to the input dtype;
-// dq = scale * ds.k;  dk = scale * ds^T.q;  dv = p^T.do with p rounded to the
-// input dtype; fp32 accumulators throughout. dq sums over keys and dk/dv over
-// queries, so they are two kernels: one block per query tile looping over key
-// tiles (dq), and one block per key tile looping over query tiles (dk, dv). Every
-// output is written once, by one block, in a fixed order: no atomics, and two runs
-// give the same bits.
+// BACKWARD: from q, k, v, do, out and lse: di = rowsum(out * do) in fp32;
+// p = exp(q.k * scale - lse) where visible, else 0; dp = do.v^T;
+// ds = p * (dp - di) rounded to the input dtype; dq = scale * ds.k;
+// dk = scale * ds^T.q;  dv = p^T.do with p rounded to the input dtype; fp32
+// accumulators throughout. dq sums over keys and dk/dv over queries, so they are
+// two kernels: one that walks the key tiles of a query tile (dq; it also takes di
+// from the rows of out and do it holds and writes it, fp32 (B, H, L), for the
+// other), and one that walks the query tiles of a key tile (dk, dv). Every output
+// is written once, by one block, in a fixed order: no atomics, and two runs give
+// the same bits.
 //
 // Bound on this card: operations. At L = 1024, hd = 64 a forward call does
 // 4*B*H*L^2*hd operations on 4*B*L*H*hd*size bytes, L/size = 512 operations per
@@ -40,28 +41,25 @@
 //     and a row stride per tensor, so the three slices of a fused projection need
 //     no transpose, no copy and no padding of L; the tail tile is staged as zeros
 //     and masked in the kernel;
-//   - the bf16 forward (the "wgmma" body, further down) is Hopper's: warpgroup
-//     products (wgmma) on tiles that TMA copies into shared memory, a producer warp
-//     and two consumer warpgroups on mbarriers, a persistent grid, and key tiles that
-//     hold no valid key neither loaded nor multiplied;
-//   - the backward kernels (bf16: mma.sync m16n8k16, operands loaded with ldmatrix)
-//     and the fp32 forward: one block of 4 warps per (64-row tile, head, sample);
-//     each warp owns 16 rows of the tile, so between the loads of two tiles no warp
-//     waits for another; K/V (or Q/dO) stream through shared memory in 64-row tiles,
-//     rows padded by 16 bytes so that ldmatrix reads no bank twice; in the bf16
-//     kernels the tiles are double-buffered and copied with cp.async; key validity is
-//     one byte per (sample, key), staged per key tile;
+//   - the three bf16 kernels (the "wgmma" bodies, further down) are Hopper's:
+//     warpgroup products (wgmma) on tiles that TMA copies into shared memory, a
+//     producer warp and two or three consumer warpgroups on mbarriers, a persistent
+//     grid; key tiles that hold no valid key are neither loaded nor multiplied (the
+//     forward and dq skip them, dk/dv writes their zero gradients and loads nothing);
+//   - the fp32 kernels: one block of 4 warps per (64-row tile, head, sample); each
+//     warp owns 16 rows of the tile, so between the loads of two tiles no warp waits
+//     for another; K/V (or Q/dO) stream through shared memory in 64-row tiles; key
+//     validity is one byte per (sample, key), staged per key tile;
 //   - the bf16 kernels take exponentials in base 2 on the special-function unit,
-//     and a tile that every row of the block sees whole skips the mask arithmetic;
+//     and a tile that every row of a warpgroup sees whole skips the mask arithmetic;
 //   - under the causal mask the tiles no row of the block can see are skipped,
 //     and the prefix tiles are kept.
-// Not done yet (a later change): the backward kernels on wgmma and TMA.
 //
 // Shared memory per block (bytes), dynamic, opted in above 48 KB:
 //   forward   bf16 hd=64 181,248 or 164,864 (192- or 128-row items)  hd=128 230,400
 //             fp32 hd=64 106,752  hd=128 172,288
-//   dq        bf16 hd=64  55,552   hd=128 104,704   fp32 hd=64 124,672  hd=128 190,208
-//   dk/dv     bf16 hd=64  56,576   hd=128 105,728   fp32 hd=64 142,080  hd=128 207,616
+//   dq        bf16 hd=64 197,632   hd=128 197,632   fp32 hd=64 124,672  hd=128 190,208
+//   dk/dv     bf16 hd=64 132,096   hd=128 164,864   fp32 hd=64 142,080  hd=128 207,616
 //
 // C interface, loaded with ctypes: each function returns the cudaError_t of its
 // launch (0 on success), launches on the given stream, does not synchronise and
@@ -406,14 +404,16 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const unsigned char* __restrict__ valid, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         T* __restrict__ dq, int L, long long qbs, long long qrs, long long kbs,
-                         long long krs, long long vbs, long long vrs, long long gbs, long long grs,
-                         long long dqbs, long long dqrs, float scale, int causal, int prefix) {
+                         const T* __restrict__ out, const float* __restrict__ lse,
+                         float* __restrict__ di, T* __restrict__ dq, int L, long long qbs,
+                         long long qrs, long long kbs, long long krs, long long vbs, long long vrs,
+                         long long gbs, long long grs, long long obs, long long ors, long long dqbs,
+                         long long dqrs, float scale, int causal, int prefix) {
   constexpr int LDT = Ld<T, HD>::value;
   constexpr int LDP = Ld<T, BN>::value;
   constexpr int LDO = HD + 8;
   static_assert(LDO <= 2 * LDS, "the output staging tile reuses the two score tiles");
+  static_assert(THREADS == 2 * BM, "two threads a row for di");
   extern __shared__ __align__(128) unsigned char flash_smem[];
   T* qs = reinterpret_cast<T*>(flash_smem);         // (BM, LDT)
   T* gs = qs + BM * LDT;                            // (BM, LDT): the tile's rows of do
@@ -444,7 +444,21 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const
   stage_tile<T, HD>(qs, q + b * qbs + (long long)h * HD, qrs, q0, L);
   stage_tile<T, HD>(gs, dout + b * gbs + (long long)h * HD, grs, q0, L);
   stage_rows(lses, lse + row_base, q0, L);
-  stage_rows(dis, di + row_base, q0, L);
+  __syncthreads();
+  {  // di = rowsum(out * do) in fp32, two threads a row; written for the dk/dv kernel
+    const int r = threadIdx.x >> 1, part = threadIdx.x & 1, row = q0 + r;
+    float sum = 0.f;
+    if (row < L) {
+      const T* orow = out + b * obs + (long long)h * HD + row * ors;
+      for (int c = part * (HD / 2); c < (part + 1) * (HD / 2); ++c)
+        sum = fmaf(orow[c], gs[r * LDT + c], sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (part == 0) {
+      dis[r] = sum;
+      if (row < L) di[row_base + row] = sum;
+    }
+  }
   T* qw = qs + warp * WR * LDT;
   T* gw = gs + warp * WR * LDT;
   T* dsw = ds + warp * WR * LDP;
@@ -601,65 +615,16 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 kernels: the products on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// fp32 accumulators). Only the Q/K/V/dO tiles live in shared memory; the scores, the
-// probabilities and every accumulator stay in registers: the accumulator fragment
+// bf16 kernels: the products on the tensor cores (wgmma, bf16 operands, fp32
+// accumulators). Only the Q/K/V/dO/O tiles live in shared memory; the scores, the
+// probabilities, ds and every accumulator stay in registers: the accumulator fragment
 // of one product is, two 8-column tiles at a time, the A fragment of the next.
-// A warp owns 16 rows; in a fragment a lane holds, for rows g = lane / 4 and g + 8,
-// the columns 2t and 2t + 1 (t = lane % 4) of every 8-column tile. The warp-level
-// helpers (cp.async, ldmatrix, mma.sync, the products) are in mma_bf16.cuh.
+// A warp owns 16 rows of its warpgroup's 64; in a fragment a lane holds, for rows
+// g = lane / 4 and g + 8, the columns 2t and 2t + 1 (t = lane % 4) of every 8-column
+// tile (the mma.sync m16n8k16 layout; its helpers are in mma_bf16.cuh).
 // ---------------------------------------------------------------------------
 
-// cp_async16 for 4 bytes
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool inside) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int bytes = inside ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// stage_tile, asynchronously
-template <int HD>
-__device__ __forceinline__ void stage_tile_async(bf16* dst, const bf16* src, long long rs, int r0,
-                                                 int L) {
-  constexpr int LD = HD + 8;
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < BM * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const int row = r0 + r;
-    cp_async16(dst + r * LD + c, src + min(row, L - 1) * rs + c, row < L);
-  }
-}
-
-// stage_rows, asynchronously
-__device__ __forceinline__ void stage_rows_async(float* dst, const float* src, int r0, int L) {
-  if (threadIdx.x < BM) {
-    const int row = r0 + threadIdx.x;
-    cp_async4(dst + threadIdx.x, src + min(row, L - 1), row < L);
-  }
-}
-
 constexpr float LN2 = 0.6931471805599453f;
-
-// The warp's accumulator times `mul` into rows row_lo and row_lo + 8 of one head's
-// (L, HD) slice of an output.
-template <int HD>
-__device__ __forceinline__ void write_acc(bf16* dst, long long rs, const float (&acc)[HD / 8][4],
-                                          int row_lo, int L, float mul_lo, float mul_hi) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row_lo + 8 * half;
-    if (row < L) {
-      bf16* out = dst + row * rs + 2 * t;
-      const float mul = half ? mul_hi : mul_lo;
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-            __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-    }
-  }
-}
 
 // Probabilities of one tile from its base-2 logits (a MASKED entry, at NEG, gives
 // exactly 0), packed as the A fragments of the product with v; adds each row's sum.
@@ -786,16 +751,81 @@ __device__ __forceinline__ void wg_item(int item, int nq, int bm, int H, int& q0
   b = rest / H;
 }
 
-// the key tiles of an item: up to the diagonal of its last row and the prefix's
-// under the causal mask
-__device__ __forceinline__ int wg_key_tiles(int q0, int bm, int L, int causal, int prefix) {
-  int ntiles = (L + WG_BN - 1) / WG_BN;
+// the tiles of BN keys of an item of bm query rows from q0: up to the diagonal of its
+// last row and the prefix's under the causal mask
+template <int BN>
+__device__ __forceinline__ int key_tiles(int q0, int bm, int L, int causal, int prefix) {
+  int ntiles = (L + BN - 1) / BN;
   if (causal) {
-    const int diag = min((q0 + bm + WG_BN - 1) / WG_BN, ntiles);
-    const int pre = min((prefix + WG_BN - 1) / WG_BN, ntiles);
+    const int diag = min((q0 + bm + BN - 1) / BN, ntiles);
+    const int pre = min((prefix + BN - 1) / BN, ntiles);
     ntiles = max(diag, pre);
   }
   return ntiles;
+}
+
+// The producer warp's key tiles of one item (the forward and dq): tiles 0 .. ntiles - 1
+// of BN keys of head h and sample b, K and V boxes into the ring of STAGES stages at
+// kvs ([STAGES][K, V][HD / 64][BN][64]), each completing on its stage's full barrier,
+// refilled once every consumer released it on its empty one. Before a tile the warp
+// reads its validity bytes (one a lane for each of the BN / 32 ballot words, a tile
+// ahead); a tile with no valid key is neither loaded nor handed on. The stage's slot
+// tells the consumers which tile landed and which of its keys are valid; a last slot
+// with tile -1 ends the item.
+template <int BN, int HD, int STAGES>
+__device__ __forceinline__ void produce_key_tiles(const CUtensorMap* tk, const CUtensorMap* tv,
+                                                  const unsigned char* valid_b, int L, int ntiles,
+                                                  int h, int b, bf16* kvs, uint64_t* full_bar,
+                                                  uint64_t* empty_bar, KeyTile* slots, int& stage,
+                                                  uint32_t& phase) {
+  constexpr int HALVES = HD / 64, WORDS = BN / 32, KV_BYTES = 2 * HALVES * BN * 128;
+  const int lane = threadIdx.x & 31;
+  // does key 32 w + lane of tile tt exist and is it valid?
+  const auto key_ok = [&](int tt, int w) -> uint32_t {
+    const int key = tt * BN + 32 * w + lane;
+    if (tt >= ntiles || key >= L) return 0u;
+    return valid_b == nullptr ? 1u : (uint32_t)valid_b[key];
+  };
+  uint32_t words[WORDS];
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) words[w] = __ballot_sync(0xffffffffu, key_ok(0, w) != 0u);
+  for (int t = 0; t <= ntiles; ++t) {  // t == ntiles: the end of the item
+    // the next tile's validity bytes, read now and used once this tile's copies are
+    // issued: the loads travel while lane 0 waits for a free stage
+    uint32_t next[WORDS], any = 0u;
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w) {
+      next[w] = key_ok(t + 1, w);
+      any |= words[w];
+    }
+    if (t == ntiles || any != 0u) {  // else: no valid key
+      if (lane == 0) {
+        mbar_wait(&empty_bar[stage], phase ^ 1);  // every consumer released it
+        slots[stage].tile = t < ntiles ? t : -1;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) slots[stage].valid[w] = w < WORDS ? words[w] : 0u;
+        if (t < ntiles) {
+          mbar_arrive_expect_tx(&full_bar[stage], KV_BYTES);
+          bf16* ks = kvs + (size_t)stage * KV_BYTES / 2;
+          bf16* vs = ks + HALVES * BN * 64;
+#pragma unroll
+          for (int c = 0; c < HALVES; ++c) {
+            tma_load_3d(ks + c * BN * 64, tk, &full_bar[stage], h * HD + 64 * c, t * BN, b);
+            tma_load_3d(vs + c * BN * 64, tv, &full_bar[stage], h * HD + 64 * c, t * BN, b);
+          }
+        } else {
+          mbar_arrive(&full_bar[stage]);
+        }
+      }
+      __syncwarp();
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w) words[w] = __ballot_sync(0xffffffffu, next[w] != 0u);
+  }
 }
 
 // One tile's online softmax on the S accumulators of a warp's 16 rows (qi_lo, qi_hi):
@@ -952,8 +982,7 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t q_full[W::Q_BUFS], q_empty[W::Q_BUFS];
   __shared__ __align__(8) uint64_t turn_bar[W::CWG];  // consumer warpgroup w may issue products
   __shared__ KeyTile slots[W::STAGES];
-  // the swizzle repeats every 1024 bytes: every box starts on such a boundary
-  unsigned char* smem = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  unsigned char* smem = swizzle_aligned(wg_smem_raw);
   bf16* qs = reinterpret_cast<bf16*>(smem);    // [Q_BUFS][HALVES][BM][64]
   bf16* kvs = qs + W::Q_BUFS * W::Q_BYTES / 2;  // [STAGES][K, V][HALVES][WG_BN][64]
 
@@ -992,53 +1021,10 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           tma_load_3d(qs + (qbuf * W::HALVES + c) * W::BM * 64, &tq, &q_full[qbuf], h * HD + 64 * c,
                       q0, b);
       }
-      const unsigned char* valid_b = valid == nullptr ? nullptr : valid + (long long)b * L;
-      const int ntiles = wg_key_tiles(q0, W::BM, L, causal, prefix);
-      // does key 32 w + lane of tile tt exist and is it valid?
-      const auto key_ok = [&](int tt, int w) -> uint32_t {
-        const int key = tt * WG_BN + 32 * w + lane;
-        if (tt >= ntiles || key >= L) return 0u;
-        return valid_b == nullptr ? 1u : (uint32_t)valid_b[key];
-      };
-      uint32_t words[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) words[w] = __ballot_sync(0xffffffffu, key_ok(0, w) != 0u);
-      for (int t = 0; t <= ntiles; ++t) {  // t == ntiles: the end of the item
-        // the next tile's validity bytes, read now and used once this tile's copies are
-        // issued: the loads travel while lane 0 waits for a free stage
-        uint32_t next[4];
-#pragma unroll
-        for (int w = 0; w < 4; ++w) next[w] = key_ok(t + 1, w);
-        if (t == ntiles || (words[0] | words[1] | words[2] | words[3]) != 0u) {  // else: no valid key
-          if (lane == 0) {
-            mbar_wait(&empty_bar[stage], phase ^ 1);  // both consumer warpgroups released it
-            slots[stage].tile = t < ntiles ? t : -1;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) slots[stage].valid[w] = words[w];
-            if (t < ntiles) {
-              mbar_arrive_expect_tx(&full_bar[stage], W::KV_BYTES);
-              bf16* ks = kvs + (size_t)stage * W::KV_BYTES / 2;
-              bf16* vs = ks + W::HALVES * WG_BN * 64;
-#pragma unroll
-              for (int c = 0; c < W::HALVES; ++c) {
-                tma_load_3d(ks + c * WG_BN * 64, &tk, &full_bar[stage], h * HD + 64 * c,
-                            t * WG_BN, b);
-                tma_load_3d(vs + c * WG_BN * 64, &tv, &full_bar[stage], h * HD + 64 * c,
-                            t * WG_BN, b);
-              }
-            } else {
-              mbar_arrive(&full_bar[stage]);
-            }
-          }
-          __syncwarp();
-          if (++stage == W::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-#pragma unroll
-        for (int w = 0; w < 4; ++w) words[w] = __ballot_sync(0xffffffffu, next[w] != 0u);
-      }
+      produce_key_tiles<WG_BN, HD, W::STAGES>(
+          &tk, &tv, valid == nullptr ? nullptr : valid + (long long)b * L, L,
+          key_tiles<WG_BN>(q0, W::BM, L, causal, prefix), h, b, kvs, full_bar, empty_bar, slots,
+          stage, phase);
     }
     return;
   }
@@ -1234,211 +1220,536 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on wgmma fed by TMA (the "wgmma" bodies). Two kernels, each a
+// persistent grid of one block an SM, a producer warpgroup and two consumer
+// warpgroups on mbarriers, as the forward:
+//   - dq: an item is 128 query rows of one head and sample (64 a consumer
+//     warpgroup). Its Q, dO and O rows stay resident (RES_BUFS buffers, so the next
+//     item's land while this one is computed); the producer streams its key tiles
+//     (K and V, BN keys) into a ring of stages and skips the tiles with no valid key
+//     (produce_key_tiles, the forward's loop). A consumer
+//     warpgroup first takes di = rowsum(O * dO) of its rows in fp32 from the resident
+//     tiles, keeps it in registers and writes it to the (B, H, L) di that the dk/dv
+//     kernel reads; then for each key tile S = Q.K^T and dP = dO.V^T (SS wgmma, K and
+//     V K-major), P and dS in registers, and dQ += dS.K (RS wgmma: the bf16-packed dS
+//     fragment is the A operand, K read MN-major through the transpose bit).
+//   - dk/dv: an item is 128 keys of one head and sample (64 a consumer warpgroup).
+//     Its K and V rows stay resident (KV_BUFS buffers); an item whose keys hold no
+//     valid key loads nothing and writes zero dk and dv (its probabilities are all
+//     exactly 0). Otherwise the producer streams the query tiles (64 rows of Q and dO,
+//     and their base-2 logsumexp and di, which its lanes copy into the stage) into a
+//     ring of stages, from the first tile the causal mask lets see a key of the item.
+//     Per query tile, transposed as the keys are the rows: S^T = K.Q^T and dP^T =
+//     V.dO^T (SS), P^T and dS^T in registers, dV += P^T.dO and dK += dS^T.Q (RS, dO
+//     and Q read MN-major). Neither P nor dS leaves the registers.
+// The items' order puts the tile index fastest, so the blocks running at one time
+// share their head's streamed tiles in L2. Every output row is written once, by the
+// warpgroup that owns it: no atomics, and two runs give the same bits. Every wait
+// is on an mbarrier (which traps after ~9 s).
+// ---------------------------------------------------------------------------
+
 template <int HD>
-constexpr size_t dq_mma_smem() {
-  return (size_t)(6 * BM * (HD + 8)) * sizeof(bf16) + BN * sizeof(int);
+struct DqTile {
+  static constexpr int BM = 128;                  // query rows an item, 64 a consumer warpgroup
+  static constexpr int BN = HD == 64 ? 128 : 64;  // keys a stage (hd = 128: 64, for registers)
+  static constexpr int NT = BN / 8;
+  static constexpr int WORDS = BN / 32;           // validity words a key tile
+  static constexpr int CONSUMERS = 256;
+  static constexpr int THREADS = CONSUMERS + 128;
+  // 128 * (168 - 40) = 256 * (232 - 168): the producer's registers go to the consumers
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int HALVES = HD / 64;
+  static constexpr int ROWS_BYTES = HALVES * BM * 128;  // one of Q, dO, O
+  static constexpr int RES_BYTES = 3 * ROWS_BYTES;
+  static constexpr int RES_BUFS = HD == 64 ? 2 : 1;
+  static constexpr int KV_BYTES = 2 * HALVES * BN * 128;  // BN keys of K and of V
+  static constexpr int STAGES = 3;
+  static constexpr size_t SMEM = (size_t)RES_BUFS * RES_BYTES + STAGES * KV_BYTES + 1024;
+};
+
+template <int HD>
+struct DkvTile {
+  static constexpr int BK = 128;  // keys an item, 64 a consumer warpgroup
+  static constexpr int BQ = 64;   // queries a stage
+  static constexpr int NT = BQ / 8;
+  static constexpr int CONSUMERS = 256;
+  static constexpr int THREADS = CONSUMERS + 128;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr int HALVES = HD / 64;
+  static constexpr int KV_BYTES = 2 * HALVES * BK * 128;     // the item's K and V
+  static constexpr int KV_BUFS = HD == 64 ? 2 : 1;
+  static constexpr int STAGE_BYTES = 2 * HALVES * BQ * 128;  // a tile's Q and dO
+  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  static constexpr size_t SMEM = (size_t)KV_BUFS * KV_BYTES + STAGES * STAGE_BYTES + 1024;
+};
+
+// The accumulator of a warpgroup's 64 rows times mul into rows row_lo and row_lo + 8
+// of this thread's fragment, in one head's (L, HD) slice of an output.
+template <int HALVES>
+__device__ __forceinline__ void store_rows(bf16* dst, long long rs, const float (&acc)[HALVES][8][4],
+                                           int row_lo, int L, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row < L) {
+      bf16* out = dst + row * rs + 2 * t;
+#pragma unroll
+      for (int c = 0; c < HALVES; ++c)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + 64 * c + 8 * n) =
+              __floats2bfloat162_rn(acc[c][n][2 * half] * mul, acc[c][n][2 * half + 1] * mul);
+    }
+  }
+}
+
+// sum over 8 columns of a * b, two swizzled 16-byte chunks of bf16
+__device__ __forceinline__ float dot8(const unsigned char* a, const unsigned char* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a), y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(xs[i]), w = __bfloat1622float2(ys[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const unsigned char* __restrict__ valid,
-                             const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ di, bf16* __restrict__ dq, int L,
-                             long long qbs, long long qrs, long long kbs, long long krs,
-                             long long vbs, long long vrs, long long gbs, long long grs,
-                             long long dqbs, long long dqrs, float scale, int causal, int prefix) {
-  constexpr int LDT = HD + 8;
-  constexpr int KS = HD / 16, NT = BN / 8, ND = HD / 8;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(flash_smem);  // (BM, LDT)
-  bf16* gs = qs + BM * LDT;                        // (BM, LDT): the tile's rows of do
-  bf16* kbuf = gs + BM * LDT;                      // 2 x (BN, LDT): K tiles, double-buffered
-  bf16* vbuf = kbuf + 2 * BN * LDT;                // 2 x (BN, LDT): V tiles
-  int* kvs = reinterpret_cast<int*>(vbuf + 2 * BN * LDT);  // (BN,)
+__global__ void __launch_bounds__(DqTile<HD>::THREADS, 1)
+flash_attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tg,  // do
+                               const __grid_constant__ CUtensorMap to,  // the forward's out
+                               const unsigned char* __restrict__ valid,
+                               const float* __restrict__ lse, float* __restrict__ di,
+                               bf16* __restrict__ dq, int B, int L, int H, long long dqbs,
+                               long long dqrs, float scale, int causal, int prefix) {
+  using W = DqTile<HD>;
+  constexpr int NT = W::NT, KS = HD / 16;
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[W::STAGES], empty_bar[W::STAGES];
+  __shared__ __align__(8) uint64_t res_full[W::RES_BUFS], res_empty[W::RES_BUFS];
+  __shared__ KeyTile slots[W::STAGES];
+  unsigned char* smem = swizzle_aligned(wg_smem_raw);
+  bf16* res = reinterpret_cast<bf16*>(smem);     // [RES_BUFS][Q, dO, O][HALVES][BM][64]
+  bf16* kvs = res + W::RES_BUFS * W::RES_BYTES / 2;  // [STAGES][K, V][HALVES][BN][64]
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int H = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int qi_lo = q0 + warp * WR + g, qi_hi = qi_lo + 8;
-  const bf16* kh = k + b * kbs + (long long)h * HD;
-  const bf16* vh = v + b * vbs + (long long)h * HD;
-  const unsigned char* valid_b = valid == nullptr ? nullptr : valid + (long long)b * L;
-  const long long row_base = ((long long)b * H + h) * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nq = (L + W::BM - 1) / W::BM, items = nq * H * B;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < W::STAGES; ++st) {
+      mbar_init(&full_bar[st], 1);
+      mbar_init(&empty_bar[st], W::CONSUMERS);
+    }
+    for (int i = 0; i < W::RES_BUFS; ++i) {
+      mbar_init(&res_full[i], 1);
+      mbar_init(&res_empty[i], W::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: warp 0 issues the copies ----
+    regs_dec<W::PRODUCER_REGS>();
+    if (warp != 0) return;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      int q0, h, b;
+      wg_item(item, nq, W::BM, H, q0, h, b);
+      const int rb = it % W::RES_BUFS;
+      if (lane == 0) {  // the buffer's previous item is done with it
+        mbar_wait(&res_empty[rb], ((it / W::RES_BUFS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&res_full[rb], W::RES_BYTES);
+        bf16* base = res + (size_t)rb * W::RES_BYTES / 2;
+        const CUtensorMap* maps[3] = {&tq, &tg, &to};
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+#pragma unroll
+          for (int c = 0; c < W::HALVES; ++c)
+            tma_load_3d(base + (m * W::HALVES + c) * W::BM * 64, maps[m], &res_full[rb],
+                        h * HD + 64 * c, q0, b);
+      }
+      produce_key_tiles<W::BN, HD, W::STAGES>(
+          &tk, &tv, valid == nullptr ? nullptr : valid + (long long)b * L, L,
+          key_tiles<W::BN>(q0, W::BM, L, causal, prefix), h, b, kvs, full_bar, empty_bar, slots,
+          stage, phase);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item ----
+  regs_inc<W::CONSUMER_REGS>();
+  const int wg = (warp >> 2) - 1, g = lane >> 2, t = lane & 3;
+  const int r_lo = 64 * wg + 16 * (warp & 3) + g;  // this thread's rows of the item: r_lo, r_lo + 8
   const float scale2 = scale * LOG2E;
-  const float lse_lo = qi_lo < L ? lse[row_base + qi_lo] * LOG2E : 0.f;  // base 2
-  const float lse_hi = qi_hi < L ? lse[row_base + qi_hi] * LOG2E : 0.f;
-  const float di_lo = qi_lo < L ? di[row_base + qi_lo] : 0.f;
-  const float di_hi = qi_hi < L ? di[row_base + qi_hi] : 0.f;
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    int q0, h, b;
+    wg_item(item, nq, W::BM, H, q0, h, b);
+    const int rb = it % W::RES_BUFS;
+    const int row0 = q0 + 64 * wg;
+    const int qi_lo = q0 + r_lo, qi_hi = qi_lo + 8;
+    const long long row_base = ((long long)b * H + h) * L;
+    const float lse_lo = qi_lo < L ? lse[row_base + qi_lo] * LOG2E : 0.f;  // base 2
+    const float lse_hi = qi_hi < L ? lse[row_base + qi_hi] * LOG2E : 0.f;
+    const unsigned char* rbase = smem + (size_t)rb * W::RES_BYTES;
+    const uint32_t q_addr = smem_u32(rbase) + wg * 64 * 128;  // box c at + c * BM * 128
+    const uint32_t g_addr = q_addr + W::ROWS_BYTES;
+    mbar_wait(&res_full[rb], (it / W::RES_BUFS) & 1);
 
-  int ntiles = (L + BN - 1) / BN;
-  if (causal) {
-    const int diag = min((q0 + BM + BN - 1) / BN, ntiles);
-    const int pre = min((prefix + BN - 1) / BN, ntiles);
-    ntiles = max(diag, pre);
-  }
-
-  stage_tile<bf16, HD>(qs, q + b * qbs + (long long)h * HD, qrs, q0, L);
-  stage_tile<bf16, HD>(gs, dout + b * gbs + (long long)h * HD, grs, q0, L);
-  const bf16* qw = qs + warp * WR * LDT;
-  const bf16* gw = gs + warp * WR * LDT;
-  float acc[ND][4];
-  zero_acc(acc);
-
-  stage_tile_async<HD>(kbuf, kh, krs, 0, L);
-  stage_tile_async<HD>(vbuf, vh, vrs, 0, L);
-  cp_async_commit();
-  int ok_cur = key_flag(valid_b, 0, L);
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BN;
-    const bf16* ks = kbuf + (tile & 1) * BN * LDT;
-    const bf16* vs = vbuf + (tile & 1) * BN * LDT;
-    int ok_next = 1;
-    if (tile + 1 < ntiles) {  // the next tile goes into the other buffer
-      stage_tile_async<HD>(kbuf + ((tile + 1) & 1) * BN * LDT, kh, krs, k0 + BN, L);
-      stage_tile_async<HD>(vbuf + ((tile + 1) & 1) * BN * LDT, vh, vrs, k0 + BN, L);
-      ok_next = key_flag(valid_b, k0 + BN, L);
+    // di = rowsum(O * dO) in fp32 for rows r_lo and r_lo + 8: the four lanes of a
+    // row take two 16-byte chunks of each 64-column box (chunk c of row r lies at
+    // chunk c ^ (r % 8))
+    float di_lo = 0.f, di_hi = 0.f;
+#pragma unroll
+    for (int c = 0; c < W::HALVES; ++c)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r_lo + 8 * half;
+#pragma unroll
+        for (int cc = t; cc < 8; cc += 4) {
+          const int off = c * W::BM * 128 + r * 128 + ((cc ^ (r & 7)) << 4);
+          const float x = dot8(rbase + W::ROWS_BYTES + off, rbase + 2 * W::ROWS_BYTES + off);
+          if (half) di_hi += x; else di_lo += x;
+        }
+      }
+    di_lo = quad_sum(di_lo);
+    di_hi = quad_sum(di_hi);
+    if (t == 0) {
+      if (qi_lo < L) di[row_base + qi_lo] = di_lo;
+      if (qi_hi < L) di[row_base + qi_hi] = di_hi;
     }
-    cp_async_commit();
-    if (threadIdx.x < BN) kvs[threadIdx.x] = ok_cur;
-    cp_async_wait<1>();  // this tile has landed; the next may still be in flight
-    const int all_valid = __syncthreads_and(ok_cur);
-    const bool full = all_valid && (!causal || k0 + BN - 1 <= q0 || k0 + BN <= prefix);
 
-    float s[NT][4], dp[NT][4];
-    zero_acc(s);
-    zero_acc(dp);
-    gemm_nt<KS, NT>(s, qw, LDT, ks, LDT);
-    gemm_nt<KS, NT>(dp, gw, LDT, vs, LDT);
+    float acc[W::HALVES][8][4];
+#pragma unroll
+    for (int c = 0; c < W::HALVES; ++c) zero_acc(acc[c]);
+    for (;;) {
+      mbar_wait(&full_bar[stage], phase);
+      const int tile = slots[stage].tile;
+      if (tile < 0) break;
+      uint32_t kv_ok[W::WORDS];
+#pragma unroll
+      for (int w = 0; w < W::WORDS; ++w) kv_ok[w] = slots[stage].valid[w];
+      const int k0 = tile * W::BN;
+      const uint32_t k_addr = smem_u32(kvs) + stage * W::KV_BYTES;
+      const uint32_t v_addr = k_addr + W::KV_BYTES / 2;
+      float s[NT][4], dp[NT][4];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {  // 16 columns of hd a step: box ks / 4, 32 bytes in
+        const uint32_t roff = (ks >> 2) * W::BM * 128 + (ks & 3) * 32;
+        const uint32_t koff = (ks >> 2) * W::BN * 128 + (ks & 3) * 32;
+        wgmma_ss<NT>(s, wgmma_desc(q_addr + roff, false), wgmma_desc(k_addr + koff, false), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t roff = (ks >> 2) * W::BM * 128 + (ks & 3) * 32;
+        const uint32_t koff = (ks >> 2) * W::BN * 128 + (ks & 3) * 32;
+        wgmma_ss<NT>(dp, wgmma_desc(g_addr + roff, false), wgmma_desc(v_addr + koff, false), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
 
-    uint32_t ds[NT / 2][4];
-    const auto stat = [&](int, int c, float& lse2, float& d) {
-      lse2 = c < 2 ? lse_lo : lse_hi;
-      d = c < 2 ? di_lo : di_hi;
-    };
-    const auto vis = [&](int j, int c) {
-      const int col = 8 * j + 2 * t + (c & 1);
-      const int kj = k0 + col;
-      return kvs[col] != 0 && (!causal || kj <= (c < 2 ? qi_lo : qi_hi) || kj < prefix);
-    };
-    if (full) {
-      backward_tile<false, false>(s, dp, scale2, stat, vis, ds, ds);
-    } else {
-      backward_tile<true, false>(s, dp, scale2, stat, vis, ds, ds);
+      uint32_t all = 0xffffffffu;
+#pragma unroll
+      for (int w = 0; w < W::WORDS; ++w) all &= kv_ok[w];
+      const bool full = all == 0xffffffffu &&
+                        (!causal || k0 + W::BN - 1 <= row0 || k0 + W::BN <= prefix);
+      const auto stat = [&](int, int c, float& l2, float& d) {
+        l2 = c < 2 ? lse_lo : lse_hi;
+        d = c < 2 ? di_lo : di_hi;
+      };
+      const auto vis = [&](int j, int c) {
+        const int col = 8 * j + 2 * t + (c & 1);
+        const int kj = k0 + col;
+        return ((kv_ok[col >> 5] >> (col & 31)) & 1u) != 0u &&
+               (!causal || kj <= (c < 2 ? qi_lo : qi_hi) || kj < prefix);
+      };
+      uint32_t ds[NT / 2][4];
+      if (full) {
+        backward_tile<false, false>(s, dp, scale2, stat, vis, ds, ds);
+      } else {
+        backward_tile<true, false>(s, dp, scale2, stat, vis, ds, ds);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)  // 16 keys a step: two 8-row swizzle groups
+#pragma unroll
+        for (int c = 0; c < W::HALVES; ++c)
+          wgmma_m64n64k16_rs(acc[c], ds[kk], wgmma_desc(k_addr + c * W::BN * 128 + kk * 16 * 128, true));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < W::HALVES; ++c) pin(acc[c]);
+      pin(ds);
+      mbar_arrive(&empty_bar[stage]);  // this thread is done with the stage
+      if (++stage == W::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-    gemm_nn<NT / 2, ND>(acc, ds, ks, LDT);
-    __syncthreads();  // every warp is done with this buffer before it is filled again
-    ok_cur = ok_next;
+    mbar_arrive(&empty_bar[stage]);  // the end-of-item slot
+    if (++stage == W::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+    mbar_arrive(&res_empty[rb]);  // no more reads of the resident rows
+    store_rows<W::HALVES>(dq + b * dqbs + (long long)h * HD, dqrs, acc, qi_lo, L, scale);
   }
-  write_acc<HD>(dq + b * dqbs + (long long)h * HD, dqrs, acc, qi_lo, L, scale, scale);
 }
 
 template <int HD>
-constexpr size_t dkv_mma_smem() {
-  return (size_t)(6 * BM * (HD + 8)) * sizeof(bf16) + 4 * BM * sizeof(float) + BN * sizeof(int);
-}
+__global__ void __launch_bounds__(DkvTile<HD>::THREADS, 1)
+flash_attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tg,  // do
+                                const unsigned char* __restrict__ valid,
+                                const float* __restrict__ lse, const float* __restrict__ di,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int L, int H,
+                                long long dkbs, long long dkrs, long long dvbs, long long dvrs,
+                                float scale, int causal, int prefix) {
+  using W = DkvTile<HD>;
+  constexpr int NT = W::NT, KS = HD / 16;
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[W::STAGES], empty_bar[W::STAGES];
+  __shared__ __align__(8) uint64_t kv_full[W::KV_BUFS], kv_empty[W::KV_BUFS];
+  __shared__ uint32_t item_valid[W::KV_BUFS][4];  // the item's keys that exist and are valid
+  __shared__ float lse_s[W::STAGES][W::BQ], di_s[W::STAGES][W::BQ];  // lse in base 2
+  unsigned char* smem = swizzle_aligned(wg_smem_raw);
+  bf16* kvb = reinterpret_cast<bf16*>(smem);        // [KV_BUFS][K, V][HALVES][BK][64]
+  bf16* qgs = kvb + W::KV_BUFS * W::KV_BYTES / 2;   // [STAGES][Q, dO][HALVES][BQ][64]
 
-// hd = 64: at most 168 registers a thread, so that three blocks fit an SM
-template <int HD>
-__global__ void __launch_bounds__(THREADS, HD == 64 ? 3 : 1)
-flash_attn_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const unsigned char* __restrict__ valid,
-                              const bf16* __restrict__ dout, const float* __restrict__ lse,
-                              const float* __restrict__ di, bf16* __restrict__ dk,
-                              bf16* __restrict__ dv, int L, long long qbs, long long qrs,
-                              long long kbs, long long krs, long long vbs, long long vrs,
-                              long long gbs, long long grs, long long dkbs, long long dkrs,
-                              long long dvbs, long long dvrs, float scale, int causal,
-                              int prefix) {
-  constexpr int LDT = HD + 8;
-  constexpr int KS = HD / 16, NT = BM / 8, ND = HD / 8;
-  extern __shared__ __align__(128) unsigned char flash_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(flash_smem);  // (BN, LDT): the block's keys
-  bf16* vs = ks + BN * LDT;                        // (BN, LDT): and their values
-  bf16* qbuf = vs + BN * LDT;                      // 2 x (BM, LDT): query tiles, double-buffered
-  bf16* gbuf = qbuf + 2 * BM * LDT;                // 2 x (BM, LDT): their rows of do
-  float* lbuf = reinterpret_cast<float*>(gbuf + 2 * BM * LDT);  // 2 x (BM,): their lse
-  float* dbuf = lbuf + 2 * BM;                     // 2 x (BM,): their di
-  int* kvk = reinterpret_cast<int*>(dbuf + 2 * BM);  // (BN,): the block's keys exist and are valid
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (L + W::BK - 1) / W::BK, items = nk * H * B;
+  const int nqt = (L + W::BQ - 1) / W::BQ;
 
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * BN;
-  const int H = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int kj_lo = j0 + warp * WR + g, kj_hi = kj_lo + 8;
-  const bf16* qh = q + b * qbs + (long long)h * HD;
-  const bf16* gh = dout + b * gbs + (long long)h * HD;
-  const long long row_base = ((long long)b * H + h) * L;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < W::STAGES; ++st) {
+      mbar_init(&full_bar[st], 32);  // the producer warp's lanes: each stored its stats
+      mbar_init(&empty_bar[st], W::CONSUMERS);
+    }
+    for (int i = 0; i < W::KV_BUFS; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], W::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int first = (causal && j0 >= prefix) ? j0 / BM : 0;
-  const int ntiles = (L + BM - 1) / BM;
+  if (warp < 4) {
+    // ---- producer warpgroup: warp 0 issues the copies and stores the statistics ----
+    regs_dec<W::PRODUCER_REGS>();
+    if (warp != 0) return;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      int j0, h, b;
+      wg_item(item, nk, W::BK, H, j0, h, b);
+      const int kb = it % W::KV_BUFS;
+      const unsigned char* valid_b = valid == nullptr ? nullptr : valid + (long long)b * L;
+      uint32_t words[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const int key = j0 + 32 * w + lane;
+        const bool ok = key < L && (valid_b == nullptr || valid_b[key] != 0);
+        words[w] = __ballot_sync(0xffffffffu, ok);
+      }
+      const bool any = (words[0] | words[1] | words[2] | words[3]) != 0u;
+      if (lane == 0) {  // the buffer's previous item is done with it
+        mbar_wait(&kv_empty[kb], ((it / W::KV_BUFS) & 1) ^ 1);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) item_valid[kb][w] = words[w];
+        if (any) {
+          mbar_arrive_expect_tx(&kv_full[kb], W::KV_BYTES);
+          bf16* ks = kvb + (size_t)kb * W::KV_BYTES / 2;
+          bf16* vs = ks + W::HALVES * W::BK * 64;
+#pragma unroll
+          for (int c = 0; c < W::HALVES; ++c) {
+            tma_load_3d(ks + c * W::BK * 64, &tk, &kv_full[kb], h * HD + 64 * c, j0, b);
+            tma_load_3d(vs + c * W::BK * 64, &tv, &kv_full[kb], h * HD + 64 * c, j0, b);
+          }
+        } else {
+          mbar_arrive(&kv_full[kb]);
+        }
+      }
+      __syncwarp();
+      if (!any) continue;  // no query tile: the consumers write zeros
+      // under the causal mask the queries before j0 see none of these keys, unless
+      // some of them lie in the prefix
+      const int first = (causal && j0 >= prefix) ? j0 / W::BQ : 0;
+      const long long row_base = ((long long)b * H + h) * L;
+      // this lane's two rows (lane, lane + 32) of a tile's statistics, loaded a tile ahead
+      const auto load_stats = [&](int tt, float (&l2)[2], float (&d)[2]) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = tt * W::BQ + lane + 32 * e;
+          const bool in = tt < nqt && qi < L;
+          l2[e] = in ? lse[row_base + qi] * LOG2E : 0.f;
+          d[e] = in ? di[row_base + qi] : 0.f;
+        }
+      };
+      float l2[2], d[2];
+      load_stats(first, l2, d);
+      for (int t = first; t < nqt; ++t) {
+        float nl2[2], nd[2];
+        load_stats(t + 1, nl2, nd);
+        mbar_wait(&empty_bar[stage], phase ^ 1);  // every consumer released the stage
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          lse_s[stage][lane + 32 * e] = l2[e];
+          di_s[stage][lane + 32 * e] = d[e];
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full_bar[stage], W::STAGE_BYTES);
+          bf16* qs = qgs + (size_t)stage * W::STAGE_BYTES / 2;
+          bf16* gs = qs + W::HALVES * W::BQ * 64;
+#pragma unroll
+          for (int c = 0; c < W::HALVES; ++c) {
+            tma_load_3d(qs + c * W::BQ * 64, &tq, &full_bar[stage], h * HD + 64 * c, t * W::BQ, b);
+            tma_load_3d(gs + c * W::BQ * 64, &tg, &full_bar[stage], h * HD + 64 * c, t * W::BQ, b);
+          }
+        } else {
+          mbar_arrive(&full_bar[stage]);
+        }
+        if (++stage == W::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l2[e] = nl2[e];
+          d[e] = nd[e];
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of each item ----
+  regs_inc<W::CONSUMER_REGS>();
+  const int wg = (warp >> 2) - 1, g = lane >> 2, t = lane & 3;
+  const int r_lo = 64 * wg + 16 * (warp & 3) + g;  // this thread's keys of the item: r_lo, r_lo + 8
   const float scale2 = scale * LOG2E;
-
-  stage_tile<bf16, HD>(ks, k + b * kbs + (long long)h * HD, krs, j0, L);
-  stage_tile<bf16, HD>(vs, v + b * vbs + (long long)h * HD, vrs, j0, L);
-  // (this barrier also publishes the staged keys, values and flags)
-  const int keys_ok = __syncthreads_and(
-      stage_valid(kvk, valid == nullptr ? nullptr : valid + (long long)b * L, j0, L));
-  const bf16* kw = ks + warp * WR * LDT;
-  const bf16* vw = vs + warp * WR * LDT;
-  float acc_k[ND][4], acc_v[ND][4];
-  zero_acc(acc_k);
-  zero_acc(acc_v);
-
-  const auto prefetch = [&](int tile) {  // query tile `tile` into buffer tile & 1
-    const int buf = tile & 1, i0 = tile * BM;
-    stage_tile_async<HD>(qbuf + buf * BM * LDT, qh, qrs, i0, L);
-    stage_tile_async<HD>(gbuf + buf * BM * LDT, gh, grs, i0, L);
-    stage_rows_async(lbuf + buf * BM, lse + row_base, i0, L);
-    stage_rows_async(dbuf + buf * BM, di + row_base, i0, L);
-  };
-  prefetch(first);
-  cp_async_commit();
-
-  for (int tile = first; tile < ntiles; ++tile) {
-    const int i0 = tile * BM;
-    const bf16* qs = qbuf + (tile & 1) * BM * LDT;
-    const bf16* gs = gbuf + (tile & 1) * BM * LDT;
-    const float* lses = lbuf + (tile & 1) * BM;
-    const float* dis = dbuf + (tile & 1) * BM;
-    if (tile + 1 < ntiles) prefetch(tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile has landed; the next may still be in flight
-    __syncthreads();
-    const bool kok_lo = kvk[warp * WR + g] != 0, kok_hi = kvk[warp * WR + g + 8] != 0;
-
-    // transposed scores: the warp's 16 keys (rows) against the tile's 64 queries
-    float st[NT][4], dpt[NT][4];
-    zero_acc(st);
-    zero_acc(dpt);
-    gemm_nt<KS, NT>(st, kw, LDT, qs, LDT);
-    gemm_nt<KS, NT>(dpt, vw, LDT, gs, LDT);
-
-    uint32_t pt[NT / 2][4], dst[NT / 2][4];
-    const auto stat = [&](int j, int c, float& lse2, float& d) {
-      const int col = 8 * j + 2 * t + (c & 1);
-      lse2 = lses[col] * LOG2E;
-      d = dis[col];
-    };
-    const auto vis = [&](int j, int c) {
-      const int qi = i0 + 8 * j + 2 * t + (c & 1);
-      const int kj = c < 2 ? kj_lo : kj_hi;
-      return (c < 2 ? kok_lo : kok_hi) && qi < L && (!causal || kj <= qi || kj < prefix);
-    };
-    // every query of the tile exists and sees every key of the block
-    const bool full = keys_ok && i0 + BM <= L &&
-                      (!causal || j0 + BN - 1 <= i0 || j0 + BN <= prefix);
-    if (full) {
-      backward_tile<false, true>(st, dpt, scale2, stat, vis, pt, dst);
-    } else {
-      backward_tile<true, true>(st, dpt, scale2, stat, vis, pt, dst);
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    int j0, h, b;
+    wg_item(item, nk, W::BK, H, j0, h, b);
+    const int kb = it % W::KV_BUFS;
+    const int kw0 = j0 + 64 * wg;
+    const int kj_lo = j0 + r_lo, kj_hi = kj_lo + 8;
+    mbar_wait(&kv_full[kb], (it / W::KV_BUFS) & 1);
+    const uint32_t* iv = item_valid[kb];
+    const bool any = (iv[0] | iv[1] | iv[2] | iv[3]) != 0u;
+    const uint32_t w0 = iv[2 * wg], w1 = iv[2 * wg + 1];
+    const bool kok_lo = (iv[r_lo >> 5] >> (r_lo & 31)) & 1u;
+    const bool kok_hi = (iv[(r_lo + 8) >> 5] >> ((r_lo + 8) & 31)) & 1u;
+    float acc_k[W::HALVES][8][4], acc_v[W::HALVES][8][4];
+#pragma unroll
+    for (int c = 0; c < W::HALVES; ++c) {
+      zero_acc(acc_k[c]);
+      zero_acc(acc_v[c]);
     }
-    gemm_nn<NT / 2, ND>(acc_v, pt, gs, LDT);   // dv += p^T . do
-    gemm_nn<NT / 2, ND>(acc_k, dst, qs, LDT);  // dk += ds^T . q
-    __syncthreads();  // every warp is done with this buffer before it is filled again
+    if (any) {
+      const bool wg_any = (w0 | w1) != 0u, wg_all = (w0 & w1) == 0xffffffffu;
+      const int first = (causal && j0 >= prefix) ? j0 / W::BQ : 0;
+      const uint32_t k_addr = smem_u32(kvb) + kb * W::KV_BYTES + wg * 64 * 128;  // box c: + c * BK * 128
+      const uint32_t v_addr = k_addr + W::KV_BYTES / 2;
+      for (int tt = first; tt < nqt; ++tt) {
+        mbar_wait(&full_bar[stage], phase);
+        if (wg_any) {  // else this warpgroup's keys are all invalid: its rows stay 0
+          const int i0 = tt * W::BQ;
+          const uint32_t q_addr = smem_u32(qgs) + stage * W::STAGE_BYTES;  // box c: + c * BQ * 128
+          const uint32_t g_addr = q_addr + W::STAGE_BYTES / 2;
+          // transposed products: the warpgroup's 64 keys (rows) against the tile's 64 queries
+          float st[NT][4], dpt[NT][4];
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const uint32_t koff = (ks >> 2) * W::BK * 128 + (ks & 3) * 32;
+            const uint32_t qoff = (ks >> 2) * W::BQ * 128 + (ks & 3) * 32;
+            wgmma_ss<NT>(st, wgmma_desc(k_addr + koff, false), wgmma_desc(q_addr + qoff, false), ks > 0);
+          }
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const uint32_t koff = (ks >> 2) * W::BK * 128 + (ks & 3) * 32;
+            const uint32_t qoff = (ks >> 2) * W::BQ * 128 + (ks & 3) * 32;
+            wgmma_ss<NT>(dpt, wgmma_desc(v_addr + koff, false), wgmma_desc(g_addr + qoff, false), ks > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(st);
+          pin(dpt);
+
+          const float* ls = lse_s[stage];
+          const float* dd = di_s[stage];
+          const auto stat = [&](int j, int c, float& l2, float& d) {
+            const int col = 8 * j + 2 * t + (c & 1);
+            l2 = ls[col];
+            d = dd[col];
+          };
+          const auto vis = [&](int j, int c) {
+            const int qi = i0 + 8 * j + 2 * t + (c & 1);
+            const int kj = c < 2 ? kj_lo : kj_hi;
+            return (c < 2 ? kok_lo : kok_hi) && qi < L && (!causal || kj <= qi || kj < prefix);
+          };
+          // every query of the tile exists and sees every key of the warpgroup
+          const bool full = wg_all && i0 + W::BQ <= L &&
+                            (!causal || kw0 + 63 <= i0 || kw0 + 64 <= prefix);
+          uint32_t pt[NT / 2][4], dst[NT / 2][4];
+          if (full) {
+            backward_tile<false, true>(st, dpt, scale2, stat, vis, pt, dst);
+          } else {
+            backward_tile<true, true>(st, dpt, scale2, stat, vis, pt, dst);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NT / 2; ++kk)  // 16 queries a step: two 8-row swizzle groups
+#pragma unroll
+            for (int c = 0; c < W::HALVES; ++c)
+              wgmma_m64n64k16_rs(acc_v[c], pt[kk],
+                                 wgmma_desc(g_addr + c * W::BQ * 128 + kk * 16 * 128, true));
+#pragma unroll
+          for (int kk = 0; kk < NT / 2; ++kk)
+#pragma unroll
+            for (int c = 0; c < W::HALVES; ++c)
+              wgmma_m64n64k16_rs(acc_k[c], dst[kk],
+                                 wgmma_desc(q_addr + c * W::BQ * 128 + kk * 16 * 128, true));
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int c = 0; c < W::HALVES; ++c) {
+            pin(acc_k[c]);
+            pin(acc_v[c]);
+          }
+          pin(pt);
+          pin(dst);
+        }
+        mbar_arrive(&empty_bar[stage]);  // this thread is done with the stage
+        if (++stage == W::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    mbar_arrive(&kv_empty[kb]);  // no more reads of the item's K and V
+    store_rows<W::HALVES>(dk + b * dkbs + (long long)h * HD, dkrs, acc_k, kj_lo, L, scale);
+    store_rows<W::HALVES>(dv + b * dvbs + (long long)h * HD, dvrs, acc_v, kj_lo, L, 1.f);
   }
-  write_acc<HD>(dk + b * dkbs + (long long)h * HD, dkrs, acc_k, kj_lo, L, scale, scale);
-  write_acc<HD>(dv + b * dvbs + (long long)h * HD, dvrs, acc_v, kj_lo, L, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -1452,8 +1763,8 @@ cudaError_t opt_in_smem(K kern, size_t smem) {
 }
 
 struct Args {
-  const void *q, *k, *v, *valid, *dout, *lse, *di;
-  void *o, *lse_out, *dq, *dk, *dv;
+  const void *q, *k, *v, *valid, *dout, *lse, *fwd_out;  // fwd_out: the forward's output (dq)
+  void *o, *lse_out, *di, *dq, *dk, *dv;                 // di: written by dq, read by dk/dv
   int B, L, H;
   const long long* st;
   float scale;
@@ -1482,9 +1793,10 @@ cudaError_t launch_dq(K kern, size_t smem, const Args& a) {
   kern<<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const unsigned char*>(a.valid), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.di), static_cast<T*>(a.dq),
-      a.L, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7], a.st[8],
-      a.st[9], a.scale, a.causal, a.prefix);
+      static_cast<const T*>(a.fwd_out), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.di), static_cast<T*>(a.dq), a.L, a.st[0], a.st[1], a.st[2], a.st[3],
+      a.st[4], a.st[5], a.st[6], a.st[7], a.st[8], a.st[9], a.st[10], a.st[11], a.scale, a.causal,
+      a.prefix);
   return cudaGetLastError();
 }
 
@@ -1502,32 +1814,88 @@ cudaError_t launch_dkv(K kern, size_t smem, const Args& a) {
   return cudaGetLastError();
 }
 
-// q, k, v as TMA tensor maps over their (B, L, H*hd) views, strides from a.st; one
-// block a multiprocessor, or one an item where there are fewer items
+// bf16 tensor maps over the strided (B, L, H*hd) views of n tensors, the [batch, row]
+// strides (elements) of tensor i at a.st[2i]; boxes of 64 columns by box_rows[i] rows
+template <int HD, int N>
+bool encode_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], const int (&box_rows)[N],
+                 const Args& a) {
+  for (int i = 0; i < N; ++i)
+    if (!encode_rows_3d(&maps[i], ptrs[i], (long long)a.H * HD, a.L, a.B,
+                        a.st[2 * i + 1] * (long long)sizeof(bf16),
+                        a.st[2 * i] * (long long)sizeof(bf16), box_rows[i]))
+      return false;
+  return true;
+}
+
+// the persistent grid: one block a multiprocessor, or one an item where there are fewer
+inline cudaError_t persistent_grid(long long items, int& grid) {
+  int device, sms;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  if (items > 2147483647LL) return cudaErrorInvalidValue;
+  grid = (int)(items < sms ? items : sms);
+  return cudaSuccess;
+}
+
+// q, k, v as tensor maps (strides a.st[0..5]), o's at a.st[6..7]
 template <int HD, int CWG>
 cudaError_t launch_fwd_wgmma_cwg(const Args& a) {
   using W = WgTile<HD, CWG>;
   CUtensorMap maps[3];
-  const void* ptrs[3] = {a.q, a.k, a.v};
-  for (int i = 0; i < 3; ++i)
-    if (!encode_rows_3d(&maps[i], ptrs[i], (long long)a.H * HD, a.L, a.B,
-                        a.st[2 * i + 1] * (long long)sizeof(bf16),
-                        a.st[2 * i] * (long long)sizeof(bf16), i == 0 ? W::BM : WG_BN))
-      return cudaErrorInvalidValue;
+  if (!encode_maps<HD>(maps, {a.q, a.k, a.v}, {W::BM, WG_BN, WG_BN}, a)) return cudaErrorInvalidValue;
   auto kern = flash_attn_fwd_wgmma_kernel<HD, CWG>;
   cudaError_t e = opt_in_smem(kern, W::SMEM);
   if (e != cudaSuccess) return e;
-  int device, sms;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+  int grid;
+  if ((e = persistent_grid((long long)((a.L + W::BM - 1) / W::BM) * a.H * a.B, grid)) != cudaSuccess)
     return e;
-  const long long items = (long long)((a.L + W::BM - 1) / W::BM) * a.H * a.B;
-  if (items > 2147483647LL) return cudaErrorInvalidValue;
-  const int grid = (int)(items < sms ? items : sms);
   kern<<<grid, W::THREADS, W::SMEM, a.stream>>>(
       maps[0], maps[1], maps[2], static_cast<const unsigned char*>(a.valid),
       static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.B, a.L, a.H, a.st[6], a.st[7],
       a.scale, a.causal, a.prefix);
+  return cudaGetLastError();
+}
+
+// q, k, v, do and the forward's out as tensor maps (strides a.st[0..9]), dq's at a.st[10..11]
+template <int HD>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using W = DqTile<HD>;
+  CUtensorMap maps[5];
+  if (!encode_maps<HD>(maps, {a.q, a.k, a.v, a.dout, a.fwd_out}, {W::BM, W::BN, W::BN, W::BM, W::BM}, a))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_bwd_dq_wgmma_kernel<HD>;
+  cudaError_t e = opt_in_smem(kern, W::SMEM);
+  if (e != cudaSuccess) return e;
+  int grid;
+  if ((e = persistent_grid((long long)((a.L + W::BM - 1) / W::BM) * a.H * a.B, grid)) != cudaSuccess)
+    return e;
+  kern<<<grid, W::THREADS, W::SMEM, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const unsigned char*>(a.valid),
+      static_cast<const float*>(a.lse), static_cast<float*>(a.di), static_cast<bf16*>(a.dq), a.B,
+      a.L, a.H, a.st[10], a.st[11], a.scale, a.causal, a.prefix);
+  return cudaGetLastError();
+}
+
+// q, k, v and do as tensor maps (strides a.st[0..7]), dk's and dv's at a.st[8..11]
+template <int HD>
+cudaError_t launch_dkv_wgmma(const Args& a) {
+  using W = DkvTile<HD>;
+  CUtensorMap maps[4];
+  if (!encode_maps<HD>(maps, {a.q, a.k, a.v, a.dout}, {W::BQ, W::BK, W::BK, W::BQ}, a))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_bwd_dkv_wgmma_kernel<HD>;
+  cudaError_t e = opt_in_smem(kern, W::SMEM);
+  if (e != cudaSuccess) return e;
+  int grid;
+  if ((e = persistent_grid((long long)((a.L + W::BK - 1) / W::BK) * a.H * a.B, grid)) != cudaSuccess)
+    return e;
+  kern<<<grid, W::THREADS, W::SMEM, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const unsigned char*>(a.valid),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.di), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.B, a.L, a.H, a.st[8], a.st[9], a.st[10], a.st[11], a.scale,
+      a.causal, a.prefix);
   return cudaGetLastError();
 }
 
@@ -1552,8 +1920,8 @@ cudaError_t launch_one(Which which, const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     switch (which) {
       case FWD: return launch_fwd_wgmma<HD>(a);
-      case DQ: return launch_dq<T>(flash_attn_bwd_dq_mma_kernel<HD>, dq_mma_smem<HD>(), a);
-      default: return launch_dkv<T>(flash_attn_bwd_dkv_mma_kernel<HD>, dkv_mma_smem<HD>(), a);
+      case DQ: return launch_dq_wgmma<HD>(a);
+      default: return launch_dkv_wgmma<HD>(a);
     }
   } else {
     switch (which) {
@@ -1594,14 +1962,16 @@ extern "C" int oct_flash_attention_fwd(const void* q, const void* k, const void*
   return dispatch(FWD, hd, dtype, a);
 }
 
-// strides: q, k, v, dout, dq (10 values)
+// strides: q, k, v, dout, out, dq (12 values); writes di = rowsum(out * dout), fp32
+// (B, H, L), for the dk/dv kernel
 extern "C" int oct_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                          const void* valid, const void* dout, const void* lse,
-                                          const void* di, void* dq, int B, int L, int H, int hd,
-                                          const long long* strides, float scale, int causal,
+                                          const void* valid, const void* dout, const void* out,
+                                          const void* lse, void* di, void* dq, int B, int L, int H,
+                                          int hd, const long long* strides, float scale, int causal,
                                           int prefix_len, int dtype, void* stream) {
   Args a{};
-  a.q = q, a.k = k, a.v = v, a.valid = valid, a.dout = dout, a.lse = lse, a.di = di, a.dq = dq;
+  a.q = q, a.k = k, a.v = v, a.valid = valid, a.dout = dout, a.fwd_out = out, a.lse = lse;
+  a.di = di, a.dq = dq;
   a.B = B, a.L = L, a.H = H, a.st = strides, a.scale = scale, a.causal = causal;
   a.prefix = prefix_len, a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(DQ, hd, dtype, a);
@@ -1614,8 +1984,8 @@ extern "C" int oct_flash_attention_bwd_dkv(const void* q, const void* k, const v
                                            int H, int hd, const long long* strides, float scale,
                                            int causal, int prefix_len, int dtype, void* stream) {
   Args a{};
-  a.q = q, a.k = k, a.v = v, a.valid = valid, a.dout = dout, a.lse = lse, a.di = di;
-  a.dk = dk, a.dv = dv;
+  a.q = q, a.k = k, a.v = v, a.valid = valid, a.dout = dout, a.lse = lse;
+  a.di = const_cast<void*>(di), a.dk = dk, a.dv = dv;
   a.B = B, a.L = L, a.H = H, a.st = strides, a.scale = scale, a.causal = causal;
   a.prefix = prefix_len, a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(DKV, hd, dtype, a);

@@ -21,6 +21,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary of dynamic shared memory at raw: the swizzle repeats
+// every 1024 bytes, so every box starts on such a boundary
+__device__ __forceinline__ unsigned char* swizzle_aligned(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -105,6 +111,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[16][4], uint64_t 
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A . B, as wgmma_m64n128k16_ss with B 64 x 16
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// either SS product by the accumulator's width: 8 * NT columns, NT = 8 or 16
+template <int NT>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NT][4], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(NT == 8 || NT == 16, "64 or 128 columns");
+  if constexpr (NT == 16)
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
 }
 
 // d[64 x 64] += A . B, one warpgroup; A (64 x 16, bf16) in registers as the

@@ -27,12 +27,15 @@ tensors it launches the kernels or raises; for CPU tensors, and only for them, i
 computes ``flash_attention_reference`` and ``flash_attention_bwd_reference``.
 ``LAUNCHES`` counts the launches of each kernel.
 
-The forward has two bodies, chosen by ``fwd_body`` from the dtype: "wgmma" (bf16:
-Hopper's warpgroup products fed by TMA copies, which skips the key tiles that hold no
-valid key) and "simt" (fp32 on CUDA cores). ``FWD_BODIES`` counts the forward's
-launches by body. TMA reads q, k and v through tensor maps over their strided views,
-which need every row 16-byte aligned; ``check_inputs`` raises where they are not
-(every body reads 16 bytes at a time), and no input is sent to another body.
+Each kernel has two bodies, chosen from the dtype by ``fwd_body`` and ``bwd_body``:
+"wgmma" (bf16: Hopper's warpgroup products fed by TMA copies; the forward and dq skip
+the key tiles that hold no valid key, dk/dv the key tiles with none) and "simt" (fp32
+on CUDA cores). ``FWD_BODIES`` counts the forward's launches by body, ``BWD_BODIES``
+the backward passes (one dq and one dk/dv launch each) by body. The dq kernel also
+computes di = rowsum(out * do) and writes it for the dk/dv kernel. TMA reads q, k, v,
+do and out through tensor maps over their strided views, which need every row 16-byte
+aligned; ``check_inputs`` raises where they are not (every body reads 16 bytes at a
+time), and no input is sent to another body.
 """
 
 from __future__ import annotations
@@ -46,10 +49,11 @@ HEAD_DIMS = (64, 128)
 NEG_INF = torch.finfo(torch.float32).min * 0.5  # large negative, not -inf: no NaN from inf - inf
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of each kernel since the last reset, and of the forward by body;
-# chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, of the forward by body, and the
+# backward passes (a dq and a dk/dv launch) by body; chip_smoke.py sets and reads them
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 FWD_BODIES = {"wgmma": 0, "simt": 0}
+BWD_BODIES = {"wgmma": 0, "simt": 0}
 
 _fns = {}
 
@@ -62,6 +66,13 @@ def supports(l: int, h: int, hd: int, bias) -> bool:
 def fwd_body(hd: int, dtype: torch.dtype) -> str:
     """Which forward body serves a shape the kernels take: "wgmma" (tensor cores,
     TMA) for bf16, "simt" (CUDA cores) for fp32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_body(hd: int, dtype: torch.dtype) -> str:
+    """Which body both backward kernels (dq, dk/dv) take for a shape the kernels take:
+    "wgmma" (tensor cores, TMA) for bf16 at either head width, "simt" (CUDA cores) for
+    fp32."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -147,7 +158,7 @@ def _kernel(which: str):
         tail = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_void_p]
         fn = getattr(lib, f"oct_flash_attention_{which}")
-        pointers = {"fwd": 6, "bwd_dq": 8, "bwd_dkv": 9}[which]
+        pointers = {"fwd": 6, "bwd_dq": 9, "bwd_dkv": 9}[which]
         fn.argtypes = [ctypes.c_void_p] * pointers + tail
         fn.restype = ctypes.c_int
         _fns[which] = fn
@@ -246,24 +257,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
-def _launch_bwd(which: str, q, k, v, do, lse, di, valid, causal: bool, scale: float,
+def _launch_bwd(which: str, q, k, v, out, do, lse, di, valid, causal: bool, scale: float,
                 prefix_len: int):
-    """Launch one backward kernel on checked CUDA tensors: "bwd_dq" returns dq,
-    "bwd_dkv" returns (dk, dv)."""
+    """Launch one backward kernel on checked CUDA tensors. "bwd_dq" reads ``out``
+    and returns (dq, di), di = rowsum(out * do) as fp32 (B, H, L); "bwd_dkv" reads
+    that ``di`` and returns (dk, dv)."""
     b, l, h, hd = q.shape
+    dq_kernel = which == "bwd_dq"
     outs = [torch.empty_like(q, memory_format=torch.contiguous_format)
-            for _ in range(1 if which == "bwd_dq" else 2)]
+            for _ in range(1 if dq_kernel else 2)]
+    if dq_kernel:
+        di = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+        ptrs, strided = (out.data_ptr(), lse.data_ptr(), di.data_ptr()), (q, k, v, do, out)
+    else:
+        ptrs, strided = (lse.data_ptr(), di.data_ptr()), (q, k, v, do)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel(which)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), *(x.data_ptr() for x in outs), b, l, h, hd,
-            _strides(q, k, v, do, *outs), float(scale), int(causal), int(prefix_len),
-            _DTYPE_CODES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), do.data_ptr(), *ptrs,
+            *(x.data_ptr() for x in outs), b, l, h, hd, _strides(*strided, *outs), float(scale),
+            int(causal), int(prefix_len), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention {which} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention {which} kernel ({bwd_body(hd, q.dtype)}) launch "
+                           f"failed: cudaError {err}")
     LAUNCHES[which] += 1
-    return outs[0] if which == "bwd_dq" else tuple(outs)
+    return (outs[0], di) if dq_kernel else tuple(outs)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -286,10 +304,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if lse.shape != (b, h, l) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention: lse must be a contiguous fp32 {(b, h, l)} tensor")
     valid = _valid_bytes(key_valid, q)
-    # di = rowsum(out * do) in fp32, one plain reduction as in the JAX package; (B, H, L)
-    di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    dq = _launch_bwd("bwd_dq", q, k, v, do, lse, di, valid, causal, scale, prefix_len)
-    dk, dv = _launch_bwd("bwd_dkv", q, k, v, do, lse, di, valid, causal, scale, prefix_len)
+    # the dq kernel takes di = rowsum(out * do) in fp32 and hands it to dk/dv
+    dq, di = _launch_bwd("bwd_dq", q, k, v, out, do, lse, None, valid, causal, scale, prefix_len)
+    dk, dv = _launch_bwd("bwd_dkv", q, k, v, out, do, lse, di, valid, causal, scale, prefix_len)
+    BWD_BODIES[bwd_body(hd, q.dtype)] += 1
     return dq, dk, dv
 
 

@@ -246,3 +246,51 @@ def test_misaligned_views_raise(what, dtype):
         q, k, v = qkv.unbind(2)
     with pytest.raises(ValueError, match="aligned"):
         pfa.check_inputs((q, k, v), ("q", "k", "v"))
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_body(hd, dtype, body):
+    """bf16 takes the wgmma dq and dk/dv at both head widths; fp32 keeps the CUDA-core
+    ones."""
+    assert pfa.bwd_body(hd, dtype) == body
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_keys_without_a_valid_entry_get_zero_dk_dv(interpret, dtype):
+    """Sample 1 is valid only to key 64, so every 64- and 128-key tile past it holds
+    no valid key: dk and dv of those keys are exactly 0, in the JAX kernels and in the
+    port's plain backward alike. The wgmma dk/dv kernel writes zeros for such a tile
+    without loading or multiplying anything, which relies on this."""
+    b, l, h, hd = 2, 320, 2, 64
+    q, k, v, do = _inputs(21, b, l, h, hd)
+    valid = np.ones((b, l), dtype=bool)
+    valid[1, 64:] = False
+
+    jq, jk, jv, jdo = (jnp.asarray(x, JAX_DTYPES[dtype]) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b_, c: jfa.flash_attention(a, b_, c, key_valid=jnp.asarray(valid)),
+                     jq, jk, jv)
+    _, jdk, jdv = (np.asarray(g.astype(jnp.float32)) for g in vjp(jdo))
+
+    tq, tk, tv = (torch.from_numpy(x).to(TORCH_DTYPES[dtype]).requires_grad_() for x in (q, k, v))
+    out = pfa.flash_attention(tq, tk, tv, key_valid=torch.from_numpy(valid))
+    tdo = torch.from_numpy(do).to(TORCH_DTYPES[dtype])
+    _, tdk, tdv = torch.autograd.grad(out, (tq, tk, tv), tdo)
+
+    for g in (jdk, jdv, tdk.float().numpy(), tdv.float().numpy()):
+        assert (g[1, 64:] == 0).all()
+        assert np.abs(g[1, :64]).max() > 0 and np.abs(g[0]).max() > 0  # the valid keys are not
+
+
+def test_backward_inputs_fit_the_tensor_maps():
+    """NaFlex's fused q, k, v views with the dense out and do of the backward: every
+    row 16-byte aligned, as the dq kernel's tensor maps (q, k, v, do and out) and the
+    dk/dv kernel's read them. An out that starts 8 bytes off a 16-byte boundary raises."""
+    b, l, h, hd = 2, 1024, 12, 64
+    q, k, v = _fused_views(b, l, h, hd, torch.bfloat16)
+    out, do = (torch.zeros(b, l, h, hd, dtype=torch.bfloat16) for _ in range(2))
+    names = ("q", "k", "v", "out", "do")
+    pfa.check_inputs((q, k, v, out, do), names)
+    shifted = torch.zeros(b * l * h * hd + 4, dtype=torch.bfloat16)[4:].view(b, l, h, hd)
+    with pytest.raises(ValueError, match="out must have a dense, 16-byte aligned"):
+        pfa.check_inputs((q, k, v, shifted, do), names)

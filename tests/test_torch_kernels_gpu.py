@@ -404,13 +404,15 @@ def test_flash_kernels_match_plain(cuda, b, l, h, hd, causal, prefix_len, masked
     do = torch.from_numpy(np.random.default_rng(7).standard_normal((b, l, h, hd), dtype=np.float32))
     do = do.to(cuda, dtype)
     kw = dict(causal=causal, key_valid=valid, prefix_len=prefix_len)
-    before, bodies = dict(fa.LAUNCHES), dict(fa.FWD_BODIES)
+    before, bodies, bwd_bodies = dict(fa.LAUNCHES), dict(fa.FWD_BODIES), dict(fa.BWD_BODIES)
     out = fa.flash_attention(q, k, v, **kw)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {key: n + 1 for key, n in before.items()}
     body = fa.fwd_body(hd, dtype)  # bf16: the wgmma forward at every L and mask
     assert fa.FWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
+    body = fa.bwd_body(hd, dtype)  # bf16: the wgmma dq and dk/dv at both head widths
+    assert fa.BWD_BODIES == dict(bwd_bodies, **{body: bwd_bodies[body] + 1})
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     ref, ref_lse = fa.flash_attention_reference(qd, kd, vd, **kw)
     out2, lse = fa.flash_attention_fwd(qd, kd, vd, **kw)
@@ -485,6 +487,34 @@ def test_flash_wgmma_forward_raises_on_misaligned_rows(cuda, what):
     assert (fa.LAUNCHES, fa.FWD_BODIES) == before
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("l,hd", [(1024, 64), (576, 64), (520, 128)])
+def test_flash_wgmma_backward_skips_tiles_without_a_valid_key(cuda, l, hd, causal):
+    """Samples with 300, all, 0 and 129 valid keys: whole key tiles hold no valid key,
+    which the wgmma dq kernel skips and for which the dk/dv kernel writes zeros without
+    loading anything. dq, dk and dv are the plain version's, the sample with none gets
+    zero gradients, and two runs give the same bits."""
+    b, h = 4, 4
+    q, k, v = _fused_qkv(32, b, l, h, hd, torch.bfloat16, cuda)
+    do = np.random.default_rng(33).standard_normal((b, l, h, hd), dtype=np.float32)
+    do = torch.from_numpy(do).to(cuda, torch.bfloat16)
+    lens = torch.tensor([300, l, 0, 129], device=cuda)
+    valid = torch.arange(l, device=cuda)[None, :] < lens[:, None]
+    kw = dict(causal=causal, key_valid=valid)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    bodies = dict(fa.BWD_BODIES)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_BODIES["wgmma"] == bodies["wgmma"] + 1
+    refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert bool(torch.isfinite(got).all()) and bool((got[2] == 0).all()), name
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL[torch.bfloat16] * want.float().abs().max().item(), (name, err)
+    for a, b_ in zip(grads, fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)):
+        assert torch.equal(a, b_)
+
+
 def test_flash_backward_is_deterministic(cuda):
     q, k, v = (x.detach().requires_grad_() for x in _fused_qkv(3, 2, 600, 4, 64, torch.bfloat16, cuda))
     valid = _ragged_valid(2, 600, cuda)
@@ -495,9 +525,23 @@ def test_flash_backward_is_deterministic(cuda):
 
 
 @pytest.mark.parametrize("what", ["fp16", "transposed", "hd32", "cross", "prefix_without_causal",
-                                  "mask_shape"])
+                                  "mask_shape", "misaligned_do", "misaligned_out"])
 def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(cuda, what):
     q, k, v = _fused_qkv(2, 2, 520, 4, 64, torch.float32, cuda)
+    if what in ("misaligned_do", "misaligned_out"):
+        # a bf16 do or out 8 bytes past a 16-byte boundary: no tensor map of the wgmma
+        # backward can read it, so the backward raises and nothing launches
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        shifted = torch.zeros(q.numel() + 4, device=cuda, dtype=torch.bfloat16)[4:].view(q.shape)
+        do = shifted if what == "misaligned_do" else torch.ones_like(out)
+        if what == "misaligned_out":
+            out = shifted.copy_(out)
+        before = (dict(fa.LAUNCHES), dict(fa.BWD_BODIES))
+        with pytest.raises(ValueError, match="aligned"):
+            fa.flash_attention_bwd(q, k, v, out, lse, do)
+        assert (fa.LAUNCHES, fa.BWD_BODIES) == before
+        return
     kw = {}
     if what == "fp16":
         q, k, v = q.half(), k.half(), v.half()
