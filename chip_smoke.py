@@ -62,25 +62,31 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      stages 1 and 2 (shifted) at the train batch, Swin-B's four stages' windows at
      the train batch (and stages 0 and 2 at the serve batch), a non-square map and odd
      head counts; kernel, plain, library (SDPA with the bias as attn_mask) time and
-     the bound. The bf16 backward takes the tensor-core body (the panel's 64-token
-     windows and Swin-B's 49-token ones, padded to 64), fp32 the CUDA-core one; then
-     the tensor-core window and panel backwards at Swin-B's and HTSAT's four stage
-     shapes under five group splits (the window_bwd_groups line);
+     the bound. The bf16 forward and backward take the tensor-core bodies (the panel's
+     64-token windows and Swin-B's 49-token ones, padded to 64), fp32 the CUDA-core
+     ones; the bf16 forward is also timed on its CUDA-core body (simt_ms) and, at one
+     Swin and one HTSAT shape, launched twice and compared bit for bit; then the
+     tensor-core window and panel backwards and forwards at Swin-B's and HTSAT's four
+     stage shapes under five group splits (the window_bwd_groups and window_fwd_groups
+     lines);
  12. CLAP serving: CLAP-HTSAT-tiny in pure_bf16, requests of 64 ten-second clips
      (host AudioPreprocess, pinned copy, log-mel and encode_audio on the card, an
      ESC-50-template classifier, top-5), timed and profiled like phase 2; 12 panel
-     forward launches a request;
+     forward launches a request, all on the tensor-core body; then the same requests
+     with the panel forward on its CUDA-core body (latency, kernel ms, panel forward
+     ms a request: the before and after);
  13. CLAP training at batch 128 (amp_bf16, AdamW, clipping): 12 panel forward and
-     backward launches a step, every backward on the tensor-core bodies, the loss
-     falls;
+     backward launches a step, all on the tensor-core bodies, the loss falls; profiled
+     steps, and the same with the panel forward on its CUDA-core body;
  14. the CLI with --dataset-type synthetic-audio, a checkpoint and a resume;
  15. CLAP at fp32 (TF32 off), card against CPU: log-mel, features, every gradient;
  16. Swin-B (swin_base_patch4_window7_224) serving in pure_bf16 (64 images a request)
      and training in amp_bf16 (batch 32): 24 window launches of each kind per
-     encode_image and per step, every backward on the tensor-core body; profiled
-     steps (kernel ms a step, the window backward's ms a step), the same steps with the
-     window backward sent to its CUDA-core body for a before and after within the run,
-     and a step with remat;
+     encode_image and per step, all on the tensor-core bodies; serving again with the
+     window forward on its CUDA-core body; profiled steps (kernel ms a step, the window
+     forward's and backward's ms a step), the same steps with the window backward,
+     then the forward, sent to its CUDA-core body for a before and after within the
+     run, and a step with remat;
  17. (with phase 1) the SwitchBack int8 matmul-dequant against its plain version bit
      for bit, fp32 and bf16 out, at the MLP shapes of ViT-H-14 (batch 32) and
      ViT-B-32 (batch 256) and at ragged shapes; kernel, plain, torch._int_mm plus the
@@ -152,6 +158,8 @@ CLAP_CLI_STEPS = 4
 ESC50_CLASSES = ("dog", "rooster", "pig", "cow", "frog", "cat", "hen", "insects", "sheep", "crow")
 SWIN_MODEL = "swin_base_patch4_window7_224"
 SWIN_SERVE_BATCH, SWIN_TRAIN_BATCH = 64, 32
+# phase 11's cases whose tensor-core forward is launched twice and compared bit for bit
+FWD_DETERMINISM_CASES = ("swin_s0_shift", "htsat_s0_shift_serve")
 SB_SOURCE = "open_clip_tpu_torch/csrc/switchback.cu"
 H14_MODEL, H14_BATCH = "ViT-H-14", 32
 L14_MODEL, L14_BATCH = "ViT-L-14", 64  # the JAX package's bench_vit_l14 step
@@ -660,6 +668,39 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
                          f"launches_per_{unit}": c / n} for k, ms, c in top]}
 
 
+def serve_window(request, profiled: int):
+    """Requests one at a time for at least WINDOW_S (latency in ms, from request(1)
+    on), then ``profiled`` more under torch.profiler. Returns the latencies, the
+    window's seconds, the last request's output, the profiler and its wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lat = []
+    t_start = time.perf_counter()
+    while time.perf_counter() - t_start < WINDOW_S:
+        t0 = time.perf_counter()
+        feats, top5 = request(len(lat) + 1)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    window_s = time.perf_counter() - t_start
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(profiled):
+            request(i)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    return lat, window_s, feats, top5, prof, prof_wall_ms
+
+
+@contextlib.contextmanager
+def body_patched(wa, which: str, body: str):
+    """While open, the window and panel kernels of ``which`` ("fwd_body" or
+    "bwd_body") take ``body`` at every shape."""
+    body_of = getattr(wa, which)
+    setattr(wa, which, lambda mode, n, hd, dtype: body)
+    try:
+        yield
+    finally:
+        setattr(wa, which, body_of)
+
+
 def phase_serve(torch, oc, sa):
     """The main path. Returns the kernel's measured launches per tower and the
     number of encode_text and encode_image calls that made them."""
@@ -802,6 +843,18 @@ def run_steps(torch, step, state, batch, n):
     t2 = time.perf_counter()
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
     return state, metrics, step_ms, host_ms, (t2 - t1) * 1e3, t2 - t0
+
+
+def profiled_steps(torch, step, state, batch):
+    """TRAIN_PROFILED_STEPS steps under torch.profiler, after one profiled warm-up step.
+    Returns the state and the steps' profile summary (kernel ms a step, by class)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+    return state, profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
 
 
 def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
@@ -1287,7 +1340,9 @@ def phase_window_kernels(torch, wa, swa):
         hd = c // heads
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
-            body = wa.bwd_body(wa.PANEL if panel else wa.PARTITIONED, n, hd, dtype)
+            mode = wa.PANEL if panel else wa.PARTITIONED
+            body = wa.bwd_body(mode, n, hd, dtype)
+            fbody = wa.fwd_body(mode, n, hd, dtype)
             if panel:
                 hw = geo
                 q, k, v, bias, do = window_inputs(torch, (b, hw[0] * hw[1]), c, nw, heads, 64,
@@ -1314,17 +1369,24 @@ def phase_window_kernels(torch, wa, swa):
                 replaces = ("open_clip_tpu/ops/window_attention.py:141",
                             "open_clip_tpu/ops/window_attention.py:175")
                 label = "window_attention"
-            before = dict((swa if panel else wa).BWD_BODIES)
+            mod = swa if panel else wa
+            before, fwd_before = dict(mod.BWD_BODIES), dict(mod.FWD_BODIES)
             out, grads = fwd(), bwd()
             ref, refs = ref_f(), ref_b()
             torch.cuda.synchronize()
-            took = {k: v - before[k] for k, v in (swa if panel else wa).BWD_BODIES.items()}
+            took = {k: v - before[k] for k, v in mod.BWD_BODIES.items()}
+            took_fwd = {k: v - fwd_before[k] for k, v in mod.FWD_BODIES.items()}
             err = (out.float() - ref.float()).abs().max().item()
             errs = [rel_err(g, r) for g, r in zip(grads, refs)]
             abs_errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
             shape = f"B={b} {'map' if panel else 'N'}={geo} C={c} H={heads} nW={nw} {dn}"
-            check(bool(torch.isfinite(out).all()) and err <= TOL[dn],
-                  f"{label} forward {name} {shape}: max_abs_err={err:.3e} (tol {TOL[dn]:.0e})")
+            check(bool(torch.isfinite(out).all()) and err <= TOL[dn] and took_fwd[fbody] == 1
+                  and sum(took_fwd.values()) == 1,
+                  f"{label} forward ({fbody}) {name} {shape}: max_abs_err={err:.3e} "
+                  f"(tol {TOL[dn]:.0e})")
+            if dtype == torch.bfloat16 and name in FWD_DETERMINISM_CASES:
+                check(torch.equal(out, fwd()),
+                      f"{label} forward ({fbody}) {name}: two launches give the same bits")
             check(all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= BWD_RTOL[dn]
                   and took[body] == 1,
                   f"{label} backward ({body}) {name} {shape}: rel err dq/dk/dv/dbias="
@@ -1332,8 +1394,16 @@ def phase_window_kernels(torch, wa, swa):
             if name.startswith("swin") and dtype == torch.bfloat16:
                 check(body == "mma", f"{label} backward {name}: Swin-B's 49-token windows take "
                                      f"the tensor-core body ({body})")
+            if name.startswith(("swin", "htsat")):
+                want = "mma" if dtype == torch.bfloat16 else "simt"
+                check(fbody == want, f"{label} forward {name} {dn}: takes the {fbody} body "
+                                     f"(expect {want})")
             del out, grads, ref, refs
             ms_fwd, ms_bwd = graph_ms(fwd, **it), graph_ms(bwd, **it)
+            simt_fwd = None
+            if fbody == "mma":  # the CUDA-core forward on the same inputs, the body it replaced
+                with body_patched(wa, "fwd_body", "simt"):
+                    simt_fwd = graph_ms(fwd, **it)
             plain_fwd = plain_bwd = lib_fwd = lib_bwd = copies = None
             if dtype == torch.bfloat16 or name in fp32_timed:
                 plain_fwd, plain_bwd = graph_ms(ref_f, **it), graph_ms(ref_b, **it)
@@ -1375,8 +1445,8 @@ def phase_window_kernels(torch, wa, swa):
                       "map_or_n": geo, "channels": c, "heads": heads, "bias_windows": nw,
                       "windows": windows, "dtype": dn}
             recs = {
-                "fwd": dict(common, name=f"{label}_fwd[{name}]", replaces=replaces[0], body="simt",
-                            max_abs_err=err, ms=ms_fwd, plain_ms=plain_fwd,
+                "fwd": dict(common, name=f"{label}_fwd[{name}]", replaces=replaces[0], body=fbody,
+                            max_abs_err=err, ms=ms_fwd, simt_ms=simt_fwd, plain_ms=plain_fwd,
                             **bound(4 * blc * size + bias_bytes, 4 * windows * n * n * c, dn),
                             library_ms=lib_fwd, library_partition_copies_ms=copies),
                 "bwd": dict(common, name=f"{label}_bwd[{name}]", replaces=replaces[1], body=body,
@@ -1394,13 +1464,14 @@ def phase_window_kernels(torch, wa, swa):
 
 
 def phase_window_groups(torch, wa, swa):
-    """The tensor-core window backward at Swin-B's four stage shapes and HTSAT's panel
-    backward at its four (train batches) under other group splits: ``bwd_groups``
-    aims at ``bwd_target(mode, body)`` blocks. Prints the device ms of each target
-    beside the one the port takes."""
+    """The tensor-core window backward and forward at Swin-B's four stage shapes and
+    HTSAT's panel backward and forward at its four (train batches) under other group
+    splits: ``bwd_groups`` aims at ``bwd_target(mode, body)`` blocks in the backward
+    and at ``fwd_target()`` in the forward. Prints the device ms of each target beside
+    the one the port takes (the window_bwd_groups and window_fwd_groups lines)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    result = {}
-    own_target = wa.bwd_target
+    result, fwd_result = {}, {}
+    own_target, own_fwd_target = wa.bwd_target, wa.fwd_target
     cases = [("swin_s0", 49, SWIN_TRAIN_BATCH * 64, None, 128, 4, 64),
              ("swin_s1", 49, SWIN_TRAIN_BATCH * 16, None, 256, 8, 16),
              ("swin_s2", 49, SWIN_TRAIN_BATCH * 4, None, 512, 16, 4),
@@ -1415,17 +1486,23 @@ def phase_window_groups(torch, wa, swa):
         q, k, v, bias, do = window_inputs(torch, lead, c, nw, heads, n, torch.bfloat16, gen)
         if hw is None:
             bwd = lambda: wa.window_attention_bwd(q, k, v, bias, do)  # noqa: E731
+            fwd = lambda: wa.window_attention_fwd(q, k, v, bias)  # noqa: E731
         else:
             bwd = lambda: swa.panel_attention_bwd(q, k, v, bias, do, hw=hw, ws=8)  # noqa: E731
+            fwd = lambda: swa.panel_attention_fwd(q, k, v, bias, hw=hw, ws=8)  # noqa: E731
         times = {"target_in_use": own_target(mode, "mma")}
+        fwd_times = {"target_in_use": own_fwd_target()}
         try:
             for target in (132, 264, 528, 1056, 2112):
                 wa.bwd_target = lambda mode_, body, t=target: t  # noqa: E731
+                wa.fwd_target = lambda t=target: t  # noqa: E731
                 times[str(target)] = graph_ms(bwd, iters=10, replays=3)
+                fwd_times[str(target)] = graph_ms(fwd, iters=20, replays=3)
         finally:
-            wa.bwd_target = own_target
-        result[name] = times
+            wa.bwd_target, wa.fwd_target = own_target, own_fwd_target
+        result[name], fwd_result[name] = times, fwd_times
     print("window_bwd_groups " + json.dumps(result), flush=True)
+    print("window_fwd_groups " + json.dumps(fwd_result), flush=True)
 
 
 def clap_audio(torch, n, seed, device="cuda"):
@@ -1499,14 +1576,29 @@ def phase_clap_serve(torch, oc, sa, swa, wa):
                 request(i)
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         calls = 1 + len(lat) + PROFILED_REQUESTS
+        panel, window, by_body = dict(swa.LAUNCHES), dict(wa.LAUNCHES), dict(swa.FWD_BODIES)
         # the log-mel front end alone, for the stage breakdown
         audio = {k: v.to("cuda") for k, v in requests[0].items()}
         mel_ms = graph_ms(lambda: model.audio.encoder.mel(audio["waveform"]), iters=5, replays=3)
+        # the same requests with the panel forward sent to its CUDA-core body, the one it
+        # took before the tensor-core forward: a before and after within one run
+        with body_patched(wa, "fwd_body", "simt"):
+            reset_counts(swa)
+            request(0)
+            simt_lat, _, _, _, simt_prof, simt_wall_ms = serve_window(request, 3)
+            simt_by_body = dict(swa.FWD_BODIES)
     check(text_launches == model.cfg.text_cfg.layers,
           f"CLAP classifier: {text_launches} short-kernel launches for 1 encode_text call")
-    check(swa.LAUNCHES == {"fwd": layers * calls, "bwd": 0} and wa.LAUNCHES == {"fwd": 0, "bwd": 0},
-          f"CLAP requests: panel launches {swa.LAUNCHES}, window {wa.LAUNCHES} for {calls} "
-          f"encode_audio calls (expect {layers} panel forward each, nothing else)")
+    check(panel == {"fwd": layers * calls, "bwd": 0} and window == {"fwd": 0, "bwd": 0}
+          and by_body == {"mma": layers * calls, "simt": 0},
+          f"CLAP requests: panel launches {panel}, forward by body {by_body}, window {window} "
+          f"for {calls} encode_audio calls (expect {layers} panel forward each, all on the "
+          "tensor-core body, nothing else)")
+    simt_calls = 1 + len(simt_lat) + 3
+    check(simt_by_body == {"mma": 0, "simt": layers * simt_calls},
+          f"CLAP requests[CUDA-core panel forward]: forward by body {simt_by_body}")
+    summary = profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)
+    simt_summary = profile_summary(simt_prof, simt_wall_ms, 3)
     fn = torch.linalg.vector_norm(feats.float(), dim=-1)
     check(tuple(feats.shape) == (CLAP_SERVE_BATCH, model.cfg.embed_dim)
           and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
@@ -1520,18 +1612,23 @@ def phase_clap_serve(torch, oc, sa, swa, wa):
         "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
         "max_request_ms": max(lat),
         "device_ms_median": {n: statistics.median(v) for n, v in phase_ms.items()},
-        "log_mel_device_ms": mel_ms, "panel_fwd_launches": swa.LAUNCHES["fwd"],
+        "log_mel_device_ms": mel_ms, "panel_fwd_launches": panel["fwd"],
+        "panel_fwd_launches_per_request_by_body": {k: v / calls for k, v in by_body.items()},
+        "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+        "panel_fwd_ms_per_request": summary["class_ms_per_request"].get("window_attention"),
+        "median_request_ms_cuda_core_panel_fwd": statistics.median(simt_lat),
+        "kernel_ms_per_request_cuda_core_panel_fwd": simt_summary["device_busy_ms_per_request"],
+        "panel_fwd_ms_per_request_cuda_core": simt_summary["class_ms_per_request"].get(
+            "window_attention"),
+        "device_idle_share": summary["device_idle_share"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
-    print("clap_profile " + json.dumps(profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)),
-          flush=True)
-    return swa.LAUNCHES["fwd"], calls
+    print("clap_profile " + json.dumps(summary), flush=True)
+    return panel["fwd"], by_body, calls
 
 
 def phase_clap_train(torch, oc, sa, swa, wa):
     """CLAP training at bench_clap's shape: batch 128 of ten-second clips, amp_bf16,
     AdamW with clipping; returns the panel launches of the timed window and its steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.reset_peak_memory_stats()
     model = oc.create_model(CLAP_MODEL, precision="amp_bf16", seed=0)
     layers, lt = sum(model.audio.encoder.depths), model.cfg.text_cfg.layers
@@ -1548,7 +1645,7 @@ def phase_clap_train(torch, oc, sa, swa, wa):
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
     panel, short = dict(swa.LAUNCHES), dict(sa.LAUNCHES)
     panel_bodies, short_bodies = dict(swa.BWD_BODIES), dict(sa.BWD_BODIES)
-    short_fwd_bodies = dict(sa.FWD_BODIES)
+    panel_fwd_bodies, short_fwd_bodies = dict(swa.FWD_BODIES), dict(sa.FWD_BODIES)
     losses = [float(m["loss"]) for m in warm + window]
     norms = [float(m["grad_norm"]) for m in warm + window]
     check(all(math.isfinite(x) for x in losses), f"clap_train: {len(losses)} losses finite")
@@ -1561,17 +1658,21 @@ def phase_clap_train(torch, oc, sa, swa, wa):
     check(short == {"fwd": lt * n, "bwd": lt * n},
           f"clap_train: short-kernel launches {short} in {n} steps (the text tower)")
     check(panel_bodies == {"mma": layers * n, "simt": 0} and short_bodies == {"mma": lt * n, "simt": 0}
-          and short_fwd_bodies == short_bodies,
+          and short_fwd_bodies == short_bodies and panel_fwd_bodies == panel_bodies,
           f"clap_train: backward launches by body, panel {panel_bodies}, short {short_bodies} "
-          f"(short forward {short_fwd_bodies}) in {n} steps (expect every one on the tensor-core "
-          "bodies)")
+          f"(forward: panel {panel_fwd_bodies}, short {short_fwd_bodies}) in {n} steps (expect "
+          "every one on the tensor-core bodies)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
-    prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+    state, prof_summary = profiled_steps(torch, step, state, batch)
     print("clap_train_profile " + json.dumps(prof_summary), flush=True)
+    # the same steps with the panel forward on its CUDA-core body: the kernels' before
+    # and after within one run
+    with body_patched(wa, "fwd_body", "simt"):
+        reset_counts(swa)
+        state, simt_summary = profiled_steps(torch, step, state, batch)
+        simt_fwd_bodies = dict(swa.FWD_BODIES)
+    check(simt_fwd_bodies == {"mma": 0, "simt": layers * (TRAIN_PROFILED_STEPS + 1)},
+          f"clap_train[CUDA-core panel forward]: forward launches by body {simt_fwd_bodies}")
     # kernel ms: the device-busy time of the profiled steps (the sum of their kernels)
     summary = {"model": CLAP_MODEL, "precision": "amp_bf16", "batch": CLAP_TRAIN_BATCH,
                "clip_seconds": CLAP_SECONDS, "window_steps": n, "window_s": wall_s,
@@ -1582,13 +1683,18 @@ def phase_clap_train(torch, oc, sa, swa, wa):
                "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
                "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
                "panel_launches_per_step": {k: v / n for k, v in panel.items()},
+               "panel_fwd_launches_per_step_by_body": {k: v / n for k, v in panel_fwd_bodies.items()},
                "panel_bwd_launches_per_step_by_body": {k: v / n for k, v in panel_bodies.items()},
+               "panel_fwd_ms_per_step": prof_summary["class_ms_per_step"].get("window_attention"),
+               "kernel_ms_per_step_cuda_core_panel_fwd": simt_summary["device_busy_ms_per_step"],
+               "panel_fwd_ms_per_step_cuda_core": simt_summary["class_ms_per_step"].get(
+                   "window_attention"),
                "short_fwd_launches_per_step_by_body": {k: v / n for k, v in short_fwd_bodies.items()},
                "short_bwd_launches_per_step_by_body": {k: v / n for k, v in short_bodies.items()},
                "peak_mem_gib": peak,
                "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"]}
     print("clap_train " + json.dumps(summary), flush=True)
-    return panel, panel_bodies, n
+    return panel, panel_fwd_bodies, panel_bodies, n
 
 
 def phase_clap_cli(torch, swa):
@@ -1669,7 +1775,7 @@ def phase_clap_card_vs_cpu(torch, oc, swa):
         results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
                             if p.grad is not None}, loss.item())
         if device == "cuda":
-            launched, bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES)
+            launched, bodies, fwd_bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES), dict(swa.FWD_BODIES)
         del model, out, loss
     mel_err = (mels["cuda"] - mels["cpu"]).abs().max().item()
     check(bool(torch.isfinite(mels["cuda"]).all()) and mel_err <= 1e-2,
@@ -1680,18 +1786,18 @@ def phase_clap_card_vs_cpu(torch, oc, swa):
                                                 dim=-1).min().item()
     check(bool(torch.isfinite(feats["cuda"]).all()) and cos >= COSINE_MIN,
           f"CLAP encode_audio card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
-    check(launched == {"fwd": 24, "bwd": 12} and bodies == {"mma": 0, "simt": 12},
-          f"CLAP fp32 card run: panel launches {launched}, backward by body {bodies} "
-          "(12 serving, 12 in the training forward, 12 backward on the CUDA-core body)")
+    check(launched == {"fwd": 24, "bwd": 12} and bodies == {"mma": 0, "simt": 12}
+          and fwd_bodies == {"mma": 0, "simt": 24},
+          f"CLAP fp32 card run: panel launches {launched}, forward by body {fwd_bodies}, "
+          f"backward by body {bodies} (12 serving, 12 in the training forward, 12 backward, all "
+          "on the CUDA-core bodies)")
     grads_card_vs_cpu(torch, results, "CLAP")
-    return bodies["simt"]
+    return fwd_bodies["simt"], bodies["simt"]
 
 
 def phase_swin_serve(torch, oc, sa, wa):
     """Swin-B serving: 64 uint8 256x320 images a request, device preprocess,
     encode_image, logits, top-5. Returns the window forward launches and calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.reset_peak_memory_stats()
     model, _, preprocess = oc.create_model_and_transforms(SWIN_MODEL, precision="pure_bf16", seed=0)
     blocks = sum(len(stage.blocks) for stage in model.visual.layers)
@@ -1713,22 +1819,25 @@ def phase_swin_serve(torch, oc, sa, wa):
         t0 = time.perf_counter()
         request(0)
         first_ms = (time.perf_counter() - t0) * 1e3
-        lat = []
-        t_start = time.perf_counter()
-        while time.perf_counter() - t_start < WINDOW_S:
-            t0 = time.perf_counter()
-            feats, top5 = request(len(lat) + 1)
-            lat.append((time.perf_counter() - t0) * 1e3)
-        window_s = time.perf_counter() - t_start
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(3):
-                request(i)
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        lat, window_s, feats, top5, prof, prof_wall_ms = serve_window(request, 3)
         calls = 1 + len(lat) + 3
-    check(wa.LAUNCHES == {"fwd": blocks * calls, "bwd": 0},
-          f"Swin requests: window launches {wa.LAUNCHES} for {calls} encode_image calls "
-          f"(expect {blocks} forward each)")
+        launched, by_body = dict(wa.LAUNCHES), dict(wa.FWD_BODIES)
+        # the same requests with the window forward sent to its CUDA-core body, the one it
+        # took before the tensor-core forward: a before and after within one run
+        with body_patched(wa, "fwd_body", "simt"):
+            reset_counts(wa)
+            request(0)
+            simt_lat, _, _, _, simt_prof, simt_wall_ms = serve_window(request, 3)
+            simt_by_body = dict(wa.FWD_BODIES)
+    check(launched == {"fwd": blocks * calls, "bwd": 0}
+          and by_body == {"mma": blocks * calls, "simt": 0},
+          f"Swin requests: window launches {launched}, forward by body {by_body} for {calls} "
+          f"encode_image calls (expect {blocks} forward each, all on the tensor-core body)")
+    simt_calls = 1 + len(simt_lat) + 3
+    check(simt_by_body == {"mma": 0, "simt": blocks * simt_calls},
+          f"Swin requests[CUDA-core window forward]: forward by body {simt_by_body}")
+    summary = profile_summary(prof, prof_wall_ms, 3)
+    simt_summary = profile_summary(simt_prof, simt_wall_ms, 3)
     fn = torch.linalg.vector_norm(feats.float(), dim=-1)
     check(tuple(feats.shape) == (SWIN_SERVE_BATCH, model.cfg.embed_dim)
           and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
@@ -1739,18 +1848,24 @@ def phase_swin_serve(torch, oc, sa, wa):
         "image_hw": list(IMAGE_HW), "first_request_ms": first_ms, "window_s": window_s,
         "window_requests": len(lat), "images_per_s": SWIN_SERVE_BATCH * len(lat) / window_s,
         "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
-        "window_fwd_launches": wa.LAUNCHES["fwd"],
+        "window_fwd_launches": launched["fwd"],
+        "window_fwd_launches_per_request_by_body": {k: v / calls for k, v in by_body.items()},
+        "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+        "window_fwd_ms_per_request": summary["class_ms_per_request"].get("window_attention"),
+        "median_request_ms_cuda_core_window_fwd": statistics.median(simt_lat),
+        "kernel_ms_per_request_cuda_core_window_fwd": simt_summary["device_busy_ms_per_request"],
+        "window_fwd_ms_per_request_cuda_core": simt_summary["class_ms_per_request"].get(
+            "window_attention"),
+        "device_idle_share": summary["device_idle_share"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
-    print("swin_profile " + json.dumps(profile_summary(prof, prof_wall_ms, 3)), flush=True)
-    return wa.LAUNCHES["fwd"], calls
+    print("swin_profile " + json.dumps(summary), flush=True)
+    return launched["fwd"], by_body, calls
 
 
 def phase_swin_train(torch, oc, sa, wa):
     """Swin-B training through the existing train step: amp_bf16, AdamW with clipping,
     one fixed batch; a few profiled steps, the same with the window backward on its
     CUDA-core body; then one step with remat (each block recomputed)."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.reset_peak_memory_stats()
     model = oc.create_model(SWIN_MODEL, precision="amp_bf16", seed=0)
     blocks = sum(len(stage.blocks) for stage in model.visual.layers)
@@ -1771,34 +1886,29 @@ def phase_swin_train(torch, oc, sa, wa):
     check(win == {"fwd": blocks * n, "bwd": blocks * n} and short == {"fwd": lt * n, "bwd": lt * n},
           f"swin_train: window launches {win}, short {short} in {n} steps (expect {blocks} and "
           f"{lt} of each a step)")
+    fwd_bodies = dict(wa.FWD_BODIES)
     check(wa.BWD_BODIES == {"mma": blocks * n, "simt": 0} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0}
-          and sa.FWD_BODIES == sa.BWD_BODIES,
+          and sa.FWD_BODIES == sa.BWD_BODIES and fwd_bodies == wa.BWD_BODIES,
           f"swin_train: backward launches by body, window {wa.BWD_BODIES} (49-token windows on "
-          f"the tensor-core body), short {sa.BWD_BODIES}, short forward {sa.FWD_BODIES}")
+          f"the tensor-core body), short {sa.BWD_BODIES}; forward: window {fwd_bodies}, short "
+          f"{sa.FWD_BODIES}")
 
-    def profiled():
-        """kernel ms a step, by class, over TRAIN_PROFILED_STEPS profiled steps"""
-        nonlocal state
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-            state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
-        return profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
-
-    summary = profiled()
-    # the same steps with the window backward sent to the CUDA-core body, the one it
-    # took before the tensor-core body served 49-token windows: a before and after
-    # of the step's kernels within one run
-    body_of = wa.bwd_body
-    wa.bwd_body = lambda mode, n_, hd, dtype: "simt"  # noqa: E731
-    try:
+    state, summary = profiled_steps(torch, step, state, batch)
+    # the same steps with the window backward, then the window forward, sent to the
+    # CUDA-core body, the one each took before its tensor-core body served 49-token
+    # windows: a before and after of the step's kernels within one run
+    with body_patched(wa, "bwd_body", "simt"):
         reset_counts(wa)
-        simt_summary = profiled()
+        state, simt_summary = profiled_steps(torch, step, state, batch)
         simt_launches = dict(wa.BWD_BODIES)
-    finally:
-        wa.bwd_body = body_of
     check(simt_launches == {"mma": 0, "simt": blocks * (TRAIN_PROFILED_STEPS + 1)},
           f"swin_train[CUDA-core window backward]: backward launches by body {simt_launches}")
+    with body_patched(wa, "fwd_body", "simt"):
+        reset_counts(wa)
+        state, simt_fwd_summary = profiled_steps(torch, step, state, batch)
+        simt_fwd_launches = dict(wa.FWD_BODIES)
+    check(simt_fwd_launches == {"mma": 0, "simt": blocks * (TRAIN_PROFILED_STEPS + 1)},
+          f"swin_train[CUDA-core window forward]: forward launches by body {simt_fwd_launches}")
     print("swin_train_profile " + json.dumps(summary), flush=True)
     remat_step = oc.make_train_step(model.cfg, optimizer, remat=True)
     reset_counts(wa)
@@ -1811,15 +1921,20 @@ def phase_swin_train(torch, oc, sa, wa):
         "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
         "median_host_ms_per_step": statistics.median(host_ms), "host_lead_ms_at_end": lead_ms,
         "first_loss": losses[0], "last_loss": losses[-1], "remat_step_ms": remat_ms[0],
+        "window_fwd_launches_per_step_by_body": {k: v / n for k, v in fwd_bodies.items()},
         "window_bwd_launches_per_step_by_body": {k: v / n for k, v in bodies.items()},
         "kernel_ms_per_step": summary["device_busy_ms_per_step"],
+        "window_fwd_ms_per_step": summary["class_ms_per_step"].get("window_attention"),
         "window_bwd_ms_per_step": summary["class_ms_per_step"].get("window_attention_bwd"),
         "kernel_ms_per_step_cuda_core_window_bwd": simt_summary["device_busy_ms_per_step"],
         "window_bwd_ms_per_step_cuda_core": simt_summary["class_ms_per_step"].get(
             "window_attention_bwd"),
+        "kernel_ms_per_step_cuda_core_window_fwd": simt_fwd_summary["device_busy_ms_per_step"],
+        "window_fwd_ms_per_step_cuda_core": simt_fwd_summary["class_ms_per_step"].get(
+            "window_attention"),
         "device_idle_share": summary["device_idle_share"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
-    return win, n
+    return win, fwd_bodies, n
 
 
 def phase_switchback_kernels(torch, sb):
@@ -2206,14 +2321,17 @@ def main() -> int:
     nf_train_launches, nf_steps = timed("naflex_train", phase_naflex_train, torch, oc, sa, fa)
     timed("naflex_cli", phase_naflex_cli, torch, fa)
     timed("naflex_card_vs_cpu", phase_naflex_card_vs_cpu, torch, oc, sa, fa)
-    clap_serve_launches, clap_calls = timed("clap_serve", phase_clap_serve, torch, oc, sa, swa,
-                                            wa)
-    clap_train_launches, clap_bodies, clap_steps = timed("clap_train", phase_clap_train, torch, oc,
-                                                         sa, swa, wa)
+    clap_serve_launches, clap_serve_bodies, clap_calls = timed("clap_serve", phase_clap_serve,
+                                                               torch, oc, sa, swa, wa)
+    clap_train_launches, clap_fwd_bodies, clap_bodies, clap_steps = timed(
+        "clap_train", phase_clap_train, torch, oc, sa, swa, wa)
     timed("clap_cli", phase_clap_cli, torch, swa)
-    panel_simt_launches = timed("clap_card_vs_cpu", phase_clap_card_vs_cpu, torch, oc, swa)
-    swin_serve_launches, swin_calls = timed("swin_serve", phase_swin_serve, torch, oc, sa, wa)
-    swin_train_launches, swin_steps = timed("swin_train", phase_swin_train, torch, oc, sa, wa)
+    panel_fwd_simt_launches, panel_simt_launches = timed("clap_card_vs_cpu", phase_clap_card_vs_cpu,
+                                                         torch, oc, swa)
+    swin_serve_launches, swin_serve_bodies, swin_calls = timed("swin_serve", phase_swin_serve,
+                                                               torch, oc, sa, wa)
+    swin_train_launches, swin_fwd_bodies, swin_steps = timed("swin_train", phase_swin_train, torch,
+                                                             oc, sa, wa)
     h14_launches, h14_steps = timed("h14_train", phase_h14_train, torch, oc, sa, sb, blocks)
     l14_tally, l14_steps = timed("l14_train", phase_l14_train, torch, oc, sa, fl, blocks)
     b32_sb_launches, b32_sb_steps = timed("b32_switchback", phase_b32_switchback, torch, oc, sa,
@@ -2260,9 +2378,11 @@ def main() -> int:
                             launches_per_train_step=nf_train_launches[which] / nf_steps))
     # window and panel attention: Swin-B serving and training (the window kernels at
     # the stage-0 shape, 49-token windows), CLAP serving and training (the panel
-    # kernels at HTSAT's stage-0 shifted shape)
+    # kernels at HTSAT's stage-0 shifted shape); the forwards on the tensor-core body
     kernels.append(dict(window_records[("swin_s0_shift", "bfloat16")]["fwd"],
                         launches=swin_serve_launches + swin_train_launches["fwd"],
+                        launches_by_body={k: swin_serve_bodies[k] + swin_fwd_bodies[k]
+                                          for k in swin_serve_bodies},
                         launches_serving=swin_serve_launches,
                         launches_training=swin_train_launches["fwd"],
                         launches_per_call=swin_serve_launches / swin_calls,
@@ -2272,10 +2392,17 @@ def main() -> int:
                         launches_per_train_step=swin_train_launches["bwd"] / swin_steps))
     kernels.append(dict(window_records[("htsat_s0_shift_serve", "bfloat16")]["fwd"],
                         launches=clap_serve_launches + clap_train_launches["fwd"],
+                        launches_by_body={k: clap_serve_bodies[k] + clap_fwd_bodies[k]
+                                          for k in clap_serve_bodies},
                         launches_serving=clap_serve_launches,
                         launches_training=clap_train_launches["fwd"],
                         launches_per_call=clap_serve_launches / clap_calls,
                         launches_per_train_step=clap_train_launches["fwd"] / clap_steps))
+    # the CUDA-core panel forward: the fp32 CLAP run of phase 15 (B=2: the request and
+    # the train step's forward); every bf16 path takes the tensor-core forward
+    kernels.append(dict(window_records[("htsat_s0_shift_train", "float32")]["fwd"],
+                        launches=panel_fwd_simt_launches,
+                        launches_path="fp32 CLAP request and step, B=2 (phase 15)"))
     # the panel backward: the tensor-core body in the bf16 CLAP train window; the
     # CUDA-core body in the fp32 CLAP step of phase 15 (B=2)
     kernels.append(dict(window_records[("htsat_s0_shift_train", "bfloat16")]["bwd"],

@@ -19,10 +19,11 @@
 // Bound on this card: at Swin's shapes (N = 49 or 64, hd = 24 or 32) a window does
 // ~4*N^2*hd operations on ~4*N*hd*size bytes, N/2 = 25..32 operations per byte in
 // fp32 terms, so fp32 CUDA cores and memory are both near their limit. The bf16
-// backward of windows of at most 64 tokens (PANEL, and PARTITIONED with N <= 64)
-// therefore has a second body on the tensor cores (mma.sync; "the mma body", further
-// down); the forward, the fp32 backward and the other shapes run the CUDA-core
-// kernels described here. What their design does:
+// forward and backward of windows of at most 64 tokens (PANEL, and PARTITIONED with
+// N <= 64) therefore have a second body each on the tensor cores (mma.sync; "the mma
+// bodies", further down), under which a window is ~100 bf16 operations per byte and
+// the bytes bound it; fp32 and the other shapes run the CUDA-core kernels described
+// here. What their design does:
 //   - q, k, v are read in place through a (window, row) -> address map: strided
 //     views of the fused qkv projection (row stride 3C) and, in PANEL mode, the
 //     token map itself, so neither a partition copy nor a head transpose is made;
@@ -45,9 +46,10 @@
 // probabilities, 33 KB at NP = 64; backward 4 tiles and 2 (NP, NP+1) buffers, 67 KB
 // at NP = 64 and 200 KB at NP = 128 (the launcher opts in above 48 KB).
 //
-// The mma body keeps the same math and rounding points (p and ds rounded to bf16
-// before their products, fp32 accumulators, dbias from the unrounded fp32 ds) and
-// the same dbias partials and fold, so it is deterministic too.
+// The mma bodies keep the same math and rounding points (p normalised in fp32, then
+// p and ds rounded to bf16 before their products, fp32 accumulators, dbias from the
+// unrounded fp32 ds) and the same dbias partials and fold, so they are deterministic
+// too.
 //
 // C interface, loaded with ctypes: the functions return the cudaError_t of the
 // launches (0 on success). They launch on the given stream, do not synchronise
@@ -477,6 +479,77 @@ struct WindowRows {
   }
 };
 
+// What the mma kernels share. A block stages head h's rows of the windows that share
+// bias window wb; each thread copies the same 16-byte chunks of every staged (MN, LDT)
+// tile: row (-1: none), column, and the row's offset from its window's first row in
+// rows of the tensor, worked out once per kernel (PANEL: 8 consecutive tokens of the
+// map per window row), not once per element.
+template <int HD, int MODE>
+struct WindowTiles {
+  using D = MmaTile<HD>;
+  const Geom* g;
+  int h, wb;
+  int crow[D::SLOTS], ccol[D::SLOTS], ctok[D::SLOTS];
+
+  __device__ __forceinline__ WindowTiles(const Geom* g_, int h_, int wb_) : g(g_), h(h_), wb(wb_) {
+#pragma unroll
+    for (int m = 0; m < D::SLOTS; ++m) {
+      const int i = threadIdx.x + m * MMA_THREADS;
+      crow[m] = i < MN * D::VPR ? i / D::VPR : -1;
+      ccol[m] = (i % D::VPR) * 8;
+      ctok[m] = window_row<MODE>(*g, min(max(crow[m], 0), g->N - 1));
+    }
+  }
+
+  // window jw of those that share bias window wb: sample s, window p of the sample
+  __device__ __forceinline__ void window_of(int jw, int& s, int& p) const {
+    s = g->nWb == 1 ? jw / g->P : jw;
+    p = g->nWb == 1 ? jw - s * g->P : wb;
+  }
+
+  // window jw of the NX tensors src into NX consecutive tiles from dst, by cp.async;
+  // rows past N become zeros (nothing is read for them)
+  template <int NX>
+  __device__ __forceinline__ void stage(bf16* dst, const bf16* const (&src)[NX],
+                                        const Strides (&st)[NX], int jw) const {
+    int s, p;
+    window_of(jw, s, p);
+#pragma unroll
+    for (int x = 0; x < NX; ++x) {
+      const bf16* base = src[x] + window_base<MODE>(*g, st[x], s, p) + h * HD;
+#pragma unroll
+      for (int m = 0; m < D::SLOTS; ++m)
+        if (crow[m] >= 0)
+          cp_async16(dst + x * D::ELEMS + crow[m] * D::LDT + ccol[m],
+                     base + (long long)ctok[m] * st[x].rs + ccol[m], crow[m] < g->N);
+    }
+  }
+};
+
+// the pad columns [HD, HDP) of n staged tiles: zeros for the whole kernel
+template <int HD>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int n) {
+  using D = MmaTile<HD>;
+  if (D::HDP > HD)
+    for (int r = threadIdx.x; r < n * MN; r += MMA_THREADS)
+      *reinterpret_cast<uint4*>(tiles + r * D::LDT + HD) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// the bias bw (N x N, fp32) of the lane's S-fragment entries, rows row_lo and
+// row_lo + 8, in base 2: -inf for a padded key, 0 for a padded query, whose row the
+// bias does not have (N = 49 puts a row at an odd float, so scalar loads)
+template <int NT>
+__device__ __forceinline__ void load_bias2(float (&b2)[NT][4], const float* bw, int N, int row_lo) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = row_lo + 8 * (c >> 1), col = 8 * j + 2 * t + (c & 1);
+      b2[j][c] = col >= N ? -INFINITY : (row < N ? bw[row * N + col] * LOG2E : 0.f);
+    }
+}
+
 template <int HD, int MODE>
 __global__ void __launch_bounds__(MMA_THREADS)
 win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -499,60 +572,21 @@ win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = warp * 16, row_lo = r0 + (lane >> 2);
   const float scale2 = g.scale * LOG2E;
 
-  // the staged tiles' pad columns [HD, HDP) are zeros for the whole kernel
-  if (D::HDP > HD)
-    for (int r = threadIdx.x; r < 8 * MN; r += MMA_THREADS)
-      *reinterpret_cast<uint4*>(tiles + r * LDT + HD) = make_uint4(0u, 0u, 0u, 0u);
-
-  // this thread's 16-byte chunks of a tile: row (-1: none), column, and the row's
-  // offset from its window's first row in rows of the tensor
-  int crow[D::SLOTS], ccol[D::SLOTS], ctok[D::SLOTS];
-#pragma unroll
-  for (int m = 0; m < D::SLOTS; ++m) {
-    const int i = threadIdx.x + m * MMA_THREADS;
-    crow[m] = i < MN * D::VPR ? i / D::VPR : -1;
-    ccol[m] = (i % D::VPR) * 8;
-    ctok[m] = window_row<MODE>(g, min(max(crow[m], 0), g.N - 1));
-  }
-  const auto window_of = [&](int jw, int& s, int& p) {
-    s = g.nWb == 1 ? jw / g.P : jw;
-    p = g.nWb == 1 ? jw - s * g.P : wb;
-  };
-  const auto stage = [&](int jw, int buf) {
-    int s, p;
-    window_of(jw, s, p);
-    const bf16* src[4] = {q, k, v, dout};
-    const Strides st[4] = {sq, sk, sv, sg};
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      bf16* dst = tiles + (buf * 4 + x) * D::ELEMS;
-      const bf16* base = src[x] + window_base<MODE>(g, st[x], s, p) + h * HD;
-#pragma unroll
-      for (int m = 0; m < D::SLOTS; ++m)
-        if (crow[m] >= 0)
-          cp_async16(dst + crow[m] * LDT + ccol[m], base + (long long)ctok[m] * st[x].rs + ccol[m],
-                     crow[m] < g.N);
-    }
-  };
-
-  // the bias of the lane's S-fragment entries in base 2 (-inf for a padded key, 0
-  // for a padded query, whose row the bias does not have), and their dbias sums
-  const float* bw = bias + ((long long)wb * g.H + h) * g.N * g.N;
+  zero_pad_columns<HD>(tiles, 8);
+  const WindowTiles<HD, MODE> win(&g, h, wb);
+  const bf16* const src[4] = {q, k, v, dout};
+  const Strides st[4] = {sq, sk, sv, sg};
+  // the bias in base 2 and the running dbias sums, in the S-fragment layout
   float b2[NT][4], db[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = row_lo + 8 * (c >> 1), col = 8 * j + 2 * t + (c & 1);
-      b2[j][c] = col >= g.N ? -INFINITY : (row < g.N ? bw[row * g.N + col] * LOG2E : 0.f);
-      db[j][c] = 0.f;
-    }
+  load_bias2(b2, bias + ((long long)wb * g.H + h) * g.N * g.N, g.N, row_lo);
+  zero_acc(db);
 
-  stage(j0, 0);
+  win.stage(tiles, src, st, j0);
   cp_async_commit();
   for (int jw = j0; jw < j1; ++jw) {
     const int buf = (jw - j0) & 1;
-    if (jw + 1 < j1) stage(jw + 1, buf ^ 1);  // the next window into the other buffer
+    if (jw + 1 < j1)  // the next window into the other buffer
+      win.stage(tiles + (buf ^ 1) * 4 * D::ELEMS, src, st, jw + 1);
     cp_async_commit();
     cp_async_wait<1>();  // this window has landed; the next may still be in flight
     __syncthreads();
@@ -617,7 +651,7 @@ win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     int s, p;
-    window_of(jw, s, p);
+    win.window_of(jw, s, p);
     float acc[ND][4];
     zero_acc(acc);
     gemm_nn<NT / 2, ND>(acc, dsa, ks, LDT);  // dq = scale * ds . k
@@ -645,6 +679,114 @@ win_attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = row_lo + 8 * (c >> 1), col = 8 * j + 2 * t + (c & 1);
       if (row < g.N && col < g.N) out[row * g.N + col] = db[j][c];
     }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores (the "mma" forward): the backward's grid, staging
+// and fragments with one product and the softmax fewer. One block of 4 warps per
+// (head, bias window, group of G windows that share the bias window), the head the
+// fastest grid index. Per window of the group:
+//   - q, k and v (64 rows of hd) are staged with 16-byte cp.async, the next window's
+//     while this one computes (two buffers of three tiles; PANEL gathers a window row
+//     as 8 consecutive tokens of the map, rows past N are zeros);
+//   - warp w owns queries 16w..16w+15: S = q.k^T on the tensor cores (hd padded with
+//     zero columns to a multiple of 16), then the softmax in the accumulators (base
+//     2, quad reductions) and normalised in fp32, as the TPU kernel does before its
+//     rounding: p = e / sum(e), then round(p) to bf16;
+//   - the rounded p fragments are the A operand of o = round(p).v (v read with
+//     ldmatrix.trans), so p never goes to shared memory; o leaves in 8-column tiles
+//     (hd = 24 is 3 tiles) straight to the window's token rows;
+//   - the bias tile (times log2 e; -inf for a padded key, 0 for a padded query row)
+//     is loaded once into the S-fragment registers and serves the whole group, so a
+//     window does not re-read it.
+// Takes what the mma backward takes (mma_fits). Every output row is written once, so
+// two launches give the same bits. Shared memory: 2 x 3 staged (64, HDP + 8) tiles,
+// 30,720 bytes at hd = 24 or 32 (HDP = 32), so several blocks share an SM.
+// ---------------------------------------------------------------------------
+
+template <int HD>
+constexpr size_t fwd_mma_smem() {
+  return (size_t)(6 * MmaTile<HD>::ELEMS) * sizeof(bf16);
+}
+
+template <int HD, int MODE>
+__global__ void __launch_bounds__(MMA_THREADS)
+win_attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ bias,
+                        bf16* __restrict__ o, Geom g, int G, Strides sq, Strides sk, Strides sv,
+                        Strides so) {
+  using D = MmaTile<HD>;
+  constexpr int KS = D::HDP / 16, ND = HD / 8, NT = MN / 8, LDT = D::LDT;
+  extern __shared__ __align__(128) unsigned char win_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(win_smem);  // 2 buffers x (q, k, v)
+
+  const int h = blockIdx.x, wb = blockIdx.y, grp = blockIdx.z;
+  const int count = g.nWb == 1 ? g.S * g.P : g.S;  // windows that share bias window wb
+  const int j0 = grp * G, j1 = min(count, j0 + G);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16, row_lo = r0 + (lane >> 2);
+  const float scale2 = g.scale * LOG2E;
+
+  zero_pad_columns<HD>(tiles, 6);
+  const WindowTiles<HD, MODE> win(&g, h, wb);
+  const bf16* const src[3] = {q, k, v};
+  const Strides st[3] = {sq, sk, sv};
+  float b2[NT][4];  // the bias in base 2, in the S-fragment layout
+  load_bias2(b2, bias + ((long long)wb * g.H + h) * g.N * g.N, g.N, row_lo);
+
+  win.stage(tiles, src, st, j0);
+  cp_async_commit();
+  for (int jw = j0; jw < j1; ++jw) {
+    const int buf = (jw - j0) & 1;
+    if (jw + 1 < j1)  // the next window into the other buffer
+      win.stage(tiles + (buf ^ 1) * 3 * D::ELEMS, src, st, jw + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this window has landed; the next may still be in flight
+    __syncthreads();
+    const bf16* qs = tiles + buf * 3 * D::ELEMS;
+    const bf16* ks = qs + D::ELEMS;
+    const bf16* vs = ks + D::ELEMS;
+
+    float sa[NT][4];
+    zero_acc(sa);
+    gemm_nt<KS, NT>(sa, qs + r0 * LDT, LDT, ks, LDT);
+
+    // softmax of rows row_lo (entries 0, 1) and row_lo + 8 (entries 2, 3), base 2
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] = fmaf(sa[j][c], scale2, b2[j][c]);
+        mx[c >> 1] = fmaxf(mx[c >> 1], sa[j][c]);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sa[j][c] = fast_exp2(sa[j][c] - mx[c >> 1]);
+        sum[c >> 1] += sa[j][c];
+      }
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+
+    // p = e / sum(e) in fp32, rounded to bf16 into the A fragments of o = p.v
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      pa[j / 2][(j % 2) * 2] = pack_bf16(sa[j][0] * inv[0], sa[j][1] * inv[0]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sa[j][2] * inv[1], sa[j][3] * inv[1]);
+    }
+    float acc[ND][4];
+    zero_acc(acc);
+    gemm_nn<NT / 2, ND>(acc, pa, vs, LDT);
+    int s, p;
+    win.window_of(jw, s, p);
+    store_acc<ND>(o + window_base<MODE>(g, so, s, p) + h * HD, WindowRows<MODE>{&g, so.rs}, acc,
+                  row_lo, g.N, 1.f);
+    __syncthreads();  // every warp is done with this buffer
+  }
 }
 
 // out[e] = sum over groups, in order, of partials[grp][e]; E = nWb * H * N * N
@@ -730,16 +872,51 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const fl
   return cudaGetLastError();
 }
 
-// the mma body's shapes: bf16 windows of PANEL's 64 tokens or of PARTITIONED's
-// N <= 64, hd % 8 == 0 and hd <= 64, every row 16-byte aligned (pointers, and
-// strides in elements, multiples of 8)
-bool mma_fits(int mode, const Geom& g, const void* const* ptrs, const long long* st) {
+template <int HD, int MODE>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, const float* bias, void* o,
+                           const Geom& g, int G, int nG, const long long* st,
+                           cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem<HD>();
+  auto kern = win_attn_fwd_mma_kernel<HD, MODE>;
+  const cudaError_t e = opt_in_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g.H, g.nWb, nG);  // the head fastest
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
+      static_cast<bf16*>(o), g, G, Strides{st[0], st[1]}, Strides{st[2], st[3]},
+      Strides{st[4], st[5]}, Strides{st[6], st[7]});
+  return cudaGetLastError();
+}
+
+// the mma bodies' shapes: bf16 windows of PANEL's 64 tokens or of PARTITIONED's
+// N <= 64, hd % 8 == 0 and hd <= 64, every row of the n tensors 16-byte aligned
+// (pointers, and strides in elements, multiples of 8)
+bool mma_fits(int mode, const Geom& g, const void* const* ptrs, const long long* st, int n) {
   if (mode == PANEL ? g.N != MN : g.N > MN) return false;
   if (g.hd % 8 || g.hd > 64) return false;
-  for (int i = 0; i < 7; ++i)
+  for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || st[2 * i] % 8 || st[2 * i + 1] % 8)
       return false;
   return true;
+}
+
+template <int MODE>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, const float* bias, void* o,
+                    const Geom& g, int G, int nG, const long long* st, cudaStream_t s) {
+#define OCT_FWD_MMA(HD) \
+  case HD: return launch_fwd_mma<HD, MODE>(q, k, v, bias, o, g, G, nG, st, s);
+  switch (g.hd) {
+    OCT_FWD_MMA(8)
+    OCT_FWD_MMA(16)
+    OCT_FWD_MMA(24)
+    OCT_FWD_MMA(32)
+    OCT_FWD_MMA(40)
+    OCT_FWD_MMA(48)
+    OCT_FWD_MMA(56)
+    OCT_FWD_MMA(64)
+    default: return cudaErrorInvalidValue;
+  }
+#undef OCT_FWD_MMA
 }
 
 template <int MODE>
@@ -810,21 +987,40 @@ bool make_geom(const long long* gv, float scale, Geom* g, int* mode) {
   return true;
 }
 
+// the group split is a valid one: G windows a group, nG groups a bias window, every
+// window that shares one in exactly one group and no group empty
+bool groups_fit(const Geom& g, int G, int nG) {
+  if (G < 1 || nG < 1 || nG > 65535 || g.nWb > 65535) return false;
+  const long long count = g.nWb == 1 ? (long long)g.S * g.P : g.S;
+  return (long long)G * nG >= count && (long long)G * (nG - 1) < count;
+}
+
 }  // namespace
 
 // q, k, v (read) and o (written): rows of hd*H dense columns; strides (elements)
 // [batch, row] of q, k, v, o (8 values): a batch is a window (PARTITIONED) or a
 // sample (PANEL). bias: (nWb, H, N, N) fp32, dense. dtype: 0 = float32, 1 = bfloat16.
+// body: 0 = the CUDA-core kernel (any shape, fp32 or bf16; G and nG unused), 1 = the
+// tensor-core kernel (bf16 only, the shapes of mma_fits; anything else is refused),
+// over groups of G windows, nG groups a bias window, as the backward's.
 extern "C" int oct_window_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* bias, void* o, const long long* geom,
-                                        const long long* strides, float scale, int dtype,
-                                        void* stream) {
+                                        const long long* strides, int G, int nG, float scale,
+                                        int dtype, int body, void* stream) {
   Geom g;
   int mode;
   if (!make_geom(geom, scale, &g, &mode)) return cudaErrorInvalidValue;
   const int np = padded(g.N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  if (body == 1) {
+    const void* ptrs[4] = {q, k, v, o};
+    if (dtype != 1 || !groups_fit(g, G, nG) || !mma_fits(mode, g, ptrs, strides, 4))
+      return cudaErrorInvalidValue;
+    return mode == PANEL ? fwd_mma<PANEL>(q, k, v, b, o, g, G, nG, strides, s)
+                         : fwd_mma<PARTITIONED>(q, k, v, b, o, g, G, nG, strides, s);
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return mode == PANEL ? fwd_np<float, PANEL>(np, q, k, v, b, o, g, strides, s)
                          : fwd_np<float, PARTITIONED>(np, q, k, v, b, o, g, strides, s);
@@ -848,10 +1044,7 @@ extern "C" int oct_window_attention_bwd(const void* q, const void* k, const void
                                         void* stream) {
   Geom g;
   int mode;
-  if (!make_geom(geom, scale, &g, &mode) || G < 1 || nG < 1) return cudaErrorInvalidValue;
-  const long long count = g.nWb == 1 ? (long long)g.S * g.P : g.S;
-  if ((long long)G * nG < count || (long long)G * (nG - 1) >= count) return cudaErrorInvalidValue;
-  if (nG > 65535 || g.nWb > 65535) return cudaErrorInvalidValue;
+  if (!make_geom(geom, scale, &g, &mode) || !groups_fit(g, G, nG)) return cudaErrorInvalidValue;
   const int np = padded(g.N);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
@@ -859,7 +1052,7 @@ extern "C" int oct_window_attention_bwd(const void* q, const void* k, const void
   float* db = static_cast<float*>(dbias);
   if (body == 1) {
     const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
-    if (dtype != 1 || !mma_fits(mode, g, ptrs, strides)) return cudaErrorInvalidValue;
+    if (dtype != 1 || !mma_fits(mode, g, ptrs, strides, 7)) return cudaErrorInvalidValue;
     return mode == PANEL
                ? bwd_mma<PANEL>(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s)
                : bwd_mma<PARTITIONED>(q, k, v, b, dout, dq, dk, dv, pp, db, g, G, nG, strides, s);

@@ -16,9 +16,10 @@ checks holds for every such shape. ``panel_attention`` is differentiable in q, k
 v and the bias; for CPU tensors, and only for them, it computes the plain versions
 ``panel_attention_reference`` and ``panel_attention_bwd_reference`` (partition,
 the plain window attention, reverse). ``LAUNCHES`` counts the kernel launches and
-``BWD_BODIES`` the backward's by body: bf16 at head widths that are multiples of 8
-up to 64 (HTSAT's 24 at every stage) takes the tensor-core body, every other shape
-and fp32 the CUDA-core one (``window_attention.bwd_body``).
+``FWD_BODIES`` and ``BWD_BODIES`` the forward's and the backward's by body: bf16 at
+head widths that are multiples of 8 up to 64 (HTSAT's 24 at every stage) takes the
+tensor-core bodies, every other shape and fp32 the CUDA-core ones
+(``window_attention.fwd_body``, ``bwd_body``).
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ import torch
 
 from . import window_attention as wa
 
-# launches of each kernel since the last reset, and of the backward by body;
-# chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of each by body; chip_smoke.py
+# sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+FWD_BODIES = {"mma": 0, "simt": 0}
 BWD_BODIES = {"mma": 0, "simt": 0}
 
 
@@ -100,7 +102,8 @@ def panel_attention_fwd(q, k, v, bias, *, hw: Tuple[int, int], ws: int,
     if q.device.type == "cpu":
         return panel_attention_reference(q, k, v, bias, hw=hw, ws=ws, scale=scale)
     _check_cuda_call(q, bias, hw, ws)
-    return wa.launch_fwd(wa.PANEL, q, k, v, bias, _geom(q, bias, hw, ws), scale, LAUNCHES)
+    return wa.launch_fwd(wa.PANEL, q, k, v, bias, _geom(q, bias, hw, ws), scale, LAUNCHES,
+                         FWD_BODIES)
 
 
 def panel_attention_bwd(q, k, v, bias, do, *, hw: Tuple[int, int], ws: int,

@@ -21,13 +21,14 @@ them, they compute ``window_attention_reference`` and
 ``window_attention_bwd_reference``. ``LAUNCHES`` counts the launches of each. The
 panel form (``ops/swin_attention.py``) launches the same source in PANEL mode.
 
-The backward has two bodies, chosen by ``bwd_body`` from the mode, the window length,
-the head width and the dtype alone: "mma" (bf16 on the tensor cores; hd % 8 == 0,
-hd <= 64, PANEL windows or PARTITIONED windows of N <= 64 tokens, padded to 64 in
-the kernel: Swin's 49-token windows) and "simt" (fp32 CUDA cores; every other shape
-and dtype). Inputs the chosen body cannot read (rows not 16-byte aligned for "mma")
-raise; they are never sent to the other body. ``BWD_BODIES`` counts the backward's
-launches by body, here and in the panel form.
+The forward and the backward have two bodies each, chosen by ``fwd_body`` and
+``bwd_body`` (one rule) from the mode, the window length, the head width and the
+dtype alone: "mma" (bf16 on the tensor cores; hd % 8 == 0, hd <= 64, PANEL windows or
+PARTITIONED windows of N <= 64 tokens, padded to 64 in the kernel: Swin's 49-token
+windows) and "simt" (CUDA cores; fp32 and every other shape). Inputs the chosen body
+cannot read (rows not 16-byte aligned for "mma") raise; they are never sent to the
+other body. ``FWD_BODIES`` and ``BWD_BODIES`` count the launches by body, here and in
+the panel form.
 """
 
 from __future__ import annotations
@@ -51,14 +52,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 0.081 / 0.054 / 0.043 at 1056; chip_smoke.py's window_bwd_groups line)
 _BWD_TARGET_BLOCKS = 1056
 _BWD_TARGET_BLOCKS_MMA = 264
+# the tensor-core forward walks its groups in the same way; it folds no partials, so
+# a group only shares the bias tile's load among its windows. 264 blocks, about two an
+# SM, in both modes: Swin-B's four stages at batch 32, H100, 0.053 / 0.031 / 0.018 /
+# 0.012 ms against 0.059 / 0.035 / 0.019 / 0.016 at 1056; HTSAT's shifted stage 0 at
+# batch 128 runs faster at 132 (0.210 against 0.315 ms: 256 blocks, not 512) but its
+# stages 2 and 3 slower (0.080 / 0.053 against 0.068 / 0.038); chip_smoke.py's
+# window_fwd_groups line
+_FWD_TARGET_BLOCKS = 264
 
-# the widest head and the longest window of the tensor-core backward
+# the widest head and the longest window of the tensor-core bodies
 MMA_MAX_HD = 64
 MMA_MAX_N = 64
 
-# launches of each kernel since the last reset, and of the backward by body;
-# chip_smoke.py sets and reads them
+# launches of each kernel since the last reset, and of each by body; chip_smoke.py
+# sets and reads them
 LAUNCHES = {"fwd": 0, "bwd": 0}
+FWD_BODIES = {"mma": 0, "simt": 0}
 BWD_BODIES = {"mma": 0, "simt": 0}
 
 _fns = {}
@@ -70,15 +80,20 @@ def supports(n: int, heads: int, c: int) -> bool:
     return 1 <= n <= MAX_N and 1 <= c <= MAX_C and heads >= 1 and c % heads == 0
 
 
-def bwd_body(mode: int, n: int, hd: int, dtype: torch.dtype) -> str:
-    """Which backward body serves a shape the kernels take, for windows of ``n``
-    tokens: "mma" (tensor cores) for bf16 with hd % 8 == 0 and hd <= 64, PANEL
-    windows or PARTITIONED ones of n <= 64; "simt" (CUDA cores) for every other:
-    fp32, longer windows, and head widths such as 12 or 72."""
+def fwd_body(mode: int, n: int, hd: int, dtype: torch.dtype) -> str:
+    """Which body serves a shape the kernels take, forward and backward alike, for
+    windows of ``n`` tokens: "mma" (tensor cores) for bf16 with hd % 8 == 0 and
+    hd <= 64, PANEL windows or PARTITIONED ones of n <= 64; "simt" (CUDA cores) for
+    every other: fp32, longer windows, and head widths such as 12 or 72."""
     fits = mode == PANEL or n <= MMA_MAX_N
     if dtype == torch.bfloat16 and fits and hd % 8 == 0 and hd <= MMA_MAX_HD:
         return "mma"
     return "simt"
+
+
+# the backward's rule is the forward's; two names, so that either can be sent to the
+# CUDA-core body alone (chip_smoke.py's before-and-after windows rebind one of them)
+bwd_body = fwd_body
 
 
 def _scale(c: int, heads: int, scale: Optional[float]) -> float:
@@ -140,7 +155,8 @@ def _kernel(which: str):
         lib = load("window_attention")
         if which == "fwd":
             fn = lib.oct_window_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         else:
             fn = lib.oct_window_attention_bwd
             fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -164,16 +180,22 @@ def _check_rows(x: torch.Tensor, name: str, like: torch.Tensor, aligned: bool = 
         raise ValueError(f"window attention: {name} needs dense columns; strides {x.stride()}")
     vec = 16 // x.element_size()
     if aligned and (x.data_ptr() % 16 or x.stride(0) % vec or x.stride(1) % vec):
-        raise ValueError(f"window attention: the tensor-core backward needs 16-byte aligned rows "
+        raise ValueError(f"window attention: the tensor-core kernels need 16-byte aligned rows "
                          f"of {name}; got strides {x.stride()}")
 
 
-def check_bwd_inputs(q, k, v, do, body: str) -> None:
-    """Raise unless q, k, v and do are what ``body``'s kernel reads: q's shape, dtype
-    and device, dense columns, and for "mma" every row 16-byte aligned. An input
-    that does not fit raises; it is never sent to the other body."""
-    for x, name in ((k, "k"), (v, "v"), (do, "do"), (q, "q")):
+def check_fwd_inputs(q, k, v, body: str) -> None:
+    """Raise unless q, k and v are what ``body``'s forward reads: q's shape, dtype and
+    device, dense columns, and for "mma" every row 16-byte aligned. An input that
+    does not fit raises; it is never sent to the other body."""
+    for x, name in ((k, "k"), (v, "v"), (q, "q")):
         _check_rows(x, name, q, aligned=body == "mma")
+
+
+def check_bwd_inputs(q, k, v, do, body: str) -> None:
+    """``check_fwd_inputs``, and do as well."""
+    check_fwd_inputs(q, k, v, body)
+    _check_rows(do, "do", q, aligned=body == "mma")
 
 
 def check_cuda_call(q: torch.Tensor, bias: torch.Tensor, n: int, heads: int) -> None:
@@ -190,23 +212,32 @@ def check_cuda_call(q: torch.Tensor, bias: torch.Tensor, n: int, heads: int) -> 
         raise ValueError(f"window attention: bias on {bias.device}, q on {q.device}")
 
 
-def launch_fwd(mode: int, q, k, v, bias, geom, scale: float, launches) -> torch.Tensor:
-    """The forward kernel; ``geom`` = [S, P, N, H, hd, nWb, ws, W, nWx]. Returns a new
-    tensor shaped as q and counts the launch in ``launches``."""
-    for x, name in ((k, "k"), (v, "v"), (q, "q")):
-        _check_rows(x, name, q)
+def launch_fwd(mode: int, q, k, v, bias, geom, scale: float, launches, bodies) -> torch.Tensor:
+    """The forward kernel of the body ``fwd_body`` picks; ``geom`` = [S, P, N, H, hd,
+    nWb, ws, W, nWx]. Returns a new tensor shaped as q and counts the launch in
+    ``launches`` and ``bodies``."""
+    body = fwd_body(mode, geom[2], geom[4], q.dtype)
+    check_fwd_inputs(q, k, v, body)
     bias = bias.float().contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    size, groups = bwd_groups(geom, fwd_target())
     fn = _kernel("fwd")
     strides = [x.stride(d) for x in (q, k, v, out) for d in (0, 1)]
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 _longs([mode, *geom]), _longs(strides), float(scale), _DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+                 _longs([mode, *geom]), _longs(strides), size, groups, float(scale),
+                 _DTYPE_CODES[q.dtype], int(body == "mma"), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"window attention forward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"window attention forward kernel ({body}) launch failed: "
+                           f"cudaError {err}")
     launches["fwd"] += 1
+    bodies[body] += 1
     return out
+
+
+def fwd_target() -> int:
+    """The blocks the tensor-core forward's group split aims at."""
+    return _FWD_TARGET_BLOCKS
 
 
 def bwd_target(mode: int, body: str) -> int:
@@ -215,8 +246,9 @@ def bwd_target(mode: int, body: str) -> int:
 
 
 def bwd_groups(geom, target: Optional[int] = None) -> tuple:
-    """(G, nG): windows per group and groups per bias window of the backward, for
-    ``target`` blocks (the CUDA-core body's by default)."""
+    """(G, nG): windows per group and groups per bias window of the backward (and of
+    the tensor-core forward), for ``target`` blocks (the CUDA-core backward's by
+    default)."""
     s, p, _, heads, _, nwb = geom[:6]
     count = s * p if nwb == 1 else s
     target = _BWD_TARGET_BLOCKS if target is None else target
@@ -268,7 +300,7 @@ def window_attention_fwd(q, k, v, bias, *, scale: Optional[float] = None) -> tor
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, scale=scale)
     check_cuda_call(q, bias, n, heads)
-    return launch_fwd(PARTITIONED, q, k, v, bias, _geom(q, bias), scale, LAUNCHES)
+    return launch_fwd(PARTITIONED, q, k, v, bias, _geom(q, bias), scale, LAUNCHES, FWD_BODIES)
 
 
 def window_attention_bwd(q, k, v, bias, do, *, scale: Optional[float] = None):

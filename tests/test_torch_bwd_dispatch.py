@@ -1,10 +1,11 @@
 """Which body the port's attention kernels take, and what each refuses.
 
-The short-attention forward and backward and the window/panel-attention backward
-have two bodies each on the card: "mma", a bf16 kernel on the tensor cores, and
-"simt", the CUDA-core kernel that also serves fp32. The choice is a pure function of
-the mode, the dtype and the shape (``short_attention.fwd_body`` and ``bwd_body``,
-``window_attention.bwd_body``); alignment does not move it: inputs whose rows the
+The short-attention forward and backward and the window/panel-attention forward
+and backward have two bodies each on the card: "mma", a bf16 kernel on the tensor
+cores, and "simt", the CUDA-core kernel that also serves fp32. The choice is a pure
+function of the mode, the dtype and the shape (``short_attention.fwd_body`` and
+``bwd_body``, ``window_attention.fwd_body`` and ``bwd_body``); alignment does not move
+it: inputs whose rows the
 chosen body cannot read raise. These tests pin both rules on the CPU, where the rules
 and the input checks run without a card; the bodies themselves are held to their
 plain versions on the card (``test_torch_kernels_gpu.py``).
@@ -203,3 +204,62 @@ def test_window_misaligned_inputs_raise_for_the_mma_body(what):
     assert wa.bwd_body(wa.PARTITIONED, 49, 32, BF16) == "mma"
     with pytest.raises(ValueError, match="aligned"):
         wa.check_bwd_inputs(q, k, v, do, "mma")
+
+
+# the window/panel forward: one rule with the backward's
+
+
+@pytest.mark.parametrize("dtype", [BF16, FP32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("hd", [8, 24, 32, 64, 72])
+@pytest.mark.parametrize("n", [49, 64, 65, 128])
+@pytest.mark.parametrize("mode", [wa.PARTITIONED, wa.PANEL], ids=["partitioned", "panel"])
+def test_window_forward_body(mode, n, hd, dtype):
+    """bf16 at hd 8, 24, 32 and 64 takes the tensor cores in PANEL mode (64-token
+    windows whatever n says) and for PARTITIONED windows of 49 or 64 tokens; fp32,
+    hd 72 and PARTITIONED windows of 65 or 128 tokens take the CUDA cores."""
+    fits = dtype == BF16 and hd in (8, 24, 32, 64) and (mode == wa.PANEL or n in (49, 64))
+    assert wa.fwd_body(mode, n, hd, dtype) == ("mma" if fits else "simt")
+    assert wa.fwd_body(mode, n, hd, dtype) == wa.bwd_body(mode, n, hd, dtype)
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_every_swin_b_stage_takes_the_tensor_core_forward(stage):
+    """Swin-B's 7x7 windows at width 128 * 2**i and 4 * 2**i heads (hd 32): "mma" in
+    bf16, "simt" in fp32."""
+    c, heads = 128 * 2 ** stage, 4 * 2 ** stage
+    assert wa.fwd_body(wa.PARTITIONED, 49, c // heads, BF16) == "mma"
+    assert wa.fwd_body(wa.PARTITIONED, 49, c // heads, FP32) == "simt"
+
+
+@pytest.mark.parametrize("stage", range(4))
+def test_every_htsat_stage_takes_the_tensor_core_forward(stage):
+    """HTSAT-tiny's 8x8 panels at width 96 * 2**i and 4 * 2**i heads (hd 24)."""
+    c, heads = 96 * 2 ** stage, 4 * 2 ** stage
+    assert wa.fwd_body(wa.PANEL, 64, c // heads, BF16) == "mma"
+    assert wa.fwd_body(wa.PANEL, 64, c // heads, FP32) == "simt"
+
+
+@pytest.mark.parametrize("tokens,widths", [(49, (128, 256, 512, 1024)),   # Swin-B's windows
+                                           (64, (96, 192, 384, 768, 48))])  # HTSAT's panels
+def test_fused_views_fit_the_mma_forward(tokens, widths):
+    """q, k, v as the towers hand them over, views of the fused (.., 3C) projection
+    of every stage: every row 16-byte aligned."""
+    for c in widths:
+        wa.check_fwd_inputs(*_panel_views(2, tokens, c, BF16), "mma")
+
+
+@pytest.mark.parametrize("tokens,c,hd", [(49, 128, 32), (64, 96, 24)], ids=["window", "panel"])
+@pytest.mark.parametrize("what", ["row_stride", "pointer"])
+def test_misaligned_inputs_raise_for_the_mma_forward(what, tokens, c, hd):
+    """Rows 8 bytes past a 16-byte boundary: the shape takes the tensor-core forward,
+    which cannot read them, so the check raises; the call is not sent to the
+    CUDA-core forward, which could."""
+    if what == "row_stride":
+        q, k, v = _panel_views(2, tokens, c, BF16, pad=4)
+    else:
+        q, k, v = _panel_views(2, tokens, c, BF16, offset=4)
+    mode = wa.PARTITIONED if tokens == 49 else wa.PANEL
+    assert wa.fwd_body(mode, tokens, hd, BF16) == "mma"
+    with pytest.raises(ValueError, match="aligned"):
+        wa.check_fwd_inputs(q, k, v, "mma")
+    wa.check_fwd_inputs(q, k, v, "simt")

@@ -15,12 +15,13 @@ probability that rounds the other way moves a term by 2**-8). The flash kernels
 sum over up to 1024 keys tile by tile, with a running max: the same tolerances hold.
 The SwitchBack int8 matmul is held to its plain version exactly (integer sums,
 then the same fp32 roundings). The short attention forward and backward and the
-panel attention backward have two bodies each ("mma" on the tensor cores for bf16,
-"simt" on CUDA cores); each test of them also checks which body its shape took
-(``fwd_body``, ``bwd_body``), under the same tolerances: the two bodies round at the
-same points, but for the bf16 forward, whose mma body rounds the unnormalised
-exponentials (as the TPU kernel does) where the plain version rounds the
-probabilities: both within 2e-2.
+window/panel attention forward and backward have two bodies each ("mma" on the tensor
+cores for bf16, "simt" on CUDA cores); each test of them also checks which body its
+shape took (``fwd_body``, ``bwd_body``), under the same tolerances: the two bodies
+round at the same points, but for the bf16 short forward, whose mma body rounds the
+unnormalised exponentials (as the TPU kernel does) where the plain version rounds
+the probabilities: both within 2e-2. The window/panel forward normalises before it
+rounds, in both bodies, as its TPU kernels do.
 """
 
 import numpy as np
@@ -665,12 +666,13 @@ def test_window_kernels_match_plain(cuda, b, n, c, heads, nw, dtype):
     from open_clip_tpu_torch.ops import window_attention as wa
 
     q, k, v, bias, do = _window_inputs(b + n + c, (b, n), c, nw, heads, n, dtype, cuda)
-    before, bodies = dict(wa.LAUNCHES), dict(wa.BWD_BODIES)
+    before, bodies, fwd_bodies = dict(wa.LAUNCHES), dict(wa.BWD_BODIES), dict(wa.FWD_BODIES)
     out = wa.window_attention_fwd(q, k, v, bias)
     grads = wa.window_attention_bwd(q, k, v, bias, do)
     assert wa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     body = wa.bwd_body(wa.PARTITIONED, n, c // heads, dtype)  # bf16 N <= 64, hd <= 64: "mma"
     assert wa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
+    assert wa.FWD_BODIES == dict(fwd_bodies, **{body: fwd_bodies[body] + 1})  # the same rule
     _check_window_pair(out, wa.window_attention_reference(q, k, v, bias), grads,
                        wa.window_attention_bwd_reference(q, k, v, bias, do), dtype)
 
@@ -699,14 +701,108 @@ def test_panel_kernels_match_plain(cuda, b, h, w, c, heads, nw, dtype):
 
     q, k, v, bias, do = _window_inputs(b + h + w + c, (b, h * w), c, nw, heads, 64, dtype, cuda)
     kw = dict(hw=(h, w), ws=8)
-    before, bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES)
+    before, bodies, fwd_bodies = dict(swa.LAUNCHES), dict(swa.BWD_BODIES), dict(swa.FWD_BODIES)
     out = swa.panel_attention_fwd(q, k, v, bias, **kw)
     grads = swa.panel_attention_bwd(q, k, v, bias, do, **kw)
     assert swa.LAUNCHES == {"fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     body = wa.bwd_body(wa.PANEL, 64, c // heads, dtype)  # bf16: "mma" up to hd 64, then "simt"
     assert swa.BWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
+    assert swa.FWD_BODIES == dict(fwd_bodies, **{body: fwd_bodies[body] + 1})  # the same rule
     _check_window_pair(out, swa.panel_attention_reference(q, k, v, bias, **kw), grads,
                        swa.panel_attention_bwd_reference(q, k, v, bias, do, **kw), dtype)
+
+
+# the tensor-core forward: (name, B (samples, or windows when the map is None), map or
+# N, C, heads, nW); Swin-B's four stages at the train batch, HTSAT-tiny's four at batch 8
+MMA_FWD_CASES = [
+    ("swin_s0", 32 * 64, None, 49, 128, 4, 64),
+    ("swin_s1", 32 * 16, None, 49, 256, 8, 16),
+    ("swin_s2", 32 * 4, None, 49, 512, 16, 4),
+    ("swin_s3", 32, None, 49, 1024, 32, 1),
+    ("odd_heads", 96, None, 49, 72, 3, 1),
+    ("htsat_s0_shift", 8, (64, 64), 64, 96, 4, 64),
+    ("htsat_s1_shift", 8, (32, 32), 64, 192, 8, 16),
+    ("htsat_s2_shift", 8, (16, 16), 64, 384, 16, 4),
+    ("htsat_s3", 8, (8, 8), 64, 768, 32, 1),
+    ("nonsquare_odd_heads", 8, (16, 40), 64, 48, 3, 10),
+]
+
+
+def _forward(seed, b, hw, n, c, heads, nw, dtype, device):
+    """(the forward call, its plain version, the module that counts it)."""
+    from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    lead = (b, n) if hw is None else (b, hw[0] * hw[1])
+    q, k, v, bias, _ = _window_inputs(seed, lead, c, nw, heads, n, dtype, device)
+    if hw is None:
+        return (lambda: wa.window_attention_fwd(q, k, v, bias),
+                lambda: wa.window_attention_reference(q, k, v, bias), wa)
+    return (lambda: swa.panel_attention_fwd(q, k, v, bias, hw=hw, ws=8),
+            lambda: swa.panel_attention_reference(q, k, v, bias, hw=hw, ws=8), swa)
+
+
+@pytest.mark.parametrize("name,b,hw,n,c,heads,nw", MMA_FWD_CASES, ids=[x[0] for x in MMA_FWD_CASES])
+def test_window_mma_forward_matches_plain(cuda, name, b, hw, n, c, heads, nw):
+    """The tensor-core forward (49-token windows padded to 64, HTSAT's panels read from
+    the token map) against its plain version, one launch on the "mma" body."""
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    mode = wa.PARTITIONED if hw is None else wa.PANEL
+    assert wa.fwd_body(mode, n, c // heads, torch.bfloat16) == "mma"
+    fwd, ref, mod = _forward(b + n + c, b, hw, n, c, heads, nw, torch.bfloat16, cuda)
+    bodies = dict(mod.FWD_BODIES)
+    out = fwd()
+    torch.cuda.synchronize()
+    assert mod.FWD_BODIES == dict(bodies, mma=bodies["mma"] + 1)
+    want = ref()
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("name", ["swin_s0", "htsat_s0_shift"])
+def test_window_mma_forward_is_deterministic(cuda, name):
+    """Every output row is written once: two launches give the same bits."""
+    case = next(x for x in MMA_FWD_CASES if x[0] == name)
+    fwd, _, mod = _forward(5, *case[1:], torch.bfloat16, cuda)
+    bodies = dict(mod.FWD_BODIES)
+    first, second = fwd(), fwd()
+    assert mod.FWD_BODIES["mma"] == bodies["mma"] + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", ["swin_s0", "htsat_s0_shift"])
+def test_window_fp32_forward_stays_on_the_cuda_cores(cuda, name):
+    case = next(x for x in MMA_FWD_CASES if x[0] == name)
+    fwd, ref, mod = _forward(6, *case[1:], torch.float32, cuda)
+    bodies = dict(mod.FWD_BODIES)
+    out = fwd()
+    torch.cuda.synchronize()
+    assert mod.FWD_BODIES == dict(bodies, simt=bodies["simt"] + 1)
+    assert (out - ref()).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("mode", ["window", "panel"])
+def test_window_mma_forward_raises_on_misaligned_rows(cuda, mode):
+    """Rows 8 bytes past a 16-byte boundary: the shape takes the tensor-core forward,
+    which cannot read them, so the call raises and nothing is launched (it is not sent
+    to the CUDA-core forward)."""
+    from open_clip_tpu_torch.ops import swin_attention as swa
+    from open_clip_tpu_torch.ops import window_attention as wa
+
+    tokens, c, heads = (49, 128, 4) if mode == "window" else (64, 96, 4)
+    x = torch.zeros(8, tokens, 3 * c + 4, device=cuda, dtype=torch.bfloat16)
+    q, k, v = x[..., :3 * c].unflatten(-1, (3, c)).unbind(-2)
+    bias = torch.zeros(1, heads, tokens, tokens, device=cuda)
+    mod = wa if mode == "window" else swa
+    before = (dict(mod.LAUNCHES), dict(mod.FWD_BODIES))
+    with pytest.raises(ValueError, match="aligned"):
+        if mode == "window":
+            wa.window_attention_fwd(q, k, v, bias)
+        else:
+            swa.panel_attention_fwd(q, k, v, bias, hw=(8, 8), ws=8)
+    assert (mod.LAUNCHES, mod.FWD_BODIES) == before
 
 
 @pytest.mark.parametrize("route", ["panel_mma", "panel_simt", "short_mma", "short_simt",

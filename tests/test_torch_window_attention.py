@@ -168,6 +168,53 @@ def test_swin_b_groups_at_the_tensor_core_target(stage):
     assert groups * nw * heads >= min(count * nw * heads, 264) // 2
 
 
+# Swin-B at the serve (64) and train (32) batches, HTSAT-tiny at its serve (64) and
+# train (128) batches: [S, P, N, H, hd, nWb, ws, W, nWx], every stage, shifted
+# (a bias window per window position) and not (one shared)
+FWD_GEOMS = [[b, nw, 49, 4 * 2 ** i, 32, nwb, 0, 0, 1]
+             for b in (64, 32) for i, nw in enumerate((64, 16, 4, 1)) for nwb in {nw, 1}]
+FWD_GEOMS += [[b, (8 // 2 ** i) ** 2, 64, 4 * 2 ** i, 24, nwb, 8, 64 // 2 ** i, 8 // 2 ** i]
+              for b in (64, 128) for i in range(4) for nwb in {(8 // 2 ** i) ** 2, 1}]
+
+
+@pytest.mark.parametrize("geom", FWD_GEOMS, ids=lambda g: "_".join(map(str, g[:6])))
+def test_forward_groups_cover_every_window_once(geom):
+    """The tensor-core forward's split at ``fwd_target``: every window that shares a
+    bias window in exactly one group, no group empty, and at least half the target's
+    blocks where there are that many (window, head) pairs."""
+    size, groups = wa.bwd_groups(geom, wa.fwd_target())
+    s, p, _, heads, _, nwb = geom[:6]
+    count = s * p if nwb == 1 else s
+    covered = sorted(j for g in range(groups) for j in range(g * size, min(count, (g + 1) * size)))
+    assert covered == list(range(count))
+    assert size * (groups - 1) < count
+    assert 2 * groups * nwb * heads >= min(count * nwb * heads, wa.fwd_target())
+
+
+@pytest.mark.parametrize("nw,heads", [(4, 2), (1, 3)])
+def test_padding_49_token_windows_to_64_is_exact_for_the_forward(nw, heads):
+    """The tensor-core forward pads Swin's 49-token windows to the 64-token tile: rows
+    past 49 of q, k and v are zeros, the padded keys get bias -inf and the padded
+    queries bias 0. The plain forward on the padded windows, cut back to the first 49
+    rows, equals the plain forward on the windows as they are bit for bit, in fp32 and
+    with bf16 inputs (p rounded to bf16 before the product); the padded rows stay
+    finite."""
+    n, pad, hd = 49, 64, 8
+    q, k, v, bias, _ = _inputs(13 + nw, (2 * nw, n, heads * hd), nw, heads, n)
+
+    def rows(x):
+        return np.concatenate([x, np.zeros((x.shape[0], pad - n, x.shape[2]), np.float32)], 1)
+
+    big = np.zeros((nw, heads, pad, pad), np.float32)
+    big[:, :, :n, :n] = bias
+    big[:, :, :, n:] = -np.inf
+    for dtype in (torch.float32, torch.bfloat16):
+        want = wa.window_attention_reference(*(T(x).to(dtype) for x in (q, k, v)), T(bias))
+        got = wa.window_attention_reference(*(T(rows(x)).to(dtype) for x in (q, k, v)), T(big))
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got[:, :n], want)
+
+
 @pytest.mark.parametrize("what", ["meta", "half_on_cpu"])
 def test_wrappers_take_the_plain_path_only_on_the_cpu(what):
     """A tensor on another device than the CPU gets the kernel or an error, never the
