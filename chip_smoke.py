@@ -87,13 +87,22 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      forward's and backward's ms a step), the same steps with the window backward,
      then the forward, sent to its CUDA-core body for a before and after within the
      run, and a step with remat;
- 17. (with phase 1) the SwitchBack int8 matmul-dequant against its plain version bit
-     for bit, fp32 and bf16 out, at the MLP shapes of ViT-H-14 (batch 32) and
-     ViT-B-32 (batch 256) and at ragged shapes; kernel, plain, torch._int_mm plus the
-     dequant, and bf16 F.linear time, and the bound;
+ 17. (with phase 1) the SwitchBack kernels against their plain versions bit for bit:
+     the int8 matmul-dequant, fp32 and bf16 out, at the MLP shapes of ViT-H-14 (batch
+     32) and ViT-B-32 (batch 256), on the body matmul_body picks (wgmma; launched
+     twice, the same bits) and on the mma body, and at
+     ragged shapes (mma where K % 16 != 0); the row-wise quantization of each shape's
+     bf16 activations (with rows at .5 ties and a zero row) and fp32 weight, against
+     the plain version on the CPU; kernel, mma body, plain,
+     torch._int_mm plus the dequant, bare torch._int_mm and bf16 F.linear time, and
+     the bounds;
  18. ViT-H-14 training with the switch on: amp_bf16, AdamW, clip 1.0, remat with the
-     names_mm preset, batch 32, timed and profiled like phase 4; the loss falls;
-     then the same step with the switch off, and with it on under full remat;
+     names_mm preset, batch 32, timed and profiled like phase 4 (168 wgmma product and
+     336 quantization launches a step); the loss falls; then the same step with the
+     mma product and the plain quantization patched in (the earlier bodies,
+     profiled: the switchback and quantization ms and the launches a step, beside the
+     kernels'), the kernels' step again (host ms in the order new, old, new), with the
+     switch off (profiled), and with it on under full remat;
  19. ViT-B-32 at batch 256 with the switch on: library steps, then the CLI with
      --use-switchback --grad-checkpointing --remat-policy names_mm;
  20. ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), card
@@ -104,9 +113,9 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      tower's 257 tokens on the two-pass forward and the two-kernel backward); then 2
      steps under names_mm from the same initial weights, with the same first loss.
 
-Every kernel record names its body: "wgmma" (bf16 on the tensor cores, warpgroup
-products fed by TMA: the flash kernels), "mma" (bf16 on the tensor cores, mma.sync)
-or "simt" (CUDA cores); the train lines give the launches by body and the kernel ms
+Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
+products fed by TMA: the flash kernels in bf16, the SwitchBack product in int8), "mma"
+(on the tensor cores, mma.sync) or "simt" (CUDA cores); the train lines give the launches by body and the kernel ms
 of a step beside the step time.
 
 Prints the card's name and power limit (nvidia-smi), and when every check passed
@@ -169,7 +178,8 @@ SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120
              "h14_text_fc": (2464, 1024, 4096), "h14_text_proj": (2464, 4096, 1024),
              "b32_vision_fc": (12800, 768, 3072), "b32_vision_proj": (12800, 3072, 768),
              "b32_text_fc": (19712, 512, 2048), "b32_text_proj": (19712, 2048, 512)}
-SB_RAGGED = [(5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (257, 80, 250), (1, 1, 1)]
+SB_RAGGED = [(5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (257, 80, 250), (1, 1, 1),
+             (130, 144, 129)]
 # card against CPU with the int8 forward: a value at a rounding tie of its
 # quantization may land one level apart where the fp32 sums before it ran in
 # another order, which moves that output by one quantum (~1e-2 of the row's
@@ -177,6 +187,7 @@ SB_RAGGED = [(5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (257, 80, 250
 SB_COSINE_MIN, SB_LOSS_RTOL = 0.999, 1e-3
 KERNEL_CLASSES = {  # first match wins
     "switchback": ("int8_matmul_dequant",),
+    "switchback_quantize": ("quantize_rowwise",),
     "window_attention_bwd": ("win_attn_bwd", "dbias_fold"),
     "window_attention": ("win_attn_fwd",),
     "flash_attention_bwd_dq": ("flash_attn_bwd_dq",),
@@ -645,7 +656,8 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
         return (getattr(evt, "self_cuda_time_total", 0.0) if us is None else us) / 1e3
 
     kernels = [(e.key, device_ms(e), e.count) for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU and device_ms(e) > 0]
+               if e.device_type != DeviceType.CPU and device_ms(e) > 0
+               and not getattr(e, "is_user_annotation", False)]  # a range's span is no kernel
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_class, launches = {}, {}
     for name, ms, count in kernels:
@@ -660,7 +672,8 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         f"class_ms_per_{unit}": {c: ms / n for c, ms in sorted(by_class.items(), key=lambda x: -x[1])},
         "ms_per_launch": {c: by_class[c] / launches[c] for c in
-                          ("switchback", "short_attention", "short_attention_bwd", "layer_norm_bwd",
+                          ("switchback", "switchback_quantize", "short_attention",
+                           "short_attention_bwd", "layer_norm_bwd",
                            "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                            "window_attention", "window_attention_bwd")
                           if c in by_class},
@@ -1331,8 +1344,9 @@ def phase_window_kernels(torch, wa, swa):
              ("odd_heads", "window", 96, 49, 72, 3, 1)]
     it = dict(iters=10, replays=3)
     # fp32 cases whose plain and library times are taken too: the kernels line's record
-    # of the CUDA-core panel backward, which the fp32 CLAP step runs
-    fp32_timed = {"htsat_s0_shift_train"}
+    # of the CUDA-core panel backward, which the fp32 CLAP step runs, and the CUDA-core
+    # window forward at Swin-B's stage 0 (serve batch)
+    fp32_timed = {"htsat_s0_shift_train", "swin_s0_shift"}
     records = {}
     for name, kind, b, geo, c, heads, nw in cases:
         panel = kind == "panel"
@@ -1937,17 +1951,81 @@ def phase_swin_train(torch, oc, sa, wa):
     return win, fwd_bodies, n
 
 
+@contextlib.contextmanager
+def sb_parent_bodies(sb):
+    """While open, the SwitchBack forward runs its earlier bodies: the mma product at
+    every shape and the plain PyTorch quantization."""
+    body_of, quantize = sb.matmul_body, sb.quantize_rowwise
+    sb.matmul_body, sb.quantize_rowwise = (lambda k, aligned: "mma"), sb.quantize_rowwise_plain
+    try:
+        yield
+    finally:
+        sb.matmul_body, sb.quantize_rowwise = body_of, quantize
+
+
+@contextlib.contextmanager
+def quantize_ranges(sb):
+    """While open, each quantization of the SwitchBack forward, kernel or plain, runs
+    in a profiler range "switchback_quantize"; ``range_ops_ms`` sums the kernels that
+    PyTorch ops launched inside them (the plain version's; a ctypes launch has no op,
+    so the kernel's own time is its class's)."""
+    from torch.profiler import record_function
+
+    quantize = sb.quantize_rowwise
+
+    def ranged(x):
+        with record_function("switchback_quantize"):
+            return quantize(x)
+
+    sb.quantize_rowwise = ranged
+    try:
+        yield
+    finally:
+        sb.quantize_rowwise = quantize
+
+
+def range_ops_ms(prof, name: str) -> float:
+    """Device ms of the kernels that PyTorch ops launched inside the profiler ranges
+    called ``name`` (the host-side ranges; their device-side spans hold gaps)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+
+
+def sb_quantize_input(torch, m, k, dtype, gen):
+    """(m, k) rows of mixed ranges; rows 0-2 at .5 ties of their quotients (absmax 127,
+    254 and 63.5: scales 1, 2 and 0.5, the other values j + 0.5 times the scale) and
+    the last row zero."""
+    x = torch.randn(m, k, device="cuda", generator=gen) * (
+        torch.rand(m, 1, device="cuda", generator=gen) * 10 + 0.01)
+    halves = ((torch.arange(k, device="cuda") % 253 - 126).float() + 0.5).clamp(-126.5, 126.5)
+    for i, scale in enumerate((1.0, 2.0, 0.5)):
+        x[i] = halves * scale
+        x[i, 0] = 127.0 * scale
+    x[-1] = 0.0
+    return x.to(dtype)
+
+
 def phase_switchback_kernels(torch, sb):
-    """The int8 matmul-dequant against its plain version, exactly (atol 0), with fp32
-    and bf16 outputs, at the MLP shapes of ViT-H-14 b32 and ViT-B-32 b256, ragged
-    shapes, a zero row and a zero column; time from one CUDA graph of calls beside
-    the plain version, torch._int_mm plus the dequant, and bf16 F.linear (what
-    SwitchBack replaces). Returns the bf16-output records (the train path asks for
-    its activations' dtype) by shape name."""
+    """The two SwitchBack kernels against their plain versions, exactly (atol 0).
+
+    The int8 matmul-dequant with fp32 and bf16 outputs at the MLP shapes of ViT-H-14
+    b32 and ViT-B-32 b256 (the wgmma body; launched twice, the same bits; and the mma
+    body patched in), ragged shapes (mma where K % 16 != 0), a zero row and a zero
+    column. Time from one CUDA graph of calls: the body the wrapper picks, the mma
+    body, the plain version, torch._int_mm plus the dequant, bare torch._int_mm, and
+    bf16 F.linear (what SwitchBack replaces).
+
+    The row-wise quantization of each shape's bf16 activations (M, K) and its fp32
+    weight (N, K), with tie rows and a zero row, against the plain version on the CPU
+    (on the card PyTorch divides by the host scalar 127 through its reciprocal);
+    kernel and plain (on the card) time, the bound. Returns the bf16-output product
+    records and the quantization records by shape name."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    records = {}
+    records, q_records = {}, {}
     cases = dict(SB_SHAPES, **{f"ragged_{m}x{k}x{n}": (m, k, n) for m, k, n in SB_RAGGED})
     for name, (m, k, n) in cases.items():
         qx = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
@@ -1955,55 +2033,103 @@ def phase_switchback_kernels(torch, sb):
         qx[0], qw[-1] = 0, 0  # a zero row, a zero column of the output
         sx = torch.rand(m, device="cuda", generator=gen) * 0.1 + 1e-3
         sw = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
+        body = sb.matmul_body(k, True)
         err = {}
         for od in (torch.float32, torch.bfloat16):
             dn = str(od).split(".")[1]
+            reset_counts(sb)
             out = sb.int8_matmul_dequant(qx, qw, sx, sw, od)
+            again = sb.int8_matmul_dequant(qx, qw, sx, sw, od)
             ref = sb.int8_matmul_dequant_plain(qx, qw, sx, sw, od)
             torch.cuda.synchronize()
             err[dn] = (out.float() - ref.float()).abs().max().item()
-            check(out.dtype == od and tuple(out.shape) == (m, n) and torch.equal(out, ref),
-                  f"switchback {name} M={m} K={k} N={n} {dn} out: kernel == plain bit for bit "
-                  f"(max |err| {err[dn]:.3e})")
+            check(out.dtype == od and tuple(out.shape) == (m, n) and torch.equal(out, ref)
+                  and torch.equal(out, again) and sb.FWD_BODIES[body] == 2,
+                  f"switchback {name} M={m} K={k} N={n} {dn} out, {body} body: kernel == plain "
+                  f"bit for bit, twice (max |err| {err[dn]:.3e})")
+            if name in SB_SHAPES:
+                with sb_parent_bodies(sb):
+                    out = sb.int8_matmul_dequant(qx, qw, sx, sw, od)
+                torch.cuda.synchronize()
+                check(torch.equal(out, ref) and sb.FWD_BODIES["mma"] == 1,
+                      f"switchback {name} {dn} out, mma body: kernel == plain bit for bit")
         if name not in SB_SHAPES:
             continue
-        ms = {dn: graph_ms(lambda: sb.int8_matmul_dequant(qx, qw, sx, sw, od), iters=20)
+
+        def product(od=torch.bfloat16):
+            return sb.int8_matmul_dequant(qx, qw, sx, sw, od)
+
+        ms = {dn: graph_ms(lambda: product(od), iters=20)
               for dn, od in (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
+        with sb_parent_bodies(sb):
+            mma_ms = graph_ms(product, iters=20)
         plain_ms = graph_ms(lambda: sb.int8_matmul_dequant_plain(qx, qw, sx, sw, torch.bfloat16),
                             iters=3, replays=3)
         library_ms = graph_ms(lambda: ((torch._int_mm(qx, qw.t()).float() * sx[:, None])
                                        * sw[None, :]).to(torch.bfloat16), iters=20)
         int_mm_ms = graph_ms(lambda: torch._int_mm(qx, qw.t()), iters=20)
-        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
-        w = torch.randn(n, k, device="cuda", generator=gen).to(torch.bfloat16)
-        linear_ms = graph_ms(lambda: F.linear(x, w), iters=20)
-        quantize_ms = graph_ms(lambda: sb.quantize_rowwise(x), iters=20)
+        x = sb_quantize_input(torch, m, k, torch.bfloat16, gen)
+        w = torch.randn(n, k, device="cuda", generator=gen) * 0.02
+        w_bf16 = w.to(torch.bfloat16)
+        linear_ms = graph_ms(lambda: F.linear(x, w_bf16), iters=20)
         flops = 2 * m * n * k
-        rec = {"name": f"int8_matmul_dequant[{name}]", "route": "cuda", "body": "mma",
+        rec = {"name": f"int8_matmul_dequant[{name}]", "route": "cuda", "body": body,
                "source": SB_SOURCE,
                "replaces": "open_clip_tpu/ops/switchback.py:42", "shape": [m, k, n],
                "dtype": "int8 in, bfloat16 out", "max_abs_err": err["bfloat16"],
                "ms": ms["bfloat16"], "plain_ms": plain_ms,
                **bound(m * k + n * k + 2 * m * n + 4 * (m + n), flops, "int8"),
                "library_ms": library_ms, "library": "torch._int_mm + dequant",
+               "mma_ms": mma_ms,
                "ms_fp32_out": ms["float32"], "max_abs_err_fp32_out": err["float32"],
                "bound_ms_fp32_out": bound(m * k + n * k + 4 * m * n + 4 * (m + n), flops,
                                           "int8")["bound_ms"],
                "int_mm_ms": int_mm_ms, "linear_bf16_ms": linear_ms,
                "linear_bf16_bound_ms": bound(2 * (m * k + n * k + m * n), flops,
-                                             "bfloat16")["bound_ms"],
-               "quantize_activations_ms": quantize_ms}
+                                             "bfloat16")["bound_ms"]}
         print("kernel_case " + json.dumps(rec), flush=True)
         records[name] = rec
-    return records
+        # the quantization of this product's operands: the activations, the weight
+        for what, t in (("input", x), ("weight", w)):
+            dn = str(t.dtype).split(".")[1]
+            reset_counts(sb)
+            q, scale = sb.quantize_rowwise(t)
+            q2, scale2 = sb.quantize_rowwise(t)
+            pq, pscale = sb.quantize_rowwise_plain(t.cpu())
+            torch.cuda.synchronize()
+            exact = torch.equal(q.cpu(), pq) and torch.equal(scale.cpu(), pscale)
+            check(exact and torch.equal(q, q2) and torch.equal(scale, scale2)
+                  and sb.LAUNCHES["quantize"] == 2,
+                  f"quantize_rowwise {name} {what} {tuple(t.shape)} {dn}: kernel == plain (CPU) "
+                  "bit for bit, ties and a zero row included, twice")
+            cq, cscale = sb.quantize_rowwise_plain(t)
+            qrec = {"name": f"quantize_rowwise[{name}_{what}]", "route": "cuda",
+                    "source": SB_SOURCE,
+                    "replaces": "open_clip_tpu/ops/switchback.py:23 (quantize_rowwise: XLA's "
+                                "fusion, no pallas_call)",
+                    "shape": list(t.shape), "dtype": f"{dn} in, int8 + fp32 scales out",
+                    "max_abs_err": (q.cpu().int() - pq.int()).abs().max().item(),
+                    "ms": graph_ms(lambda: sb.quantize_rowwise(t), iters=20),
+                    "plain_ms": graph_ms(lambda: sb.quantize_rowwise_plain(t), iters=10),
+                    **bound(t.numel() * (t.element_size() + 1) + 4 * t.shape[0], 0, "float32"),
+                    "library_ms": None, "library": "none",
+                    "plain_on_card_scales_differing": int((cscale.cpu() != pscale).sum()),
+                    "plain_on_card_values_differing": int((cq.cpu() != pq).sum())}
+            print("kernel_case " + json.dumps(qrec), flush=True)
+            q_records[f"{name}_{what}"] = qrec
+    return records, q_records
 
 
 def phase_h14_train(torch, oc, sa, sb, blocks):
     """ViT-H-14 training with --use-switchback: amp_bf16, AdamW at the CLI's defaults
-    (its schedule too), clip 1.0, remat with names_mm, one fixed batch of 32 images and texts; 2 warm-up
-    steps, a window, a profile. Then the same step with the switch off (names_mm) and
-    with the switch on under full remat. Returns the main run's switchback launches
-    and its steps."""
+    (its schedule too), clip 1.0, remat with names_mm, one fixed batch of 32 images and
+    texts; 2 warm-up steps, a window, a profile. Then the same step with the earlier
+    bodies patched in (the mma product, the plain quantization; profiled), the new
+    bodies again (so the host ms run new, old, new), with the switch off (names_mm;
+    profiled) and with the switch on under full remat. Each profile gives the
+    quantization's device ms a step (``quantize_ranges``).
+    Returns the main run's product launches by body, its quantization launches and its
+    steps."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY
@@ -2016,48 +2142,74 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
         state = oc.create_train_state(model, optimizer)
         batch = train_batch(torch, model.cfg, H14_BATCH, "cuda")
         runs, main_run = {}, None
-        # (label, MLP linear, remat policy, switchback launches a block, short forward
-        # launches a text block): names_mm saves c_fc's output and the attention output,
-        # and the recompute reruns c_proj; full remat reruns both
-        for label, impl, policy, sb_per_block, sa_per_block in (
-                ("switchback_names_mm", "switchback", "names_mm", 3, 1),
-                ("dense_names_mm", "dense", "names_mm", 0, 1),
-                ("switchback_full_remat", "switchback", "none", 4, 2)):
+        # (label, MLP linear, remat policy, parent bodies, profiled, switchback launches a
+        # block, short forward launches a text block): names_mm saves c_fc's output and
+        # the attention output, and the recompute reruns c_proj; full remat reruns both
+        for label, impl, policy, parent, profiled, sb_per_block, sa_per_block in (
+                ("switchback_names_mm", "switchback", "names_mm", False, True, 3, 1),
+                ("switchback_names_mm_parent_bodies", "switchback", "names_mm", True, True, 3, 1),
+                ("switchback_names_mm_again", "switchback", "names_mm", False, False, 3, 1),
+                ("dense_names_mm", "dense", "names_mm", False, True, 0, 1),
+                ("switchback_full_remat", "switchback", "none", False, False, 4, 2)):
             blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = impl, policy
-            torch.cuda.reset_peak_memory_stats()
-            step = oc.make_train_step(model.cfg, optimizer, remat=True)
-            state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
-            main = main_run is None
-            n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1])) if main else 3
-            reset_counts(sa, sb)
-            state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
-            launches = {"switchback": sb.LAUNCHES["fwd"], **{f"short_{k}": v
-                                                              for k, v in sa.LAUNCHES.items()}}
-            losses = [float(m["loss"]) for m in warm + window]
-            check(all(math.isfinite(x) for x in losses) and (not main or losses[-1] < losses[0]),
-                  f"h14_train[{label}]: {len(losses)} losses finite"
-                  + (f", fell {losses[0]:.4f} -> {losses[-1]:.4f}" if main else ""))
-            want = {"switchback": sb_per_block * (lv + lt) * n, "short_fwd": sa_per_block * lt * n,
-                    "short_bwd": lt * n}
-            check(launches == want, f"h14_train[{label}]: launches {launches} in {n} steps "
-                  f"(expect {want})")
-            runs[label] = {"window_steps": n, "median_step_ms": statistics.median(step_ms),
-                           "min_step_ms": min(step_ms), "images_per_s": H14_BATCH * n / wall_s,
-                           "median_host_ms_per_step": statistics.median(host_ms),
-                           "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
-                           "last_loss": losses[-1],
-                           "launches_per_step": {k: v / n for k, v in launches.items()},
-                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-            if main:
-                main_run = (launches["switchback"], n)
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-                    state = run_steps(torch, step, state, batch, 1)[0]
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    state, *_, prof_wall_s = run_steps(torch, step, state, batch,
-                                                       TRAIN_PROFILED_STEPS)
-                summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
-                print("h14_train_profile " + json.dumps(summary), flush=True)
-                runs[label]["device_busy_ms_per_step"] = summary["device_busy_ms_per_step"]
+            with contextlib.ExitStack() as stack:
+                if parent:
+                    stack.enter_context(sb_parent_bodies(sb))
+                torch.cuda.reset_peak_memory_stats()
+                step = oc.make_train_step(model.cfg, optimizer, remat=True)
+                state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+                main = main_run is None
+                n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1])) if main else 3
+                reset_counts(sa, sb)
+                state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state,
+                                                                             batch, n)
+                launches = {"switchback": sb.LAUNCHES["fwd"],
+                            **{f"switchback_{k}": v for k, v in sb.FWD_BODIES.items()},
+                            "quantize": sb.LAUNCHES["quantize"],
+                            **{f"short_{k}": v for k, v in sa.LAUNCHES.items()}}
+                losses = [float(m["loss"]) for m in warm + window]
+                check(all(math.isfinite(x) for x in losses) and (not main or losses[-1] < losses[0]),
+                      f"h14_train[{label}]: {len(losses)} losses finite"
+                      + (f", fell {losses[0]:.4f} -> {losses[-1]:.4f}" if main else ""))
+                products = sb_per_block * (lv + lt) * n
+                want = {"switchback": products,
+                        "switchback_wgmma": 0 if parent else products,
+                        "switchback_mma": products if parent else 0,
+                        "quantize": 0 if parent else 2 * products,
+                        "short_fwd": sa_per_block * lt * n, "short_bwd": lt * n}
+                check(launches == want, f"h14_train[{label}]: launches {launches} in {n} steps "
+                      f"(expect {want})")
+                runs[label] = {"window_steps": n, "median_step_ms": statistics.median(step_ms),
+                               "min_step_ms": min(step_ms), "images_per_s": H14_BATCH * n / wall_s,
+                               "median_host_ms_per_step": statistics.median(host_ms),
+                               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
+                               "last_loss": losses[-1],
+                               "launches_per_step": {k: v / n for k, v in launches.items()},
+                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+                if main:
+                    main_run = ({"wgmma": sb.FWD_BODIES["wgmma"], "mma": sb.FWD_BODIES["mma"]},
+                                sb.LAUNCHES["quantize"], n)
+                if profiled:
+                    stack.enter_context(quantize_ranges(sb))
+                    if main:  # the profiler's first window pays its start-up
+                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                            state = run_steps(torch, step, state, batch, 1)[0]
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        state, *_, prof_wall_s = run_steps(torch, step, state, batch,
+                                                           TRAIN_PROFILED_STEPS)
+                    summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+                    # the quantization's kernels a step: the kernel's class, or the plain
+                    # version's ops in their ranges (each is 0 where the other runs)
+                    quantize_ms = max(summary["class_ms_per_step"].get("switchback_quantize", 0.0),
+                                      range_ops_ms(prof, "switchback_quantize")
+                                      / TRAIN_PROFILED_STEPS)
+                    print(f"h14_train_profile[{label}] " + json.dumps(
+                        dict(summary, quantize_ms_per_step=quantize_ms)), flush=True)
+                    runs[label].update(
+                        device_busy_ms_per_step=summary["device_busy_ms_per_step"],
+                        kernel_launches_per_step=summary["kernel_launches_per_step"],
+                        class_ms_per_step=summary["class_ms_per_step"],
+                        quantize_ms_per_step=quantize_ms)
         print("h14_train " + json.dumps({"model": H14_MODEL, "precision": "amp_bf16",
                                          "batch": H14_BATCH, "runs": runs}), flush=True)
         return main_run
@@ -2173,9 +2325,12 @@ def phase_b32_switchback(torch, oc, sa, sb, blocks, dense_first_loss: float):
         state, window, step_ms, *_ = run_steps(torch, oc.make_train_step(model.cfg, optimizer),
                                                state, batch, 3)
         losses = [float(m["loss"]) for m in warm + window]
-        check(sb.LAUNCHES["fwd"] == 2 * blocks_n * 3 and all(math.isfinite(x) for x in losses)
+        check(sb.LAUNCHES["fwd"] == sb.FWD_BODIES["wgmma"] == 2 * blocks_n * 3
+              and sb.LAUNCHES["quantize"] == 2 * sb.LAUNCHES["fwd"]
+              and all(math.isfinite(x) for x in losses)
               and abs(losses[0] - dense_first_loss) <= 2e-2,
-              f"b32_switchback: {sb.LAUNCHES['fwd']} launches in 3 steps (expect {6 * blocks_n}), "
+              f"b32_switchback: {sb.LAUNCHES} launches in 3 steps (expect {6 * blocks_n} "
+              f"wgmma products, twice as many quantizations), "
               f"losses finite, first {losses[0]:.4f} vs {dense_first_loss:.4f} dense (int8 "
               "tolerance 2e-2)")
     finally:
@@ -2194,19 +2349,20 @@ def phase_b32_switchback(torch, oc, sa, sb, blocks, dense_first_loss: float):
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         rows = [json.loads(x) for x in (Path(logs) / "sb" / "results.jsonl").read_text().splitlines()]
-        cli_launches = sb.LAUNCHES["fwd"]
+        cli_launches = dict(sb.LAUNCHES)
     check(state.step == steps and bool(rows) and all(
         abs(r["train/loss"] - math.log(BATCH)) < 1e-2 for r in rows),
         f"b32_switchback CLI: {state.step} steps, loss {[round(r['train/loss'], 4) for r in rows]} "
         f"is ln {BATCH} on identical samples")
-    check(cli_launches == 3 * blocks_n * steps and blocks.MLP_LINEAR_IMPL == "dense"
+    check(cli_launches == {"fwd": 3 * blocks_n * steps, "quantize": 6 * blocks_n * steps}
+          and blocks.MLP_LINEAR_IMPL == "dense"
           and blocks.REMAT_POLICY == "none",
           f"b32_switchback CLI: {cli_launches} launches in {steps} names_mm steps "
           f"(expect {3 * blocks_n * steps}), the switch restored after the run")
     print("b32_switchback " + json.dumps({
         "batch": BATCH, "median_step_ms_no_remat": statistics.median(step_ms),
         "first_loss": losses[0], "dense_first_loss": dense_first_loss, "cli_s": cli_s,
-        "cli_launches_per_step": cli_launches / steps}), flush=True)
+        "cli_launches_per_step": {k: v / steps for k, v in cli_launches.items()}}), flush=True)
     return cli_launches, steps
 
 
@@ -2237,11 +2393,12 @@ def phase_h14_card_vs_cpu(torch, oc, sb, blocks):
             results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()},
                                {k: out[k].detach().cpu().double()
                                 for k in ("image_features", "text_features")},
-                               loss.item(), sb.LAUNCHES["fwd"])
+                               loss.item(), dict(sb.LAUNCHES))
     finally:
         blocks.MLP_LINEAR_IMPL = saved
     (g_gpu, f_gpu, loss_g, launched), (g_cpu, f_cpu, loss_c, _) = results["cuda"], results["cpu"]
-    check(launched == 2 * 4, f"h14 card vs CPU: {launched} switchback launches (expect 8)")
+    check(launched == {"fwd": 2 * 4, "quantize": 4 * 4},
+          f"h14 card vs CPU: {launched} SwitchBack launches (expect 8 products, 16 quantizations)")
     for key in f_cpu:
         cos = torch.nn.functional.cosine_similarity(f_gpu[key], f_cpu[key], dim=-1).min().item()
         check(bool(torch.isfinite(f_gpu[key]).all()) and cos >= SB_COSINE_MIN,
@@ -2295,7 +2452,7 @@ def main() -> int:
     flash_records = timed("flash_kernels", phase_flash_kernels, torch, fa)
     window_records = timed("window_kernels", phase_window_kernels, torch, wa, swa)
     timed("window_groups", phase_window_groups, torch, wa, swa)
-    sb_records = timed("switchback_kernels", phase_switchback_kernels, torch, sb)
+    sb_records, sb_q_records = timed("switchback_kernels", phase_switchback_kernels, torch, sb)
     launches, calls = timed("serve", phase_serve, torch, oc, sa)
     timed("card_vs_cpu", phase_card_vs_cpu, torch, oc, sa)
     tally, steps, plain_summary = timed("train", phase_train, torch, oc, sa, fl, layers_mod,
@@ -2332,7 +2489,8 @@ def main() -> int:
                                                                torch, oc, sa, wa)
     swin_train_launches, swin_fwd_bodies, swin_steps = timed("swin_train", phase_swin_train, torch,
                                                              oc, sa, wa)
-    h14_launches, h14_steps = timed("h14_train", phase_h14_train, torch, oc, sa, sb, blocks)
+    h14_bodies, h14_quantize, h14_steps = timed("h14_train", phase_h14_train, torch, oc, sa, sb,
+                                                blocks)
     l14_tally, l14_steps = timed("l14_train", phase_l14_train, torch, oc, sa, fl, blocks)
     b32_sb_launches, b32_sb_steps = timed("b32_switchback", phase_b32_switchback, torch, oc, sa,
                                           sb, blocks, plain_summary["first_loss"])
@@ -2411,12 +2569,19 @@ def main() -> int:
     kernels.append(dict(window_records[("htsat_s0_shift_train", "float32")]["bwd"],
                         launches=panel_simt_launches,
                         launches_path="fp32 CLAP step, B=2 (phase 15)"))
-    # the int8 matmul: the ViT-H-14 train window (names_mm, the switch on), at the
-    # image tower's c_fc shape; the ViT-B-32 CLI's launches beside it
-    kernels.append(dict(sb_records["h14_vision_fc"], launches=h14_launches,
-                        launches_per_train_step=h14_launches / h14_steps,
-                        launches_b32_cli=b32_sb_launches,
-                        launches_per_b32_cli_step=b32_sb_launches / b32_sb_steps))
+    # the SwitchBack kernels: the ViT-H-14 train window (names_mm, the switch on), the
+    # product at the image tower's c_fc shape (launches by body), the quantization at
+    # c_fc's input; the ViT-B-32 CLI's launches beside them
+    h14_products = sum(h14_bodies.values())
+    kernels.append(dict(sb_records["h14_vision_fc"], launches=h14_products,
+                        launches_by_body=h14_bodies,
+                        launches_per_train_step=h14_products / h14_steps,
+                        launches_b32_cli=b32_sb_launches["fwd"],
+                        launches_per_b32_cli_step=b32_sb_launches["fwd"] / b32_sb_steps))
+    kernels.append(dict(sb_q_records["h14_vision_fc_input"], launches=h14_quantize,
+                        launches_per_train_step=h14_quantize / h14_steps,
+                        launches_b32_cli=b32_sb_launches["quantize"],
+                        launches_per_b32_cli_step=b32_sb_launches["quantize"] / b32_sb_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

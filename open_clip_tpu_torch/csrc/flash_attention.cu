@@ -1827,18 +1827,6 @@ bool encode_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], const int
   return true;
 }
 
-// the persistent grid: one block a multiprocessor, or one an item where there are fewer
-inline cudaError_t persistent_grid(long long items, int& grid) {
-  int device, sms;
-  cudaError_t e;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return e;
-  if (items > 2147483647LL) return cudaErrorInvalidValue;
-  grid = (int)(items < sms ? items : sms);
-  return cudaSuccess;
-}
-
 // q, k, v as tensor maps (strides a.st[0..5]), o's at a.st[6..7]
 template <int HD, int CWG>
 cudaError_t launch_fwd_wgmma_cwg(const Args& a) {

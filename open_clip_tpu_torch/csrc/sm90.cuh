@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks: warpgroup matrix multiply (wgmma), mbarriers and
-// the Tensor Memory Accelerator (TMA), device side and host side. Included by the
-// kernels that stage tiles with TMA and multiply them with wgmma (flash_attention.cu).
+// Hopper (sm_90a) building blocks: warpgroup matrix multiply (wgmma, bf16 and int8),
+// mbarriers and the Tensor Memory Accelerator (TMA), device side and host side.
+// Included by the kernels that stage tiles with TMA and multiply them with wgmma
+// (flash_attention.cu, switchback.cu).
 //
-// Shared-memory tiles are rows of 128 bytes (64 bf16) in the 128-byte swizzle that TMA
-// writes with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at chunk
-// c ^ (r % 8), the pattern repeating every 8 rows (1024 bytes). Every tile starts at a
-// 1024-byte boundary, so the swizzle of the address bits is the same for TMA and for
-// the wgmma descriptors below. A wider row (hd = 128) is kept as two such tiles.
+// Shared-memory tiles are rows of 128 bytes (64 bf16, 128 int8) in the 128-byte
+// swizzle that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r
+// lands at chunk c ^ (r % 8), the pattern repeating every 8 rows (1024 bytes). Every
+// tile starts at a 1024-byte boundary, so the swizzle of the address bits is the same
+// for TMA and for the wgmma descriptors below. A wider row (hd = 128) is kept as two
+// such tiles.
 
 #pragma once
 
@@ -71,8 +73,10 @@ __device__ __forceinline__ void pin(float (&d)[R][4]) {
     for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[i][c])::"memory");
 }
 
-template <int R>
-__device__ __forceinline__ void pin(uint32_t (&a)[R][4]) {
+// 32-bit integer registers: packed bf16 operands, int32 accumulators
+template <int R, typename T>
+__device__ __forceinline__ void pin(T (&a)[R][4]) {
+  static_assert(sizeof(T) == 4, "32-bit registers");
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -143,6 +147,40 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[NT][4], uint64_t desc_a, uin
     wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
   else
     wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+}
+
+// d[64 x 128] (+)= A . B on the int8 tensor cores, one warpgroup: A (64 x 32) and
+// B (128 x 32) int8, both K-major in shared memory (descriptors), sums exact in
+// int32; d is laid out as the bf16 fragment above. scale_d = 0 overwrites d. The
+// integer form takes no negate or transpose operands.
+__device__ __forceinline__ void wgmma_s8_m64n128k32_ss(int (&d)[16][4], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d[64 x 64] += A . B, one warpgroup; A (64 x 16, bf16) in registers as the
@@ -243,6 +281,43 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of shared memory at src into a 3-D tensor map, in this thread's bulk group;
+// what lies past the tensor's edges is not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still writing
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's shared-memory writes before the async proxy (TMA) reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) under id (1 .. 15; 0 is __syncthreads)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -270,23 +345,37 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `batches` x `rows` rows of `cols` dense columns, with row and
-// batch strides in bytes, read in boxes of 64 columns (128 bytes, 128-byte swizzle)
-// by box_rows rows of one batch. TMA needs a 16-byte aligned base and strides that
-// are multiples of 16 bytes; false where the driver refuses the map.
+// A tensor of `batches` x `rows` rows of `cols` dense columns, with row and batch
+// strides in bytes, read in boxes of 128 bytes of columns (64 bf16 or 128 int8; the
+// 128-byte swizzle) by box_rows rows of one batch. TMA needs a 16-byte aligned base
+// and strides that are multiples of 16 bytes; false where the driver refuses the map.
 inline bool encode_rows_3d(CUtensorMap* map, const void* base, long long cols, long long rows,
                            long long batches, long long row_bytes, long long batch_bytes,
-                           int box_rows) {
+                           int box_rows,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
   const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)batch_bytes};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 128u : 64u,
+                             (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the persistent grid: one block a multiprocessor, or one an item where there are fewer
+inline cudaError_t persistent_grid(long long items, int& grid) {
+  int device, sms;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  if (items > 2147483647LL) return cudaErrorInvalidValue;
+  grid = (int)(items < sms ? items : sms);
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -1,26 +1,31 @@
-"""SwitchBack int8 linear: the CUDA kernel, its plain version and the autograd rule
-(counterpart of ``open_clip_tpu/ops/switchback.py``).
+"""SwitchBack int8 linear: the CUDA kernels, their plain versions and the autograd
+rule (counterpart of ``open_clip_tpu/ops/switchback.py``).
 
 The forward product of a linear runs in int8: the activations are quantized per
 row and the weight per output feature, the int8 product is summed in int32, and
 the result is dequantized by the row times the column scale. The backward runs in
 the activations' dtype (dx) and in fp32 (dw), the SwitchBack construction.
 
-The kernel (``csrc/switchback.cu``) replaces the TPU kernel
-``open_clip_tpu/ops/switchback.py:_int8_matmul_kernel``. It takes the weight in
-``nn.Linear``'s (N, K) layout, quantized per row of that tensor, which is the JAX
-package's per-column quantization of its (K, N) kernel: it computes ``qx @ qwᵀ``.
-The JAX wrapper's zero padding of M, N and K to its tiles is left out: the kernel
-predicates the ragged edges. The quantization is plain PyTorch, as the JAX package
-leaves it to XLA outside the kernel.
+Two kernels, both in ``csrc/switchback.cu``:
 
-``int8_matmul_dequant`` launches the kernel for CUDA tensors or raises; for CPU
-tensors, and only for them, it computes ``int8_matmul_dequant_plain``, which equals
-the kernel bit for bit. ``LAUNCHES`` counts the kernel's launches.
-``switchback_linear`` is the differentiable linear. Its forward is the custom op
-``oct::switchback_fwd`` (quantize both operands, then the product), one op to
-``torch.utils.checkpoint``'s selective policies, so that a remat preset can save
-its output (``models/blocks.py``).
+- the product replaces the TPU kernel ``open_clip_tpu/ops/switchback.py:_int8_matmul_kernel``.
+  It takes the weight in ``nn.Linear``'s (N, K) layout, quantized per row of that
+  tensor, which is the JAX package's per-column quantization of its (K, N) kernel: it
+  computes ``qx @ qwᵀ``. The JAX wrapper's zero padding of M, N and K to its tiles is
+  left out: the kernel fills the ragged edges with zeros itself. Two bodies:
+  ``matmul_body`` picks ``wgmma`` (int8 ``wgmma`` fed by TMA, persistent) where TMA
+  can read the operands, else ``mma`` (``mma.sync``), by shape alone;
+- the row-wise quantization, one pass over the rows, which the JAX package leaves
+  to XLA's fusion outside its kernel.
+
+``int8_matmul_dequant`` and ``quantize_rowwise`` launch their kernels for CUDA
+tensors or raise; for CPU tensors, and only for them, they compute
+``int8_matmul_dequant_plain`` and ``quantize_rowwise_plain``, which the kernels
+equal bit for bit. ``LAUNCHES`` counts the kernels' launches, ``FWD_BODIES`` the
+product's by body. ``switchback_linear`` is the differentiable linear. Its forward
+is the custom op ``oct::switchback_fwd`` (quantize both operands, then the
+product), one op to ``torch.utils.checkpoint``'s selective policies, so that a
+remat preset can save its output (``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -36,22 +41,84 @@ from .layers import remat_name
 MAX_K = (2 ** 31 - 1) // 127 ** 2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the kernel since the last reset; chip_smoke.py sets and reads it
-LAUNCHES = {"fwd": 0}
+# launches of the kernels since the last reset, and of the product by body;
+# chip_smoke.py sets and reads them
+LAUNCHES = {"fwd": 0, "quantize": 0}
+FWD_BODIES = {"wgmma": 0, "mma": 0}
+_BODY_CODES = {"mma": 0, "wgmma": 1}
 
 _fns = {}
 
 
-def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def matmul_body(k: int, aligned: bool) -> str:
+    """The product's body for inner size ``k`` and whether qx and qw start on 16-byte
+    boundaries: ``wgmma`` where TMA can read both operands (every row stride a
+    multiple of 16 bytes, aligned bases), else ``mma``."""
+    return "wgmma" if k % 16 == 0 and aligned else "mma"
+
+
+def quantize_rowwise_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp -> (int8 values, per-row fp32 scales): q = round(x / (absmax / 127)),
     rounding half to even, with a true division in fp32 as in the JAX package.
     The absmax is taken in x's dtype (exact in any float type) and the division
     promotes x to fp32 exactly, so no fp32 copy of x is made; round and clamp
-    work in place. Fewer passes over the activations, the same values."""
+    work in place. Its result is defined on the CPU: on a CUDA tensor PyTorch
+    computes ``/ 127.0`` (a host scalar) as a product with its fp32 reciprocal,
+    which may differ from the division in the last bit of a scale."""
     absmax = x.abs().amax(dim=-1, keepdim=True).float()
     scale = absmax.clamp_min(1e-8) / 127.0
     q = torch.div(x, scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale[..., 0]
+
+
+def _library(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        from ._build import load
+
+        fn = getattr(load("switchback"), name)
+        if name == "oct_int8_matmul_dequant":
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _launch_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"quantize_rowwise: no kernel for {x.dtype} (float32, bfloat16)")
+    if x.dim() == 0 or x.shape[-1] == 0 or not x.is_contiguous():
+        raise ValueError(f"quantize_rowwise: x {tuple(x.shape)} must be contiguous with rows "
+                         "of at least one value")
+    k = x.shape[-1]
+    m = x.numel() // k
+    if m >= 2 ** 31:
+        raise ValueError(f"quantize_rowwise: {m} rows (at most 2**31 - 1)")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if m == 0:  # nothing to launch for
+        return q, scale
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library("oct_quantize_rowwise")(x.data_ptr(), q.data_ptr(), scale.data_ptr(), m, k,
+                                               _DTYPE_CODES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_rowwise kernel launch failed: cudaError {err}")
+    LAUNCHES["quantize"] += 1
+    return q, scale
+
+
+def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp -> (int8 values, per-row fp32 scales) over the last axis, as
+    ``quantize_rowwise_plain`` computes them on the CPU: the kernel for CUDA tensors
+    (bf16, fp32; contiguous), or raise; the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return quantize_rowwise_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rowwise: no kernel for device {x.device}")
+    return _launch_quantize(x)
 
 
 def quantize_colwise(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,18 +138,6 @@ def int8_matmul_dequant_plain(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tens
     conversion of an exact integer to fp32 then rounds as int32 -> fp32 does."""
     acc = (qx.double() @ qw.double().t()).float()
     return ((acc * sx[:, None]) * sw[None, :]).to(out_dtype)
-
-
-def _kernel():
-    fn = _fns.get("fwd")
-    if fn is None:
-        from ._build import load
-
-        fn = load("switchback").oct_int8_matmul_dequant
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["fwd"] = fn
-    return fn
 
 
 def _check(qx, qw, sx, sw, out_dtype) -> None:
@@ -113,13 +168,16 @@ def _launch(qx, qw, sx, sw, out_dtype) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=qx.device)
     if m == 0 or n == 0 or k == 0:  # nothing to launch for
         return out.zero_()
-    vec = k % 16 == 0 and qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    body = matmul_body(k, qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0)
     with torch.cuda.device(qx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
-                        m, n, k, _DTYPE_CODES[out_dtype], int(vec), stream)
+        err = _library("oct_int8_matmul_dequant")(
+            qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n, k,
+            _DTYPE_CODES[out_dtype], _BODY_CODES[body], stream)
     if err != 0:
-        raise RuntimeError(f"int8_matmul_dequant kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int8_matmul_dequant kernel launch failed ({body} body): "
+                           f"cudaError {err}")
+    FWD_BODIES[body] += 1
     LAUNCHES["fwd"] += 1
     return out
 
@@ -128,7 +186,8 @@ def int8_matmul_dequant(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tensor, sw
                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(float(qx @ qwᵀ) * sx[:, None]) * sw[None, :] in ``out_dtype`` (fp32 or bf16).
     qx (M, K) and qw (N, K) int8, sx (M,) and sw (N,) fp32. The kernel for CUDA
-    tensors, or raise; the plain version for CPU tensors."""
+    tensors (the body ``matmul_body`` picks), or raise; the plain version for CPU
+    tensors."""
     _check(qx, qw, sx, sw, out_dtype)
     if qx.device.type == "cpu":
         return int8_matmul_dequant_plain(qx, qw, sx, sw, out_dtype)

@@ -910,6 +910,7 @@ SWITCHBACK_CASES = [  # (M, K, N)
     (12800, 768, 3072), (12800, 3072, 768),  # ViT-B-32 image tower, batch 256
     (19712, 512, 2048), (19712, 2048, 512),  # ViT-B-32 text tower, batch 256
     (5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (1, 1, 1), (257, 80, 250),
+    (130, 144, 129),  # ragged M, N and K (two 128-byte stages, the second mostly past K)
 ]
 
 
@@ -927,14 +928,58 @@ def _int8_operands(seed, m, k, n, device):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("m,k,n", SWITCHBACK_CASES)
 def test_switchback_kernel_matches_plain_exactly(cuda, m, k, n, out_dtype):
+    """The body matmul_body picks (wgmma where K % 16 == 0), bit for bit, twice."""
     args = _int8_operands(m + k + n, m, k, n, cuda)
-    before = sb.LAUNCHES["fwd"]
+    body = sb.matmul_body(k, True)
+    before, bodies = sb.LAUNCHES["fwd"], dict(sb.FWD_BODIES)
     out = sb.int8_matmul_dequant(*args, out_dtype=out_dtype)
+    again = sb.int8_matmul_dequant(*args, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES["fwd"] == before + 1
+    assert sb.LAUNCHES["fwd"] == before + 2 and sb.FWD_BODIES[body] == bodies[body] + 2
     ref = sb.int8_matmul_dequant_plain(*args, out_dtype=out_dtype)
     assert out.dtype == out_dtype and out.shape == (m, n)
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert torch.equal(out, again)  # the same bits every launch
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(300, 528, 520), (129, 32, 136), (64, 16, 8)])
+def test_switchback_wgmma_output_paths_match_plain_exactly(cuda, m, k, n, out_dtype):
+    """Ragged M and a last column tile that is mostly past N: the bf16 tile staged in
+    shared memory and stored by TMA (N % 8 == 0), and the fp32 one from the registers."""
+    args = _int8_operands(m * k + n, m, k, n, cuda)
+    before = sb.FWD_BODIES["wgmma"]
+    out = sb.int8_matmul_dequant(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert sb.FWD_BODIES["wgmma"] == before + 1
+    assert torch.equal(out, sb.int8_matmul_dequant_plain(*args, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(8224, 1280, 5120), (257, 80, 250), (5, 16, 3)])
+def test_switchback_mma_body_on_aligned_shapes_matches_plain_exactly(cuda, monkeypatch, m, k, n):
+    """The mma body's 16-byte path, which chip_smoke.py patches in for its
+    before-and-after runs."""
+    monkeypatch.setattr(sb, "matmul_body", lambda k_, aligned: "mma")
+    args = _int8_operands(m + 2 * k + n, m, k, n, cuda)
+    before = sb.FWD_BODIES["mma"]
+    out = sb.int8_matmul_dequant(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert sb.FWD_BODIES["mma"] == before + 1
+    assert torch.equal(out, sb.int8_matmul_dequant_plain(*args, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("what", ["k24", "pointer"])
+def test_switchback_wgmma_refuses_what_tma_cannot_read(cuda, monkeypatch, what):
+    """The C entry point refuses a wgmma call the rule rejects and the wrapper
+    raises: the body follows the shape, never a failure."""
+    monkeypatch.setattr(sb, "matmul_body", lambda k_, aligned: "wgmma")
+    qx, qw, sx, sw = _int8_operands(2, 64, 24 if what == "k24" else 32, 32, cuda)
+    if what == "pointer":  # K = 32, qw one byte off its 16-byte boundary
+        qw = torch.empty(qw.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(32, 32).copy_(qw)
+    before = dict(sb.FWD_BODIES)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        sb.int8_matmul_dequant(qx, qw, sx, sw)
+    assert sb.FWD_BODIES == before
 
 
 def test_switchback_bf16_output_is_the_fp32_output_rounded_once(cuda):
@@ -991,3 +1036,84 @@ def test_switchback_wrapper_raises_on_what_the_kernel_does_not_take(cuda, what):
         sx = sx.half()
     with pytest.raises(ValueError):
         sb.int8_matmul_dequant(qx, qw, sx, sw, **kw)
+
+
+# the row-wise quantization: (M, K) activations in bf16, the fp32 master weights, ragged rows
+QUANTIZE_CASES = [  # (M, K, dtype)
+    (8224, 1280, torch.bfloat16), (8224, 5120, torch.bfloat16),  # ViT-H-14 image MLP inputs
+    (5120, 1280, torch.float32), (1280, 5120, torch.float32),    # and its weights
+    (2464, 1024, torch.bfloat16), (2464, 4096, torch.bfloat16),  # text tower
+    (4096, 1024, torch.float32), (1024, 4096, torch.float32),
+    (12800, 768, torch.bfloat16), (19712, 2048, torch.bfloat16), (3072, 768, torch.float32),
+    (5, 1, torch.float32), (9, 7, torch.bfloat16), (33, 24, torch.bfloat16),
+    (17, 7, torch.float32), (3, 20000, torch.float32),  # rows too long for the registers
+]
+
+
+def _quantize_input(seed, m, k, dtype):
+    """Rows of mixed ranges, then rows at .5 ties (absmax 127, 254 and 63.5: scales
+    1, 2 and 0.5, every other value k + 0.5 times the scale) and an all-zero row."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=g) * (torch.rand(m, 1, generator=g) * 10 + 0.01)
+    halves = (torch.arange(k) % 253 - 126).float() + 0.5
+    for i, s in enumerate((1.0, 2.0, 0.5)[:max(0, m - 1)]):
+        x[i] = halves.clamp(-126.5, 126.5) * s
+        x[i, 0] = 127.0 * s
+    x[-1] = 0.0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("m,k,dtype", QUANTIZE_CASES)
+def test_quantize_kernel_matches_plain_exactly(cuda, m, k, dtype):
+    """Against the plain version on the CPU, where its divisions are true ones, bit
+    for bit, ties included; two launches give the same bits."""
+    x = _quantize_input(m + k, m, k, dtype)
+    xd = x.to(cuda)
+    before = sb.LAUNCHES["quantize"]
+    q, s = sb.quantize_rowwise(xd)
+    q2, s2 = sb.quantize_rowwise(xd)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES["quantize"] == before + 2
+    pq, ps = sb.quantize_rowwise_plain(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and q.shape == (m, k)
+    assert torch.equal(s.cpu(), ps), (s.cpu() != ps).sum().item()
+    assert torch.equal(q.cpu(), pq), (q.cpu() != pq).sum().item()
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+def test_quantize_kernel_takes_misaligned_and_batched_rows(cuda):
+    """A base off its 16-byte boundary takes the any-row kernel; a 3-D input keeps its
+    leading axes."""
+    x = _quantize_input(3, 40, 64, torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    xd = buf[1:].view(40, 64)
+    xd.copy_(x)
+    q, s = sb.quantize_rowwise(xd)
+    pq, ps = sb.quantize_rowwise_plain(x)
+    assert torch.equal(q.cpu(), pq) and torch.equal(s.cpu(), ps)
+    q3, s3 = sb.quantize_rowwise(x.view(4, 10, 64).to(cuda))
+    assert q3.shape == (4, 10, 64) and s3.shape == (4, 10)
+    assert torch.equal(q3.cpu().view(40, 64), pq) and torch.equal(s3.cpu().view(40), ps)
+
+
+@pytest.mark.parametrize("what", ["fp16", "transposed", "empty_rows"])
+def test_quantize_wrapper_raises_on_what_the_kernel_does_not_take(cuda, what):
+    x = torch.randn(8, 16, device=cuda)
+    if what == "fp16":
+        x = x.half()
+    elif what == "transposed":
+        x = x.t()
+    else:
+        x = x[:, :0]
+    before = sb.LAUNCHES["quantize"]
+    with pytest.raises(ValueError):
+        sb.quantize_rowwise(x)
+    assert sb.LAUNCHES["quantize"] == before
+
+
+def test_switchback_forward_launches_two_quantizations_and_one_product(cuda):
+    x = torch.randn(4, 77, 1024, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(4096, 1024, device=cuda) * 0.02
+    before = dict(sb.LAUNCHES)
+    torch.ops.oct.switchback_fwd(x.view(-1, 1024), w)
+    assert sb.LAUNCHES == {"fwd": before["fwd"] + 1, "quantize": before["quantize"] + 2}

@@ -123,6 +123,57 @@ def test_quantize_colwise_matches_jax():
     assert torch.equal(qr, q.t()) and torch.equal(sr, s)
 
 
+def _tie_rows(k):
+    """Rows whose quotients x / scale sit exactly on .5 ties: absmax 127 (scale 1),
+    254 (scale 2) and 63.5 (scale 0.5), the other values k + 0.5 (times the scale),
+    every one representable in bf16; then an all-zero row."""
+    rows = np.zeros((4, k), np.float32)
+    halves = (np.arange(k) % 253 - 126) + 0.5  # -125.5 .. 126.5
+    for i, s in enumerate((1.0, 2.0, 0.5)):
+        rows[i] = np.clip(halves, -126.5, 126.5) * s
+        rows[i, 0] = 127.0 * s * (-1) ** i  # the absmax, positive or negative
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 7, 40, 1280])
+def test_quantize_rowwise_is_the_plain_version_and_jax_bit_for_bit(k, dtype):
+    """On CPU tensors the dispatcher takes the plain version, launches nothing, and
+    equals the JAX package's quantization bit for bit: random rows of mixed ranges,
+    rows at .5 ties (rounded half to even), an all-zero row."""
+    rng = np.random.default_rng(k)
+    rand = (rng.standard_normal((9, k)) * rng.uniform(0.01, 10.0, (9, 1))).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([rand, _tie_rows(k)])).to(getattr(torch, dtype))
+    psb.LAUNCHES["quantize"] = 0
+    q, s = psb.quantize_rowwise(x)
+    assert psb.LAUNCHES["quantize"] == 0  # the CPU takes the plain version: no launch
+    pq, ps = psb.quantize_rowwise_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    jq, js = jsb.quantize_rowwise(jnp.asarray(x.float().numpy()).astype(getattr(jnp, dtype)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert s[-1].item() == np.float32(1e-8) / np.float32(127) and not q[-1].any()
+    if k >= 7:  # the ties went to the even neighbour: 0.5 -> 0, 1.5 -> 2, -2.5 -> -2
+        ties = x[9:12, 1:].float() / s[9:12, None]
+        assert torch.equal(ties - ties.floor(), torch.full_like(ties, 0.5))
+        assert (q[9:12, 1:].int() % 2 == 0).all()
+
+
+def test_quantize_rowwise_raises_off_the_cpu_and_the_card():
+    with pytest.raises(ValueError, match="device"):
+        psb.quantize_rowwise(torch.zeros(2, 4, device="meta"))
+
+
+@pytest.mark.parametrize("k,aligned,body", [
+    (1, True, "mma"), (16, True, "wgmma"), (24, True, "mma"), (80, True, "wgmma"),
+    (1280, True, "wgmma"), (1, False, "mma"), (16, False, "mma"), (24, False, "mma"),
+    (80, False, "mma"), (1280, False, "mma")])
+def test_matmul_body(k, aligned, body):
+    """wgmma where TMA can read both operands (K % 16 == 0, aligned bases), else mma:
+    by shape alone, so the ragged shapes of the tests keep the mma body."""
+    assert psb.matmul_body(k, aligned) == body
+
+
 @pytest.mark.parametrize("m,k,n", RAGGED)
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_int8_matmul_dequant_matches_the_pallas_kernel(m, k, n, out_dtype):
