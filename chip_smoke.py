@@ -111,7 +111,30 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      AdamW, clip 1.0, timed and profiled like phase 4, the loss falls; 24 + 12 short
      forward and backward launches a step, all on the tensor-core bodies (the image
      tower's 257 tokens on the two-pass forward and the two-kernel backward); then 2
-     steps under names_mm from the same initial weights, with the same first loss.
+     steps under names_mm from the same initial weights, with the same first loss;
+ 22. SigLIP serving (siglip_serve): ViT-B-16-SigLIP in pure_bf16, a 10-class
+     classifier built once from seeded token ids (SigLIP's vocabulary is not in the
+     repository), requests of 256 uint8 256x320 images (device preprocess ->
+     encode_image -> sigmoid(scale * logits + logit_bias) -> top-5), timed and
+     profiled like phase 2; every block takes the short kernel (12 two-pass mma
+     launches a request at L=196, 12 non-causal one-pass ones at L=64 for the
+     classifier), only the MAP pool's one-query attention is dense;
+ 23. siglip384_serve: ViT-B-16-SigLIP-384 at batch 64: the 576-token blocks take the
+     flash forward without a key mask (12 wgmma launches a request, 0 short);
+ 24. SigLIP training (siglip_train), the JAX package's bench_siglip step: batch 256,
+     224 px, 64 tokens, amp_bf16, AdamW (wd 0.2; lr 1e-4, where bench_siglip's 5e-4
+     with no warm-up first drives this fixed batch's loss up), clip 1.0, loss_type
+     "siglip", with names_mm and without remat from the same weights (the same first
+     loss), each timed and profiled like phase 4: the loss falls, the logit bias moves
+     from -10, short launches a step by tower and direction;
+ 25. siglip_cli: the CLI with --model ViT-B-16-SigLIP --siglip and synthetic data;
+ 26. siglip_card_vs_cpu: fp32 (TF32 off), ViT-B-16-SigLIP at full width, batch 2, card
+     (the CUDA-core short bodies at L=196 and 64) against CPU: features, the siglip
+     loss and every gradient (the logit bias and the MAP pool's included).
+
+Phase 1 also times the short forward and backward at the SigLIP shapes and the flash
+forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask); phase 17 also times the
+SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
 
 Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
 products fed by TMA: the flash kernels in bf16, the SwitchBack product in int8), "mma"
@@ -172,6 +195,11 @@ FWD_DETERMINISM_CASES = ("swin_s0_shift", "htsat_s0_shift_serve")
 SB_SOURCE = "open_clip_tpu_torch/csrc/switchback.cu"
 H14_MODEL, H14_BATCH = "ViT-H-14", 32
 L14_MODEL, L14_BATCH = "ViT-L-14", 64  # the JAX package's bench_vit_l14 step
+# the JAX package's bench_siglip step (batch 256, 224 px, 64 text tokens); the 384-px
+# tower (576 tokens, the flash forward) served at a quarter of that batch
+SIGLIP_MODEL, SIGLIP_BATCH = "ViT-B-16-SigLIP", 256
+SIGLIP384_MODEL, SIGLIP384_BATCH = "ViT-B-16-SigLIP-384", 64
+SIGLIP_CLI_STEPS = 6
 # the MLP products (M, K, N) of ViT-H-14 at batch 32 (257 and 77 tokens) and of
 # ViT-B-32 at batch 256 (50 and 77 tokens), then ragged shapes
 SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120, 1280),
@@ -179,7 +207,8 @@ SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120
              "b32_vision_fc": (12800, 768, 3072), "b32_vision_proj": (12800, 3072, 768),
              "b32_text_fc": (19712, 512, 2048), "b32_text_proj": (19712, 2048, 512)}
 SB_RAGGED = [(5, 16, 3), (9, 24, 13), (33, 40, 7), (130, 72, 129), (257, 80, 250), (1, 1, 1),
-             (130, 144, 129)]
+             (130, 144, 129), (130, 40, 129)]
+SB_TIMED_RAGGED = (130, 40, 129)  # a shape of the mma body (K % 16 != 0), timed as well
 # card against CPU with the int8 forward: a value at a rounding tie of its
 # quantization may land one level apart where the fp32 sums before it ran in
 # another order, which moves that output by one quantum (~1e-2 of the row's
@@ -329,7 +358,11 @@ def phase_kernels(torch, sa, text_batch):
              ("text_b256", BATCH, 77, 8, 64, True, bf16),
              ("l257", L14_BATCH, 257, 16, 64, False, bf16),
              ("l129", L14_BATCH, 129, 16, 64, False, bf16),
-             ("l288_hd128", 16, 288, 8, 128, True, bf16)]
+             ("l288_hd128", 16, 288, 8, 128, True, bf16),
+             # ViT-B-16-SigLIP at bench_siglip's batch: the image tower's 196 tokens (no
+             # class token, the two-pass body) and the non-causal 64-token text tower
+             ("siglip_vision", SIGLIP_BATCH, 196, 12, 64, False, bf16),
+             ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
@@ -388,7 +421,11 @@ def phase_attention_bwd_kernels(torch, sa):
                                               ("l128", 128, 128, 12, 64, False, bf16),
                                               ("l129", L14_BATCH, 129, 16, 64, False, bf16),
                                               ("l257", L14_BATCH, 257, 16, 64, False, bf16),
-                                              ("l288_hd128", 16, 288, 8, 128, True, bf16)):
+                                              ("l288_hd128", 16, 288, 8, 128, True, bf16),
+                                              ("siglip_vision", SIGLIP_BATCH, 196, 12, 64, False,
+                                               bf16),
+                                              ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False,
+                                               bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             body = sa.bwd_body(l, hd, dtype)
@@ -504,7 +541,9 @@ def phase_flash_kernels(torch, fa):
              ("prefix256", 4, 1024, 12, 64, True, 256, None, False),
              ("hd128", 4, 512, 8, 128, False, 0, None, False),
              # whole key tiles with no valid key, which the wgmma kernels skip
-             ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), True)]
+             ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), True),
+             # ViT-B-16-SigLIP-384's image tower: 576 tokens and no key mask
+             ("siglip384", SIGLIP384_BATCH, 576, 12, 64, False, 0, None, True)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -2053,7 +2092,7 @@ def phase_switchback_kernels(torch, sb):
                 torch.cuda.synchronize()
                 check(torch.equal(out, ref) and sb.FWD_BODIES["mma"] == 1,
                       f"switchback {name} {dn} out, mma body: kernel == plain bit for bit")
-        if name not in SB_SHAPES:
+        if name not in SB_SHAPES and (m, k, n) != SB_TIMED_RAGGED:
             continue
 
         def product(od=torch.bfloat16):
@@ -2065,9 +2104,13 @@ def phase_switchback_kernels(torch, sb):
             mma_ms = graph_ms(product, iters=20)
         plain_ms = graph_ms(lambda: sb.int8_matmul_dequant_plain(qx, qw, sx, sw, torch.bfloat16),
                             iters=3, replays=3)
-        library_ms = graph_ms(lambda: ((torch._int_mm(qx, qw.t()).float() * sx[:, None])
-                                       * sw[None, :]).to(torch.bfloat16), iters=20)
-        int_mm_ms = graph_ms(lambda: torch._int_mm(qx, qw.t()), iters=20)
+        library, library_ms, int_mm_ms = "torch._int_mm + dequant", None, None
+        try:
+            library_ms = graph_ms(lambda: ((torch._int_mm(qx, qw.t()).float() * sx[:, None])
+                                           * sw[None, :]).to(torch.bfloat16), iters=20)
+            int_mm_ms = graph_ms(lambda: torch._int_mm(qx, qw.t()), iters=20)
+        except RuntimeError as refused:  # _int_mm takes only some shapes; the reason it gives
+            library = f"none (torch._int_mm: {str(refused).splitlines()[0]})"
         x = sb_quantize_input(torch, m, k, torch.bfloat16, gen)
         w = torch.randn(n, k, device="cuda", generator=gen) * 0.02
         w_bf16 = w.to(torch.bfloat16)
@@ -2079,7 +2122,7 @@ def phase_switchback_kernels(torch, sb):
                "dtype": "int8 in, bfloat16 out", "max_abs_err": err["bfloat16"],
                "ms": ms["bfloat16"], "plain_ms": plain_ms,
                **bound(m * k + n * k + 2 * m * n + 4 * (m + n), flops, "int8"),
-               "library_ms": library_ms, "library": "torch._int_mm + dequant",
+               "library_ms": library_ms, "library": library,
                "mma_ms": mma_ms,
                "ms_fp32_out": ms["float32"], "max_abs_err_fp32_out": err["float32"],
                "bound_ms_fp32_out": bound(m * k + n * k + 4 * m * n + 4 * (m + n), flops,
@@ -2089,6 +2132,8 @@ def phase_switchback_kernels(torch, sb):
                                              "bfloat16")["bound_ms"]}
         print("kernel_case " + json.dumps(rec), flush=True)
         records[name] = rec
+        if name not in SB_SHAPES:
+            continue
         # the quantization of this product's operands: the activations, the weight
         for what, t in (("input", x), ("weight", w)):
             dn = str(t.dtype).split(".")[1]
@@ -2413,6 +2458,337 @@ def phase_h14_card_vs_cpu(torch, oc, sb, blocks):
           f"over {len(cos)} tensors (>= {SB_COSINE_MIN})")
 
 
+def seeded_token_ids(torch, text_cfg, seed):
+    """A stand-in for SigLIP's tokenizer, whose vocabulary is not in the repository:
+    each call gives a row of random token ids per text, from one seeded generator."""
+    gen = torch.Generator().manual_seed(seed)
+    return lambda texts: torch.randint(1, text_cfg.vocab_size, (len(texts), text_cfg.context_length),
+                                       generator=gen)
+
+
+@contextlib.contextmanager
+def attention_paths(attn, nf):
+    """While open, count the towers' attention calls by path and key length: each
+    block's self-attention by the path ``select_impl`` gives it ("short", "flash" or
+    "dense"), and the MAP pool's one-query cross-attention ("pool_dense"), which is
+    dense by design, as in the JAX package."""
+    tally = {}
+    select, pool_dense = attn.select_impl, nf.dense_attention
+
+    def select_(on_cuda, lq, lk, h, hd, bias, key_valid):
+        impl = select(on_cuda, lq, lk, h, hd, bias, key_valid)
+        tally[(impl, lk)] = tally.get((impl, lk), 0) + 1
+        return impl
+
+    def pool_(q, k, v, *args, **kwargs):
+        tally[("pool_dense", k.shape[1])] = tally.get(("pool_dense", k.shape[1]), 0) + 1
+        return pool_dense(q, k, v, *args, **kwargs)
+
+    attn.select_impl, nf.dense_attention = select_, pool_
+    try:
+        yield tally
+    finally:
+        attn.select_impl, nf.dense_attention = select, pool_dense
+
+
+@contextlib.contextmanager
+def tally_by_len(sa):
+    """While open, count the short kernels' launches by direction and sequence length
+    (the SigLIP towers are told apart by length: both are non-causal)."""
+    tally = {}
+    fwd, bwd = sa._launch_fwd, sa.short_attention_bwd
+
+    def bump(key):
+        tally[key] = tally.get(key, 0) + 1
+
+    def fwd_(q, k, v, causal, scale):
+        out = fwd(q, k, v, causal, scale)
+        bump(("fwd", q.shape[1]))
+        return out
+
+    def bwd_(q, k, v, do, *, causal=False, scale=None):
+        out = bwd(q, k, v, do, causal=causal, scale=scale)
+        bump(("bwd", q.shape[1]))
+        return out
+
+    sa._launch_fwd, sa.short_attention_bwd = fwd_, bwd_
+    try:
+        yield tally
+    finally:
+        sa._launch_fwd, sa.short_attention_bwd = fwd, bwd
+
+
+def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label):
+    """SigLIP serving: ``name`` in pure_bf16 with weights from seed 0, a 10-class
+    classifier built once from seeded token ids, then requests of ``batch`` uint8
+    256x320 images (device preprocess -> encode_image -> sigmoid(scale * logits +
+    bias) -> top-5), one in flight: a warm-up request, a window of at least 0.5 s and
+    10 profiled requests. Returns the model, the classifier's and the requests'
+    launches and path counts, and the requests served."""
+    torch.cuda.reset_peak_memory_stats()
+    model, _, preprocess = oc.create_model_and_transforms(name, precision="pure_bf16", seed=0)
+    lv, lt = model.visual.cfg.layers, model.cfg.text_cfg.layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    requests = [torch.randint(0, 256, (batch, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
+                              generator=gen) for _ in range(DISTINCT_REQUESTS)]
+    with torch.inference_mode():
+        reset_counts(sa, fa)
+        with attention_paths(attn, nf) as text_paths:
+            clf = oc.build_zero_shot_classifier(model, seeded_token_ids(torch, model.cfg.text_cfg, 0),
+                                                oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                                oc.SIMPLE_IMAGENET_TEMPLATES,
+                                                num_classes_per_batch=CLASSES)
+            torch.cuda.synchronize()
+        text = {"short": dict(sa.LAUNCHES), "short_bodies": dict(sa.FWD_BODIES),
+                "paths": dict(text_paths)}
+        clf32 = clf.float()
+        scale, bias = model.logit_scale.float().exp(), model.logit_bias.detach().float()
+
+        def request(i):
+            pixels = preprocess(requests[i % DISTINCT_REQUESTS])
+            feats = model.encode_image(pixels, normalize=True)
+            probs = torch.sigmoid(scale * feats.float() @ clf32 + bias)
+            return feats, (probs, probs.topk(5, dim=-1).indices.cpu())
+
+        t0 = time.perf_counter()
+        request(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts(sa, fa)
+        with attention_paths(attn, nf) as paths:
+            lat, window_s, feats, (probs, top5), prof, prof_wall_ms = serve_window(
+                request, PROFILED_REQUESTS)
+        calls = len(lat) + PROFILED_REQUESTS
+        served = {"short": dict(sa.LAUNCHES), "short_bodies": dict(sa.FWD_BODIES),
+                  "flash": dict(fa.LAUNCHES), "flash_bodies": dict(fa.FWD_BODIES),
+                  "paths": dict(paths)}
+    lq = model.cfg.text_cfg.context_length
+    check(text["short"] == {"fwd": lt, "bwd": 0} and text["short_bodies"] == {"mma": lt, "simt": 0}
+          and text["paths"] == {("short", lq): lt},
+          f"{label} classifier: short launches {text['short']}, by body {text['short_bodies']}, "
+          f"paths {text['paths']} for 1 encode_text call (expect {lt} non-causal L={lq} mma "
+          "launches, no dense block)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(clf.shape) == (model.cfg.embed_dim, CLASSES) and bool(torch.isfinite(clf).all())
+          and tuple(feats.shape) == (batch, model.cfg.embed_dim) and bool(torch.isfinite(feats).all())
+          and bool(((fn - 1).abs() < 1e-2).all()) and bool(torch.isfinite(probs).all())
+          and tuple(top5.shape) == (batch, 5) and int(top5.min()) >= 0 and int(top5.max()) < CLASSES,
+          f"{label} output: classifier {tuple(clf.shape)}, features {tuple(feats.shape)} finite "
+          f"and unit, sigmoid probabilities finite, top-5 {tuple(top5.shape)}")
+    summary = profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)
+    print(f"{label}_profile " + json.dumps(summary), flush=True)
+    line = {"model": name, "precision": "pure_bf16", "batch": batch, "image_hw": list(IMAGE_HW),
+            "first_request_ms": first_ms, "window_s": window_s, "window_requests": len(lat),
+            "images_per_s": batch * len(lat) / window_s,
+            "median_request_ms": statistics.median(lat), "min_request_ms": min(lat),
+            "max_request_ms": max(lat), "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+            "device_idle_share": summary["device_idle_share"],
+            "class_ms_per_request": summary["class_ms_per_request"],
+            "short_fwd_launches_per_request": served["short"]["fwd"] / calls,
+            "flash_fwd_launches_per_request": served["flash"]["fwd"] / calls,
+            "paths_per_request": {f"{k[0]}@{k[1]}": v / calls for k, v in served["paths"].items()},
+            "logit_bias": float(bias), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"{label} " + json.dumps(line), flush=True)
+    return model, text, served, calls
+
+
+def phase_siglip_serve(torch, oc, sa, fa, attn, nf):
+    """ViT-B-16-SigLIP serving at bench_siglip's batch: every block of the image tower
+    (196 tokens, no class token) takes the short kernel's two-pass mma forward, the
+    MAP pool's one-query attention the dense path."""
+    model, text, served, calls = siglip_serve(torch, oc, sa, fa, attn, nf, SIGLIP_MODEL,
+                                              SIGLIP_BATCH, "siglip_serve")
+    lv, l = model.visual.cfg.layers, model.visual.cfg.grid_size[0] * model.visual.cfg.grid_size[1]
+    check(served["short"] == {"fwd": lv * calls, "bwd": 0}
+          and served["short_bodies"] == {"mma": lv * calls, "simt": 0}
+          and served["flash"]["fwd"] == 0
+          and served["paths"] == {("short", l): lv * calls, ("pool_dense", l): calls},
+          f"siglip_serve requests: short {served['short']}, by body {served['short_bodies']}, "
+          f"paths {served['paths']} for {calls} encode_image calls (expect {lv} mma launches "
+          f"at L={l} and one dense MAP pool a call, no dense block)")
+    return text["short"]["fwd"], served["short"]["fwd"], calls
+
+
+def phase_siglip384_serve(torch, oc, sa, fa, attn, nf):
+    """ViT-B-16-SigLIP-384 serving: 576 tokens, no key mask, so every block takes the
+    flash forward; nothing of the image tower takes the short kernel."""
+    model, _, served, calls = siglip_serve(torch, oc, sa, fa, attn, nf, SIGLIP384_MODEL,
+                                           SIGLIP384_BATCH, "siglip384_serve")
+    lv, l = model.visual.cfg.layers, model.visual.cfg.grid_size[0] * model.visual.cfg.grid_size[1]
+    check(served["flash"] == {"fwd": lv * calls, "bwd_dq": 0, "bwd_dkv": 0}
+          and served["flash_bodies"] == {"wgmma": lv * calls, "simt": 0}
+          and served["short"] == {"fwd": 0, "bwd": 0}
+          and served["paths"] == {("flash", l): lv * calls, ("pool_dense", l): calls},
+          f"siglip384_serve requests: flash {served['flash']}, by body {served['flash_bodies']}, "
+          f"short {served['short']}, paths {served['paths']} for {calls} encode_image calls "
+          f"(expect {lv} wgmma flash forwards at L={l} without a key mask, 0 short, one dense "
+          "MAP pool a call)")
+    return served["flash"]["fwd"], calls
+
+
+def phase_siglip_train(torch, oc, sa, blocks):
+    """bench_siglip's step: ViT-B-16-SigLIP at batch 256, 224 px, 64 tokens, amp_bf16,
+    AdamW (wd 0.2), clip 1.0, loss_type "siglip", one fixed batch; with remat under
+    names_mm (as bench_siglip) and without remat, each from the same initial weights
+    (the same first loss): 2 warm-up steps, a window, profiled steps. lr 1e-4, where
+    bench_siglip has 5e-4: with no warm-up, 5e-4 first drives this fixed batch's
+    sigmoid loss up (9.62 -> 29.74 in 13 steps under names_mm on the H100), and the
+    loss must fall here; the step's time does not depend on the lr. Returns the
+    launches by direction and length of both windows, and their steps."""
+    saved = blocks.REMAT_POLICY
+    model = oc.create_model(SIGLIP_MODEL, precision="amp_bf16", seed=0)
+    lv, lt = model.visual.cfg.layers, model.cfg.text_cfg.layers
+    li = model.visual.cfg.grid_size[0] * model.visual.cfg.grid_size[1]
+    ltx = model.cfg.text_cfg.context_length
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(torch, model.cfg, SIGLIP_BATCH, "cuda")
+    total, steps, first = {}, 0, {}
+    try:
+        for run in ("names_mm", "no_remat"):
+            label = f"siglip_train[{run}]"
+            with torch.no_grad():
+                model.load_state_dict(init)
+            blocks.REMAT_POLICY = "names_mm" if run == "names_mm" else "none"
+            torch.cuda.reset_peak_memory_stats()
+            optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0),
+                                            model, oc.const_lr(1e-4, 0))
+            state = oc.create_train_state(model, optimizer)
+            step = oc.make_train_step(model.cfg, optimizer, loss_type="siglip",
+                                      remat=run == "names_mm")
+            state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+            n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+            reset_counts(sa)
+            with tally_by_len(sa) as tally:
+                state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state,
+                                                                             batch, n)
+            fwd_bodies, bwd_bodies = dict(sa.FWD_BODIES), dict(sa.BWD_BODIES)
+            losses = [float(m["loss"]) for m in warm + window]
+            check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                  f"{label}: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f}")
+            first[run] = losses[0]
+            if len(first) == 2:
+                check(abs(first["no_remat"] - first["names_mm"]) <= 1e-3 * abs(first["names_mm"]),
+                      f"{label}: first loss {first['no_remat']:.6f} vs {first['names_mm']:.6f} "
+                      "under names_mm from the same weights (rel 1e-3)")
+            want = {("fwd", li): lv * n, ("fwd", ltx): lt * n, ("bwd", li): lv * n,
+                    ("bwd", ltx): lt * n}
+            check(tally == want and fwd_bodies == {"mma": (lv + lt) * n, "simt": 0}
+                  and bwd_bodies == fwd_bodies,
+                  f"{label}: short launches by (direction, L) {tally}, forward by body "
+                  f"{fwd_bodies}, backward by body {bwd_bodies} in {n} steps (expect {lv} at "
+                  f"L={li} and {lt} at L={ltx} of each a step, all on the tensor cores)")
+            state, prof_summary = profiled_steps(torch, step, state, batch)
+            print(f"{label.replace('train', 'train_profile')} " + json.dumps(prof_summary),
+                  flush=True)
+            bias = float(model.logit_bias)
+            check(math.isfinite(bias) and bias != -10.0,
+                  f"{label}: logit_bias {bias:.6f} moved from -10")
+            print("siglip_train " + json.dumps({
+                "model": SIGLIP_MODEL, "precision": "amp_bf16", "batch": SIGLIP_BATCH,
+                "remat": run, "window_steps": n, "window_s": wall_s,
+                "images_per_s": SIGLIP_BATCH * n / wall_s,
+                "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+                "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+                "host_lead_ms_at_end": lead_ms,
+                "kernel_ms_per_step": prof_summary["device_busy_ms_per_step"],
+                "device_idle_share": prof_summary["device_idle_share"],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+                "lr": 1e-4, "logit_bias": bias,
+                "logit_scale": float(window[-1]["logit_scale"]),
+                "short_launches_per_step": {f"{d}_{'image' if l == li else 'text'}": v / n
+                                            for (d, l), v in tally.items()}}), flush=True)
+            for key, v in tally.items():
+                total[key] = total.get(key, 0) + v
+            steps += n
+            del state, optimizer, step
+    finally:
+        blocks.REMAT_POLICY = saved
+    return total, steps, li, ltx
+
+
+def phase_siglip_cli(torch, sa):
+    """python -m open_clip_tpu_torch.train.main --model ViT-B-16-SigLIP --siglip with
+    synthetic data (fixed token ids: SigLIP's vocabulary is not in the repository)."""
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    with tempfile.TemporaryDirectory() as logs:
+        args = ["--model", SIGLIP_MODEL, "--siglip", "--dataset-type", "synthetic",
+                "--batch-size", str(SIGLIP_BATCH),
+                "--train-num-samples", str(SIGLIP_BATCH * SIGLIP_CLI_STEPS),
+                "--precision", "amp_bf16", "--grad-clip-norm", "1.0", "--lr", "5e-4", "--wd", "0.2",
+                "--warmup", "2", "--log-every-n-steps", "1", "--workers", "1", "--epochs", "1",
+                "--logs", logs, "--name", "siglip"]
+        reset_counts(sa)
+        t0 = time.perf_counter()
+        state = train_main(args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        rows = [json.loads(x) for x in (Path(logs) / "siglip" / "results.jsonl").read_text().splitlines()]
+        layers = state.model.visual.cfg.layers + state.model.cfg.text_cfg.layers
+        bias = float(state.model.logit_bias)
+        check(state.step == SIGLIP_CLI_STEPS and len(rows) == SIGLIP_CLI_STEPS
+              and all(math.isfinite(r["train/loss"]) for r in rows) and bias != -10.0,
+              f"siglip CLI: {state.step} steps, losses {[round(r['train/loss'], 4) for r in rows]} "
+              f"finite, logit_bias {bias:.5f}")
+        check(sa.LAUNCHES == {"fwd": layers * SIGLIP_CLI_STEPS, "bwd": layers * SIGLIP_CLI_STEPS}
+              and sa.FWD_BODIES == {"mma": layers * SIGLIP_CLI_STEPS, "simt": 0},
+              f"siglip CLI: short launches {sa.LAUNCHES}, forward by body {sa.FWD_BODIES} in "
+              f"{SIGLIP_CLI_STEPS} steps")
+        last = rows[-1] if rows else {}
+        print("siglip_cli " + json.dumps({
+            "steps": SIGLIP_CLI_STEPS, "run_s": wall_s, "logit_bias": bias,
+            "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
+            "host_batch_ms_per_step": 1e3 * last.get("train/batch_time", float("nan"))}), flush=True)
+
+
+def phase_siglip_card_vs_cpu(torch, oc, sa):
+    """fp32, TF32 off: ViT-B-16-SigLIP at full width, batch 2, the same weights on the
+    card (the CUDA-core short bodies at L=196 and L=64) and on the CPU: features, the
+    siglip loss and every gradient, the logit bias and the MAP pool's included."""
+    from open_clip_tpu_torch.loss import siglip_loss
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, feats, launched = {}, {}, {}
+    batch = None
+    for device in ("cuda", "cpu"):
+        model = oc.create_model(SIGLIP_MODEL, precision="fp32", seed=4, device=device)
+        if batch is None:
+            batch = train_batch(torch, model.cfg, 2, "cpu", seed=6)
+        image, text = batch["image"].to(device), batch["text"].to(device)
+        reset_counts(sa)
+        with torch.inference_mode():
+            feats[device] = (model.encode_image(image, normalize=True).cpu(),
+                             model.encode_text(text, normalize=True).cpu())
+        out = clip_forward(model, image, text, train=True)
+        loss = siglip_loss(out["image_features"], out["text_features"], out["logit_scale"],
+                           out["logit_bias"])
+        loss.backward()
+        results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()},
+                           loss.item())
+        launched[device] = (dict(sa.LAUNCHES), dict(sa.FWD_BODIES), dict(sa.BWD_BODIES))
+        del model, out, loss
+    check(launched["cuda"] == ({"fwd": 48, "bwd": 24}, {"mma": 0, "simt": 48}, {"mma": 0, "simt": 24}),
+          f"SigLIP fp32 card run: short launches {launched['cuda'][0]}, forward by body "
+          f"{launched['cuda'][1]}, backward by body {launched['cuda'][2]} (24 serving, 24 in the "
+          "training forward, 24 backward, all on the CUDA-core bodies)")
+    for i, name in enumerate(("encode_image", "encode_text")):
+        cos = torch.nn.functional.cosine_similarity(feats["cuda"][i].double(), feats["cpu"][i].double(),
+                                                    dim=-1).min().item()
+        check(bool(torch.isfinite(feats["cuda"][i]).all()) and cos >= COSINE_MIN,
+              f"SigLIP {name} card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
+    g_gpu, g_cpu = results["cuda"][0], results["cpu"][0]
+    named = {k: torch.nn.functional.cosine_similarity(g_gpu[k].flatten(), g_cpu[k].flatten(),
+                                                      dim=0).item()
+             for k in g_cpu if k == "logit_bias" or k.startswith("visual.attn_pool.")}
+    print("siglip_card_vs_cpu " + json.dumps({
+        "loss_cuda": results["cuda"][1], "loss_cpu": results["cpu"][1],
+        "logit_bias_grad": [g_gpu["logit_bias"].item(), g_cpu["logit_bias"].item()],
+        "grad_cosine": named}), flush=True)
+    grads_card_vs_cpu(torch, results, "SigLIP")
+
+
 def main() -> int:
     import torch
 
@@ -2435,6 +2811,8 @@ def main() -> int:
     from open_clip_tpu_torch.ops import switchback as sb
     from open_clip_tpu_torch.ops import window_attention as wa
     from open_clip_tpu_torch.models import blocks
+    from open_clip_tpu_torch.models import naflex_vit as nf
+    from open_clip_tpu_torch.ops import attention as attn
 
     sources = ("short_attention", "layer_norm_bwd", "flash_attention", "window_attention",
                "switchback")
@@ -2495,6 +2873,14 @@ def main() -> int:
     b32_sb_launches, b32_sb_steps = timed("b32_switchback", phase_b32_switchback, torch, oc, sa,
                                           sb, blocks, plain_summary["first_loss"])
     timed("h14_card_vs_cpu", phase_h14_card_vs_cpu, torch, oc, sb, blocks)
+    sg_text_launches, sg_serve_launches, sg_calls = timed(
+        "siglip_serve", phase_siglip_serve, torch, oc, sa, fa, attn, nf)
+    sg384_launches, sg384_calls = timed("siglip384_serve", phase_siglip384_serve, torch, oc, sa, fa,
+                                        attn, nf)
+    sg_tally, sg_steps, sg_li, sg_lt = timed("siglip_train", phase_siglip_train, torch, oc, sa,
+                                             blocks)
+    timed("siglip_cli", phase_siglip_cli, torch, sa)
+    timed("siglip_card_vs_cpu", phase_siglip_card_vs_cpu, torch, oc, sa)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -2582,6 +2968,26 @@ def main() -> int:
                         launches_per_train_step=h14_quantize / h14_steps,
                         launches_b32_cli=b32_sb_launches["quantize"],
                         launches_per_b32_cli_step=b32_sb_launches["quantize"] / b32_sb_steps))
+    # SigLIP: the short forward at the image tower's 196 tokens (siglip_serve's requests
+    # and both siglip_train windows) and at the non-causal 64-token text tower (the
+    # classifier and the train windows), the backwards in the train windows (names_mm
+    # and no remat), the flash forward without a key mask in siglip384_serve
+    kernels.append(dict(fwd_records["siglip_vision"],
+                        launches=sg_serve_launches + sg_tally[("fwd", sg_li)],
+                        launches_serving=sg_serve_launches,
+                        launches_training=sg_tally[("fwd", sg_li)],
+                        launches_per_call=sg_serve_launches / sg_calls,
+                        launches_per_train_step=sg_tally[("fwd", sg_li)] / sg_steps))
+    kernels.append(dict(fwd_records["siglip_text"],
+                        launches=sg_text_launches + sg_tally[("fwd", sg_lt)],
+                        launches_serving=sg_text_launches,
+                        launches_training=sg_tally[("fwd", sg_lt)],
+                        launches_per_train_step=sg_tally[("fwd", sg_lt)] / sg_steps))
+    for which, length in (("siglip_vision", sg_li), ("siglip_text", sg_lt)):
+        kernels.append(dict(bwd_records[(which, "bfloat16")], launches=sg_tally[("bwd", length)],
+                            launches_per_train_step=sg_tally[("bwd", length)] / sg_steps))
+    kernels.append(dict(flash_records["siglip384"]["fwd"], launches=sg384_launches,
+                        launches_per_call=sg384_launches / sg384_calls))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

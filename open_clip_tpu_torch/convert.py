@@ -6,7 +6,8 @@ of ``blocks`` is unstacked, (in, out) kernels become ``nn.Linear``'s (out, in),
 and the patch-embedding kernel keeps its (ph*pw*3, width) patchify layout. The
 keys are the reference checkpoint's, the ones the JAX package's
 ``params_to_torch_state_dict(params, custom_text=False)`` emits; a NaFlex visual
-tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names,
+tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names and
+a ViT's MAP head (``map_pool``, SigLIP's) onto the same ``visual.attn_pool.*`` names,
 a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, and the
 CLAP tree of ``init_clap`` (``audio.encoder``, ``audio.proj``, ``text``,
 ``logit_scale``) onto ``audio.encoder.*`` (HTSAT, ``models/htsat.py``) and
@@ -83,24 +84,31 @@ _NORM = {"scale", "bias"}
 _ROOT = {(): {"visual", "text", "logit_scale", "logit_bias"},
          ("text",): {"token_embedding", "positional_embedding", "ln_final", "text_projection",
                      "blocks"}}
+_MAP_POOL = {"latent", "q", "kv", "proj", "norm", "mlp"}
 _EXPECTED = {
     **_ROOT,
+    ("text", "text_projection"): _LINEAR,
     ("visual",): {"patch_embed", "class_embedding", "positional_embedding", "ln_pre", "ln_post",
-                  "proj", "blocks"},
-    ("visual", "patch_embed"): {"kernel"},
+                  "proj", "blocks", "map_pool"},
+    ("visual", "patch_embed"): _LINEAR,
+    ("visual", "map_pool"): _MAP_POOL,
+    ("visual", "map_pool", "mlp"): {"c_fc", "c_proj"},
 }
 _EXPECTED_CLAP = {(): {"audio", "text", "logit_scale", "logit_bias"},
-                  ("audio",): {"encoder", "proj"}, ("text",): _ROOT[("text",)]}
-_EXPECTED_SWIN = {**_ROOT, ("visual",): {"patch_embed", "layers", "norm", "head"}}
+                  ("audio",): {"encoder", "proj"}, ("text",): _ROOT[("text",)],
+                  ("text", "text_projection"): _LINEAR}
+_EXPECTED_SWIN = {**_ROOT, ("text", "text_projection"): _LINEAR,
+                  ("visual",): {"patch_embed", "layers", "norm", "head"}}
 _EXPECTED_NAFLEX = {
     **_ROOT,
+    ("text", "text_projection"): _LINEAR,
     ("visual",): {"patch_embed", "pos_embed", "norm", "norm_pre", "cls_token", "reg_tokens",
                   "blocks", "attn_pool", "head"},
     ("visual", "patch_embed"): _LINEAR,
     ("visual", "norm"): _NORM,
     ("visual", "norm_pre"): _NORM,
     ("visual", "head"): _LINEAR,
-    ("visual", "attn_pool"): {"latent", "q", "kv", "proj", "norm", "mlp"},
+    ("visual", "attn_pool"): _MAP_POOL,
     ("visual", "attn_pool", "mlp"): {"c_fc", "c_proj"},
 }
 
@@ -113,7 +121,7 @@ def _check_keys(params: Dict[str, Any], expected) -> None:
             if node is None:
                 break
         else:
-            extra = set(node) - allowed
+            extra = set(node) - allowed if isinstance(node, dict) else set()
             if extra:
                 raise KeyError(f"JAX params {'/'.join(path) or '<root>'} hold {sorted(extra)}, "
                                "which the port does not have")
@@ -145,14 +153,19 @@ def _naflex_visual(vis: Dict[str, Any], layers: int, out: Dict[str, torch.Tensor
             out[f"visual.{name}"] = _t(vis[name])
     _blocks(vis["blocks"], layers, "visual.", out)
     if "attn_pool" in vis:
-        pool = vis["attn_pool"]
-        out["visual.attn_pool.latent"] = _t(pool["latent"])
-        for name in ("q", "kv", "proj"):
-            _linear(pool[name], f"visual.attn_pool.{name}", out)
-        _norm(pool["norm"], "visual.attn_pool.norm", out)
-        for name in ("c_fc", "c_proj"):
-            _linear(pool["mlp"][name], f"visual.attn_pool.mlp.{name}", out)
+        _map_pool(vis["attn_pool"], out)
     _linear(vis["head"], "visual.head", out)
+
+
+def _map_pool(pool: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    """The MAP head (the NaFlex tower's ``attn_pool``, the ViT's ``map_pool``) as the
+    port's ``visual.attn_pool``."""
+    out["visual.attn_pool.latent"] = _t(pool["latent"])
+    for name in ("q", "kv", "proj"):
+        _linear(pool[name], f"visual.attn_pool.{name}", out)
+    _norm(pool["norm"], "visual.attn_pool.norm", out)
+    for name in ("c_fc", "c_proj"):
+        _linear(pool["mlp"][name], f"visual.attn_pool.mlp.{name}", out)
 
 
 _SWIN_BLOCK = {
@@ -232,6 +245,7 @@ def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torc
 def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
     from .models.naflex_vit import is_naflex, parse_naflex_cfg
     from .models.swin import is_swin
+    from .models.vit import check_vision_cfg
 
     vis = params["visual"]
     if is_swin(cfg.vision_cfg):
@@ -244,13 +258,17 @@ def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tens
         _naflex_visual(vis, parse_naflex_cfg(cfg.vision_cfg).layers, out)
     else:
         out["visual.conv1.weight"] = _t(vis["patch_embed"]["kernel"])
-        out["visual.class_embedding"] = _t(vis["class_embedding"])
-        out["visual.positional_embedding"] = _t(vis["positional_embedding"])
+        if "bias" in vis["patch_embed"]:
+            out["visual.conv1.bias"] = _t(vis["patch_embed"]["bias"])
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            if name in vis:
+                out[f"visual.{name}"] = _t(vis[name])
         for ln in ("ln_pre", "ln_post"):
             if ln in vis:
                 _norm(vis[ln], f"visual.{ln}", out)
-        out["visual.proj"] = _t(vis["proj"])
-        _blocks(vis["blocks"], cfg.vision_cfg.layers, "visual.", out)
+        if "map_pool" in vis:
+            _map_pool(vis["map_pool"], out)
+        _blocks(vis["blocks"], check_vision_cfg(cfg.vision_cfg).layers, "visual.", out)
 
 
 def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
@@ -258,7 +276,11 @@ def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor
     out["token_embedding.weight"] = _t(txt["token_embedding"])
     out["positional_embedding"] = _t(txt["positional_embedding"])
     _norm(txt["ln_final"], "ln_final", out)
-    out["text_projection"] = _t(txt["text_projection"])
+    tp = txt.get("text_projection")
+    if isinstance(tp, dict):  # a projection with a bias (``proj_bias``)
+        _linear(tp, "text_projection", out)
+    elif tp is not None:
+        out["text_projection"] = _t(tp)
     _blocks(txt["blocks"], cfg.text_cfg.layers, "", out)
 
     out["logit_scale"] = _t(params["logit_scale"])
@@ -269,8 +291,8 @@ def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor
 @torch.no_grad()
 def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast, in place, the weights and biases of the linear maps and convolutions
-    (patch embeddings, fused qkv, out/MLP projections, the NaFlex tower's pool and
-    head, Swin patch merging, HTSAT's token-semantic head, the audio projection) and
+    (patch embeddings, fused qkv, out/MLP projections, the MAP pools, the NaFlex
+    tower's head, Swin patch merging, HTSAT's token-semantic head, the audio projection) and
     the two tower projections to ``dtype``; norms, embeddings, position grids, class,
     register and latent tokens, layer scales, relative-position tables, ``bn0`` and
     the logit scale stay fp32. The partition of
@@ -285,7 +307,7 @@ def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
             names = ("weight", "bias")
         elif isinstance(m, Attention):
             names = ("in_proj_weight", "in_proj_bias")
-        elif hasattr(m, "text_projection"):
+        elif isinstance(getattr(m, "text_projection", None), nn.Parameter):
             names = ("text_projection",)
         if isinstance(getattr(m, "proj", None), nn.Parameter):
             names = names + ("proj",)

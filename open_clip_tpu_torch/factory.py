@@ -85,7 +85,10 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None) ->
     raw = get_model_config(model_name) if model_name else None
     text_cfg = (raw or {}).get("text_cfg", {})
     if text_cfg.get("hf_tokenizer_name") or text_cfg.get("tokenizer_type"):
-        raise NotImplementedError(f"tokenizer of {model_name!r} is not ported yet")
+        vocab = text_cfg.get("hf_tokenizer_name") or text_cfg["tokenizer_type"]
+        raise NotImplementedError(
+            f"tokenizer of {model_name!r} is not ported yet: it needs the vocabulary "
+            f"{vocab!r}, which is not in the repository (feed token ids instead)")
     if context_length is None:
         context_length = text_cfg.get("context_length", DEFAULT_CONTEXT_LENGTH)
     return SimpleTokenizer(context_length=context_length, **text_cfg.get("tokenizer_kwargs", {}))

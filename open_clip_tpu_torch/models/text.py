@@ -3,9 +3,12 @@
 As in the reference CLIP class, the text tower's parts live on the model itself
 (``token_embedding``, ``positional_embedding``, ``transformer``, ``ln_final``,
 ``text_projection``), which gives the reference checkpoint's key names. The mask
-is causal only, so no bias tensor is built: the causal flag travels to the
-attention, where the short kernel applies it. Pooling takes the position of the
-highest token id (``argmax``), the EOT token in CLIP's vocabulary.
+is causal or absent (``no_causal_mask``, SigLIP's), so no bias tensor is built: the
+causal flag travels to the attention, where the short kernel applies it. Pooling
+takes the position of the highest token id (``argmax``), the EOT token in CLIP's
+vocabulary, or the first, last or EOS token. The projection is a bare (width,
+embed_dim) matrix, an ``nn.Linear`` with a bias (``proj_bias``: SigLIP's
+``text_projection.weight`` and ``.bias``), or absent (``proj_type == "none"``).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ def check_text_cfg(cfg: CLIPTextCfg) -> None:
         unported.append("appended CLS token")
     if cfg.pool_type not in ("argmax", "first", "last", "eos"):
         unported.append(f"pool_type {cfg.pool_type!r}")
-    if cfg.proj_bias or cfg.proj_type != "linear":
-        unported.append("projection other than a bias-free linear")
+    if cfg.proj_type not in ("linear", "none"):
+        unported.append(f"proj_type {cfg.proj_type!r}")
     if unported:
         raise NotImplementedError(f"text tower not ported yet: {', '.join(unported)}")
     check_block_options(cfg)
@@ -45,7 +48,12 @@ def add_text_tower(m: nn.Module, cfg: CLIPTextCfg, embed_dim: int, act: str = "g
     m.transformer = Transformer(width, cfg.layers, cfg.heads, int(width * cfg.mlp_ratio),
                                 act=act, ls_init_value=cfg.ls_init_value, norm_eps=cfg.ln_eps)
     m.ln_final = LayerNorm(width, eps=cfg.ln_eps)
-    m.text_projection = nn.Parameter(torch.empty(width, embed_dim))
+    if cfg.proj_type == "none" or not embed_dim:
+        m.text_projection = None
+    elif cfg.proj_bias:
+        m.text_projection = nn.Linear(width, embed_dim)
+    else:
+        m.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 
 
 @torch.no_grad()
@@ -56,7 +64,12 @@ def init_text_tower(m: nn.Module, cfg: CLIPTextCfg, gen: torch.Generator) -> Non
     m.transformer.init_weights(gen, "text")
     m.ln_final.weight.fill_(1.0)
     m.ln_final.bias.zero_()
-    m.text_projection.normal_(0.0, cfg.width ** -0.5, generator=gen)
+    tp = m.text_projection
+    if isinstance(tp, nn.Linear):
+        tp.weight.normal_(0.0, cfg.width ** -0.5, generator=gen)
+        tp.bias.zero_()
+    elif tp is not None:
+        tp.normal_(0.0, cfg.width ** -0.5, generator=gen)
 
 
 def text_global_pool(x: torch.Tensor, text: torch.Tensor, pool_type: str = "argmax",
@@ -83,4 +96,7 @@ def apply_text_tower(m: nn.Module, cfg: CLIPTextCfg, text: torch.Tensor,
     x = m.transformer(x, causal=not cfg.no_causal_mask, remat=remat)
     x = m.ln_final(x)
     pooled = text_global_pool(x, text, cfg.pool_type, cfg.eos_id)
-    return linear(pooled, m.text_projection)
+    tp = m.text_projection
+    if isinstance(tp, nn.Linear):
+        return linear(pooled, tp.weight, tp.bias, transposed=True)
+    return pooled if tp is None else linear(pooled, tp)

@@ -29,7 +29,7 @@ from .optim import OptimizerCfg, create_optimizer
 from .params import parse_args
 from .scheduler import create_scheduler
 from .train_loop import train_one_epoch
-from .train_step import TrainState, create_train_state, make_train_step
+from .train_step import TrainState, create_train_state, loss_type_for, make_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -47,6 +47,23 @@ def random_seed(seed: int = 42) -> None:
     random.seed(seed)
     np.random.seed(seed % (2 ** 31))
     torch.manual_seed(seed)
+
+
+def _data_tokenizer(args, model):
+    """The model's tokenizer. Synthetic data repeats one fixed caption, so where the
+    tokenizer needs a vocabulary that is not in the repository (SigLIP's
+    sentencepiece models), its ids are a fixed row of ``context_length`` ids instead,
+    and the run says so; real data needs the real tokenizer and raises."""
+    try:
+        return get_tokenizer(args.model)
+    except NotImplementedError as err:
+        if not args.dataset_type.startswith("synthetic"):
+            raise
+        text_cfg = model.cfg.text_cfg
+        logger.warning("%s; the synthetic caption is token ids 1..%d", err,
+                       text_cfg.context_length)
+        ids = torch.arange(1, text_cfg.context_length + 1) % text_cfg.vocab_size
+        return lambda texts: ids.expand(len(texts), -1)
 
 
 def main(args=None) -> TrainState:
@@ -86,7 +103,7 @@ def _run(args) -> TrainState:
         audio_pp = audio_transform_v2(model.cfg.audio_cfg, is_train=True, audio_aug_cfg=dict(
             data_fill=args.audio_fill, data_trunc=args.audio_trunc,
             int16_normalize=args.audio_int16_normalize))
-    data = get_data(args, model.preprocess_cfg, get_tokenizer(args.model), audio_pp)
+    data = get_data(args, model.preprocess_cfg, _data_tokenizer(args, model), audio_pp)
     writer = JsonlWriter(log_dir / "results.jsonl")
 
     steps_per_epoch = max(data["train"].num_batches, 1)
@@ -111,7 +128,8 @@ def _run(args) -> TrainState:
             logger.info("resuming from %s", resume_path)
             start_epoch = load_native(resume_path, like=state)
 
-    step_fn = make_train_step(model.cfg, optimizer, loss_type="clip",
+    step_fn = make_train_step(model.cfg, optimizer,
+                              loss_type=loss_type_for(model.cfg, siglip=args.siglip),
                               remat=args.grad_checkpointing, accum_steps=args.accum_freq,
                               naflex_loss_scale=args.naflex_loss_scale,
                               reference_batch_size=args.batch_size)

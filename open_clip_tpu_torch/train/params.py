@@ -2,10 +2,10 @@
 ``open_clip_tpu/train/params.py``).
 
 The flags carry the JAX CLI's names and defaults. Those of features that are not
-ported yet (real datasets, evaluation, other losses, meshes, tower locking, EMA,
-remote sync, ...) still parse, and ``parse_args`` raises ``NotImplementedError``
-when one is set to anything but its default: a JAX command line is refused, not
-half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
+ported yet (real datasets, evaluation, the CoCa and distillation losses, meshes,
+tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
+``NotImplementedError`` when one is set to anything but its default: a JAX command
+line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
 """
 
@@ -93,7 +93,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--lock-text-freeze-layer-norm",), _ON),
     (("--ema",), _FLOATS),
     # losses
-    (("--siglip",), _ON), (("--loss-dist-impl",), dict(type=str, default="bidir")),
     (("--coca-caption-loss-weight",), dict(type=float, default=2.0)),
     (("--coca-contrastive-loss-weight",), dict(type=float, default=1.0)),
     (("--distill-model",), _STRS), (("--distill-pretrained",), _STRS),
@@ -195,7 +194,12 @@ def parse_args(args=None) -> argparse.Namespace:
                         help="reference int8 flag; maps onto the SwitchBack path "
                              "(same as --use-switchback)")
 
+    # losses: the sigmoid loss (SigLIP) in place of InfoNCE
+    parser.add_argument("--siglip", action="store_true", default=False)
+
     # single process: these change nothing and are accepted
+    parser.add_argument("--loss-dist-impl", type=str, default="bidir",
+                        help="how the siglip loss crosses processes; one process has none")
     parser.add_argument("--local-loss", action="store_true", default=True)
     parser.add_argument("--no-local-loss", dest="local_loss", action="store_false")
     parser.add_argument("--gather-with-grad", action="store_true", default=True)

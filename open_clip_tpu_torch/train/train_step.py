@@ -27,11 +27,26 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..config import CLIPModelCfg
-from ..loss import clip_loss
+from ..loss import clip_loss, siglip_loss
 from ..models.clip import LOGIT_SCALE_MAX, CLIPModel, clamp_logit_scale, clip_forward
 from .optim import AdamW
 
-UNPORTED_LOSSES = ("siglip", "coca", "distill", "genlip", "genlap")
+UNPORTED_LOSSES = ("coca", "distill", "genlip", "genlap")
+
+
+def loss_type_for(cfg, *, distill: bool = False, siglip: bool = False) -> str:
+    """The loss a config trains with (the JAX package's ``task.loss_type_for``):
+    distillation when asked, GenLIP/GenLAP by their config, siglip when asked, CoCa
+    for a config with a multimodal decoder, else clip."""
+    if distill:
+        return "distill"
+    if hasattr(cfg, "trunk_cfg"):
+        return "genlap" if getattr(cfg, "audio_cfg", None) is not None else "genlip"
+    if siglip:
+        return "siglip"
+    if getattr(cfg, "multimodal_cfg", None) is not None:
+        return "coca"
+    return "clip"
 
 
 @dataclass
@@ -75,24 +90,35 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     ``naflexvit_*`` tower ``image`` is a NaFlex patch dict of (B, N, ...) tensors, and
     a CLAP model takes ``{"audio": {"waveform", "longer"}, "text"}`` (HTSAT ignores
     ``remat``, as in the JAX package). The compute dtype is the model's
-    (``create_model(precision=...)``).
+    (``create_model(precision=...)``). ``loss_type`` is "clip" (InfoNCE) or "siglip"
+    (the sigmoid loss with the model's ``logit_bias``, which a clip step refuses).
     ``naflex_loss_scale`` ("none", "linear", "sqrt") scales the loss of a patch-dict
     batch by (its batch size / ``reference_batch_size``), or by the root of that, so
     that the small batches of the long token-budget buckets do not dominate."""
     if loss_type in UNPORTED_LOSSES:
-        raise NotImplementedError(f"the {loss_type} train step is not ported yet (clip is)")
-    if loss_type != "clip":
+        raise NotImplementedError(f"the {loss_type} train step is not ported yet "
+                                  "(clip and siglip are)")
+    if loss_type not in ("clip", "siglip"):
         raise ValueError(f"unknown loss_type {loss_type!r}")
     if ema_decay is not None:
         raise NotImplementedError("EMA of the weights is not ported yet")
     if device_preprocess is not None:
         raise NotImplementedError("the on-device training preprocess is not ported yet")
-    if cfg.init_logit_bias is not None:
-        raise NotImplementedError("a logit bias belongs to the siglip step, not ported yet")
+    if loss_type == "clip" and cfg.init_logit_bias is not None:
+        raise NotImplementedError("a logit bias belongs to the siglip step: pass "
+                                  "loss_type='siglip'")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     if naflex_loss_scale not in ("none", "linear", "sqrt"):
         raise ValueError(f"unknown naflex_loss_scale {naflex_loss_scale!r}")
+
+    def _loss(model: CLIPModel, imf: torch.Tensor, txf: torch.Tensor) -> torch.Tensor:
+        """fp32 scale = exp(logit_scale) and, for siglip, the fp32 logit bias."""
+        scale = model.logit_scale.float().exp()
+        if loss_type == "siglip":
+            bias = None if model.logit_bias is None else model.logit_bias.float()
+            return siglip_loss(imf, txf, scale, bias)
+        return clip_loss(imf, txf, scale)
 
     def _loss_ratio(batch, n: int) -> float:
         if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
@@ -127,8 +153,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     def simple_step(state: TrainState, batch):
         model = state.model
         imf, txf = _features(model, batch, remat)
-        loss = clip_loss(imf, txf, model.logit_scale.float().exp())
-        loss = loss * _loss_ratio(batch, imf.shape[0])
+        loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
         loss.backward()
         return _apply_updates(state, loss)
 
@@ -151,9 +176,9 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
             feats = [_features(model, mb, remat) for mb in micro]
         all_imf = torch.cat([f[0] for f in feats]).requires_grad_()
         all_txf = torch.cat([f[1] for f in feats]).requires_grad_()
-        loss = clip_loss(all_imf, all_txf, model.logit_scale.float().exp())
+        loss = _loss(model, all_imf, all_txf)
         loss = loss * _loss_ratio(batch, n)  # the cached feature gradients carry the ratio
-        loss.backward()  # fills all_imf.grad, all_txf.grad and logit_scale.grad
+        loss.backward()  # fills the features' grads and the logit scale's (and bias')
         # phase 2: each microbatch's forward again, with the cached feature gradients
         for i, mb in enumerate(micro):
             imf, txf = _features(model, mb, remat)

@@ -431,6 +431,34 @@ def test_flash_kernels_match_plain(cuda, b, l, h, hd, causal, prefix_len, masked
         assert err <= BWD_RTOL[dtype] * max(want.float().abs().max().item(), 1e-3), (name, err)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,l,h", [(4, 196, 12), (4, 64, 12)], ids=["siglip_image", "siglip_text"])
+def test_siglip_short_kernels_match_plain(cuda, b, l, h, dtype):
+    """ViT-B-16-SigLIP's towers: 196 tokens and no class token (in bf16 the two-pass
+    forward and the two-kernel backward), and the non-causal 64-token text tower."""
+    q, k, v = _fused_qkv(l + h, b, l, h, 64, dtype, cuda)
+    if dtype == torch.bfloat16:
+        assert sa.fwd_body(l, 64, dtype) == sa.bwd_body(l, 64, dtype) == "mma"
+    _check(q, k, v, False)
+    _check_bwd(q, k, v, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_siglip384_flash_forward_without_a_mask_matches_plain(cuda, dtype):
+    """ViT-B-16-SigLIP-384's blocks: 576 tokens, no key mask, no causal mask."""
+    q, k, v = _fused_qkv(588, 2, 576, 12, 64, dtype, cuda)
+    before, bodies = dict(fa.LAUNCHES), dict(fa.FWD_BODIES)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, fwd=before["fwd"] + 1)
+    body = fa.fwd_body(64, dtype)
+    assert fa.FWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_row_without_a_visible_key_is_zero(cuda, causal):
     """Sample 1 has no valid key: zero output, finite lse, zero gradients, as the

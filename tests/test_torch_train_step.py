@@ -247,7 +247,7 @@ def test_eval_forward_matches_clip_forward(setup):
     assert all(torch.equal(out[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("kw", [{"loss_type": "siglip"}, {"loss_type": "coca"},
+@pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca"},
                                 {"loss_type": "distill"}, {"loss_type": "genlip"},
                                 {"ema_decay": 0.999}, {"device_preprocess": lambda x: x}])
 def test_unported_step_options_raise(setup, kw):

@@ -93,7 +93,7 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--siglip"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
+    ["--coca-caption-loss-weight", "1.0"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
     ["--train-data", "shards-{000..010}.tar"], ["--val-data", "val.csv"],
     ["--imagenet-val", "imagenet/val"], ["--mesh-fsdp", "2"], ["--distill-model", "ViT-B-32"],
     ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--device-preprocess"],
