@@ -130,7 +130,18 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  25. siglip_cli: the CLI with --model ViT-B-16-SigLIP --siglip and synthetic data;
  26. siglip_card_vs_cpu: fp32 (TF32 off), ViT-B-16-SigLIP at full width, batch 2, card
      (the CUDA-core short bodies at L=196 and 64) against CPU: features, the siglip
-     loss and every gradient (the logit bias and the MAP pool's included).
+     loss and every gradient (the logit bias and the MAP pool's included);
+ 27. dist_losses, in an NCCL process group of one (this card): the gathered clip_loss
+     (local_loss on and off) and siglip_loss (gather, shift, bidir, reduce) forward and
+     backward on seeded bf16 features at ViT-B-32's width and batch 256, against the
+     one-process forms (relative error of the loss and of each gradient) and timed;
+ 28. dist_train: phase 4's ViT-B-32 b256 step from seed 0, plain and with the model
+     under FSDP2 (shard_model on a (data 1, fsdp 1) mesh), the same count of steps each:
+     the losses agree, 24 + 24 short launches a step in both, step ms, kernel ms, idle
+     share and peak GiB side by side; then GradCache steps (accum_steps=2) in both;
+ 29. dist_cli: python -m open_clip_tpu_torch.train.main in a child process under
+     torchrun's variables (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR and a free
+     MASTER_PORT): an NCCL group of one, one epoch, then a second through --resume.
 
 Phase 1 also times the short forward and backward at the SigLIP shapes and the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask); phase 17 also times the
@@ -2789,6 +2800,215 @@ def phase_siglip_card_vs_cpu(torch, oc, sa):
     grads_card_vs_cpu(torch, results, "SigLIP")
 
 
+DIST_STEPS = 8  # the window of each dist_train run: a fixed count, so the losses pair up
+DIST_ACCUM_STEPS = 2  # timed and counted, after one GradCache warm-up step
+DIST_CLI_STEPS = 2
+# gathered loss at world 1 against the one-process form, relative to each tensor's
+# largest entry: fp32 results (the loss, the scale's and bias' gradients) to 1e-5; the
+# features' gradients are bf16, as the features are, and the local_loss form sums their
+# fp32 terms in another order, which may move an entry across a bf16 rounding (2**-8)
+DIST_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -8}
+DIST_STEP_TOL = 2e-2  # per-step loss, FSDP2 step against the plain one (bf16 tolerance)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_losses(torch):
+    """The gathered losses on NCCL at world 1: clip_loss (local_loss on and off) and
+    siglip_loss (gather, shift, bidir, reduce) on the default group, forward and
+    backward, against the one-process forms on the same seeded bf16 features at
+    ViT-B-32's width and batch 256; the max relative error over the loss and the
+    gradients of the features, the scale and the bias, and the ms of each form's
+    forward and backward (CUDA events, median of 10)."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from open_clip_tpu_torch.loss import clip_loss, siglip_loss
+
+    group = dist.group.WORLD
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    feats = [F.normalize(torch.randn(BATCH, 512, device="cuda", generator=gen), dim=-1)
+             .to(torch.bfloat16) for _ in range(2)]
+    scale = torch.tensor(1 / 0.07, device="cuda")
+    bias = torch.tensor(-10.0, device="cuda")
+
+    def run(fn):
+        args = [t.clone().requires_grad_() for t in (*feats, scale, bias)]
+        loss = fn(*args)
+        loss.backward()
+        return [loss.detach()] + [a.grad for a in args if a.grad is not None]
+
+    def ms(fn):
+        times = []
+        for _ in range(10):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(fn)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    cases = {f"clip_{form}": (
+        lambda i, t, s, b, form=form: clip_loss(i, t, s, group=group, local_loss=form == "local"),
+        lambda i, t, s, b: clip_loss(i, t, s)) for form in ("local", "global")}
+    cases.update({f"siglip_{impl}": (
+        lambda i, t, s, b, impl=impl: siglip_loss(i, t, s, b, group=group, dist_impl=impl),
+        lambda i, t, s, b: siglip_loss(i, t, s, b)) for impl in ("gather", "shift", "bidir",
+                                                                 "reduce")})
+    summary = {}
+    names = ("loss", "image_features", "text_features", "scale", "bias")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the losses' fp32 products in fp32
+    try:
+        for name, (gathered, plain) in cases.items():
+            got, want = run(gathered), run(plain)
+            errs = {k: rel_err(a, b) for k, a, b in zip(names, got, want)}
+            tols = {k: DIST_LOSS_RTOL[str(a.dtype).split(".")[-1]] for k, a in zip(names, got)}
+            ok = len(got) == len(want) and all(bool(torch.isfinite(t).all()) for t in got)
+            check(ok and all(errs[k] <= tols[k] for k in errs),
+                  f"dist_losses {name}: gathered on NCCL world 1 vs one-process form, rel err "
+                  f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (<= {tols})")
+            summary[name] = {"rel_err": errs, "ms": ms(gathered), "plain_ms": ms(plain)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print("dist_losses " + json.dumps({"world": dist.get_world_size(),
+                                       "backend": dist.get_backend(), "batch": BATCH,
+                                       "width": 512, "features": "bfloat16", **summary}),
+          flush=True)
+
+
+def phase_dist_train(torch, oc, sa, fl):
+    """The ViT-B-32 b256 amp_bf16 step from seed 0 (phase 4's), plain and then with the
+    model under shard_model(create_mesh(data=1, fsdp=1)) on NCCL: DIST_STEPS steps
+    each after 2 warm-up steps (the same fixed count, so the losses pair up), then
+    profiled steps, then DIST_ACCUM_STEPS GradCache steps (accum_steps=2). The FSDP2
+    run's losses must match the plain run's within bf16 tolerance, its short-attention
+    launches must be phase 4's per step, and both runs' step ms, kernel ms, idle share
+    and peak GiB are printed side by side. Returns the FSDP2 window's launches by
+    tower and its steps."""
+    from open_clip_tpu_torch.parallel.mesh import create_mesh, shard_model
+
+    mesh = create_mesh(data=1, fsdp=1, device="cuda")
+    runs, tally_fsdp = {}, None
+    for label in ("plain", "fsdp"):
+        torch.cuda.reset_peak_memory_stats()
+        model = oc.create_model("ViT-B-32", precision="amp_bf16", seed=0)
+        lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+        on_mesh = mesh if label == "fsdp" else None
+        if on_mesh is not None:
+            shard_model(model, mesh)
+        optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                        model, oc.const_lr(5e-4, 0))
+        state = oc.create_train_state(model, optimizer)
+        step = oc.make_train_step(model.cfg, optimizer, mesh=on_mesh)
+        batch = train_batch(torch, model.cfg, BATCH, "cuda")
+        state, warm, *_ = run_steps(torch, step, state, batch, 2)
+        reset_counts(sa, fl)
+        with tally_by_shape(sa, fl) as tally:
+            state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch,
+                                                                         DIST_STEPS)
+        counts = {"fwd": sa.LAUNCHES["fwd"], "bwd": sa.LAUNCHES["bwd"]}
+        bodies = {"fwd": dict(sa.FWD_BODIES), "bwd": dict(sa.BWD_BODIES)}
+        if label == "fsdp":
+            tally_fsdp = dict(tally)
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses),
+              f"dist_train[{label}]: {len(losses)} losses finite")
+        n = DIST_STEPS
+        check(counts == {"fwd": (lv + lt) * n, "bwd": (lv + lt) * n}
+              and bodies["fwd"] == bodies["bwd"] == {"mma": (lv + lt) * n, "simt": 0},
+              f"dist_train[{label}]: short launches {counts}, by body {bodies} in {n} steps "
+              f"(expect {lv + lt} forward and backward a step, as phase 4, all mma)")
+        state, prof = profiled_steps(torch, step, state, batch)
+        accum = oc.make_train_step(model.cfg, optimizer, mesh=on_mesh, accum_steps=2)
+        state, accum_metrics, *_ = run_steps(torch, accum, state, batch, 1)  # warm-up
+        reset_counts(sa)
+        state, window_metrics, accum_ms, *_ = run_steps(torch, accum, state, batch,
+                                                        DIST_ACCUM_STEPS)
+        accum_losses = [float(m["loss"]) for m in accum_metrics + window_metrics]
+        # GradCache: phase 1 and phase 2 each run both microbatches' forwards
+        want = {"fwd": 4 * (lv + lt) * DIST_ACCUM_STEPS, "bwd": 2 * (lv + lt) * DIST_ACCUM_STEPS}
+        check(dict(sa.LAUNCHES) == want and all(math.isfinite(x) for x in accum_losses),
+              f"dist_train[{label}] accum_steps=2: short launches {dict(sa.LAUNCHES)} in "
+              f"{DIST_ACCUM_STEPS} steps (expect {want}), losses {accum_losses}")
+        runs[label] = {
+            "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+            "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+            "host_lead_ms_at_end": lead_ms, "images_per_s": BATCH * n / wall_s,
+            "kernel_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+            "kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "class_ms_per_step": prof["class_ms_per_step"],
+            "accum_median_step_ms": statistics.median(accum_ms),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "losses": losses, "accum_losses": accum_losses,
+            "short_launches_per_step": {k: v / n for k, v in counts.items()}}
+        del state, optimizer, step, accum, model
+        torch.cuda.empty_cache()
+    plain, fsdp = runs["plain"], runs["fsdp"]
+    diff = max(abs(a - b) for a, b in zip(plain["losses"] + plain["accum_losses"],
+                                          fsdp["losses"] + fsdp["accum_losses"]))
+    check(diff <= DIST_STEP_TOL,
+          f"dist_train: FSDP2 losses {[round(x, 4) for x in fsdp['losses']]} vs plain "
+          f"{[round(x, 4) for x in plain['losses']]} and GradCache {fsdp['accum_losses']} vs "
+          f"{plain['accum_losses']}: max |diff| {diff:.3g} (<= {DIST_STEP_TOL})")
+    print("dist_train " + json.dumps({"model": "ViT-B-32", "precision": "amp_bf16",
+                                      "batch": BATCH, "mesh": {"data": 1, "fsdp": 1},
+                                      "backend": "nccl", "window_steps": DIST_STEPS,
+                                      "max_loss_diff": diff, **runs}), flush=True)
+    return tally_fsdp, DIST_STEPS
+
+
+def phase_dist_cli():
+    """python -m open_clip_tpu_torch.train.main in a child process under a
+    torchrun-style environment (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR, a
+    free MASTER_PORT): it joins an NCCL group of one, trains one epoch of ViT-B-32 b256
+    synthetic batches, then a second through --resume latest."""
+    import os
+
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1")
+    with tempfile.TemporaryDirectory() as logs:
+        args = ["--model", "ViT-B-32", "--dataset-type", "synthetic", "--batch-size", str(BATCH),
+                "--train-num-samples", str(BATCH * DIST_CLI_STEPS), "--precision", "amp_bf16",
+                "--grad-clip-norm", "1.0", "--lr", "5e-4", "--wd", "0.2", "--warmup", "2",
+                "--log-every-n-steps", "1", "--log-metric-every-n-steps", "1", "--workers", "1",
+                "--logs", logs, "--name", "dist"]
+        run = Path(logs) / "dist"
+        outs = []
+        for extra in (["--epochs", "1"], ["--epochs", "2", "--resume", "latest"]):
+            env["MASTER_PORT"] = str(free_port())
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "open_clip_tpu_torch.train.main",
+                                   *args, *extra], env=env, cwd=Path(__file__).resolve().parent,
+                                  capture_output=True, text=True, timeout=300)
+            outs.append((proc, time.perf_counter() - t0))
+            nccl = "backend=nccl" in proc.stderr  # the CLI logs the group's backend
+            check(proc.returncode == 0 and nccl,
+                  f"dist_cli {' '.join(extra)}: exit {proc.returncode}, NCCL group {nccl}"
+                  + (f"\n{proc.stderr[-3000:]}" if proc.returncode else ""))
+        rows = [json.loads(x) for x in (run / "results.jsonl").read_text().splitlines()] \
+            if (run / "results.jsonl").exists() else []
+        steps = [r["step"] for r in rows]
+        check(steps == list(range(1, 2 * DIST_CLI_STEPS + 1))
+              and all(abs(r["train/loss"] - math.log(BATCH)) < 1e-2 for r in rows),
+              f"dist_cli: steps {steps} over two runs, losses "
+              f"{[round(r['train/loss'], 4) for r in rows]} (ln {BATCH} on identical samples)")
+        check((run / "checkpoints" / "epoch_1.pt").exists()
+              and (run / "checkpoints" / "epoch_2.pt").exists()
+              and "world_size: 1" in (run / "params.txt").read_text(),
+              "dist_cli: epoch_1.pt, epoch_2.pt and params.txt written")
+        # each child's wall seconds: start-up, the group, the model, its steps, a checkpoint
+        print("dist_cli " + json.dumps({"steps_per_epoch": DIST_CLI_STEPS,
+                                        "run_s": [t for _, t in outs]}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2881,6 +3101,16 @@ def main() -> int:
                                              blocks)
     timed("siglip_cli", phase_siglip_cli, torch, sa)
     timed("siglip_card_vs_cpu", phase_siglip_card_vs_cpu, torch, oc, sa)
+    import torch.distributed as dist
+    from open_clip_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        timed("dist_losses", phase_dist_losses, torch)
+        dist_tally, dist_steps = timed("dist_train", phase_dist_train, torch, oc, sa, fl)
+    finally:
+        dist.destroy_process_group()
+    timed("dist_cli", phase_dist_cli)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -2892,16 +3122,22 @@ def main() -> int:
     # off, the LayerNorm backward with it on)
     kernels = []
     for tower in ("vision", "text"):
-        n_train = tally[("fwd", tower)]
-        kernels.append(dict(fwd_records[tower], launches=launches[tower] + n_train,
+        n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
+        kernels.append(dict(fwd_records[tower], launches=launches[tower] + n_train + n_dist,
                             launches_serving=launches[tower], launches_training=n_train,
                             launches_per_call=launches[tower] / calls[tower],
-                            launches_per_train_step=n_train / steps))
-    # the short backward: the fused tensor-core body in the bf16 train window; the
-    # two-kernel CUDA-core body in the fp32 train step of phase 6 (B=8)
+                            launches_per_train_step=n_train / steps,
+                            launches_dist_training=n_dist,
+                            launches_per_dist_train_step=n_dist / dist_steps))
+    # the short backward: the fused tensor-core body in the bf16 train windows (plain
+    # and under FSDP2); the two-kernel CUDA-core body in the fp32 train step of phase 6
     for tower in ("vision", "text"):
-        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=tally[("bwd", tower)],
-                            launches_per_train_step=tally[("bwd", tower)] / steps))
+        n_train, n_dist = tally[("bwd", tower)], dist_tally[("bwd", tower)]
+        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=n_train + n_dist,
+                            launches_training=n_train,
+                            launches_per_train_step=n_train / steps,
+                            launches_dist_training=n_dist,
+                            launches_per_dist_train_step=n_dist / dist_steps))
     kernels.append(dict(bwd_records[("vision", "float32")], launches=short_simt_launches,
                         launches_path="fp32 train step, B=8 (phase 6)"))
     # ViT-L-14's image tower (L=257): the two-pass forward and the two-kernel backward in

@@ -64,7 +64,11 @@ class SyntheticDataset:
 def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
              audio_preprocess: Optional[Callable] = None) -> Dict[str, DataInfo]:
     """{"train": DataInfo} for ``--dataset-type synthetic``, ``synthetic-naflex`` and
-    ``synthetic-audio`` (which takes the CLAP model's training ``audio_preprocess``)."""
+    ``synthetic-audio`` (which takes the CLAP model's training ``audio_preprocess``).
+    ``args`` carries the JAX function's names, ``world_size`` and ``rank`` among them
+    (set once the process group exists): each synthetic source gives every rank its
+    own ``--batch-size`` rows a step, as in the JAX package, so the counts are per
+    process."""
     dstype = getattr(args, "dataset_type", "auto")
     get = lambda k, d: getattr(args, k, d)  # noqa: E731
     pin = torch.device(args.device).type == "cuda"

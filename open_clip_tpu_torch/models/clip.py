@@ -99,8 +99,9 @@ class CLIPModel(nn.Module):
     def get_logits(self, image, text):
         return get_logits(self, image, text)
 
-    def forward(self, image=None, text=None) -> Dict[str, torch.Tensor]:
-        return clip_forward(self, image, text)
+    def forward(self, image=None, text=None, *, train: bool = False,
+                remat: bool = False) -> Dict[str, torch.Tensor]:
+        return clip_forward(self, image, text, train=train, remat=remat)
 
 
 def _as_tensor(x, device) -> torch.Tensor:

@@ -3,9 +3,15 @@
 
 Experiment naming and logging, the model, optimizer and schedule, data, resume,
 and the epoch loop (train, then a checkpoint per ``--save-frequency``), with
-``results.jsonl`` and ``params.txt`` in the log directory. One process, one
-device: the CUDA card unless ``--device`` says otherwise. Evaluation, writers
-other than JSONL, remote sync and meshes are not ported yet.
+``results.jsonl`` and ``params.txt`` in the log directory. One device a process:
+the CUDA card of the local rank unless ``--device`` says otherwise. Several
+processes (torchrun's environment, or the ``--dist-*`` flags) join one process
+group first (NCCL on the cards, gloo on the CPU), build the same model from the same
+seed and train it on a (data, fsdp) mesh under FSDP2, each on its own
+``--batch-size`` rows; only the primary writes the files and logs. Evaluation,
+writers other than JSONL and remote sync are not ported yet.
+
+    torchrun --nproc-per-node 4 -m open_clip_tpu_torch.train.main --mesh-fsdp 2 ...
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ from ..data import get_data
 from ..data.audio import audio_transform_v2
 from ..factory import create_model, get_tokenizer, resolve_device
 from ..models import blocks
+from ..parallel.distributed import (barrier, broadcast_object_from_primary,
+                                    broadcast_scalar_from_primary, init_distributed)
+from ..parallel.mesh import create_mesh, shard_model
 from .optim import OptimizerCfg, create_optimizer
 from .params import parse_args
 from .scheduler import create_scheduler
@@ -81,30 +90,45 @@ def main(args=None) -> TrainState:
 
 
 def _run(args) -> TrainState:
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
+    device = resolve_device(args.device)
+    # the process group comes before anything that only the primary does
+    args.rank, args.world_size = init_distributed(
+        args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
+        device=device.type)
+    primary = args.rank == 0
+    logging.basicConfig(level=logging.DEBUG if args.debug else (
+                            logging.INFO if primary else logging.WARNING),
                         format="%(asctime)s | %(levelname)s | %(message)s")
-    args.device = str(resolve_device(args.device))
+    args.device = str(resolve_device(args.device))  # cuda: the local rank's card
 
     if args.name is None:
-        args.name = "-".join([datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
-                              f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
-                              f"b_{args.batch_size}"])
+        args.name = broadcast_object_from_primary("-".join([
+            datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
+            f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}", f"b_{args.batch_size}"]))
     log_dir = Path(args.logs) / args.name
     ckpt_dir = log_dir / "checkpoints"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    with open(log_dir / "params.txt", "w") as fh:
-        for k in sorted(vars(args)):
-            fh.write(f"{k}: {getattr(args, k)}\n")
+    if primary:
+        with open(log_dir / "params.txt", "w") as fh:
+            for k in sorted(vars(args)):
+                fh.write(f"{k}: {getattr(args, k)}\n")
 
-    random_seed(args.seed)
+    random_seed(args.seed)  # the same seed on every rank: the same initial weights
     model = create_model(args.model, precision=args.precision, device=args.device, seed=args.seed)
+    mesh = None
+    if args.world_size > 1:
+        mesh = create_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp, device=device.type)
+        shard_model(model, mesh)
+    logger.info("processes=%d backend=%s mesh=%s", args.world_size,
+                torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
+                dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else None)
     audio_pp = None
     if model.cfg.audio_cfg is not None:
         audio_pp = audio_transform_v2(model.cfg.audio_cfg, is_train=True, audio_aug_cfg=dict(
             data_fill=args.audio_fill, data_trunc=args.audio_trunc,
             int16_normalize=args.audio_int16_normalize))
     data = get_data(args, model.preprocess_cfg, _data_tokenizer(args, model), audio_pp)
-    writer = JsonlWriter(log_dir / "results.jsonl")
+    writer = JsonlWriter(log_dir / "results.jsonl") if primary else None
 
     steps_per_epoch = max(data["train"].num_batches, 1)
     total_steps = steps_per_epoch * args.epochs
@@ -127,9 +151,11 @@ def _run(args) -> TrainState:
         if resume_path:
             logger.info("resuming from %s", resume_path)
             start_epoch = load_native(resume_path, like=state)
+            start_epoch = int(broadcast_scalar_from_primary(start_epoch))
 
     step_fn = make_train_step(model.cfg, optimizer,
                               loss_type=loss_type_for(model.cfg, siglip=args.siglip),
+                              mesh=mesh, local_loss=args.local_loss, dist_impl=args.loss_dist_impl,
                               remat=args.grad_checkpointing, accum_steps=args.accum_freq,
                               naflex_loss_scale=args.naflex_loss_scale,
                               reference_batch_size=args.batch_size)
@@ -144,10 +170,15 @@ def _run(args) -> TrainState:
         completed = epoch + 1
         if completed % args.save_frequency == 0 or completed == args.epochs:
             path = ckpt_dir / f"epoch_{completed}.pt"
-            save_native(path, state, epoch=completed)
+            save_native(path, state, epoch=completed)  # every rank gathers, the primary writes
+            barrier()
             logger.info("saved checkpoint %s", path)
     return state
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -10,8 +10,12 @@ optimizer's own count (0 on the first step), then ``p + update``.
 The optimizer itself holds no tensors: its state (count and the two moments) is
 a dict made by ``init`` and kept in the train state, as optax keeps it. Updates
 are made in place with ``torch._foreach_*`` (the JAX package has no kernel of its
-own here either). Other optimizers, layer-wise lr decay and tower locking are not
-ported yet and raise.
+own here either). Under FSDP2 (``parallel.mesh.shard_model``) the parameters and
+their gradients are sharded: the moments are made with the parameters' sharding,
+the update runs on each rank's shards, and the global norm sums the squares of the
+shards over the ranks that hold them, so clipping sees the whole gradient as
+``clip_by_global_norm`` does. Other optimizers, layer-wise lr decay and tower
+locking are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.mesh import is_sharded, local_tensor
 
 # the relative-position table of the Swin towers is a bias: the JAX mask leaves it
 # out by its shape, the reference by its name
@@ -91,9 +98,23 @@ def wd_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], extra_names: Sequ
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in fp32 (a 0-dim tensor)."""
-    norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares over all tensors, in fp32 (a 0-dim tensor). Of a
+    sharded tensor each rank holds a part: the parts' squared norms are summed over
+    the ranks that share it out (the fsdp group, one all-reduce for all of them) into
+    the tensor's norm. On a group of one that is the same number, bit for bit, as
+    the norm of the whole tensor (sqrt of a rounded square returns the value)."""
+    tensors = list(tensors)
+    parts = [i for i, t in enumerate(tensors) if is_sharded(t)]
+    norms = torch.stack(torch._foreach_norm([local_tensor(t).float() for t in tensors]))
+    if parts:
+        first = tensors[parts[0]]
+        dims = [i for i, p in enumerate(first.placements) if p.is_shard()]
+        if len(dims) != 1:
+            raise NotImplementedError(f"global norm of tensors sharded as {first.placements}")
+        sq = norms[parts].square()
+        dist.all_reduce(sq, group=first.device_mesh.get_group(dims[0]))
+        norms = norms.index_copy(0, torch.tensor(parts, device=norms.device), sq.sqrt())
+    return torch.linalg.vector_norm(norms)
 
 
 class AdamW:
@@ -106,7 +127,8 @@ class AdamW:
         self.mu_dtype = _MU_DTYPES[cfg.mu_dtype]
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        """Zero moments beside ``params`` (in their order) and a count of 0."""
+        """Zero moments beside ``params`` (in their order; sharded as they are) and a
+        count of 0."""
         if len(params) != len(self.decay):
             raise ValueError(f"optimizer was built for {len(self.decay)} tensors, got {len(params)}")
         return {"count": 0,
@@ -119,8 +141,10 @@ class AdamW:
         """One step in place on ``params`` and ``state``; returns the global norm of
         ``grads`` before clipping. Does not wait for the device."""
         cfg = self.cfg
-        params, grads = list(params), list(grads)
         norm = global_norm(grads)
+        # sharded tensors update shard by shard: their local parts are views
+        params, grads = [local_tensor(p) for p in params], [local_tensor(g) for g in grads]
+        moments = {k: [local_tensor(m) for m in state[k]] for k in ("mu", "nu")}
         if cfg.grad_clip_norm:
             below = norm < cfg.grad_clip_norm
             one = torch.ones_like(norm)
@@ -129,13 +153,13 @@ class AdamW:
             torch._foreach_mul_(grads, torch.where(below, one, one * cfg.grad_clip_norm))
         count = state["count"] + 1
         # the moment is kept in mu_dtype; the step's arithmetic is in the gradient's dtype
-        mu = state["mu"] if self.mu_dtype is None else [m.to(g.dtype)
-                                                        for m, g in zip(state["mu"], grads)]
+        mu = moments["mu"] if self.mu_dtype is None else [m.to(g.dtype)
+                                                          for m, g in zip(moments["mu"], grads)]
         torch._foreach_mul_(mu, cfg.beta1)
         torch._foreach_add_(mu, grads, alpha=1 - cfg.beta1)
         if self.mu_dtype is not None:
-            torch._foreach_copy_(state["mu"], mu)
-        nu = state["nu"]
+            torch._foreach_copy_(moments["mu"], mu)
+        nu = moments["nu"]
         torch._foreach_mul_(nu, cfg.beta2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - cfg.beta2)
         denom = torch._foreach_div(nu, 1 - cfg.beta2 ** count)

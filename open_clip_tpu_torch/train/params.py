@@ -2,8 +2,8 @@
 ``open_clip_tpu/train/params.py``).
 
 The flags carry the JAX CLI's names and defaults. Those of features that are not
-ported yet (real datasets, evaluation, the CoCa and distillation losses, meshes,
-tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
+ported yet (real datasets, evaluation, the CoCa and distillation losses, tensor
+parallelism, tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
@@ -96,17 +96,9 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--coca-caption-loss-weight",), dict(type=float, default=2.0)),
     (("--coca-contrastive-loss-weight",), dict(type=float, default=1.0)),
     (("--distill-model",), _STRS), (("--distill-pretrained",), _STRS),
-    # parallelism
-    (("--mesh-data",), dict(type=int, default=-1)), (("--mesh-fsdp",), dict(type=int, default=1)),
-    (("--mesh-tensor",), dict(type=int, default=1)),
-    (("--dist-coordinator",), _STRS), (("--dist-num-processes",), _INTS),
-    (("--dist-process-id",), _INTS), (("--dist-auto",), _ON),
-    (("--dist-backend",), _STRS), (("--dist-url",), _STRS),
+    # compilation (the port has no compiled step) and audio loader processes
     (("--torchcompile",), _ON), (("--torchcompile-backend",), _STRS),
     (("--torchcompile-mode",), _STRS), (("--torchcompile-strategy",), _STRS),
-    (("--fsdp",), _ON), (("--fsdp-checkpoint",), _ON),
-    (("--fsdp-no-reshard-after-forward",), _ON), (("--fsdp-offload-cpu",), _ON),
-    (("--ddp-static-graph",), _ON), (("--no-set-device-rank",), _ON), (("--use-bn-sync",), _ON),
     (("--audio-multiprocessing-context",), _STRS),
     (("--audio-zeroshot-multiprocessing-context",), _STRS),
     # checkpointing
@@ -197,12 +189,38 @@ def parse_args(args=None) -> argparse.Namespace:
     # losses: the sigmoid loss (SigLIP) in place of InfoNCE
     parser.add_argument("--siglip", action="store_true", default=False)
 
-    # single process: these change nothing and are accepted
+    # mesh and processes: a world of more than one process (torchrun's RANK, WORLD_SIZE,
+    # LOCAL_RANK, MASTER_ADDR and MASTER_PORT, or the flags) trains on a (data, fsdp)
+    # mesh under FSDP2, one device a process
+    parser.add_argument("--mesh-data", type=int, default=-1,
+                        help="replica axis size (-1: the processes --mesh-fsdp leaves)")
+    parser.add_argument("--mesh-fsdp", type=int, default=1, help="parameter-shard axis size")
+    parser.add_argument("--mesh-tensor", type=int, default=1,
+                        help="tensor-parallel axis size; only 1 is ported")
+    parser.add_argument("--dist-coordinator", type=str, default=None,
+                        help="host:port of process 0 (or OCT_COORDINATOR / MASTER_ADDR and "
+                             "MASTER_PORT)")
+    parser.add_argument("--dist-num-processes", type=int, default=None)
+    parser.add_argument("--dist-process-id", type=int, default=None)
+    parser.add_argument("--dist-auto", action="store_true", default=False,
+                        help="accepted: the launcher's variables are always read")
     parser.add_argument("--loss-dist-impl", type=str, default="bidir",
-                        help="how the siglip loss crosses processes; one process has none")
+                        help="how the siglip loss crosses processes: bidir, shift, gather "
+                             "or reduce")
     parser.add_argument("--local-loss", action="store_true", default=True)
     parser.add_argument("--no-local-loss", dest="local_loss", action="store_false")
-    parser.add_argument("--gather-with-grad", action="store_true", default=True)
+    parser.add_argument("--gather-with-grad", action="store_true", default=True,
+                        help="always on: the gathered features carry gradients")
+    # launch-script flags of the reference that the JAX CLI accepts and ignores: the
+    # mesh replaces the DDP/FSDP wrappers, the backend follows the device, each
+    # process takes the device of its local rank, and there is no batch norm to sync
+    noop = parser.add_argument_group("accepted and ignored (reference launch scripts)")
+    for flag in ("--dist-backend", "--dist-url"):
+        noop.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
+    for flag in ("--fsdp", "--fsdp-checkpoint", "--fsdp-no-reshard-after-forward",
+                 "--fsdp-offload-cpu", "--ddp-static-graph", "--no-set-device-rank",
+                 "--use-bn-sync"):
+        noop.add_argument(flag, action="store_true", default=False, help=argparse.SUPPRESS)
 
     # checkpointing
     parser.add_argument("--save-frequency", type=int, default=1)
@@ -223,6 +241,8 @@ def parse_args(args=None) -> argparse.Namespace:
     used = [flag for flag, dest, default in unported if getattr(ns, dest) != default]
     if ns.remat_policy in UNPORTED_REMAT_POLICIES:
         used.append(f"--remat-policy {ns.remat_policy}")
+    if ns.mesh_tensor != 1:
+        used.append(f"--mesh-tensor {ns.mesh_tensor} (tensor parallelism)")
     if used:
         raise NotImplementedError(f"not ported yet: {', '.join(used)}")
 
@@ -231,5 +251,5 @@ def parse_args(args=None) -> argparse.Namespace:
     for k, v in get_default_params(ns.model).items():
         if getattr(ns, k, None) is None:
             setattr(ns, k, v)
-    ns.world_size, ns.rank = 1, 0
+    ns.world_size, ns.rank = 1, 0  # main sets them once the process group exists
     return ns

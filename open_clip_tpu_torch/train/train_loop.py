@@ -3,7 +3,9 @@
 ``train_one_epoch`` drives the train step over the host data pipeline. Each batch
 (image tensors, or NaFlex patch dicts of tensors) goes to the model's device with
 a non-blocking copy (from pinned memory where the dataset pins it), and the host waits for the device only at the metric cadence,
-where it reads the loss. Evaluation is not ported yet.
+where it reads the loss. Under several processes the caller passes the writer on the
+primary only and ``None`` elsewhere, and logs at INFO on the primary only. Evaluation
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -68,8 +70,9 @@ def train_one_epoch(state: TrainState, step_fn: Callable, dataloader: Iterable, 
         pending = metrics
 
         if (i % metric_every) == 0 or (i % log_every) == 0:
-            # the host waits for the device here and nowhere else in the loop
-            bs = batch["text"].shape[0]
+            # the host waits for the device here and nowhere else in the loop; the
+            # metrics are the step's means over the ranks, the samples every rank's
+            bs = batch["text"].shape[0] * getattr(args, "world_size", 1)
             loss = float(metrics["loss"])
             loss_m.update(loss, n=bs)
             alpha = min(1.0, bs * metric_every / ema_samples)

@@ -16,6 +16,12 @@ microbatch's features without gradients and one loss backward with respect to
 the features; phase 2 runs each microbatch's forward again and backpropagates
 the cached feature gradients. That gives the gradient of the full batch.
 
+Under a mesh (``parallel.mesh``: the model under ``shard_model``) every rank takes
+its own rows, the loss is gathered over the mesh's ranks when there is more than
+one, FSDP2 averages the sharded gradients over the ranks and the step averages the
+ones it left whole (``sync_replicated_grads``); the reported loss is the mean over
+the ranks, the JAX step's ``pmean``.
+
 The metrics are tensors on the model's device; reading them waits for the step.
 """
 
@@ -25,10 +31,13 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import CLIPModelCfg
-from ..loss import clip_loss, siglip_loss
+from ..loss import SIGLIP_DIST_IMPLS, clip_loss, siglip_loss
+from ..models import blocks
 from ..models.clip import LOGIT_SCALE_MAX, CLIPModel, clamp_logit_scale, clip_forward
+from ..parallel.mesh import sync_replicated_grads
 from .optim import AdamW
 
 UNPORTED_LOSSES = ("coca", "distill", "genlip", "genlap")
@@ -71,13 +80,15 @@ def create_train_state(model: CLIPModel, optimizer: AdamW) -> TrainState:
 
 
 def _features(model: CLIPModel, batch, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(primary, text) features; a CLAP batch's audio features take the image slot."""
+    """(primary, text) features; a CLAP batch's audio features take the image slot.
+    The model is called as a module, so that FSDP2's hooks run under a mesh."""
     key = "audio" if "audio" in batch else "image"
-    out = clip_forward(model, batch[key], batch["text"], train=True, remat=remat)
+    out = model(batch[key], batch["text"], train=True, remat=remat)
     return out[f"{key}_features"], out["text_features"]
 
 
 def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "clip",
+                    mesh=None, local_loss: bool = True, dist_impl: str = "bidir",
                     remat: bool = False, accum_steps: int = 1,
                     ema_decay: Optional[float] = None,
                     clamp_scale: float = LOGIT_SCALE_MAX,
@@ -94,7 +105,17 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     (the sigmoid loss with the model's ``logit_bias``, which a clip step refuses).
     ``naflex_loss_scale`` ("none", "linear", "sqrt") scales the loss of a patch-dict
     batch by (its batch size / ``reference_batch_size``), or by the root of that, so
-    that the small batches of the long token-budget buckets do not dominate."""
+    that the small batches of the long token-budget buckets do not dominate.
+
+    ``mesh``: the ``DeviceMesh`` the model was sharded on (``parallel.mesh``). Each
+    rank passes its own rows; over a mesh of more than one rank the loss is the
+    gathered one (the JAX rule, "only when the batch is split", applied to the port's
+    batch, which every rank of the mesh splits), ``clip_loss``'s ``local_loss`` form
+    or ``siglip_loss``'s ``dist_impl``. Under GradCache (``accum_steps > 1``) each rank
+    cuts its own rows into microbatches where the JAX step cuts the global batch;
+    phase 1's loss runs on every rank's features of all its microbatches, gathered,
+    and GradCache is exact, so the gradient is the same. Phase 2 reduces the
+    gradients once, after the last microbatch."""
     if loss_type in UNPORTED_LOSSES:
         raise NotImplementedError(f"the {loss_type} train step is not ported yet "
                                   "(clip and siglip are)")
@@ -111,14 +132,21 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     if naflex_loss_scale not in ("none", "linear", "sqrt"):
         raise ValueError(f"unknown naflex_loss_scale {naflex_loss_scale!r}")
+    if loss_type == "siglip" and dist_impl not in SIGLIP_DIST_IMPLS:
+        raise ValueError(f"unknown siglip dist_impl {dist_impl!r}")
+    if mesh is not None and (blocks.MLP_LINEAR_IMPL != "dense" or blocks.REMAT_POLICY != "none"):
+        raise NotImplementedError("SwitchBack and the remat presets are not ported under a mesh "
+                                  "yet (full remat is)")
+    # every rank of the mesh holds its own rows, and the mesh spans the default group
+    group = dist.group.WORLD if mesh is not None and mesh.size() > 1 else None
 
     def _loss(model: CLIPModel, imf: torch.Tensor, txf: torch.Tensor) -> torch.Tensor:
         """fp32 scale = exp(logit_scale) and, for siglip, the fp32 logit bias."""
         scale = model.logit_scale.float().exp()
         if loss_type == "siglip":
             bias = None if model.logit_bias is None else model.logit_bias.float()
-            return siglip_loss(imf, txf, scale, bias)
-        return clip_loss(imf, txf, scale)
+            return siglip_loss(imf, txf, scale, bias, group=group, dist_impl=dist_impl)
+        return clip_loss(imf, txf, scale, group=group, local_loss=local_loss)
 
     def _loss_ratio(batch, n: int) -> float:
         if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
@@ -139,10 +167,16 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         if any(g is None for g in grads):
             missing = [n for n, p in model.named_parameters() if p.grad is None]
             raise RuntimeError(f"no gradient reached {missing}")
+        loss = loss.detach()
+        if mesh is not None:
+            sync_replicated_grads(params)
+            loss = loss.clone()
+            dist.all_reduce(loss)
+            loss /= dist.get_world_size()
         grad_norm = optimizer.update_(params, grads, state.opt_state)
         clamp_logit_scale(model, clamp_scale)
         with torch.no_grad():
-            metrics = {"loss": loss.detach(),
+            metrics = {"loss": loss,
                        "logit_scale": model.logit_scale.detach().float().exp(),
                        "grad_norm": grad_norm}
         for p in params:
@@ -179,8 +213,11 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         loss = _loss(model, all_imf, all_txf)
         loss = loss * _loss_ratio(batch, n)  # the cached feature gradients carry the ratio
         loss.backward()  # fills the features' grads and the logit scale's (and bias')
-        # phase 2: each microbatch's forward again, with the cached feature gradients
+        # phase 2: each microbatch's forward again, with the cached feature gradients;
+        # under a mesh the gradients are reduced after the last microbatch only
         for i, mb in enumerate(micro):
+            if mesh is not None:
+                model.set_requires_gradient_sync(i == accum_steps - 1)
             imf, txf = _features(model, mb, remat)
             part = slice(i * size, (i + 1) * size)
             torch.autograd.backward([imf, txf], [all_imf.grad[part].to(imf.dtype),

@@ -251,6 +251,8 @@ from open_clip_tpu_torch.ops import _build, attention, flash_attention, fused_ln
 from open_clip_tpu_torch.ops import switchback
 from open_clip_tpu_torch.models import blocks
 from open_clip_tpu_torch.train import main, optim, params, scheduler, train_loop, train_step
+from open_clip_tpu_torch import parallel
+from open_clip_tpu_torch.parallel import distributed, mesh
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
 model.init_weights(torch.Generator().manual_seed(0))

@@ -61,8 +61,11 @@ def test_clip_loss_value_and_gradients_match_jax(dtype):
 
 
 def test_clip_loss_across_processes_is_not_ported():
+    """The gathered loss is ported (``tests/test_torch_parallel.py`` holds it against
+    the JAX package); without a process group it raises rather than compute the
+    one-process loss."""
     x = torch.eye(4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="needs torch.distributed"):
         clip_loss(x, x, torch.tensor(1.0), world_size=2)
 
 

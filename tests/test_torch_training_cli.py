@@ -95,7 +95,7 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--coca-caption-loss-weight", "1.0"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
     ["--train-data", "shards-{000..010}.tar"], ["--val-data", "val.csv"],
-    ["--imagenet-val", "imagenet/val"], ["--mesh-fsdp", "2"], ["--distill-model", "ViT-B-32"],
+    ["--imagenet-val", "imagenet/val"], ["--mesh-tensor", "2"], ["--distill-model", "ViT-B-32"],
     ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--device-preprocess"],
     ["--remat-policy", "dots_no_batch"], ["--report-to", "wandb"], ["--save-most-recent"],
     ["--force-patch-dropout", "0.5"], ["--torchcompile"], ["--momentum", "0.8"],
