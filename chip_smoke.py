@@ -142,6 +142,23 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  29. dist_cli: python -m open_clip_tpu_torch.train.main in a child process under
      torchrun's variables (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR and a free
      MASTER_PORT): an NCCL group of one, one epoch, then a second through --resume.
+ 30. decode: what the host has for JPEG decoding (g++, jpeglib.h, libjpeg.so*,
+     nvjpeg.h, the cores), the build of the native decode stage (libjpeg where its
+     header is, else nvJPEG; the line says which), the committed JPEGs of
+     tests/assets_torch against their canvases (made by the JAX package's libjpeg
+     build; max and mean difference, strict and fractional), bad bytes and the
+     grayscale asset, and the decode rate at canvas 256 on 1, 4 and cpu_count threads;
+ 31. data_train, the slice's main path: 16 tar shards of 512 JPEG-caption pairs (the
+     assets, each under distinct keys and captions), a 2,048-pair val shard and a
+     10-class folder in a temporary directory; the CLI trains ViT-B-32 b256 amp_bf16
+     from the shards (--device-preprocess, --native-decode-threads cpu_count) for one
+     epoch of 32 steps, then evaluates (val retrieval, zero-shot with 1000 classes x
+     80 templates). Step ms, the loop's host data and batch ms, the crop's device ms
+     (CUDA events), 24 + 24 short launches every step, the evaluation's seconds by
+     part and its metrics, beside phase 4's synthetic step;
+ 32. data_card_vs_cpu: fp32, TF32 off: make_device_train_preprocess at b256 and the
+     same boxes (max abs <= 1e-5), make_eval_step on ViT-B-32 at b32 (min cosine,
+     loss relative 1e-4), card against CPU.
 
 Phase 1 also times the short forward and backward at the SigLIP shapes and the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask); phase 17 also times the
@@ -1027,6 +1044,7 @@ def phase_cli(torch):
               and (run / "checkpoints" / "epoch_2.pt").exists(),
               f"CLI: --resume latest went on from step {CLI_STEPS_PER_EPOCH} to {state.step}")
         last = rows2[-1] if rows2 else {}
+        batch_ms = 1e3 * last.get("train/batch_time", float("nan"))
         print("cli " + json.dumps({
             "steps_per_epoch": CLI_STEPS_PER_EPOCH, "first_run_s": first_s,
             "host_data_ms_per_step": 1e3 * last.get("train/data_time", float("nan")),
@@ -1034,6 +1052,7 @@ def phase_cli(torch):
             "images_per_s": BATCH / last["train/batch_time"] if last.get("train/batch_time") else None,
             "averaged_over_steps": (last.get("step", 0) - CLI_STEPS_PER_EPOCH - 1) or None}),
             flush=True)
+        return batch_ms
 
 
 def phase_train_card_vs_cpu(torch, oc, sa):
@@ -3009,6 +3028,342 @@ def phase_dist_cli():
                                         "run_s": [t for _, t in outs]}), flush=True)
 
 
+ASSETS = Path(__file__).resolve().parent / "tests" / "assets_torch"
+DATA_SHARDS, DATA_PER_SHARD = 16, 512  # 8,192 image-caption pairs: 32 steps at b256
+DATA_VAL_PAIRS = 2048
+DATA_CLASSES, DATA_PER_CLASS = 10, 50
+# the strict canvas's bound against PIL (tests/test_native_decode.py), and the
+# fractional bound, both of the JAX package's tests
+STRICT_MAX = 2
+FRACTIONAL_MEAN, FRACTIONAL_MAX = 3.0, 64
+CROP_TOL = 1e-5
+
+
+def load_assets():
+    """The committed JPEGs and their canvases (tests/assets_torch)."""
+    sys.path.insert(0, str(ASSETS))
+    import make_assets
+
+    canv = make_assets.load_canvases()
+    datas = [(ASSETS / name).read_bytes() for name in canv["names"]]
+    return datas, canv, make_assets.ROW_STEP
+
+
+def phase_decode(torch):
+    """The native decode stage on the card's host: what the machine has, the build,
+    the committed assets against their canvases, and the decode rate by thread count."""
+    import glob
+    import os
+
+    from open_clip_tpu_torch.native import decode as nd
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    libs = sorted(p for d in ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib",
+                              "/usr/local/lib") for p in glob.glob(f"{d}/libjpeg.so*"))
+    has_header = subprocess.run(["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+                                input="#include <jpeglib.h>\n", text=True,
+                                capture_output=True).returncode == 0
+    nvjpeg_h = (nd._cuda_home() / "include" / "nvjpeg.h").exists()
+    nvjpeg_libs = sorted(os.path.basename(p) for p in glob.glob(
+        str(nd._cuda_home() / "lib64" / "libnvjpeg.so*")))
+    t0 = time.perf_counter()
+    name = nd.decoder()
+    nd.load()
+    build_s = time.perf_counter() - t0
+    print("decode_host " + json.dumps({
+        "gxx": (gxx.stdout.splitlines() or ["none"])[0], "jpeglib_h": has_header,
+        "libjpeg_so": libs, "nvjpeg_h": nvjpeg_h, "libnvjpeg_so": nvjpeg_libs,
+        "cpu_count": os.cpu_count(), "decoder": name, "build_s": build_s,
+        "build_command": " ".join(nd._command(name, "<lib>"))}), flush=True)
+
+    datas, canv, step = load_assets()
+    rows = []
+    for i, data in enumerate(datas):
+        row = {"name": canv["names"][i]}
+        for mode in ("strict", "fractional"):
+            out, status = nd.decode_resize_one(data, 256, fractional=mode == "fractional")
+            check(status == 0, f"decode {row['name']} ({mode}): status {status}")
+            for ref in ("strict", "fractional"):
+                d = (out[::step].astype(int) - canv[ref][i].astype(int)).__abs__()
+                row[f"{mode}_vs_{ref}"] = {"max": int(d.max()), "mean": float(d.mean())}
+        rows.append(row)
+    print("decode_agreement " + json.dumps(rows), flush=True)
+    for row in rows:
+        s, f = row["strict_vs_strict"], row["fractional_vs_strict"]
+        if name == "libjpeg":
+            check(s["max"] <= STRICT_MAX, f"decode {row['name']} strict vs the strict canvas: "
+                  f"max {s['max']} (<= {STRICT_MAX})")
+        # nvJPEG decodes at full scale in both modes; the fractional bound holds either
+        for mode in (("strict", "fractional") if name == "nvjpeg" else ("fractional",)):
+            d = row[f"{mode}_vs_strict"]
+            if name == "libjpeg" and d["max"] <= STRICT_MAX:
+                continue
+            check(d["mean"] < FRACTIONAL_MEAN and d["max"] < FRACTIONAL_MAX,
+                  f"decode {row['name']} {mode} ({name}) vs the strict canvas: mean "
+                  f"{d['mean']:.3f} (< {FRACTIONAL_MEAN}), max {d['max']} (< {FRACTIONAL_MAX})")
+    bad, status = nd.decode_resize_one(b"definitely not a jpeg", 64)
+    check(status != 0 and not bad.any(), f"decode of bad bytes: status {status}, zeros")
+    gray = datas[2]  # the grayscale asset
+    out, status = nd.decode_resize_one(gray, 64)
+    check(status == 0 and int((out.max(-1).astype(int) - out.min(-1)).max()) == 0,
+          "decode of the grayscale asset: R = G = B")
+
+    batch = [datas[i % len(datas)] for i in range(BATCH)]
+    rates = {}
+    for threads in sorted({1, 4, os.cpu_count() or 1}):
+        nd.decode_resize_batch(batch[:16], 256, threads)  # warm the threads' decoders
+        reps, t0 = 0, time.perf_counter()
+        while reps < 2 or time.perf_counter() - t0 < 1.0:
+            _, status = nd.decode_resize_batch(batch, 256, threads)
+            reps += 1
+        rates[threads] = BATCH * reps / (time.perf_counter() - t0)
+        check(not any(status), f"decode batch of {BATCH} on {threads} threads: all status 0")
+    mix = sum(len(d) for d in batch) / len(batch)
+    print("decode_rate " + json.dumps({
+        "decoder": name, "canvas": 256, "fractional": True, "batch": BATCH,
+        "mean_jpeg_bytes": mix, "images_per_s_by_threads": rates}), flush=True)
+    return name, rates
+
+
+def tar_member(name: str, data: bytes):
+    import io
+    import tarfile
+
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    return info, io.BytesIO(data)
+
+
+def write_data(root: Path, datas, classnames):
+    """Tar shards of the committed JPEGs (no encoder on the card: each asset repeats
+    under a distinct key and caption), a val shard and a class folder."""
+    import tarfile
+
+    classes = list(classnames[:DATA_CLASSES])
+    k = 0
+    for s in range(DATA_SHARDS):
+        with tarfile.open(root / f"{s:05d}.tar", "w") as tf:
+            for _ in range(DATA_PER_SHARD):
+                tf.addfile(*tar_member(f"s{k:07d}.jpg", datas[k % len(datas)]))
+                caption = f"a photo of a {classes[k % DATA_CLASSES]}, number {k}"
+                tf.addfile(*tar_member(f"s{k:07d}.txt", caption.encode()))
+                k += 1
+    with tarfile.open(root / "val.tar", "w") as tf:
+        for i in range(DATA_VAL_PAIRS):
+            tf.addfile(*tar_member(f"v{i:07d}.jpg", datas[(7 * i) % len(datas)]))
+            tf.addfile(*tar_member(f"v{i:07d}.txt", f"a picture of item {i}".encode()))
+    for c in range(DATA_CLASSES):
+        cdir = root / "imagenet" / f"n{c:08d}"
+        cdir.mkdir(parents=True)
+        for i in range(DATA_PER_CLASS):
+            (cdir / f"{i:04d}.jpg").write_bytes(datas[(c + i) % len(datas)])
+
+
+def phase_data_train(torch, oc, sa, fl, synthetic: dict):
+    """The slice's main path: ViT-B-32 b256 trained by the CLI from JPEG tar shards
+    (decoded by the native stage, RandomResizedCrop and normalization on the card),
+    then evaluated on a val shard and a class folder."""
+    import os
+
+    import open_clip_tpu_torch.train.main as main_mod
+    from open_clip_tpu_torch.train import train_loop, zero_shot
+
+    datas, _, _ = load_assets()
+    threads = os.cpu_count() or 1
+    steps_expected = DATA_SHARDS * DATA_PER_SHARD // BATCH
+    rec = {"steps": [], "pp": [], "launches": []}
+    timing, towers = {}, {}
+
+    def wrap_pp(make):
+        def make_(*a, **k):
+            fn = make(*a, **k)
+
+            def fn_(gen, images):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(gen, images)
+                ev[1].record()
+                rec["pp"].append(ev)
+                return out
+            return fn_
+        return make_
+
+    def wrap_step(make):
+        def make_(*a, **k):
+            fn = make(*a, **k)
+
+            def fn_(state, batch):
+                before, by_tower = dict(sa.LAUNCHES), dict(tally)
+                t = time.perf_counter()
+                out = fn(state, batch)
+                rec["steps"].append((t, time.perf_counter()))
+                rec["launches"].append({k: sa.LAUNCHES[k] - before[k] for k in before})
+                for key, v in tally.items():
+                    towers[key] = towers.get(key, 0) + v - by_tower.get(key, 0)
+                return out
+            return fn_
+        return make_
+
+    def timed_call(key, fn):
+        def fn_(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                timing[key] = timing.get(key, 0.0) + time.perf_counter() - t
+        return fn_
+
+    saved = (main_mod.make_device_train_preprocess, main_mod.make_train_step, main_mod.evaluate,
+             zero_shot.build_zero_shot_classifier, zero_shot.run_zero_shot_classifier,
+             zero_shot.zero_shot_eval)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_data(root, datas, oc.IMAGENET_CLASSNAMES)
+        write_s = time.perf_counter() - t0
+        args = ["--model", "ViT-B-32", "--train-data", str(root / "{00000..00015}.tar"),
+                "--dataset-type", "webdataset", "--device-preprocess",
+                "--native-decode-threads", str(threads), "--batch-size", str(BATCH),
+                "--precision", "amp_bf16", "--lr", "5e-4", "--wd", "0.2", "--grad-clip-norm", "1.0",
+                "--epochs", "1", "--val-data", str(root / "val.tar"),
+                "--imagenet-val", str(root / "imagenet"), "--zeroshot-frequency", "1",
+                "--log-every-n-steps", "8", "--log-metric-every-n-steps", "8",
+                "--logs", str(root / "logs"), "--name", "data"]
+        main_mod.make_device_train_preprocess = wrap_pp(saved[0])
+        main_mod.make_train_step = wrap_step(saved[1])
+        main_mod.evaluate = timed_call("evaluate_s", saved[2])
+        zero_shot.build_zero_shot_classifier = timed_call("classifier_build_s", saved[3])
+        zero_shot.run_zero_shot_classifier = timed_call("zero_shot_s", saved[4])
+        zero_shot.zero_shot_eval = timed_call("zero_shot_eval_s", saved[5])
+        try:
+            t0 = time.perf_counter()
+            with tally_by_shape(sa, fl) as tally:
+                state = main_mod.main(args)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            (main_mod.make_device_train_preprocess, main_mod.make_train_step, main_mod.evaluate,
+             zero_shot.build_zero_shot_classifier, zero_shot.run_zero_shot_classifier,
+             zero_shot.zero_shot_eval) = saved
+        rows = [json.loads(x) for x in (root / "logs" / "data" / "results.jsonl").read_text()
+                .splitlines()]
+    train_rows = [r for r in rows if "train/loss" in r]
+    val = next((r for r in rows if "val/clip_val_loss" in r), {})
+    n = len(rec["steps"])
+    check(state.step == steps_expected == n,
+          f"data_train: {state.step} steps in the epoch (expect {steps_expected} = "
+          f"{DATA_SHARDS * DATA_PER_SHARD} // {BATCH})")
+    losses = [r["train/loss"] for r in train_rows]
+    check(bool(losses) and all(math.isfinite(x) for x in losses),
+          f"data_train: losses finite {[round(x, 4) for x in losses]}")
+    lv, lt = 12, 12
+    per_step = [(d["fwd"], d["bwd"]) for d in rec["launches"]]
+    check(all(p == (lv + lt, lv + lt) for p in per_step),
+          f"data_train: short-attention launches a step {sorted(set(per_step))} "
+          f"(expect ({lv + lt}, {lv + lt}))")
+    keys = ["val/clip_val_loss", "val/image_to_text_R@1", "val/text_to_image_R@1",
+            "val/image_to_text_mean_rank", "val/imagenet-zeroshot-val-top1",
+            "val/imagenet-zeroshot-val-top5", "val/num_samples", "val/epoch"]
+    check(all(k in val and math.isfinite(val[k]) for k in keys),
+          f"data_train: results.jsonl holds the val and zero-shot keys {keys}")
+    check(val.get("val/num_samples") == DATA_VAL_PAIRS,
+          f"data_train: val over {val.get('val/num_samples')} pairs (expect {DATA_VAL_PAIRS})")
+    check(val.get("val/image_to_text_R@1", 1.0) <= 0.05,
+          f"data_train: R@1 {val.get('val/image_to_text_R@1')} near chance for random weights")
+    # the loop's meters are running means; rows at steps 9, 17, 25 give steps 9-24
+    by_step = {r["step"]: r for r in train_rows}
+    a, b = by_step.get(9), by_step.get(25)
+    meters = {}
+    if a and b:
+        meters = {"host_data_ms_per_step": 1e3 * (b["train/data_time"] * 25 - a["train/data_time"] * 9) / 16,
+                  "host_batch_ms_per_step": 1e3 * (b["train/batch_time"] * 24 - a["train/batch_time"] * 8) / 16,
+                  "meter_steps": "9-24"}
+    starts = [t for t, _ in rec["steps"]]
+    period = [1e3 * (y - x) for x, y in zip(starts[8:], starts[9:])]
+    pp_ms = [e[0].elapsed_time(e[1]) for e in rec["pp"]]
+    step_ms = statistics.median(period) if period else float("nan")
+    summary = dict(meters, **{
+        "model": "ViT-B-32", "batch": BATCH, "decode_threads": threads, "steps": n,
+        "shards": DATA_SHARDS, "pairs": DATA_SHARDS * DATA_PER_SHARD, "write_data_s": write_s,
+        "run_s": run_s, "median_step_ms": step_ms, "images_per_s": BATCH * 1e3 / step_ms,
+        "median_host_ms_in_step": statistics.median(1e3 * (e - s) for s, e in rec["steps"][8:]),
+        "crop_normalize_device_ms_per_step": statistics.median(pp_ms[8:]) if pp_ms else None,
+        "short_launches_per_step": {"fwd": per_step[0][0], "bwd": per_step[0][1]} if per_step else None,
+        "synthetic_step_ms_library": synthetic.get("median_step_ms"),
+        "synthetic_cli_host_batch_ms": synthetic.get("cli_host_batch_ms"),
+        "eval_s": timing.get("evaluate_s"), "classifier_build_s": timing.get("classifier_build_s"),
+        "zero_shot_s": timing.get("zero_shot_s"),
+        "val_retrieval_s": (timing.get("evaluate_s", 0) - timing.get("zero_shot_eval_s", 0)),
+        "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None,
+        "val": {k[4:]: v for k, v in val.items() if k != "step"}})
+    print("data_train " + json.dumps(summary), flush=True)
+    return towers, n
+
+
+def phase_data_card_vs_cpu(torch, oc):
+    """fp32, TF32 off: the device train preprocess at the same boxes, and
+    make_eval_step on ViT-B-32 at b32, card against CPU."""
+    from open_clip_tpu_torch import transform as tr
+    from open_clip_tpu_torch.train.train_loop import make_eval_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tr.PreprocessCfg(size=224)
+    gen = torch.Generator().manual_seed(5)
+    canvases = torch.randint(0, 256, (BATCH, 256, 256, 3), dtype=torch.uint8, generator=gen)
+    boxes = tr.make_crop_param_sampler(256, (0.5, 1.0), (3 / 4, 4 / 3))(gen, BATCH)
+    outs = []
+    for device in ("cuda", "cpu"):
+        fixed = tuple(v.to(device) for v in boxes)
+        pp = tr.make_device_train_preprocess(cfg, sampler=lambda g, n, f=fixed: f)
+        outs.append(pp(torch.Generator(device=device), canvases.to(device)).cpu())
+    err = (outs[0] - outs[1]).abs().max().item()
+    check(outs[0].shape == (BATCH, 224, 224, 3) and err <= CROP_TOL,
+          f"device train preprocess card vs CPU at the same boxes, b{BATCH}: max abs {err:.2e} "
+          f"(<= {CROP_TOL})")
+    # its device time at b256 (fp32, TF32 off) and the kernels it runs
+    from torch.profiler import ProfilerActivity, profile
+
+    fixed = tuple(v.cuda() for v in boxes)
+    pp = tr.make_device_train_preprocess(cfg, sampler=lambda g, n: fixed)
+    gen_c, canv_c = torch.Generator(device="cuda"), canvases.cuda()
+    for _ in range(3):
+        pp(gen_c, canv_c)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(10):
+        pp(gen_c, canv_c)
+    ev[1].record()
+    ev[1].synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pp(gen_c, canv_c)
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:8]
+    flops = 2 * BATCH * 224 * 256 * 256 * 3 + 2 * BATCH * 224 * 224 * 256 * 3
+    print("crop_profile " + json.dumps({
+        "batch": BATCH, "canvas": 256, "size": 224, "ms": ev[0].elapsed_time(ev[1]) / 10,
+        **bound(BATCH * 256 * 256 * 3 + BATCH * 224 * 224 * 3 * 4, flops, "float32"),
+        "kernels_us": {e.key[:80]: e.device_time_total for e in top}}), flush=True)
+
+    gpu = oc.create_model("ViT-B-32", precision="fp32", seed=3)
+    cpu = oc.create_model("ViT-B-32", precision="fp32", seed=3, device="cpu")
+    images = tr.make_device_preprocess(cfg)(canvases[:32])
+    texts = torch.randint(1, 49000, (images.shape[0], 77), generator=gen)
+    step = make_eval_step()
+    rg = step(gpu, {"image": images.cuda(), "text": texts.cuda()})
+    rc = step(cpu, {"image": images, "text": texts})
+    for key in ("primary_features", "text_features"):
+        cos = torch.nn.functional.cosine_similarity(rg[key].cpu().double(), rc[key].double(),
+                                                    dim=-1).min().item()
+        check(cos >= COSINE_MIN, f"make_eval_step {key} card vs CPU fp32 b32: min cosine "
+              f"{cos:.7f} (>= {COSINE_MIN})")
+    rel = abs(float(rg["loss"]) - float(rc["loss"])) / abs(float(rc["loss"]))
+    check(rel <= 1e-4, f"make_eval_step loss card vs CPU fp32: {float(rg['loss']):.6f} vs "
+          f"{float(rc['loss']):.6f} (relative {rel:.2e} <= 1e-4)")
+
+
 def main() -> int:
     import torch
 
@@ -3069,7 +3424,7 @@ def main() -> int:
         "median_host_ms_per_step_on": fused_summary["median_host_ms_per_step"],
         "peak_mem_gib_off": plain_summary["peak_mem_gib"],
         "peak_mem_gib_on": fused_summary["peak_mem_gib"]}), flush=True)
-    timed("cli", phase_cli, torch)
+    cli_batch_ms = timed("cli", phase_cli, torch)
     short_simt_launches = timed("train_card_vs_cpu", phase_train_card_vs_cpu, torch, oc, sa)
     nf_serve_launches, nf_serve_calls = timed("naflex_serve", phase_naflex_serve, torch, oc, sa,
                                               fa)
@@ -3111,6 +3466,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     timed("dist_cli", phase_dist_cli)
+    timed("decode", phase_decode, torch)
+    data_tally, data_steps = timed("data_train", phase_data_train, torch, oc, sa, fl, {
+        "median_step_ms": plain_summary["median_step_ms"], "cli_host_batch_ms": cli_batch_ms})
+    timed("data_card_vs_cpu", phase_data_card_vs_cpu, torch, oc)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -3123,21 +3482,28 @@ def main() -> int:
     kernels = []
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
-        kernels.append(dict(fwd_records[tower], launches=launches[tower] + n_train + n_dist,
+        n_data = data_tally.get(("fwd", tower), 0)
+        kernels.append(dict(fwd_records[tower],
+                            launches=launches[tower] + n_train + n_dist + n_data,
                             launches_serving=launches[tower], launches_training=n_train,
                             launches_per_call=launches[tower] / calls[tower],
                             launches_per_train_step=n_train / steps,
                             launches_dist_training=n_dist,
-                            launches_per_dist_train_step=n_dist / dist_steps))
+                            launches_per_dist_train_step=n_dist / dist_steps,
+                            launches_data_training=n_data,
+                            launches_per_data_train_step=n_data / data_steps))
     # the short backward: the fused tensor-core body in the bf16 train windows (plain
     # and under FSDP2); the two-kernel CUDA-core body in the fp32 train step of phase 6
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("bwd", tower)], dist_tally[("bwd", tower)]
-        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=n_train + n_dist,
+        n_data = data_tally.get(("bwd", tower), 0)
+        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=n_train + n_dist + n_data,
                             launches_training=n_train,
                             launches_per_train_step=n_train / steps,
                             launches_dist_training=n_dist,
-                            launches_per_dist_train_step=n_dist / dist_steps))
+                            launches_per_dist_train_step=n_dist / dist_steps,
+                            launches_data_training=n_data,
+                            launches_per_data_train_step=n_data / data_steps))
     kernels.append(dict(bwd_records[("vision", "float32")], launches=short_simt_launches,
                         launches_path="fp32 train step, B=8 (phase 6)"))
     # ViT-L-14's image tower (L=257): the two-pass forward and the two-kernel backward in

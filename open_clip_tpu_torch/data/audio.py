@@ -112,19 +112,17 @@ def collate_audio(samples) -> Dict[str, torch.Tensor]:
 
 class SyntheticAudioDataset:
     """A 440 Hz tone of ``seconds`` and one fixed caption, repeated over the batch, as
-    the JAX class makes them. Batches are host tensors, pinned where asked, so the
-    loop's copy to the card does not block."""
+    the JAX class makes them, as host tensors (the loop's prefetch pins them)."""
 
     def __init__(self, preprocess: AudioPreprocess, tokenizer, dataset_size: int = 100,
                  batch_size: int = 8, seconds: float = 2.0,
-                 caption: str = "a synthetic tone for smoke testing", pin_memory: bool = False):
+                 caption: str = "a synthetic tone for smoke testing"):
         sr = preprocess.target_sr
         t = np.arange(int(sr * seconds)) / sr
         wav = (0.1 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
         sample = preprocess((wav, sr))
         self.batch_size = batch_size
         self.num_samples = dataset_size
-        self.pin_memory = pin_memory
         text = torch.as_tensor(np.asarray(tokenizer([caption]), dtype=np.int32))
         self._batch = {"audio": collate_audio([sample] * batch_size),
                        "text": text.expand(batch_size, -1).contiguous()}
@@ -133,11 +131,9 @@ class SyntheticAudioDataset:
         pass
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        pin = self.pin_memory
-        copy = lambda v: torch.empty_like(v, pin_memory=pin).copy_(v)  # noqa: E731
         for _ in range(max(1, self.num_samples // self.batch_size)):
-            yield {"audio": {k: copy(v) for k, v in self._batch["audio"].items()},
-                   "text": copy(self._batch["text"])}
+            yield {"audio": {k: v.clone() for k, v in self._batch["audio"].items()},
+                   "text": self._batch["text"].clone()}
 
 
 def make_wds_audio_pipeline(*args, **kwargs):

@@ -184,17 +184,16 @@ class NaFlexWdsPipeline:
 class SyntheticNaFlexDataset:
     """NaFlex patch-dict batches of one blank 96x64 image and one fixed caption, for
     smoke and throughput runs: one bucket per schedule entry. Batches are host
-    tensors, in pinned memory when ``pin_memory`` is set."""
+    tensors (the loop's prefetch pins them)."""
 
     def __init__(self, data_cfg: NaFlexDataConfig, tokenizer: Callable, num_batches: int = 4,
-                 caption: str = "a synthetic caption", pin_memory: bool = False):
+                 caption: str = "a synthetic caption"):
         self.cfg = data_cfg.resolve()
         self.scheduler = NaFlexBatchScheduler(self.cfg, num_batches)
         self.factory = naflex_transform_factory(self.cfg)
         self.tokenizer = tokenizer
         self.caption = caption
         self.num_batches = num_batches
-        self.pin_memory = pin_memory
         self.epoch = 0
         self._img = torch.zeros(64, 96, 3, dtype=torch.uint8)
 
@@ -202,8 +201,7 @@ class SyntheticNaFlexDataset:
         self.epoch = epoch
 
     def _repeat(self, x: torch.Tensor, n: int) -> torch.Tensor:
-        out = torch.empty((n, *x.shape), dtype=x.dtype, pin_memory=self.pin_memory)
-        return out.copy_(x.expand(n, *x.shape))
+        return x.expand(n, *x.shape).contiguous()
 
     def __iter__(self) -> Iterator[Dict]:
         text = torch.as_tensor(self.tokenizer([self.caption])).to(torch.int32)[0]

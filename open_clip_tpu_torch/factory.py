@@ -21,7 +21,8 @@ from .config import get_model_config, parse_model_cfg
 from .convert import convert_params_dtype_
 from .models.clip import CLIPModel
 from .tokenizer import DEFAULT_CONTEXT_LENGTH, SimpleTokenizer
-from .transform import PreprocessCfg, make_device_preprocess
+from .models.naflex_vit import is_naflex
+from .transform import PreprocessCfg, make_device_preprocess, uint8_image_transform_v2
 
 # compute dtype per precision (the JAX package's map; the short-attention kernel
 # takes fp32 and bf16, so the fp16 precisions are not offered)
@@ -67,8 +68,11 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
 def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None, **kwargs):
     """(model, preprocess_train, preprocess_val). For an image model
     ``preprocess_val`` is the device-side preprocess (uint8 NHWC on the model's device
-    -> normalized NHWC); the image training transform is not ported yet, so
-    ``preprocess_train`` is None. For a CLAP model both are the host
+    -> normalized NHWC), and ``preprocess_train`` the host canvas stage
+    (``transform.uint8_image_transform_v2``: JPEG bytes -> uint8 canvas through the
+    native decoder), which pairs with ``make_device_train_preprocess`` in the
+    train step (``make_train_step(device_preprocess=...)``); a NaFlex model's is None
+    (its images become patch dicts). For a CLAP model both are the host
     ``AudioPreprocess`` of ``data/audio.py`` ((waveform, sample rate) -> fixed-length
     waveform dict): a random window for training, the clip's start for evaluation."""
     model = create_model(model_name, pretrained, **kwargs)
@@ -77,7 +81,9 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
 
         return (model, audio_transform_v2(model.cfg.audio_cfg, is_train=True),
                 audio_transform_v2(model.cfg.audio_cfg, is_train=False))
-    return model, None, make_device_preprocess(model.preprocess_cfg)
+    cfg = model.preprocess_cfg
+    train = None if is_naflex(model.cfg.vision_cfg) else uint8_image_transform_v2(cfg, True)
+    return model, train, make_device_preprocess(cfg)
 
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None) -> SimpleTokenizer:

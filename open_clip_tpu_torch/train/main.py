@@ -2,14 +2,18 @@
 ``open_clip_tpu/train/main.py``).
 
 Experiment naming and logging, the model, optimizer and schedule, data, resume,
-and the epoch loop (train, then a checkpoint per ``--save-frequency``), with
-``results.jsonl`` and ``params.txt`` in the log directory. One device a process:
-the CUDA card of the local rank unless ``--device`` says otherwise. Several
+and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
+then a checkpoint per ``--save-frequency``), with ``results.jsonl`` and
+``params.txt`` in the log directory. Without train data the run only evaluates
+(``--val-data``, ``--imagenet-val``) and returns the metrics. Image train data
+(``--train-data`` tar shards or a CSV) needs ``--device-preprocess``: the host decodes
+JPEGs to uint8 canvases, and the step crops and normalizes them on the device. One
+device a process: the CUDA card of the local rank unless ``--device`` says otherwise. Several
 processes (torchrun's environment, or the ``--dist-*`` flags) join one process
 group first (NCCL on the cards, gloo on the CPU), build the same model from the same
 seed and train it on a (data, fsdp) mesh under FSDP2, each on its own
-``--batch-size`` rows; only the primary writes the files and logs. Evaluation,
-writers other than JSONL and remote sync are not ported yet.
+``--batch-size`` rows; only the primary writes the files and logs. Writers other
+than JSONL and remote sync are not ported yet.
 
     torchrun --nproc-per-node 4 -m open_clip_tpu_torch.train.main --mesh-fsdp 2 ...
 """
@@ -31,13 +35,15 @@ from ..data import get_data
 from ..data.audio import audio_transform_v2
 from ..factory import create_model, get_tokenizer, resolve_device
 from ..models import blocks
+from ..models.naflex_vit import is_naflex
 from ..parallel.distributed import (barrier, broadcast_object_from_primary,
                                     broadcast_scalar_from_primary, init_distributed)
 from ..parallel.mesh import create_mesh, shard_model
+from ..transform import make_device_train_preprocess, merge_preprocess_dict
 from .optim import OptimizerCfg, create_optimizer
 from .params import parse_args
 from .scheduler import create_scheduler
-from .train_loop import train_one_epoch
+from .train_loop import evaluate, train_one_epoch
 from .train_step import TrainState, create_train_state, loss_type_for, make_train_step
 
 logger = logging.getLogger(__name__)
@@ -75,8 +81,9 @@ def _data_tokenizer(args, model):
         return lambda texts: ids.expand(len(texts), -1)
 
 
-def main(args=None) -> TrainState:
-    """Train as the flags say. ``--use-switchback`` and ``--remat-policy`` set
+def main(args=None):
+    """Train as the flags say and return the ``TrainState``, or, with no train data,
+    evaluate and return the metrics. ``--use-switchback`` and ``--remat-policy`` set
     ``models/blocks.py``'s ``MLP_LINEAR_IMPL`` and ``REMAT_POLICY`` for the run, and
     the run restores them when it ends."""
     args = parse_args(args)
@@ -89,7 +96,7 @@ def main(args=None) -> TrainState:
         blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = saved
 
 
-def _run(args) -> TrainState:
+def _run(args):
     device = resolve_device(args.device)
     # the process group comes before anything that only the primary does
     args.rank, args.world_size = init_distributed(
@@ -122,13 +129,32 @@ def _run(args) -> TrainState:
     logger.info("processes=%d backend=%s mesh=%s", args.world_size,
                 torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
                 dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else None)
+    if model.preprocess_cfg is not None:
+        model.preprocess_cfg = merge_preprocess_dict(model.preprocess_cfg, {
+            "mean": tuple(args.image_mean) if args.image_mean else None,
+            "std": tuple(args.image_std) if args.image_std else None,
+            "interpolation": args.image_interpolation, "resize_mode": args.image_resize_mode})
+    device_pp = None
+    if args.device_preprocess:
+        if model.preprocess_cfg is None or is_naflex(model.cfg.vision_cfg):
+            raise ValueError("--device-preprocess supports image towers that take image "
+                             "tensors (not audio or NaFlex patch dicts)")
+        device_pp = make_device_train_preprocess(model.preprocess_cfg, aug_cfg=args.aug_cfg)
     audio_pp = None
     if model.cfg.audio_cfg is not None:
         audio_pp = audio_transform_v2(model.cfg.audio_cfg, is_train=True, audio_aug_cfg=dict(
             data_fill=args.audio_fill, data_trunc=args.audio_trunc,
             int16_normalize=args.audio_int16_normalize))
-    data = get_data(args, model.preprocess_cfg, _data_tokenizer(args, model), audio_pp)
+    tokenizer = _data_tokenizer(args, model)
+    data = get_data(args, model.preprocess_cfg, tokenizer, audio_pp)
+    if not data:
+        raise ValueError("no data: give --train-data, a synthetic --dataset-type, "
+                         "--val-data or --imagenet-val")
     writer = JsonlWriter(log_dir / "results.jsonl") if primary else None
+    if "train" not in data:  # evaluation only
+        metrics = evaluate(model, data, 0, args, tokenizer=tokenizer, writer=writer)
+        logger.info("eval: %s", metrics)
+        return metrics
 
     steps_per_epoch = max(data["train"].num_batches, 1)
     total_steps = steps_per_epoch * args.epochs
@@ -157,6 +183,7 @@ def _run(args) -> TrainState:
                               loss_type=loss_type_for(model.cfg, siglip=args.siglip),
                               mesh=mesh, local_loss=args.local_loss, dist_impl=args.loss_dist_impl,
                               remat=args.grad_checkpointing, accum_steps=args.accum_freq,
+                              device_preprocess=device_pp, preprocess_seed=args.seed,
                               naflex_loss_scale=args.naflex_loss_scale,
                               reference_batch_size=args.batch_size)
     # a checkpoint taken in the middle of an epoch resumes past the batches it trained on
@@ -168,6 +195,10 @@ def _run(args) -> TrainState:
         state = train_one_epoch(state, step_fn, data["train"].dataloader, epoch, args, schedule,
                                 writer, skip_steps=resume_skip if epoch == start_epoch else 0)
         completed = epoch + 1
+        if any(k in data for k in ("val", "imagenet-val", "imagenet-v2")) and (
+                completed % args.val_frequency == 0 or completed == args.epochs):
+            logger.info("eval: %s", evaluate(model, data, completed, args, tokenizer=tokenizer,
+                                             writer=writer))
         if completed % args.save_frequency == 0 or completed == args.epochs:
             path = ckpt_dir / f"epoch_{completed}.pt"
             save_native(path, state, epoch=completed)  # every rank gathers, the primary writes

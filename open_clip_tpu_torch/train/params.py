@@ -2,8 +2,8 @@
 ``open_clip_tpu/train/params.py``).
 
 The flags carry the JAX CLI's names and defaults. Those of features that are not
-ported yet (real datasets, evaluation, the CoCa and distillation losses, tensor
-parallelism, tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
+ported yet (the NaFlex and audio webdatasets, the CoCa and distillation losses,
+tensor parallelism, tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
@@ -12,6 +12,7 @@ raising where there is none; ``cpu`` runs the plain PyTorch path).
 from __future__ import annotations
 
 import argparse
+import ast
 from typing import List, Tuple
 
 from ..models.blocks import UNPORTED_REMAT_POLICIES
@@ -25,8 +26,6 @@ _ON = dict(action="store_true", default=False)
 # flags of what is not ported yet: (option strings, add_argument keywords)
 _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     # data
-    (("--train-data",), _STRS), (("--train-data-upsampling-factors",), _STRS),
-    (("--val-data",), _STRS), (("--val-num-samples",), _INTS),
     (("--naflex-seq-len-probs",), dict(type=float, nargs="+", default=None)),
     (("--naflex-patch-size-probs",), dict(type=float, nargs="+", default=None)),
     (("--naflex-pad-multiple",), _INTS), (("--naflex-max-text-tokens",), _INTS),
@@ -36,13 +35,7 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--bucket-pool",), dict(type=int, default=2048)),
     (("--bucket-chunk",), dict(type=int, default=128)),
     (("--bucket-prefetch-pools",), dict(type=int, default=0)),
-    (("--dataset-resampled",), _ON),
-    (("--csv-separator",), dict(type=str, default="\t")),
-    (("--csv-img-key",), dict(type=str, default="filepath")),
-    (("--csv-caption-key",), dict(type=str, default="title")),
-    (("--wds-caption-key", "--text-key"), dict(type=str, default="txt")),
     (("--image-key",), dict(type=str, default="jpg;png;jpeg;webp")),
-    (("--json-text-key",), _STRS),
     (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
     (("--max-image-pixels",), dict(type=int, default=25_000_000)),
     (("--audio-ext",), dict(type=str, default="flac")), (("--audio-fusion",), _ON),
@@ -53,8 +46,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--audio-zeroshot-target-key",), dict(type=str, default="target")),
     (("--audio-zeroshot-template",), _STRS),
     (("--audio-zeroshot-workers",), dict(type=int, default=2)),
-    (("--imagenet-val",), _STRS), (("--imagenet-v2",), _STRS),
-    (("--device-preprocess",), _ON), (("--native-decode-threads",), dict(type=int, default=0)),
     # logging
     (("--log-local",), _ON), (("--report-to",), dict(type=str, default="")),
     (("--wandb-notes",), dict(type=str, default="")),
@@ -63,10 +54,7 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--remote-sync",), _STRS), (("--remote-sync-frequency",), dict(type=int, default=300)),
     (("--remote-sync-protocol",), dict(type=str, default="fsspec")),
     # evaluation
-    (("--val-retrieval-chunk-size",), dict(type=int, default=4096)),
     (("--val-retrieval-precision",), dict(type=str, default="fp32")),
-    (("--val-frequency",), dict(type=int, default=1)),
-    (("--zeroshot-frequency",), dict(type=int, default=2)),
     # model and weights
     (("--pretrained",), dict(type=str, default="")),
     (("--pretrained-image",), _STRS), (("--pretrained-audio",), _STRS),
@@ -74,10 +62,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--force-patch-dropout",), _FLOATS),
     (("--force-image-size",), dict(type=int, nargs="+", default=None)),
     (("--force-context-length",), _INTS),
-    (("--image-mean",), dict(type=float, nargs="+", default=None)),
-    (("--image-std",), dict(type=float, nargs="+", default=None)),
-    (("--image-interpolation",), _STRS), (("--image-resize-mode",), _STRS),
-    (("--aug-cfg",), dict(nargs="*", default={})),
     (("--scan-unroll",), dict(type=int, default=1)),
     # optimizer
     (("--momentum",), dict(type=float, default=0.9)),
@@ -107,6 +91,20 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
 ]
 
 
+class ParseKwargs(argparse.Action):
+    """``--aug-cfg key=value ...`` -> a dict, each value a Python literal where it parses."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        kw = {}
+        for value in values:
+            key, _, val = value.partition("=")
+            try:
+                kw[key] = ast.literal_eval(val)
+            except (ValueError, SyntaxError):
+                kw[key] = val
+        setattr(namespace, self.dest, kw)
+
+
 def parse_args(args=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser("open_clip_tpu_torch training")
 
@@ -115,7 +113,7 @@ def parse_args(args=None) -> argparse.Namespace:
                         choices=["webdataset", "csv", "synthetic", "webdataset-audio",
                                  "synthetic-audio", "webdataset-naflex", "synthetic-naflex", "auto"],
                         default="auto",
-                        help="'synthetic', 'synthetic-naflex' and 'synthetic-audio' are ported")
+                        help="webdataset, csv, auto and the synthetic types are ported")
     parser.add_argument("--train-num-samples", type=int, default=None)
     # NaFlex token-budget batching (--dataset-type synthetic-naflex)
     parser.add_argument("--naflex-seq-lens", type=int, nargs="+", default=[128, 256, 576, 784, 1024])
@@ -133,7 +131,41 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--audio-trunc", type=str, default="rand_trunc",
                         choices=["rand_trunc", "trunc"])
     parser.add_argument("--audio-int16-normalize", action="store_true", default=False)
-    parser.add_argument("--workers", type=int, default=4)
+    parser.add_argument("--workers", type=int, default=4,
+                        help="forked decode workers of the webdataset train pipeline")
+    # real image data: JPEGs through the native decode stage (no PIL tier)
+    parser.add_argument("--train-data", type=str, default=None,
+                        help="tar shards ('dir/{00000..00099}.tar', '::' between sources) or "
+                             "a CSV; needs --device-preprocess")
+    parser.add_argument("--train-data-upsampling-factors", type=str, default=None)
+    parser.add_argument("--val-data", type=str, default=None)
+    parser.add_argument("--val-num-samples", type=int, default=None)
+    parser.add_argument("--dataset-resampled", action="store_true", default=False)
+    parser.add_argument("--csv-separator", type=str, default="\t")
+    parser.add_argument("--csv-img-key", type=str, default="filepath")
+    parser.add_argument("--csv-caption-key", type=str, default="title")
+    parser.add_argument("--wds-caption-key", "--text-key", type=str, default="txt")
+    parser.add_argument("--json-text-key", type=str, default=None,
+                        help="caption from this field of each sample's json member")
+    parser.add_argument("--imagenet-val", type=str, default=None,
+                        help="ImageNet-style folder (one dir a class) for zero-shot")
+    parser.add_argument("--imagenet-v2", type=str, default=None)
+    parser.add_argument("--device-preprocess", action="store_true", default=False,
+                        help="host stage: uint8 canvases; the random resized crop and the "
+                             "normalization run in the step on the device")
+    parser.add_argument("--native-decode-threads", type=int, default=0,
+                        help="decode whole train batches on this many native threads "
+                             "(in place of the forked workers)")
+    parser.add_argument("--aug-cfg", nargs="*", action=ParseKwargs, default={},
+                        help="key=value; scale and ratio only")
+    parser.add_argument("--image-mean", type=float, nargs="+", default=None)
+    parser.add_argument("--image-std", type=float, nargs="+", default=None)
+    parser.add_argument("--image-interpolation", type=str, default=None)
+    parser.add_argument("--image-resize-mode", type=str, default=None)
+    # evaluation
+    parser.add_argument("--val-frequency", type=int, default=1)
+    parser.add_argument("--zeroshot-frequency", type=int, default=2)
+    parser.add_argument("--val-retrieval-chunk-size", type=int, default=4096)
 
     # logging / experiment
     parser.add_argument("--logs", type=str, default="./logs/")
@@ -248,6 +280,8 @@ def parse_args(args=None) -> argparse.Namespace:
 
     if ns.use_bnb_linear:
         ns.use_switchback = True
+    if ns.json_text_key:
+        ns.wds_caption_key = f"json:{ns.json_text_key}"
     for k, v in get_default_params(ns.model).items():
         if getattr(ns, k, None) is None:
             setattr(ns, k, v)

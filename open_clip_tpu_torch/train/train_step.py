@@ -91,8 +91,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
                     mesh=None, local_loss: bool = True, dist_impl: str = "bidir",
                     remat: bool = False, accum_steps: int = 1,
                     ema_decay: Optional[float] = None,
+                    freeze_bn_stats: bool = False,
                     clamp_scale: float = LOGIT_SCALE_MAX,
                     device_preprocess: Optional[Callable] = None,
+                    preprocess_seed: int = 0,
                     naflex_loss_scale: str = "none",
                     reference_batch_size: Optional[int] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
@@ -115,7 +117,14 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     cuts its own rows into microbatches where the JAX step cuts the global batch;
     phase 1's loss runs on every rank's features of all its microbatches, gathered,
     and GradCache is exact, so the gradient is the same. Phase 2 reduces the
-    gradients once, after the last microbatch."""
+    gradients once, after the last microbatch.
+
+    ``device_preprocess`` (``transform.make_device_train_preprocess``): the batch's
+    ``image`` is then the uint8 canvas, and ``device_preprocess(gen, image)`` crops
+    and normalizes it on the device before the forward, once for the whole batch
+    (before GradCache's cut). ``gen`` is a ``torch.Generator`` on the batch's device
+    seeded from (``preprocess_seed``, the state's step, the rank), so that a resumed
+    run draws the crops an uninterrupted one would."""
     if loss_type in UNPORTED_LOSSES:
         raise NotImplementedError(f"the {loss_type} train step is not ported yet "
                                   "(clip and siglip are)")
@@ -123,8 +132,9 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         raise ValueError(f"unknown loss_type {loss_type!r}")
     if ema_decay is not None:
         raise NotImplementedError("EMA of the weights is not ported yet")
-    if device_preprocess is not None:
-        raise NotImplementedError("the on-device training preprocess is not ported yet")
+    if freeze_bn_stats:
+        raise NotImplementedError("frozen batch-norm statistics belong to the ResNet towers, "
+                                  "which are not ported yet")
     if loss_type == "clip" and cfg.init_logit_bias is not None:
         raise NotImplementedError("a logit bias belongs to the siglip step: pass "
                                   "loss_type='siglip'")
@@ -147,6 +157,15 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
             bias = None if model.logit_bias is None else model.logit_bias.float()
             return siglip_loss(imf, txf, scale, bias, group=group, dist_impl=dist_impl)
         return clip_loss(imf, txf, scale, group=group, local_loss=local_loss)
+
+    def _preprocess(state: TrainState, batch):
+        image = batch.get("image")
+        if device_preprocess is None or image is None or isinstance(image, dict):
+            return batch
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        gen = torch.Generator(device=image.device)
+        gen.manual_seed((preprocess_seed * 1_000_003 + state.step) * 4099 + rank)
+        return {**batch, "image": device_preprocess(gen, image)}
 
     def _loss_ratio(batch, n: int) -> float:
         if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
@@ -186,6 +205,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
 
     def simple_step(state: TrainState, batch):
         model = state.model
+        batch = _preprocess(state, batch)
         imf, txf = _features(model, batch, remat)
         loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
         loss.backward()
@@ -194,6 +214,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     def accum_step(state: TrainState, batch):
         """GradCache accumulation over ``accum_steps`` equal slices of the batch."""
         model = state.model
+        batch = _preprocess(state, batch)
         n = batch["text"].shape[0]
         if n % accum_steps:
             raise ValueError(f"batch of {n} does not split into {accum_steps} microbatches")

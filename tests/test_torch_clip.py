@@ -238,7 +238,7 @@ def test_source_imports_no_jax(path):
 
 _NO_JAX = """
 import sys
-for name in ("jax", "jaxlib", "open_clip_tpu"):
+for name in ("jax", "jaxlib", "open_clip_tpu", "PIL"):
     sys.modules[name] = None  # any import of them now raises
 import numpy as np, torch
 import chip_smoke
@@ -253,6 +253,9 @@ from open_clip_tpu_torch.models import blocks
 from open_clip_tpu_torch.train import main, optim, params, scheduler, train_loop, train_step
 from open_clip_tpu_torch import parallel
 from open_clip_tpu_torch.parallel import distributed, mesh
+from open_clip_tpu_torch import native, transform
+from open_clip_tpu_torch.data import datasets, wds
+from open_clip_tpu_torch.train import metrics as eval_metrics, zero_shot
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
 model.init_weights(torch.Generator().manual_seed(0))
@@ -283,6 +286,11 @@ q = torch.randn(1, 9, 1, 64, requires_grad=True)
 flash_attention.flash_attention(q, q, q, causal=True, prefix_len=2).sum().backward()
 with torch.no_grad():
     assert nmodel.encode_image(patches).shape == (2, 32)
+canvas, status = native.decode_resize_one(open("tests/assets_torch/img00_320x240.jpg", "rb").read(), 64)
+assert status == 0 and canvas.shape == (64, 64, 3)
+pp = transform.make_device_train_preprocess(oc.PreprocessCfg(size=32))
+assert pp(torch.Generator(), torch.zeros(2, 48, 48, 3, dtype=torch.uint8)).shape == (2, 32, 32, 3)
+assert eval_metrics.get_clip_metrics(np.eye(3, dtype=np.float32), np.eye(3, dtype=np.float32))["image_to_text_R@1"] == 1.0
 print("ok")
 """
 

@@ -249,7 +249,7 @@ def test_eval_forward_matches_clip_forward(setup):
 
 @pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca"},
                                 {"loss_type": "distill"}, {"loss_type": "genlip"},
-                                {"ema_decay": 0.999}, {"device_preprocess": lambda x: x}])
+                                {"ema_decay": 0.999}, {"freeze_bn_stats": True}])
 def test_unported_step_options_raise(setup, kw):
     _, params, cfg, _, _ = setup
     _, opt = _port_state(params, cfg)

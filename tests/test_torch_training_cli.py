@@ -60,6 +60,16 @@ def test_training_synthetic_smoke(tmp_path):
     assert all(math.isfinite(r["train/grad_norm"]) for r in rows)
 
 
+def test_training_synthetic_with_device_preprocess(tmp_path):
+    """--device-preprocess: the synthetic batch is the blank uint8 canvas, which the step
+    crops and normalizes; identical samples, so the loss is ln(batch)."""
+    state = main(_args(tmp_path, "dpp", "--epochs", "1", "--device-preprocess",
+                       "--aug-cfg", "scale=(0.5,1.0)"))
+    assert state.step == 4
+    rows = [json.loads(line) for line in (tmp_path / "dpp" / "results.jsonl").read_text().splitlines()]
+    assert all(r["train/loss"] == pytest.approx(math.log(8), abs=1e-4) for r in rows)
+
+
 def test_training_resume_latest(tmp_path):
     const = ("--lr-scheduler", "const")  # a schedule that does not depend on --epochs
     main(_args(tmp_path, "resume", "--epochs", "1", *const))
@@ -72,12 +82,13 @@ def test_training_resume_latest(tmp_path):
 
 
 def test_training_resume_from_a_path_with_options(tmp_path):
-    main(_args(tmp_path, "a", "--epochs", "1"))
+    # --accum-freq 2: batches of 8 x 2 rows (the JAX rule), 2 steps an epoch
+    main(_args(tmp_path, "a", "--epochs", "1", "--accum-freq", "2"))
     path = tmp_path / "a" / "checkpoints" / "epoch_1.pt"
     state = main(_args(tmp_path, "b", "--epochs", "2", "--resume", str(path), "--accum-freq", "2",
                        "--grad-checkpointing", "--lr-scheduler", "const-cooldown",
                        "--epochs-cooldown", "1", "--save-frequency", "5"))
-    assert state.step == 8
+    assert state.step == 4
     assert sorted(p.name for p in (tmp_path / "b" / "checkpoints").iterdir()) == ["epoch_2.pt"]
 
 
@@ -94,9 +105,9 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--coca-caption-loss-weight", "1.0"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
-    ["--train-data", "shards-{000..010}.tar"], ["--val-data", "val.csv"],
-    ["--imagenet-val", "imagenet/val"], ["--mesh-tensor", "2"], ["--distill-model", "ViT-B-32"],
-    ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--device-preprocess"],
+    ["--image-key", "png"], ["--val-retrieval-precision", "bf16"],
+    ["--max-image-pixels", "100"], ["--mesh-tensor", "2"], ["--distill-model", "ViT-B-32"],
+    ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--json-text-key-probs", "0.5"],
     ["--remat-policy", "dots_no_batch"], ["--report-to", "wandb"], ["--save-most-recent"],
     ["--force-patch-dropout", "0.5"], ["--torchcompile"], ["--momentum", "0.8"],
 ])
@@ -120,7 +131,7 @@ def test_use_switchback_runs(tmp_path):
 
 
 @pytest.mark.parametrize("extra,where", [(["--opt", "lion"], "optimizer"),
-                                         (["--dataset-type", "csv"], "dataset type")])
+                                         (["--dataset-type", "webdataset-audio"], "dataset type")])
 def test_unported_choices_raise_in_main(tmp_path, extra, where):
     args = [a for a in _args(tmp_path, "x", "--epochs", "1")]
     if extra[0] == "--dataset-type":
@@ -164,7 +175,7 @@ def test_get_data_counts_batches():
     data = get_data(Args, oc.PreprocessCfg(size=32), oc.get_tokenizer("ViT-B-32", context_length=16))
     assert data["train"].num_samples == 32 and data["train"].num_batches == 4
     data["train"].set_epoch(1)
-    Args.dataset_type = "webdataset"
+    Args.dataset_type = "webdataset-naflex"
     with pytest.raises(NotImplementedError):
         get_data(Args, oc.PreprocessCfg(size=32), None)
 
@@ -252,7 +263,7 @@ def test_training_synthetic_naflex_loss_scale_and_accumulation(tmp_path, mode):
     patch dicts."""
     state = main(_naflex_args(tmp_path, mode, "--naflex-loss-scale", mode, "--accum-freq", "2",
                               "--naflex-seq-lens", "64"))
-    assert state.step == 4
+    assert state.step == 2  # 32 samples // (8 x 2): --accum-freq multiplies the batch
     rows = [json.loads(line) for line in (tmp_path / mode / "results.jsonl").read_text().splitlines()]
     ratio = 4 / 8  # 64-token bucket: batch 4, against --batch-size 8
     want = math.log(4) * (ratio if mode == "linear" else ratio ** 0.5)
