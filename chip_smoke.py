@@ -158,7 +158,32 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      part and its metrics, beside phase 4's synthetic step;
  32. data_card_vs_cpu: fp32, TF32 off: make_device_train_preprocess at b256 and the
      same boxes (max abs <= 1e-5), make_eval_step on ViT-B-32 at b32 (min cosine,
-     loss relative 1e-4), card against CPU.
+     loss relative 1e-4), card against CPU;
+ 33. pretrained_load: ViT-B-32 (seed 0) written in a temporary directory as a
+     local-dir: model directory (save_for_hf: open_clip_config.json and
+     open_clip_model.safetensors in the reference layout), as a .pt wrapped as
+     {"state_dict": {"module." + k: v}} and as a bare .bin; each loaded through
+     create_model_and_transforms in pure_bf16 equals the source bit for bit; the
+     file MB and the seconds of each part of a load (read, convert and merge, copy to
+     the card) and of the whole call; the .pt's model serves phase 2's b256 request
+     and a classifier with the source's features bit for bit at 12 + 12 short launches;
+ 34. pretrained_resize: the .pt at force_image_size=256 (grid 7 -> 8) and
+     force_context_length=64: b256 served with 12 short launches at L=65 and 12 at
+     L=64; fp32 (TF32 off) card features against the CPU's, min cosine >= 0.9999;
+ 35. siglip_big_vision: a big_vision .npz synthesized from ViT-B-16-SigLIP (seed 0:
+     per-head q/k/v, the MAP head, t and b), with and without the params/ root,
+     loaded by load_big_vision_weights into a seed-1 model: bit for bit; b256 served
+     in pure_bf16 with 12 short launches at L=196 and 12 at L=64; the load seconds;
+ 36. finetune: the .pt in amp_bf16, the image tower locked but for its head and last
+     block, layer decay 0.75, AdamW (lr 5e-4, wd 0.2, clip 1.0): library steps on
+     phase 4's batch timed and profiled beside phase 4's plain step (locked tensors
+     keep the checkpoint's bits, ln_post, proj, the last image block and the text
+     tower move, 24 + 24 short launches a step); the CLI with --pretrained
+     --lock-image --lock-image-unlocked-groups 2 --layer-decay 0.75 for 16 steps
+     (the same checks on synthetic data, where only the weight decay moves
+     anything); a --pretrained-image load at --seed 1 (the image tower equals the
+     checkpoint's, the text tower the seed-1 init's). The checkpoints are deleted at
+     the end.
 
 Phase 1 also times the short forward and backward at the SigLIP shapes and the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask); phase 17 also times the
@@ -3364,6 +3389,407 @@ def phase_data_card_vs_cpu(torch, oc):
           f"{float(rc['loss']):.6f} (relative {rel:.2e} <= 1e-4)")
 
 
+
+# ---------------------------------------------------------------------------
+# starting from a checkpoint: reference files written from the port's seeded models
+# ---------------------------------------------------------------------------
+
+FT_CLI_STEPS = 16
+FT_LOCK = {"lock_image": True, "lock_image_unlocked_groups": 2}
+FT_LAYER_DECAY = 0.75
+
+
+def state_diff(torch, got: dict, want: dict) -> list:
+    """The names where two state dicts differ in a bit, dtype or shape (or one lacks)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a = got[k].detach()
+        b = want[k].detach().to(a.device)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            bad.append(k)
+    return bad
+
+
+def file_mb(path) -> float:
+    path = Path(path)
+    files = path.iterdir() if path.is_dir() else [path]
+    return sum(p.stat().st_size for p in files) / 2 ** 20
+
+
+def load_split(torch, oc, ck, path: str, name: str = "ViT-B-32", pretrained=None) -> dict:
+    """Seconds of each part of loading ``path`` (read, convert and merge on the CPU,
+    copy to the card), timed one by one with the factory's own functions, then the
+    whole ``create_model_and_transforms(name, pretrained)`` call (the seed init and
+    the pure_bf16 cast too)."""
+    model = oc.create_model("ViT-B-32", precision="fp32", device="cpu", seed=1)
+    t0 = time.perf_counter()
+    sd = ck.read_state_dict(path)
+    t1 = time.perf_counter()
+    ck.merge_params_(model, ck.checkpoint_to_params(sd, model.cfg))
+    t2 = time.perf_counter()
+    model.to("cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    del sd, model
+    t4 = time.perf_counter()
+    loaded, _, pp = oc.create_model_and_transforms(name, pretrained=pretrained,
+                                                   precision="pure_bf16")
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    return {"read_s": t1 - t0, "convert_s": t2 - t1, "copy_to_card_s": t3 - t2,
+            "create_model_and_transforms_s": t5 - t4, "model": loaded, "preprocess": pp}
+
+
+def phase_pretrained_load(torch, oc, sa, tmp: Path):
+    """pretrained_load: ViT-B-32 (seed 0) written as a local-dir: directory through
+    save_for_hf, as a .pt wrapped as {"state_dict": {"module." + k: v}} and as a bare
+    .bin; each loaded through create_model_and_transforms in pure_bf16 must equal the
+    source bit for bit, and one serves phase 2's b256 request with the source's
+    features, bit for bit, at 12 + 12 short launches."""
+    from open_clip_tpu_torch import checkpoint as ck
+    from open_clip_tpu_torch.convert import reference_state_dict
+
+    src = oc.create_model("ViT-B-32", precision="fp32", device="cpu", seed=0)
+    ref = reference_state_dict(src)
+    paths = {"pt": tmp / "vit_b32.pt", "bin": tmp / "open_clip_pytorch_model.bin",
+             "local_dir": tmp / "vit_b32_dir"}
+    torch.save({"state_dict": {"module." + k: v for k, v in ref.items()}}, paths["pt"])
+    torch.save(ref, paths["bin"])
+    oc.save_for_hf(src, paths["local_dir"])
+    del src, ref
+    want = oc.create_model("ViT-B-32", precision="pure_bf16", seed=0)
+    line, served = {}, None
+    for fmt, path in paths.items():
+        if fmt == "local_dir":
+            split = load_split(torch, oc, ck, str(path / "open_clip_model.safetensors"),
+                               name="local-dir:" + str(path))
+        else:
+            split = load_split(torch, oc, ck, str(path), pretrained=str(path))
+        model, preprocess = split.pop("model"), split.pop("preprocess")
+        bad = state_diff(torch, model.state_dict(), want.state_dict())
+        check(not bad, f"pretrained_load {fmt}: {len(model.state_dict())} tensors equal the "
+              f"source's bit for bit (differ: {bad[:5]})")
+        line[fmt] = {"file_mb": file_mb(path), **split}
+        if fmt == "pt":
+            served = (model, preprocess)
+        else:
+            del model
+    model, preprocess = served
+    tokenizer = oc.get_tokenizer("ViT-B-32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    feats = []
+    with torch.inference_mode():
+        for m in (model, want):
+            reset_counts(sa)
+            with tally_by_len(sa) as tally:
+                clf = oc.build_zero_shot_classifier(m, tokenizer, oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                                    oc.SIMPLE_IMAGENET_TEMPLATES,
+                                                    num_classes_per_batch=CLASSES)
+                f = m.encode_image(preprocess(images), normalize=True)
+                torch.cuda.synchronize()
+            feats.append((clf, f, dict(sa.LAUNCHES), dict(tally)))
+    (clf_l, f_l, launches, tally), (clf_s, f_s, _, _) = feats
+    check(torch.equal(f_l, f_s) and torch.equal(clf_l, clf_s) and bool(torch.isfinite(f_l).all()),
+          "pretrained_load: the loaded model's b256 request features and classifier equal the "
+          "source's bit for bit")
+    check(launches == {"fwd": 24, "bwd": 0} and tally == {("fwd", 50): 12, ("fwd", 77): 12},
+          f"pretrained_load: short launches {launches}, by length {tally}, for one classifier "
+          "and one request (expect 12 at L=50 and 12 at L=77)")
+    print("pretrained_load " + json.dumps(line), flush=True)
+    return {"vision": tally[("fwd", 50)], "text": tally[("fwd", 77)]}
+
+
+def phase_pretrained_resize(torch, oc, sa, tmp: Path):
+    """pretrained_resize: the 224-px checkpoint loaded at force_image_size=256 (grid 7
+    -> 8) and force_context_length=64; b256 served, short launches counted by length
+    (L = 65 image, 64 text); fp32 (TF32 off) card features against the CPU's."""
+    path = str(tmp / "vit_b32.pt")
+    force = {"force_image_size": 256, "force_context_length": 64}
+    model, _, preprocess = oc.create_model_and_transforms("ViT-B-32", pretrained=path,
+                                                          precision="pure_bf16", **force)
+    tokenizer = oc.get_tokenizer("ViT-B-32", context_length=64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    with torch.inference_mode():
+        reset_counts(sa)
+        with tally_by_len(sa) as tally:
+            clf = oc.build_zero_shot_classifier(model, tokenizer, oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                                oc.SIMPLE_IMAGENET_TEMPLATES,
+                                                num_classes_per_batch=CLASSES)
+            feats = model.encode_image(preprocess(images), normalize=True)
+            top5 = (feats.float() @ clf.float()).topk(5, dim=-1).indices.cpu()
+        tally = dict(tally)
+    check(tally == {("fwd", 65): 12, ("fwd", 64): 12} and tuple(top5.shape) == (BATCH, 5)
+          and bool(torch.isfinite(feats).all()),
+          f"pretrained_resize: short launches by length {tally} (expect 12 at L=65, 12 at "
+          f"L=64), features finite, top-5 {tuple(top5.shape)}")
+    del model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = oc.create_model("ViT-B-32", pretrained=path, precision="fp32", **force)
+    cpu = oc.create_model("ViT-B-32", pretrained=path, precision="fp32", device="cpu", **force)
+    small = torch.randint(0, 256, (4, *IMAGE_HW, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1))
+    texts = tokenizer(["a photo of a cat.", "a diagram", "a dog", ""])
+    pp = oc.make_device_preprocess(cpu.preprocess_cfg)
+    with torch.inference_mode():
+        pairs = (("encode_image", gpu.encode_image(pp(small.cuda()), normalize=True).cpu(),
+                  cpu.encode_image(pp(small), normalize=True)),
+                 ("encode_text", gpu.encode_text(texts, normalize=True).cpu(),
+                  cpu.encode_text(texts, normalize=True)))
+    cosines = {}
+    for name, a, b in pairs:
+        cos = torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1).min().item()
+        cosines[name] = cos
+        check(bool(torch.isfinite(a).all()) and cos >= COSINE_MIN,
+              f"pretrained_resize {name} card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
+    print("pretrained_resize " + json.dumps({
+        "image_size": 256, "context_length": 64, "launches_by_len": {f"{k[0]}@{k[1]}": v
+                                                                     for k, v in tally.items()},
+        "min_cosine_fp32": cosines}), flush=True)
+    return tally[("fwd", 65)], tally[("fwd", 64)]
+
+
+def big_vision_arrays(torch, model) -> dict:
+    """The big_vision SigLIP ``.npz`` arrays of a port ViT SigLIP model: the inverse of
+    ``convert.big_vision_to_params`` (fused qkv split into per-head (W, H, hd) q/k/v,
+    the MAP head, ``t`` and ``b``)."""
+    import numpy as np
+
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    vcfg, tcfg = model.visual.cfg, model.cfg.text_cfg
+    out = {}
+
+    def mha(prefix, q_k, q_b, k_k, k_b, v_k, v_b, o_k, o_b, heads):
+        width = q_k.shape[0]
+        for n, k, b in (("query", q_k, q_b), ("key", k_k, k_b), ("value", v_k, v_b)):
+            out[f"{prefix}{n}/kernel"] = k.reshape(width, heads, -1)
+            out[f"{prefix}{n}/bias"] = b.reshape(heads, -1)
+        out[f"{prefix}out/kernel"] = o_k.reshape(heads, -1, o_k.shape[-1])
+        out[f"{prefix}out/bias"] = o_b
+
+    def tower(src, dst, layers, heads):
+        for i in range(layers):
+            s, d = f"{src}transformer.resblocks.{i}.", f"{dst}encoderblock_{i}/"
+            qkv, bqkv = sd[s + "attn.in_proj_weight"].T, sd[s + "attn.in_proj_bias"]
+            w = qkv.shape[0]
+            mha(d + "MultiHeadDotProductAttention_0/", qkv[:, :w], bqkv[:w], qkv[:, w:2 * w],
+                bqkv[w:2 * w], qkv[:, 2 * w:], bqkv[2 * w:], sd[s + "attn.out_proj.weight"].T,
+                sd[s + "attn.out_proj.bias"], heads)
+            for j, ln in ((0, "ln_1"), (1, "ln_2")):
+                out[f"{d}LayerNorm_{j}/scale"] = sd[f"{s}{ln}.weight"]
+                out[f"{d}LayerNorm_{j}/bias"] = sd[f"{s}{ln}.bias"]
+            for j, fc in ((0, "c_fc"), (1, "c_proj")):
+                out[f"{d}MlpBlock_0/Dense_{j}/kernel"] = sd[f"{s}mlp.{fc}.weight"].T
+                out[f"{d}MlpBlock_0/Dense_{j}/bias"] = sd[f"{s}mlp.{fc}.bias"]
+
+    w = vcfg.width
+    out["img/embedding/kernel"] = sd["visual.conv1.weight"].reshape(
+        vcfg.patch_size, vcfg.patch_size, 3, w)
+    out["img/embedding/bias"] = sd["visual.conv1.bias"]
+    out["img/pos_embedding"] = sd["visual.positional_embedding"][None]
+    out["img/Transformer/encoder_norm/scale"] = sd["visual.ln_post.weight"]
+    out["img/Transformer/encoder_norm/bias"] = sd["visual.ln_post.bias"]
+    tower("visual.", "img/Transformer/", vcfg.layers, vcfg.heads)
+    p, bp = "visual.attn_pool.", "img/MAPHead_0/"
+    out[bp + "probe"] = sd[p + "latent"].reshape(1, 1, w)
+    kv, bkv = sd[p + "kv.weight"].T, sd[p + "kv.bias"]
+    mha(bp + "MultiHeadDotProductAttention_0/", sd[p + "q.weight"].T, sd[p + "q.bias"],
+        kv[:, :w], bkv[:w], kv[:, w:], bkv[w:], sd[p + "proj.weight"].T, sd[p + "proj.bias"],
+        vcfg.heads)
+    out[bp + "LayerNorm_0/scale"], out[bp + "LayerNorm_0/bias"] = sd[p + "norm.weight"], sd[p + "norm.bias"]
+    for j, fc in ((0, "c_fc"), (1, "c_proj")):
+        out[f"{bp}MlpBlock_0/Dense_{j}/kernel"] = sd[f"{p}mlp.{fc}.weight"].T
+        out[f"{bp}MlpBlock_0/Dense_{j}/bias"] = sd[f"{p}mlp.{fc}.bias"]
+    out["txt/Embed_0/embedding"] = sd["token_embedding.weight"]
+    out["txt/pos_embedding"] = sd["positional_embedding"][None]
+    out["txt/Encoder_0/encoder_norm/scale"] = sd["ln_final.weight"]
+    out["txt/Encoder_0/encoder_norm/bias"] = sd["ln_final.bias"]
+    tower("", "txt/Encoder_0/", tcfg.layers, tcfg.heads)
+    out["txt/head/kernel"], out["txt/head/bias"] = sd["text_projection.weight"].T, sd["text_projection.bias"]
+    out["t"], out["b"] = sd["logit_scale"].reshape(1), sd["logit_bias"].reshape(1)
+    return out
+
+
+def phase_siglip_big_vision(torch, oc, sa, tmp: Path):
+    """siglip_big_vision: a big_vision .npz synthesized from ViT-B-16-SigLIP (seed 0),
+    with and without the params/ root, loaded by load_big_vision_weights into a seed-1
+    model: the state dict equals the source's bit for bit; b256 served with short
+    launches at L = 196 and 64."""
+    import numpy as np
+
+    from open_clip_tpu_torch.convert import load_big_vision_weights
+
+    src = oc.create_model(SIGLIP_MODEL, precision="fp32", device="cpu", seed=0)
+    arrays = big_vision_arrays(torch, src)
+    want = src.state_dict()
+    line, model = {}, None
+    for root in ("", "params/"):
+        path = tmp / f"siglip_{root.strip('/') or 'bare'}.npz"
+        np.savez(path, **{root + k: v for k, v in arrays.items()})
+        target = oc.create_model(SIGLIP_MODEL, precision="fp32", device="cpu", seed=1)
+        t0 = time.perf_counter()
+        load_big_vision_weights(target, path)
+        t1 = time.perf_counter()
+        bad = state_diff(torch, target.state_dict(), want)
+        check(not bad, f"siglip_big_vision root {root or '(none)'!r}: {len(want)} tensors equal "
+              f"the source's bit for bit (differ: {bad[:5]})")
+        line[root or "bare"] = {"file_mb": file_mb(path), "load_s": t1 - t0}
+        path.unlink()
+        model = target
+    del src, arrays, want
+    # served as create_model serves pure_bf16: cast after the load
+    model = oc.convert_params_dtype_(model, torch.bfloat16).to("cuda")
+    model.compute_dtype = torch.bfloat16
+    preprocess = oc.make_device_preprocess(model.preprocess_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    with torch.inference_mode():
+        reset_counts(sa)
+        with tally_by_len(sa) as tally:
+            clf = oc.build_zero_shot_classifier(model, seeded_token_ids(torch, model.cfg.text_cfg, 0),
+                                                oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                                oc.SIMPLE_IMAGENET_TEMPLATES,
+                                                num_classes_per_batch=CLASSES)
+            feats = model.encode_image(preprocess(images), normalize=True)
+            probs = torch.sigmoid(model.logit_scale.float().exp() * feats.float() @ clf.float()
+                                  + model.logit_bias.float())
+            torch.cuda.synchronize()
+        tally = dict(tally)
+    check(tally == {("fwd", 196): 12, ("fwd", 64): 12} and bool(torch.isfinite(probs).all()),
+          f"siglip_big_vision: short launches by length {tally} (expect 12 at L=196, 12 at "
+          "L=64), sigmoid probabilities finite")
+    print("siglip_big_vision " + json.dumps(line), flush=True)
+    return tally[("fwd", 196)], tally[("fwd", 64)]
+
+
+def phase_finetune(torch, oc, sa, fl, tmp: Path, plain: dict):
+    """finetune: ViT-B-32 b256 amp_bf16 from the .pt, the image tower locked but for
+    its head and last block (unlocked groups 2), layer decay 0.75, AdamW (lr 5e-4, wd
+    0.2, clip 1.0). Library steps on phase 4's random batch (timed beside phase 4's
+    plain step, 24 + 24 short launches a step: the locked tower still runs its
+    backward), then the CLI for 16 steps on synthetic data, then a --pretrained-image
+    load at --seed 1: locked tensors keep the checkpoint's bits, the rest moves."""
+    from open_clip_tpu_torch.train import optim
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    path = str(tmp / "vit_b32.pt")
+    source = oc.create_model("ViT-B-32", precision="fp32", device="cpu", seed=0).state_dict()
+    model = oc.create_model("ViT-B-32", pretrained=path, precision="amp_bf16")
+    opt_cfg = oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0, layer_decay=FT_LAYER_DECAY)
+    optimizer = optim.create_optimizer(opt_cfg, model, oc.const_lr(5e-4, 0),
+                                       num_layers=model.cfg.vision_cfg.layers)
+    mask = optim.trainable_mask(model, **FT_LOCK)
+    optimizer = optim.apply_trainable_mask(optimizer, mask)
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = train_batch(torch, model.cfg, BATCH, "cuda")
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa, fl)
+    with tally_by_shape(sa, fl) as tally:
+        state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, n)
+    tally = dict(tally)
+    state, prof = profiled_steps(torch, step, state, batch)
+    last = model.cfg.vision_cfg.layers - 1
+
+    def moved_locked(got):
+        got = {k: v.detach().float().cpu() for k, v in got.items()}
+        locked = [k for k, m in mask.items() if m == 0.0]
+        kept = [k for k in locked if not torch.equal(got[k], source[k])]
+        probe = ("visual.ln_post.weight", "visual.proj",
+                 f"visual.transformer.resblocks.{last}.mlp.c_fc.weight",
+                 "transformer.resblocks.0.attn.in_proj_weight", "token_embedding.weight")
+        still = [k for k in probe if torch.equal(got[k], source[k])]
+        return locked, kept, still
+
+    locked, changed, still = moved_locked(state.model.state_dict())
+    losses = [float(m["loss"]) for m in warm + window]
+    check(bool(locked) and not changed and not still and all(math.isfinite(x) for x in losses),
+          f"finetune steps: {len(locked)} locked image tensors keep the checkpoint's bits "
+          f"(changed: {changed[:3]}); ln_post, proj, the last image block and the text tower "
+          f"moved (did not: {still}); {len(losses)} losses finite")
+    check(tally.get(("fwd", "vision"), 0) == 12 * n and tally.get(("bwd", "vision"), 0) == 12 * n
+          and tally.get(("fwd", "text"), 0) == 12 * n and tally.get(("bwd", "text"), 0) == 12 * n,
+          f"finetune steps: short launches {tally} in {n} steps (expect 12 + 12 of each "
+          "direction a step: the locked tower runs its backward)")
+    # the same model and batch under the plain optimizer (its own moments) and the
+    # fine-tune one, in turns, so that the two step times compare within one phase
+    plain_opt = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0), model,
+                                    oc.const_lr(5e-4, 0))
+    states = {"plain": oc.create_train_state(model, plain_opt), "finetune": state}
+    steps = {"plain": oc.make_train_step(model.cfg, plain_opt), "finetune": step}
+    states["plain"] = run_steps(torch, steps["plain"], states["plain"], batch, 2)[0]
+    turns = {"plain": {"step": [], "host": []}, "finetune": {"step": [], "host": []}}
+    for which in ("plain", "finetune", "finetune", "plain"):
+        states[which], _, t_ms, h_ms, _, _ = run_steps(torch, steps[which], states[which], batch, n)
+        turns[which]["step"] += t_ms
+        turns[which]["host"] += h_ms
+    line = {"window_steps": n, "median_step_ms": statistics.median(step_ms),
+            "median_host_ms_per_step": statistics.median(host_ms),
+            "kernel_ms_per_step": prof["device_busy_ms_per_step"],
+            "phase4_plain_median_step_ms": plain["median_step_ms"],
+            "phase4_plain_kernel_ms_per_step": plain["kernel_ms_per_step"],
+            "turns_median_step_ms": {k: statistics.median(v["step"]) for k, v in turns.items()},
+            "turns_median_host_ms_per_step": {k: statistics.median(v["host"])
+                                              for k, v in turns.items()},
+            "first_loss": losses[0], "last_loss": losses[-1], "images_per_s": BATCH * n / wall_s}
+    del state, states, steps, model, optimizer, plain_opt, batch
+
+    with tempfile.TemporaryDirectory(dir=tmp) as logs:
+        def cli_args(steps, name):
+            return ["--model", "ViT-B-32", "--dataset-type", "synthetic", "--batch-size",
+                    str(BATCH), "--train-num-samples", str(BATCH * steps), "--precision",
+                    "amp_bf16", "--wd", "0.2", "--grad-clip-norm", "1.0", "--warmup", "4",
+                    "--epochs", "1", "--workers", "1", "--log-every-n-steps", "8", "--logs", logs,
+                    "--name", name]
+
+        reset_counts(sa)
+        with tally_by_shape(sa, fl) as cli_tally:
+            t0 = time.perf_counter()
+            state = train_main(cli_args(FT_CLI_STEPS, "ft") + [
+                "--lr", "5e-4", "--pretrained", path, "--lock-image",
+                "--lock-image-unlocked-groups", "2", "--layer-decay", str(FT_LAYER_DECAY)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        cli_tally = dict(cli_tally)
+        locked, changed, still = moved_locked(state.model.state_dict())
+        # identical synthetic samples: the gradients vanish, so only the weight decay
+        # moves the trainable 2-D weights (ln_post has none)
+        still = [k for k in still if k != "visual.ln_post.weight"]
+        check(state.step == FT_CLI_STEPS and not changed and not still,
+              f"finetune CLI: {state.step} steps; {len(locked)} locked image tensors keep the "
+              f"checkpoint's bits (changed: {changed[:3]}); proj, the last image block and "
+              f"the text tower moved (did not: {still})")
+        expect = 12 * FT_CLI_STEPS
+        check(all(cli_tally.get((d, t), 0) == expect for d in ("fwd", "bwd")
+                  for t in ("vision", "text")),
+              f"finetune CLI: short launches {cli_tally} in {FT_CLI_STEPS} steps (expect "
+              f"{expect} of each)")
+        del state
+        # one step at lr 0: the weights stay as loaded
+        state = train_main(cli_args(1, "img") + ["--pretrained-image", path, "--seed", "1",
+                                                 "--lr", "0"])
+        seed1 = oc.create_model("ViT-B-32", precision="fp32", device="cpu", seed=1).state_dict()
+        got = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+        vis = state_diff(torch, {k: v for k, v in got.items() if k.startswith("visual.")},
+                         {k: v for k, v in source.items() if k.startswith("visual.")})
+        txt = state_diff(torch, {k: v for k, v in got.items() if not k.startswith("visual.")},
+                         {k: v for k, v in seed1.items() if not k.startswith("visual.")})
+        check(not vis and not txt,
+              f"finetune --pretrained-image: the image tower equals the checkpoint's (differ: "
+              f"{vis[:3]}), the text tower the --seed 1 init's (differ: {txt[:3]})")
+    line.update({"cli_steps": FT_CLI_STEPS, "cli_s": cli_s,
+                 "cli_launches_per_step": {f"{k[0]}_{k[1]}": v / FT_CLI_STEPS
+                                           for k, v in cli_tally.items() if k[0] != "ln"}})
+    print("finetune " + json.dumps(line), flush=True)
+    return tally, n, cli_tally
+
+
 def main() -> int:
     import torch
 
@@ -3470,6 +3896,14 @@ def main() -> int:
     data_tally, data_steps = timed("data_train", phase_data_train, torch, oc, sa, fl, {
         "median_step_ms": plain_summary["median_step_ms"], "cli_host_batch_ms": cli_batch_ms})
     timed("data_card_vs_cpu", phase_data_card_vs_cpu, torch, oc)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        load_launches = timed("pretrained_load", phase_pretrained_load, torch, oc, sa, tmp)
+        resize_l65, resize_l64 = timed("pretrained_resize", phase_pretrained_resize, torch, oc,
+                                       sa, tmp)
+        bv_l196, bv_l64 = timed("siglip_big_vision", phase_siglip_big_vision, torch, oc, sa, tmp)
+        ft_tally, ft_steps, ft_cli_tally = timed("finetune", phase_finetune, torch, oc, sa, fl,
+                                                 tmp, plain_summary)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -3483,8 +3917,16 @@ def main() -> int:
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
         n_data = data_tally.get(("fwd", tower), 0)
+        n_ft, n_ft_cli = ft_tally[("fwd", tower)], ft_cli_tally[("fwd", tower)]
         kernels.append(dict(fwd_records[tower],
-                            launches=launches[tower] + n_train + n_dist + n_data,
+                            launches=(launches[tower] + n_train + n_dist + n_data
+                                      + load_launches[tower] + n_ft + n_ft_cli),
+                            launches_pretrained_load=load_launches[tower],
+                            launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
+                            launches_finetune_cli=n_ft_cli,
+                            launches_pretrained_resize=(resize_l65 if tower == "vision"
+                                                        else resize_l64),
+                            launches_pretrained_resize_len=65 if tower == "vision" else 64,
                             launches_serving=launches[tower], launches_training=n_train,
                             launches_per_call=launches[tower] / calls[tower],
                             launches_per_train_step=n_train / steps,
@@ -3497,7 +3939,11 @@ def main() -> int:
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("bwd", tower)], dist_tally[("bwd", tower)]
         n_data = data_tally.get(("bwd", tower), 0)
-        kernels.append(dict(bwd_records[(tower, "bfloat16")], launches=n_train + n_dist + n_data,
+        n_ft, n_ft_cli = ft_tally[("bwd", tower)], ft_cli_tally[("bwd", tower)]
+        kernels.append(dict(bwd_records[(tower, "bfloat16")],
+                            launches=n_train + n_dist + n_data + n_ft + n_ft_cli,
+                            launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
+                            launches_finetune_cli=n_ft_cli,
                             launches_training=n_train,
                             launches_per_train_step=n_train / steps,
                             launches_dist_training=n_dist,
@@ -3575,13 +4021,15 @@ def main() -> int:
     # classifier and the train windows), the backwards in the train windows (names_mm
     # and no remat), the flash forward without a key mask in siglip384_serve
     kernels.append(dict(fwd_records["siglip_vision"],
-                        launches=sg_serve_launches + sg_tally[("fwd", sg_li)],
+                        launches=sg_serve_launches + sg_tally[("fwd", sg_li)] + bv_l196,
+                        launches_big_vision_serving=bv_l196,
                         launches_serving=sg_serve_launches,
                         launches_training=sg_tally[("fwd", sg_li)],
                         launches_per_call=sg_serve_launches / sg_calls,
                         launches_per_train_step=sg_tally[("fwd", sg_li)] / sg_steps))
     kernels.append(dict(fwd_records["siglip_text"],
-                        launches=sg_text_launches + sg_tally[("fwd", sg_lt)],
+                        launches=sg_text_launches + sg_tally[("fwd", sg_lt)] + bv_l64,
+                        launches_big_vision_serving=bv_l64,
                         launches_serving=sg_text_launches,
                         launches_training=sg_tally[("fwd", sg_lt)],
                         launches_per_train_step=sg_tally[("fwd", sg_lt)] / sg_steps))

@@ -224,6 +224,26 @@ class CLIPModelCfg:
             out.audio_cfg = CLIPAudioCfg(**_filter_cfg(CLIPAudioCfg, audio))
         return out
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The config as a model-config dict, as the JAX package's ``to_dict`` writes
+        it: the towers without their None fields, the flags only where set."""
+        def clean(dc):
+            return {k: v for k, v in dataclasses.asdict(dc).items() if v is not None}
+
+        d: Dict[str, Any] = {"embed_dim": self.embed_dim}
+        for name in ("vision_cfg", "text_cfg", "audio_cfg"):
+            if getattr(self, name) is not None:
+                d[name] = clean(getattr(self, name))
+        if self.multimodal_cfg is not None:
+            d["multimodal_cfg"] = dict(self.multimodal_cfg)
+        for k in ("quick_gelu", "custom_text"):
+            if getattr(self, k):
+                d[k] = True
+        for k in ("init_logit_scale", "init_logit_bias"):
+            if getattr(self, k) is not None:
+                d[k] = getattr(self, k)
+        return d
+
 
 def to_2tuple(x) -> Tuple:
     if isinstance(x, (tuple, list)):

@@ -6,3 +6,8 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 INCEPTION_MEAN = (0.5, 0.5, 0.5)
 INCEPTION_STD = (0.5, 0.5, 0.5)
+
+# the file names of a model directory (``local-dir:``, the Hugging Face hub layout)
+HF_WEIGHTS_NAME = "open_clip_pytorch_model.bin"
+HF_SAFE_WEIGHTS_NAME = "open_clip_model.safetensors"
+HF_CONFIG_NAME = "open_clip_config.json"

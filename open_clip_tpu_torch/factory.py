@@ -1,28 +1,49 @@
 """Model factory (counterpart of ``open_clip_tpu/factory.py``): ``create_model``,
-``create_model_and_transforms`` and ``get_tokenizer``.
+``create_model_and_transforms``, ``create_model_from_pretrained``,
+``load_checkpoint`` and ``get_tokenizer``.
 
 Models are built on the card unless the caller asks for another device:
 ``device=None`` means CUDA, and raises where CUDA is absent; there is no quiet
-fallback to the CPU. Weights are random, drawn from a ``torch.Generator``
-seeded by ``seed`` with the JAX package's init distributions; no checkpoint is
-loaded yet (``pretrained=`` raises). The model comes back with every parameter
-trainable; it has no dropout, and its one batch norm (HTSAT's ``bn0`` in CLAP models)
-uses its stored statistics in training too, so serving and training run the same
-forward, and callers that only serve run it under ``torch.inference_mode()``.
+fallback to the CPU. Weights are drawn from a ``torch.Generator`` seeded by
+``seed`` with the JAX package's init distributions, then, where ``pretrained``
+names a checkpoint file (``.pt``, ``.bin``, ``.safetensors``, ``.npz``) or the model
+name is ``local-dir:<dir>`` (``open_clip_config.json`` and
+``open_clip_model.safetensors`` or ``open_clip_pytorch_model.bin``), loaded from it
+on the CPU (``checkpoint.load_checkpoint``) before the model moves to its device;
+``pure_bf16`` casts after the load. A registry tag (``pretrained.py``) sets the
+preprocess and ``quick_gelu`` as in the JAX package, then raises: the port
+downloads nothing, and the message names the file the tag needs. ``hf-hub:`` names
+raise for the same reason. The model comes back with every parameter trainable; it
+has no dropout, and its one batch norm (HTSAT's ``bn0`` in CLAP models) uses its
+stored statistics in training too, so serving and training run the same forward,
+and callers that only serve run it under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from .config import get_model_config, parse_model_cfg
+from .checkpoint import load_checkpoint as _load_checkpoint_into
+from .config import CLIPModelCfg, get_model_config
+from .constants import HF_CONFIG_NAME, HF_SAFE_WEIGHTS_NAME, HF_WEIGHTS_NAME
 from .convert import convert_params_dtype_
 from .models.clip import CLIPModel
 from .tokenizer import DEFAULT_CONTEXT_LENGTH, SimpleTokenizer
 from .models.naflex_vit import is_naflex
-from .transform import PreprocessCfg, make_device_preprocess, uint8_image_transform_v2
+from .pretrained import get_pretrained_cfg, list_pretrained_tags_by_model, pretrained_location
+from .transform import (PreprocessCfg, make_device_preprocess, merge_preprocess_dict,
+                        uint8_image_transform_v2)
+
+logger = logging.getLogger(__name__)
+
+HF_HUB_PREFIX = "hf-hub:"
+LOCAL_DIR_PREFIX = "local-dir:"
 
 # compute dtype per precision (the JAX package's map; the short-attention kernel
 # takes fp32 and bf16, so the fp16 precisions are not offered)
@@ -45,34 +66,110 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _resolve(model_name: str, pretrained: Optional[str]):
+    """(config dict, the registry entry or model directory's preprocess overlay,
+    the checkpoint path or None) for a model name and ``pretrained``."""
+    if model_name.startswith(HF_HUB_PREFIX):
+        raise NotImplementedError(
+            f"{model_name}: loading from the Hugging Face hub is not ported (no download); "
+            f"put the repo's {HF_CONFIG_NAME} and {HF_SAFE_WEIGHTS_NAME} in a directory and "
+            f"pass 'local-dir:<dir>'")
+    if model_name.startswith(LOCAL_DIR_PREFIX):
+        d = Path(model_name[len(LOCAL_DIR_PREFIX):])
+        with open(d / HF_CONFIG_NAME) as fh:
+            hub_cfg = json.load(fh)
+        if pretrained is None:
+            pretrained = next((str(d / f) for f in (HF_SAFE_WEIGHTS_NAME, HF_WEIGHTS_NAME)
+                               if (d / f).exists()), None)
+        return hub_cfg["model_cfg"], {"preprocess_cfg": hub_cfg.get("preprocess_cfg", {})}, \
+            pretrained
+    raw = get_model_config(model_name)
+    if raw is None:
+        raise RuntimeError(f"Model config for {model_name} not found.")
+    if not pretrained or os.path.exists(pretrained):
+        return raw, {}, pretrained or None
+    entry = get_pretrained_cfg(model_name, pretrained)
+    if not entry:
+        raise RuntimeError(f"Pretrained weights ({pretrained}) not found for model {model_name}. "
+                           f"Available tags: {list_pretrained_tags_by_model(model_name)}")
+    return raw, entry, None
+
+
+def _build_preprocess_cfg(cfg: CLIPModelCfg, pretrained_cfg: Dict[str, Any]) -> PreprocessCfg:
+    base = PreprocessCfg()
+    if cfg.vision_cfg is not None:
+        base.size = cfg.vision_cfg.image_size
+    overlay = dict(pretrained_cfg.get("preprocess_cfg", {}))
+    overlay.pop("quick_gelu", None)
+    return merge_preprocess_dict(base, overlay)
+
+
 def create_model(model_name: str, pretrained: Optional[str] = None, precision: str = "fp32",
-                 device=None, seed: int = 0) -> CLIPModel:
-    """Build a model with random weights from ``seed`` on ``device`` (CUDA by default)."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; "
-                                  "models are built with random weights from `seed`")
+                 device=None, seed: int = 0, force_quick_gelu: bool = False,
+                 force_custom_text: bool = False, force_patch_dropout: Optional[float] = None,
+                 force_image_size: Optional[Union[int, Tuple[int, int]]] = None,
+                 force_context_length: Optional[int] = None,
+                 require_pretrained: bool = False) -> CLIPModel:
+    """Build a model from ``seed`` and load ``pretrained`` into it (a checkpoint path;
+    a registry tag raises after reading its settings), on ``device`` (CUDA by
+    default). The ``force_*`` overrides change the config before the model is built;
+    a checkpoint's position embeddings are resized to a forced image size or context
+    length."""
     if precision not in _PRECISION_DTYPES:
         raise ValueError(f"unknown precision {precision!r}; one of {sorted(_PRECISION_DTYPES)}")
     device = resolve_device(device)
-    cfg = parse_model_cfg(model_name)
+    if not model_name.startswith((HF_HUB_PREFIX, LOCAL_DIR_PREFIX)):
+        model_name = model_name.replace("/", "-")
+    raw, pretrained_cfg, ckpt_path = _resolve(model_name, pretrained)
+    cfg = CLIPModelCfg.from_dict(raw)
+    if pretrained_cfg.get("preprocess_cfg", {}).get("quick_gelu") and not cfg.quick_gelu:
+        force_quick_gelu = True
+    if pretrained and ckpt_path is None and not model_name.startswith(LOCAL_DIR_PREFIX):
+        raise NotImplementedError(
+            f"pretrained tag {pretrained!r} of {model_name}: downloading is not ported; its "
+            f"weights are at {pretrained_location(pretrained_cfg)}: fetch the file and pass "
+            "its path as pretrained=")
+    if force_quick_gelu:
+        cfg.quick_gelu = True
+    if force_custom_text:
+        cfg.custom_text = True
+    if force_patch_dropout is not None and cfg.vision_cfg is not None:
+        if force_patch_dropout > 0.0:
+            raise NotImplementedError("patch dropout is not ported yet "
+                                      f"(force_patch_dropout={force_patch_dropout})")
+        cfg.vision_cfg.patch_dropout = force_patch_dropout
+    if force_image_size is not None and cfg.vision_cfg is not None:
+        cfg.vision_cfg.image_size = force_image_size
+    if force_context_length is not None and cfg.text_cfg is not None:
+        cfg.text_cfg.context_length = force_context_length
+    if require_pretrained and not ckpt_path:
+        raise RuntimeError(f"pretrained weights required but not resolved for {model_name}")
+
     dtype = _PRECISION_DTYPES[precision]
     model = CLIPModel(cfg, compute_dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if ckpt_path:
+        logger.info("loading pretrained weights from %s", ckpt_path)
+        _load_checkpoint_into(model, ckpt_path)
     if precision.startswith("pure_"):
         convert_params_dtype_(model, dtype)
     if cfg.vision_cfg is not None:
-        model.preprocess_cfg = PreprocessCfg(size=cfg.vision_cfg.image_size)
+        model.preprocess_cfg = _build_preprocess_cfg(cfg, pretrained_cfg)
     return model.to(device)
 
 
-def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None, **kwargs):
+def create_model_and_transforms(model_name: str, pretrained: Optional[str] = None, *,
+                                image_mean=None, image_std=None,
+                                image_interpolation: Optional[str] = None,
+                                image_resize_mode: Optional[str] = None, **kwargs):
     """(model, preprocess_train, preprocess_val). For an image model
     ``preprocess_val`` is the device-side preprocess (uint8 NHWC on the model's device
     -> normalized NHWC), and ``preprocess_train`` the host canvas stage
     (``transform.uint8_image_transform_v2``: JPEG bytes -> uint8 canvas through the
     native decoder), which pairs with ``make_device_train_preprocess`` in the
     train step (``make_train_step(device_preprocess=...)``); a NaFlex model's is None
-    (its images become patch dicts). For a CLAP model both are the host
+    (its images become patch dicts). The ``image_*`` arguments override the model's
+    preprocess settings. For a CLAP model both are the host
     ``AudioPreprocess`` of ``data/audio.py`` ((waveform, sample rate) -> fixed-length
     waveform dict): a random window for training, the clip's start for evaluation."""
     model = create_model(model_name, pretrained, **kwargs)
@@ -81,9 +178,27 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
 
         return (model, audio_transform_v2(model.cfg.audio_cfg, is_train=True),
                 audio_transform_v2(model.cfg.audio_cfg, is_train=False))
-    cfg = model.preprocess_cfg
+    cfg = model.preprocess_cfg = merge_preprocess_dict(model.preprocess_cfg, {
+        "mean": image_mean, "std": image_std, "interpolation": image_interpolation,
+        "resize_mode": image_resize_mode})
     train = None if is_naflex(model.cfg.vision_cfg) else uint8_image_transform_v2(cfg, True)
     return model, train, make_device_preprocess(cfg)
+
+
+def create_model_from_pretrained(model_name: str, pretrained: Optional[str] = None, *,
+                                 return_transform: bool = True, **kwargs):
+    """(model, preprocess_val) for inference, or the model alone; the weights must
+    load."""
+    model = create_model(model_name, pretrained, require_pretrained=True, **kwargs)
+    if not return_transform:
+        return model
+    return model, (None if model.preprocess_cfg is None
+                   else make_device_preprocess(model.preprocess_cfg))
+
+
+def load_checkpoint(model: CLIPModel, path, strict: bool = True) -> CLIPModel:
+    """Load a reference checkpoint file into ``model`` in place."""
+    return _load_checkpoint_into(model, path, strict=strict)
 
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None) -> SimpleTokenizer:

@@ -117,3 +117,123 @@ def params_outside_loss(model) -> Set[str]:
     their gradients are zeros; the train step gives them zeros here too."""
     return {n for n, _ in model.named_parameters()
             if n.startswith(("audio.encoder.tscam_conv.", "audio.encoder.head."))}
+
+
+def torch_clap_to_params(sd, cfg) -> Dict[str, object]:
+    """A reference CLAP state dict (``audio.encoder.*``, ``audio.proj.*``, ``text.*``,
+    ``logit_*``) -> the JAX package's tree (numpy leaves), as its
+    ``torch_clap_to_params`` makes it; HTSAT only (Whisper is not ported)."""
+    from ..convert import normalize_torch_state_dict, torch_clip_to_params
+    from .htsat import torch_htsat_to_params
+
+    sd = normalize_torch_state_dict(sd)
+    tree = torch_clip_to_params({k: v for k, v in sd.items() if not k.startswith("audio.")}, cfg)
+    mt = cfg.audio_cfg.model_type.lower()
+    if mt != "htsat":
+        raise NotImplementedError(f"CLAP checkpoints with a {cfg.audio_cfg.model_type} audio "
+                                  "tower are not ported yet (HTSAT is)")
+    tree["audio"] = {"encoder": torch_htsat_to_params(sd, prefix="audio.encoder."),
+                     "proj": _proj_tree(sd, "audio.proj")}
+    return tree
+
+
+def _proj_tree(sd, prefix: str) -> Dict[str, object]:
+    out = {}
+    for fc, idx in (("fc1", 0), ("fc2", 2)):
+        out[fc] = {"kernel": sd[f"{prefix}.{idx}.weight"].T}
+        if sd.get(f"{prefix}.{idx}.bias") is not None:
+            out[fc]["bias"] = sd[f"{prefix}.{idx}.bias"]
+    return out
+
+
+_HF_BLOCK_SWAPS = (
+    ("layernorm_before.", "norm1."),
+    ("layernorm_after.", "norm2."),
+    ("attention.self.relative_position_bias_table", "attn.relative_position_bias_table"),
+    ("attention.output.dense.", "attn.proj."),
+    ("intermediate.dense.", "mlp.fc1."),
+    ("output.dense.", "mlp.fc2."),
+)
+
+
+def convert_hf_clap_state_dict(sd) -> Dict[str, object]:
+    """Keys of transformers' ``ClapModel`` -> the reference CLAP's (the JAX package's
+    ``convert_hf_clap_state_dict``): the separate q/k/v projections concatenated into
+    the fused qkv, the block submodules renamed, ``logit_scale_a`` as the one scale."""
+    import re
+
+    import numpy as np
+
+    from ..convert import _np
+
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    out: Dict[str, object] = {}
+    qkv_re = re.compile(r"audio_model\.audio_encoder\.layers\.(\d+)\.blocks\.(\d+)\.attention\."
+                        r"self\.(query|key|value)\.(weight|bias)")
+    block_re = re.compile(r"audio_model\.audio_encoder\.layers\.(\d+)\.blocks\.(\d+)\.(.+)")
+    grouped: Dict[tuple, Dict[str, object]] = {}
+    for k, v in sd.items():
+        m = qkv_re.match(k)
+        if m:
+            li, bi, name, param = m.groups()
+            grouped.setdefault((li, bi, param), {})[name] = v
+    for (li, bi, param), t in grouped.items():
+        if all(n in t for n in ("query", "key", "value")):
+            out[f"audio.encoder.layers.{li}.blocks.{bi}.attn.qkv.{param}"] = np.concatenate(
+                [_np(t["query"]), _np(t["key"]), _np(t["value"])], axis=0)
+    renames = (("audio_model.audio_encoder.batch_norm.", "audio.encoder.bn0."),
+               ("audio_model.audio_encoder.patch_embed.", "audio.encoder.patch_embed."),
+               ("audio_model.audio_encoder.norm.", "audio.encoder.norm."))
+    for k, v in sd.items():
+        if qkv_re.match(k):
+            continue
+        if k == "logit_scale_a":
+            out["logit_scale"] = v
+        elif k.endswith((".position_ids", ".token_type_ids", "num_batches_tracked",
+                         "relative_position_index", "attn_mask")):
+            continue
+        elif any(k.startswith(old) for old, _ in renames):
+            old, new = next((o, n) for o, n in renames if k.startswith(o))
+            out[k.replace(old, new, 1)] = v
+        elif block_re.match(k):
+            li, bi, suffix = block_re.match(k).groups()
+            for old, new in _HF_BLOCK_SWAPS:
+                if suffix.startswith(old):
+                    out[f"audio.encoder.layers.{li}.blocks.{bi}.{suffix.replace(old, new, 1)}"] = v
+                    break
+        elif k.startswith("audio_model.audio_encoder.layers."):
+            out[k.replace("audio_model.audio_encoder.layers.", "audio.encoder.layers.", 1)] = v
+        else:
+            for old, new in (("audio_projection.linear1.", "audio.proj.0."),
+                             ("audio_projection.linear2.", "audio.proj.2."),
+                             ("text_model.", "text.transformer."),
+                             ("text_projection.linear1.", "text.proj.0."),
+                             ("text_projection.linear2.", "text.proj.2.")):
+                if k.startswith(old):
+                    out[k.replace(old, new, 1)] = v
+                    break
+    return out
+
+
+def hf_clap_audio_to_params(sd) -> Dict[str, object]:
+    """The audio half of ``hf_clap_to_params``: a transformers ``ClapModel`` state
+    dict -> ``{"audio": {"encoder", "proj"}, "logit_scale"}`` in the JAX package's
+    tree (numpy leaves). Its checkpoints hold no token-semantic head (``tscam_conv``,
+    ``head``); the JAX package merges them over an init tree, not strictly."""
+    from ..convert import _np
+    from .htsat import torch_htsat_to_params
+
+    ref = {k: _np(v) for k, v in convert_hf_clap_state_dict(sd).items()}
+    return {"logit_scale": ref["logit_scale"].reshape(()),
+            "audio": {"encoder": torch_htsat_to_params(
+                          {k: v for k, v in ref.items() if k.startswith("audio.encoder.")},
+                          prefix="audio.encoder."),
+                      "proj": _proj_tree(ref, "audio.proj")}}
+
+
+def hf_clap_to_params(sd, cfg) -> Dict[str, object]:
+    """A transformers ``ClapModel`` state dict -> the JAX package's tree. Its text
+    tower is a Hugging Face RoBERTa, which the port does not build: the audio half
+    converts (``hf_clap_audio_to_params``), the whole raises."""
+    raise NotImplementedError("transformers ClapModel checkpoints carry a Hugging Face RoBERTa "
+                              "text tower, which is not ported yet")

@@ -454,3 +454,69 @@ def apply_htsat(model: HTSAT, audio: Dict[str, torch.Tensor],
             "clipwise_output": torch.sigmoid(logits.mean(dim=1).float()),
             "framewise_output": torch.sigmoid(logits.float()).repeat_interleave(repeat, dim=1),
             "fine_grained_embedding": fine}
+
+
+_HTSAT_BLOCK_KEYS = {
+    "norm1.weight": ("norm1", "scale"), "norm1.bias": ("norm1", "bias"),
+    "norm2.weight": ("norm2", "scale"), "norm2.bias": ("norm2", "bias"),
+    "attn.qkv.weight": ("attn", "qkv", "kernel"), "attn.qkv.bias": ("attn", "qkv", "bias"),
+    "attn.proj.weight": ("attn", "proj", "kernel"), "attn.proj.bias": ("attn", "proj", "bias"),
+    "attn.relative_position_bias_table": ("attn", "rel_bias"),
+    "mlp.fc1.weight": ("mlp", "fc1", "kernel"), "mlp.fc1.bias": ("mlp", "fc1", "bias"),
+    "mlp.fc2.weight": ("mlp", "fc2", "kernel"), "mlp.fc2.bias": ("mlp", "fc2", "bias"),
+}
+_HTSAT_KEYS = {
+    "patch_embed.proj.bias": ("patch_embed", "proj", "bias"),
+    "patch_embed.norm.weight": ("patch_embed", "norm", "scale"),
+    "patch_embed.norm.bias": ("patch_embed", "norm", "bias"),
+    "norm.weight": ("norm", "scale"), "norm.bias": ("norm", "bias"),
+    "tscam_conv.bias": ("tscam_conv", "bias"), "head.bias": ("head", "bias"),
+    "bn0.weight": ("bn0", "scale"), "bn0.bias": ("bn0", "bias"),
+    "bn0.running_mean": ("bn0", "mean"), "bn0.running_var": ("bn0", "var"),
+}
+
+
+def torch_htsat_to_params(sd: Dict[str, object], prefix: str = "") -> Dict[str, object]:
+    """The reference HTSATEncoder's keys under ``prefix`` -> the JAX package's HTSAT
+    tree (numpy leaves), as its ``torch_htsat_to_params`` makes it. The fusion
+    modules (``enable_fusion``) are not ported and raise."""
+    import re
+
+    from ..convert import _np, _set
+
+    sub = {k[len(prefix):]: _np(v) for k, v in sd.items() if k.startswith(prefix)}
+    fusion = sorted(k for k in sub if k.startswith(("fusion_model.", "patch_embed.fusion_model.",
+                                                    "patch_embed.mel_conv2d.", "mel_conv1d.")))
+    if fusion:
+        raise NotImplementedError(f"HTSAT audio fusion ({fusion[0]}, ...) is not ported yet")
+    tree: Dict[str, object] = {"stages": {}}
+    layer_re = re.compile(r"^layers\.(\d+)\.(blocks|downsample)\.(.*)$")
+    for k, v in sub.items():
+        m = layer_re.match(k)
+        if m:
+            stage = tree["stages"].setdefault(f"stage{m.group(1)}", {})
+            rest = m.group(3)
+            if m.group(2) == "downsample":
+                path = {"norm.weight": ("norm", "scale"), "norm.bias": ("norm", "bias"),
+                        "reduction.weight": ("reduction", "kernel")}.get(rest)
+                if path is not None:
+                    _set(stage, ("downsample",) + path, v.T if path[-1] == "kernel" else v)
+                continue
+            bi, _, brest = rest.partition(".")
+            if brest.endswith(("relative_position_index", "attn_mask")):
+                continue
+            path = _HTSAT_BLOCK_KEYS[brest]
+            _set(stage.setdefault("blocks", {}).setdefault(bi, {}), path,
+                 v.T if path[-1] == "kernel" else v)
+        elif k == "patch_embed.proj.weight":
+            _set(tree, ("patch_embed", "proj", "kernel"), v.transpose(2, 3, 1, 0))
+        elif k == "tscam_conv.weight":
+            _set(tree, ("tscam_conv", "kernel"), v.transpose(2, 3, 1, 0))
+        elif k == "head.weight":
+            _set(tree, ("head", "kernel"), v.T)
+        elif k in _HTSAT_KEYS:
+            _set(tree, _HTSAT_KEYS[k], v)
+        elif not ("num_batches_tracked" in k or "spectrogram_extractor" in k
+                  or "logmel_extractor" in k):
+            raise KeyError(f"unknown htsat key {k}")
+    return tree

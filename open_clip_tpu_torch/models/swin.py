@@ -104,3 +104,54 @@ class SwinTransformer(nn.Module):
                 h, w = h // 2, w // 2
         pooled = self.norm(x).mean(dim=1)
         return linear(pooled, self.head.proj.weight, self.head.proj.bias, transposed=True)
+
+
+def torch_swin_to_params(sd: Dict[str, Any], vision_cfg: CLIPVisionCfg) -> Dict[str, Any]:
+    """A timm Swin trunk's state dict (``visual.trunk.`` stripped; TimmModel's
+    ``head.proj`` adapter, or the trunk's ``head.fc``, beside it) -> the JAX
+    package's Swin tree (numpy leaves), as its ``torch_swin_to_params`` makes it.
+    Both placements of patch merging are read: at the end of stage i (older timm,
+    this layout) or at the start of stage i + 1 (current timm). The buffers
+    (``relative_position_index``, ``attn_mask``) are rebuilt, not read."""
+    from ..convert import _np
+
+    sc = swin_cfg(vision_cfg)
+    sd = {k: _np(v) for k, v in sd.items()}
+    new_layout = ("layers.1.downsample.reduction.weight" in sd
+                  and "layers.0.downsample.reduction.weight" not in sd)
+
+    def ln(prefix):
+        return {"scale": sd[prefix + "weight"], "bias": sd[prefix + "bias"]}
+
+    def lin(prefix):
+        return {"kernel": sd[prefix + "weight"].T, "bias": sd[prefix + "bias"]}
+
+    p: Dict[str, Any] = {
+        "patch_embed": {"proj": {"kernel": sd["patch_embed.proj.weight"].transpose(2, 3, 1, 0),
+                                 "bias": sd["patch_embed.proj.bias"]},
+                        "norm": ln("patch_embed.norm.")},
+        "layers": [],
+        "norm": ln("norm."),
+    }
+    for li, depth in enumerate(sc["depths"]):
+        layer: Dict[str, Any] = {"blocks": []}
+        for bi in range(depth):
+            b = f"layers.{li}.blocks.{bi}."
+            layer["blocks"].append({
+                "norm1": ln(b + "norm1."),
+                "attn": {"qkv": lin(b + "attn.qkv."), "proj": lin(b + "attn.proj."),
+                         "rel_bias": sd[b + "attn.relative_position_bias_table"]},
+                "norm2": ln(b + "norm2."),
+                "mlp": {"fc1": lin(b + "mlp.fc1."), "fc2": lin(b + "mlp.fc2.")},
+            })
+        ds = f"layers.{li + 1}.downsample." if new_layout else f"layers.{li}.downsample."
+        if ds + "reduction.weight" in sd:
+            layer["downsample"] = {"norm": ln(ds + "norm."),
+                                   "reduction": {"kernel": sd[ds + "reduction.weight"].T}}
+        p["layers"].append(layer)
+    head = "head.proj" if "head.proj.weight" in sd else ("head.fc" if "head.fc.weight" in sd else None)
+    if head is not None:
+        p["head"] = {"proj": {"kernel": sd[head + ".weight"].T}}
+        if head + ".bias" in sd:
+            p["head"]["proj"]["bias"] = sd[head + ".bias"]
+    return p

@@ -1,8 +1,10 @@
 """Training CLI: ``python -m open_clip_tpu_torch.train.main <flags>`` (counterpart of
 ``open_clip_tpu/train/main.py``).
 
-Experiment naming and logging, the model, optimizer and schedule, data, resume,
-and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
+Experiment naming and logging, the model (from ``--pretrained``, and tower-only
+loads from ``--pretrained-image``/``--pretrained-audio``), the optimizer (with
+``--layer-decay`` and the ``--lock-*`` tower locking) and schedule, data, resume
+(which takes precedence over the pretrained weights), and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
 then a checkpoint per ``--save-frequency``), with ``results.jsonl`` and
 ``params.txt`` in the log directory. Without train data the run only evaluates
 (``--val-data``, ``--imagenet-val``) and returns the metrics. Image train data
@@ -30,7 +32,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..checkpoint import get_latest_checkpoint, load_native, save_native
+from ..checkpoint import (checkpoint_to_params, get_latest_checkpoint, load_native,
+                          read_state_dict, save_native)
+from ..convert import params_from_jax
 from ..data import get_data
 from ..data.audio import audio_transform_v2
 from ..factory import create_model, get_tokenizer, resolve_device
@@ -40,7 +44,7 @@ from ..parallel.distributed import (barrier, broadcast_object_from_primary,
                                     broadcast_scalar_from_primary, init_distributed)
 from ..parallel.mesh import create_mesh, shard_model
 from ..transform import make_device_train_preprocess, merge_preprocess_dict
-from .optim import OptimizerCfg, create_optimizer
+from .optim import OptimizerCfg, apply_trainable_mask, create_optimizer, trainable_mask
 from .params import parse_args
 from .scheduler import create_scheduler
 from .train_loop import evaluate, train_one_epoch
@@ -79,6 +83,27 @@ def _data_tokenizer(args, model):
                        text_cfg.context_length)
         ids = torch.arange(1, text_cfg.context_length + 1) % text_cfg.vocab_size
         return lambda texts: ids.expand(len(texts), -1)
+
+
+@torch.no_grad()
+def load_tower_(model, path, tower: str, flag: str) -> None:
+    """Replace one tower's weights with the checkpoint's (the JAX CLI swaps the
+    tower's subtree): every tensor of the tower must come from the file."""
+    tree = checkpoint_to_params(read_state_dict(path), model.cfg)
+    if tower not in tree:
+        raise ValueError(f"{flag}: checkpoint has no {tower} tower")
+    loaded = {k: v for k, v in params_from_jax(tree, model.cfg).items()
+              if k.startswith(tower + ".")}
+    own = {k: v for k, v in model.state_dict().items() if k.startswith(tower + ".")}
+    missing = sorted(set(own) - set(loaded))
+    if missing:
+        raise KeyError(f"{flag}: the checkpoint's {tower} tower lacks {missing[:10]}")
+    for k, cur in own.items():
+        if loaded[k].shape != cur.shape:
+            raise ValueError(f"{flag}: shape mismatch for {k}: checkpoint "
+                             f"{tuple(loaded[k].shape)} vs model {tuple(cur.shape)}")
+        cur.copy_(loaded[k].to(cur.dtype))
+    logger.info("loaded the %s tower from %s", tower, path)
 
 
 def main(args=None):
@@ -121,7 +146,17 @@ def _run(args):
                 fh.write(f"{k}: {getattr(args, k)}\n")
 
     random_seed(args.seed)  # the same seed on every rank: the same initial weights
-    model = create_model(args.model, precision=args.precision, device=args.device, seed=args.seed)
+    model = create_model(args.model, args.pretrained or None, precision=args.precision,
+                         device=args.device, seed=args.seed,
+                         force_quick_gelu=args.force_quick_gelu,
+                         force_custom_text=args.force_custom_text,
+                         force_patch_dropout=args.force_patch_dropout,
+                         force_image_size=(tuple(args.force_image_size)
+                                           if args.force_image_size else None),
+                         force_context_length=args.force_context_length)
+    for flag, tower in (("pretrained_image", "visual"), ("pretrained_audio", "audio")):
+        if getattr(args, flag):
+            load_tower_(model, getattr(args, flag), tower, "--" + flag.replace("_", "-"))
     mesh = None
     if args.world_size > 1:
         mesh = create_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp, device=device.type)
@@ -167,8 +202,19 @@ def _run(args):
                                 args.lr, args.warmup, total_steps, **cooldown)
     opt_cfg = OptimizerCfg(opt=args.opt, lr=args.lr, wd=args.wd, beta1=args.beta1,
                            beta2=args.beta2, eps=args.eps, grad_clip_norm=args.grad_clip_norm,
-                           wd_exclude_patterns=tuple(args.wd_exclude_patterns or ()))
-    optimizer = create_optimizer(opt_cfg, model, schedule)
+                           wd_exclude_patterns=tuple(args.wd_exclude_patterns or ()),
+                           layer_decay=args.layer_decay, image_layer_decay=args.image_layer_decay,
+                           text_layer_decay=args.text_layer_decay,
+                           audio_layer_decay=args.audio_layer_decay)
+    # the depth of a tower without stacked blocks, as the JAX CLI gives it
+    vcfg = model.cfg.vision_cfg
+    num_layers = vcfg.layers if vcfg is not None and not vcfg.is_resnet else None
+    optimizer = create_optimizer(opt_cfg, model, schedule, num_layers=num_layers)
+    if args.lock_image or args.lock_text:
+        optimizer = apply_trainable_mask(optimizer, trainable_mask(
+            model, lock_image=args.lock_image,
+            lock_image_unlocked_groups=args.lock_image_unlocked_groups,
+            lock_text=args.lock_text, lock_text_unlocked_layers=args.lock_text_unlocked_layers))
     state = create_train_state(model, optimizer)
 
     start_epoch = 0

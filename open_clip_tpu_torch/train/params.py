@@ -3,7 +3,7 @@
 
 The flags carry the JAX CLI's names and defaults. Those of features that are not
 ported yet (the NaFlex and audio webdatasets, the CoCa and distillation losses,
-tensor parallelism, tower locking, EMA, remote sync, ...) still parse, and ``parse_args`` raises
+tensor parallelism, EMA, remote sync, ...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
@@ -39,7 +39,7 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
     (("--max-image-pixels",), dict(type=int, default=25_000_000)),
     (("--audio-ext",), dict(type=str, default="flac")), (("--audio-fusion",), _ON),
-    (("--audio-layer-decay",), _FLOATS), (("--audio-zeroshot-dataset",), _STRS),
+    (("--audio-zeroshot-dataset",), _STRS),
     (("--audio-zeroshot-split",), dict(type=str, default="test")),
     (("--audio-zeroshot-audio-key",), dict(type=str, default="audio")),
     (("--audio-zeroshot-class-key",), dict(type=str, default="category")),
@@ -55,26 +55,16 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--remote-sync-protocol",), dict(type=str, default="fsspec")),
     # evaluation
     (("--val-retrieval-precision",), dict(type=str, default="fp32")),
-    # model and weights
-    (("--pretrained",), dict(type=str, default="")),
-    (("--pretrained-image",), _STRS), (("--pretrained-audio",), _STRS),
-    (("--force-quick-gelu",), _ON), (("--force-custom-text",), _ON),
-    (("--force-patch-dropout",), _FLOATS),
-    (("--force-image-size",), dict(type=int, nargs="+", default=None)),
-    (("--force-context-length",), _INTS),
+    # model
     (("--scan-unroll",), dict(type=int, default=1)),
     # optimizer
     (("--momentum",), dict(type=float, default=0.9)),
-    (("--layer-decay",), _FLOATS),
-    (("--image-layer-decay", "--visual-layer-decay"), _FLOATS), (("--text-layer-decay",), _FLOATS),
     (("--opt-kwargs",), dict(nargs="*", default={})),
     (("--opt-fallback-list",), dict(type=str, nargs="*", default=None)),
     (("--text-pooler-own-group",), dict(dest="text_pooler_in_head", action="store_false",
                                         default=True)),
-    (("--lock-image",), _ON), (("--lock-image-unlocked-groups",), dict(type=int, default=0)),
+    # frozen batch-norm statistics belong to the ResNet towers
     (("--lock-image-freeze-bn-stats",), _ON),
-    (("--lock-text",), _ON), (("--lock-text-unlocked-layers",), dict(type=int, default=0)),
-    (("--lock-text-freeze-layer-norm",), _ON),
     (("--ema",), _FLOATS),
     # losses
     (("--coca-caption-loss-weight",), dict(type=float, default=2.0)),
@@ -221,6 +211,35 @@ def parse_args(args=None) -> argparse.Namespace:
     # losses: the sigmoid loss (SigLIP) in place of InfoNCE
     parser.add_argument("--siglip", action="store_true", default=False)
 
+    # weights to start from, and fine-tuning
+    parser.add_argument("--pretrained", type=str, default="",
+                        help="a reference checkpoint file (.pt, .bin, .safetensors, .npz); a "
+                             "registry tag raises (nothing is downloaded)")
+    parser.add_argument("--pretrained-image", type=str, default=None,
+                        help="load only the image tower from this checkpoint")
+    parser.add_argument("--pretrained-audio", type=str, default=None,
+                        help="load only the audio tower from this checkpoint")
+    parser.add_argument("--force-quick-gelu", action="store_true", default=False)
+    parser.add_argument("--force-custom-text", action="store_true", default=False)
+    parser.add_argument("--force-patch-dropout", type=float, default=None,
+                        help="only 0 (patch dropout is not ported)")
+    parser.add_argument("--force-image-size", type=int, nargs="+", default=None)
+    parser.add_argument("--force-context-length", type=int, default=None)
+    parser.add_argument("--layer-decay", type=float, default=None,
+                        help="layer-wise lr decay factor of every tower")
+    parser.add_argument("--image-layer-decay", "--visual-layer-decay", type=float, default=None)
+    parser.add_argument("--text-layer-decay", type=float, default=None)
+    parser.add_argument("--audio-layer-decay", type=float, default=None)
+    parser.add_argument("--lock-image", action="store_true", default=False,
+                        help="freeze the image tower (its updates are zeroed)")
+    parser.add_argument("--lock-image-unlocked-groups", type=int, default=0,
+                        help="keep the head and the last N-1 blocks of a locked image tower "
+                             "trainable")
+    parser.add_argument("--lock-text", action="store_true", default=False)
+    parser.add_argument("--lock-text-unlocked-layers", type=int, default=0)
+    parser.add_argument("--lock-text-freeze-layer-norm", action="store_true", default=False,
+                        help="accepted and not read, as in the JAX CLI")
+
     # mesh and processes: a world of more than one process (torchrun's RANK, WORLD_SIZE,
     # LOCAL_RANK, MASTER_ADDR and MASTER_PORT, or the flags) trains on a (data, fsdp)
     # mesh under FSDP2, one device a process
@@ -275,6 +294,8 @@ def parse_args(args=None) -> argparse.Namespace:
         used.append(f"--remat-policy {ns.remat_policy}")
     if ns.mesh_tensor != 1:
         used.append(f"--mesh-tensor {ns.mesh_tensor} (tensor parallelism)")
+    if ns.force_patch_dropout:
+        used.append(f"--force-patch-dropout {ns.force_patch_dropout} (patch dropout)")
     if used:
         raise NotImplementedError(f"not ported yet: {', '.join(used)}")
 

@@ -204,8 +204,8 @@ def test_create_model_runs_on_the_card_unless_told(monkeypatch):
     ("RN50", {}),
     ("coca_ViT-B-32", {}),
     ("naflexgenlip_b16", {}),
-    # CLAP-HTSAT-tiny itself is ported: its pretrained weights are not
-    ("CLAP-HTSAT-tiny", {"pretrained": "laion"}),
+    # nothing is downloaded: a hub name (and a registry tag, below) raises
+    ("hf-hub:laion/clap-htsat-unfused", {}),
     ("ViT-B-32", {"pretrained": "openai"}),
     ("CLAP-Whisper-tiny-Roberta-base", {}),
     ("CLAP-HTSAT-tiny-Roberta-base-fused", {}),
@@ -256,6 +256,10 @@ from open_clip_tpu_torch.parallel import distributed, mesh
 from open_clip_tpu_torch import native, transform
 from open_clip_tpu_torch.data import datasets, wds
 from open_clip_tpu_torch.train import metrics as eval_metrics, zero_shot
+for name in ("safetensors", "huggingface_hub", "transformers"):
+    sys.modules[name] = None
+from open_clip_tpu_torch import _safetensors, pretrained, push_to_hf_hub
+from open_clip_tpu_torch.ops import pos_embed
 cfg = oc.CLIPModelCfg.from_dict({cfg!r})
 model = CLIPModel(cfg).eval()
 model.init_weights(torch.Generator().manual_seed(0))
@@ -291,6 +295,22 @@ assert status == 0 and canvas.shape == (64, 64, 3)
 pp = transform.make_device_train_preprocess(oc.PreprocessCfg(size=32))
 assert pp(torch.Generator(), torch.zeros(2, 48, 48, 3, dtype=torch.uint8)).shape == (2, 32, 32, 3)
 assert eval_metrics.get_clip_metrics(np.eye(3, dtype=np.float32), np.eye(3, dtype=np.float32))["image_to_text_R@1"] == 1.0
+import tempfile
+oc.add_model_config({cfg!r}, name="tiny-nojax")
+src = oc.create_model("tiny-nojax", device="cpu", seed=3)
+ref = {{"module." + k: v for k, v in oc.convert.reference_state_dict(src).items()}}
+with tempfile.TemporaryDirectory() as d:
+    torch.save({{"state_dict": ref}}, d + "/w.pt")
+    torch.save(ref, d + "/w.bin")
+    _safetensors.save_file(oc.convert.reference_state_dict(src), d + "/w.safetensors")
+    np.savez(d + "/w.npz", **{{k: v.numpy() for k, v in ref.items()}})
+    oc.save_for_hf(src, d + "/dir")
+    with torch.no_grad():
+        want = src.encode_image(x)
+        for name, pre in [("tiny-nojax", d + "/w." + e) for e in ("pt", "bin", "safetensors", "npz")] + [
+                ("local-dir:" + d + "/dir", None)]:
+            got = oc.create_model(name, pretrained=pre, device="cpu").encode_image(x)
+            assert torch.equal(got, want), name
 print("ok")
 """
 

@@ -189,8 +189,8 @@ def test_clip_leaves_a_small_gradient_untouched_and_scales_a_large_one():
 
 
 @pytest.mark.parametrize("kw", [{"opt": "lion"}, {"opt": "lamb"}, {"opt": "muon"}, {"opt": "sgd"},
-                                {"opt": "nadamw"}, {"opt": "adafactor"}, {"layer_decay": 0.75},
-                                {"text_layer_decay": 0.9}])
+                                {"opt": "nadamw"}, {"opt": "adafactor"}, {"opt": "timm/lion"},
+                                {"opt": "momentum"}])
 def test_unported_optimizer_options_raise(kw):
     with pytest.raises(NotImplementedError):
         poptim.create_optimizer(poptim.OptimizerCfg(**kw), {"w": torch.zeros(2, 2)}, lambda s: 1e-3)

@@ -104,10 +104,11 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--coca-caption-loss-weight", "1.0"], ["--ema", "0.999"], ["--lock-image"], ["--layer-decay", "0.75"],
+    ["--coca-caption-loss-weight", "1.0"], ["--ema", "0.999"], ["--lock-image-freeze-bn-stats"],
+    ["--opt-kwargs", "foreach=1"],
     ["--image-key", "png"], ["--val-retrieval-precision", "bf16"],
     ["--max-image-pixels", "100"], ["--mesh-tensor", "2"], ["--distill-model", "ViT-B-32"],
-    ["--pretrained", "openai"], ["--remat-policy", "dots"], ["--json-text-key-probs", "0.5"],
+    ["--scan-unroll", "2"], ["--remat-policy", "dots"], ["--json-text-key-probs", "0.5"],
     ["--remat-policy", "dots_no_batch"], ["--report-to", "wandb"], ["--save-most-recent"],
     ["--force-patch-dropout", "0.5"], ["--torchcompile"], ["--momentum", "0.8"],
 ])
