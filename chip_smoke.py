@@ -184,9 +184,29 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      anything); a --pretrained-image load at --seed 1 (the image tower equals the
      checkpoint's, the text tower the seed-1 init's). The checkpoints are deleted at
      the end.
+ 37. naflexclap_serve: naflexclap_mediumd_pf4_pt20_moderntextp in pure_bf16, requests of
+     64 clips of seeded lengths of 3-10 s at 48 kHz patchified on the host
+     (AudioNaFlexPatchify, padded to 816 tokens), a pinned copy, encode_audio (the
+     trunk's 20 blocks on the flash forward with the clips' key validity) and a
+     10-class classifier from seeded token ids (the tiktoken vocabulary is not in the
+     repository; the modern text tower is dense); latency, clips/s, the host patchify's
+     ms, the copy and device ms (CUDA events), device ms by kernel class (profiled), 20
+     wgmma flash forwards a request;
+ 38. naflexclap_train: the same model in amp_bf16, batch 64 of phase 37's patch dicts
+     and seeded token rows, AdamW with clipping, timed and profiled like phase 4: the
+     loss falls, 20 launches of each flash kernel a step, all wgmma, no short launch;
+ 39. naflexclap_card_vs_cpu: fp32 (TF32 off), 2 layers a tower at full width, a 10 s and
+     a 4.3 s clip: the card (the flash kernels' CUDA-core bodies, keys masked) against
+     the CPU (the dense bias): features, the loss and every gradient;
+ 40. audio_data_train: naflexclap_mediumd (the CLIP BPE text tower; 252 audio tokens,
+     the trunk's dense path) trained by the CLI for one epoch from 4 WAV tar shards
+     (16, 44.1 and 48 kHz, mono and stereo, int16 and float32, written by the script),
+     the zero-shot split of a 10-class WAV folder after it, then an evaluation-only run
+     of --audio-zeroshot-dataset on the folder: step and host data ms, zero-shot s.
 
-Phase 1 also times the short forward and backward at the SigLIP shapes and the flash
-forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask); phase 17 also times the
+Phase 1 also times the short forward and backward at the SigLIP shapes, the flash
+forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash kernels
+at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity); phase 17 also times the
 SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
 
 Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
@@ -236,6 +256,14 @@ NF_TRAIN_BATCH, NF_TRAIN_SEQ = 16, 1024
 NF_CLI_STEPS = 8
 FLASH_SOURCE = "open_clip_tpu_torch/csrc/flash_attention.cu"
 WINDOW_SOURCE = "open_clip_tpu_torch/csrc/window_attention.cu"
+# the NaFlex-audio CLAP: 64 clips of 3-10 s, at most 816 tokens (16 frequency x 51
+# time patches of a 10 s clip); the flash kernel record at the lengths of such clips
+NFC_MODEL, NFC_BATCH, NFC_SEQ, NFC_HEADS = "naflexclap_mediumd_pf4_pt20_moderntextp", 64, 816, 8
+NFC_SECONDS = (3.0, 10.0)
+NFC_LENS = (816, 256, 528, 672, 400, 752)
+NFC_SERVE_REQUESTS, NFC_PROFILED = 3, 2
+# real audio through the CLI: WAV tar shards for the CLIP-BPE-text naflexclap config
+NFC_DATA_MODEL, NFC_DATA_SHARDS, NFC_DATA_PER_SHARD, NFC_DATA_BATCH = "naflexclap_mediumd", 4, 32, 32
 CLAP_MODEL = "CLAP-HTSAT-tiny"
 CLAP_SERVE_BATCH, CLAP_TRAIN_BATCH, CLAP_CLI_BATCH = 64, 128, 32
 CLAP_SECONDS, CLAP_RATE = 10, 48000
@@ -596,7 +624,9 @@ def phase_flash_kernels(torch, fa):
              # whole key tiles with no valid key, which the wgmma kernels skip
              ("ragged300", 4, 1024, 12, 64, False, 0, (300, 1024, 129), True),
              # ViT-B-16-SigLIP-384's image tower: 576 tokens and no key mask
-             ("siglip384", SIGLIP384_BATCH, 576, 12, 64, False, 0, None, True)]
+             ("siglip384", SIGLIP384_BATCH, 576, 12, 64, False, 0, None, True),
+             # the NaFlex-audio trunk: 816 = 6 * 128 + 48 tokens, clips of 3-10 s
+             ("audio816", NFC_BATCH, NFC_SEQ, NFC_HEADS, 64, False, 0, NFC_LENS, True)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -3790,6 +3820,334 @@ def phase_finetune(torch, oc, sa, fl, tmp: Path, plain: dict):
     return tally, n, cli_tally
 
 
+def modern_token_ids(torch, text_cfg, seed):
+    """A stand-in for the tiktoken tokenizer of the modern text towers, whose
+    vocabulary is not in the repository: per text a seeded row of 8-40 random ids, the
+    EOS id, then the pad id up to the context length."""
+    gen = torch.Generator().manual_seed(seed)
+    eos, pad, ctx = text_cfg.eos_id, text_cfg.pad_id, text_cfg.context_length
+
+    def tokenize(texts):
+        out = torch.full((len(texts), ctx), pad, dtype=torch.long)
+        for i in range(len(texts)):
+            n = int(torch.randint(8, 41, (1,), generator=gen))
+            out[i, :n] = torch.randint(0, eos, (n,), generator=gen)
+            out[i, n] = eos
+        return out
+
+    return tokenize
+
+
+def nfc_clips(n, seed):
+    """n clips of 0.1 * N(0, 1) noise at 48 kHz, their lengths uniform in NFC_SECONDS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [((0.1 * rng.standard_normal(int(sec * CLAP_RATE))).astype(np.float32), CLAP_RATE)
+            for sec in rng.uniform(*NFC_SECONDS, n)]
+
+
+def nfc_tokens(samples: int, acfg) -> int:
+    """The patch count of a clip of ``samples`` at the model's rate: frames of the
+    reflect-padded STFT, whole time patches, times the frequency rows."""
+    frames = 1 + samples // acfg.hop_size
+    return (acfg.mel_bins // acfg.patch_freq) * math.ceil(frames / acfg.patch_time)
+
+
+def phase_naflexclap_serve(torch, oc, sa, fa):
+    """The NaFlex-audio CLAP serving main path: 64 clips a request patchified on the
+    host (AudioNaFlexPatchify, padded to 816 tokens), copied from pinned memory,
+    encode_audio (the trunk's 20 blocks on the flash forward with the clips' key
+    validity), logits against a 10-class classifier from seeded token ids, top-5.
+    Returns the flash forward launches, the encode_audio calls that made them and the
+    first request's patch dicts (CPU tensors)."""
+    from open_clip_tpu_torch.data.audio import collate_audio
+    from open_clip_tpu_torch.train.audio_zero_shot import ESC50_TEMPLATES
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, pp = oc.create_model_and_transforms(NFC_MODEL, precision="pure_bf16", seed=0)
+    acfg, depth = model.cfg.audio_cfg, model.audio.encoder.tcfg.depth
+    tokenize = modern_token_ids(torch, model.cfg.text_cfg, seed=0)
+    requests = [nfc_clips(NFC_BATCH, seed=i) for i in range(2)]
+    with torch.inference_mode():
+        reset_counts(sa, fa)
+        clf = oc.build_zero_shot_classifier(model, tokenize, ESC50_CLASSES, ESC50_TEMPLATES,
+                                            num_classes_per_batch=len(ESC50_CLASSES))
+        torch.cuda.synchronize()
+        text_launches = (dict(sa.LAUNCHES), dict(fa.LAUNCHES))
+        clf32 = clf.float()
+
+        def request(i):
+            t0 = time.perf_counter()
+            batch = collate_audio([pp(c) for c in requests[i % 2]])
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            audio = {k: v.pin_memory().to("cuda", non_blocking=True) for k, v in batch.items()}
+            ev[1].record()
+            feats = model.encode_audio(audio, normalize=True)
+            top5 = (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices
+            ev[2].record()
+            return batch, feats, top5.cpu(), host_ms, ev  # .cpu(): one request in flight
+
+        t0 = time.perf_counter()
+        first_batch = request(0)[0]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat, host, copy, device = [], [], [], []
+        for i in range(1, 1 + NFC_SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            batch, feats, top5, host_ms, ev = request(i)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            host.append(host_ms)
+            copy.append(ev[0].elapsed_time(ev[1]))
+            device.append(ev[1].elapsed_time(ev[2]))
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(NFC_PROFILED):
+                request(i)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        calls = 1 + NFC_SERVE_REQUESTS + NFC_PROFILED
+    want_valid = [min(NFC_SEQ, nfc_tokens(len(w), acfg)) for w, _ in requests[0]]
+    got_valid = first_batch["patch_valid"].sum(dim=1).tolist()
+    check(tuple(first_batch["patches"].shape) == (NFC_BATCH, NFC_SEQ, acfg.patch_freq * acfg.patch_time)
+          and got_valid == want_valid and max(got_valid) <= NFC_SEQ,
+          f"naflexclap patchify: patches {tuple(first_batch['patches'].shape)}, valid tokens "
+          f"{min(got_valid)}..{max(got_valid)} of {NFC_SEQ}, each the clip's own count")
+    check(text_launches == ({"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}),
+          f"naflexclap classifier: the modern text tower is dense (short {text_launches[0]}, "
+          f"flash {text_launches[1]})")
+    check(fa.LAUNCHES == {"fwd": depth * calls, "bwd_dq": 0, "bwd_dkv": 0}
+          and fa.FWD_BODIES == {"wgmma": depth * calls, "simt": 0},
+          f"naflexclap requests: flash launches {fa.LAUNCHES}, forward by body {fa.FWD_BODIES} "
+          f"for {calls} encode_audio calls (expect {depth} wgmma forwards each, no backward)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (NFC_BATCH, model.cfg.embed_dim) and bool(torch.isfinite(feats).all())
+          and bool(((fn - 1).abs() < 1e-2).all()) and tuple(top5.shape) == (NFC_BATCH, 5)
+          and int(top5.min()) >= 0 and int(top5.max()) < len(ESC50_CLASSES),
+          f"naflexclap request output: features {tuple(feats.shape)} finite and unit, "
+          f"top-5 {tuple(top5.shape)}")
+    summary = profile_summary(prof, prof_wall_ms, NFC_PROFILED)
+    print("naflexclap_serve " + json.dumps({
+        "model": NFC_MODEL, "precision": "pure_bf16", "batch": NFC_BATCH, "seq_len": NFC_SEQ,
+        "clip_seconds": list(NFC_SECONDS), "valid_tokens_mean": sum(got_valid) / len(got_valid),
+        "first_request_ms": first_ms, "requests": len(lat),
+        "median_request_ms": statistics.median(lat),
+        "clips_per_s": NFC_BATCH * len(lat) / (sum(lat) / 1e3),
+        "median_host_patchify_ms": statistics.median(host),
+        "host_patchify_ms_per_clip": statistics.median(host) / NFC_BATCH,
+        "median_copy_ms": statistics.median(copy),
+        "median_device_ms_encode_logits": statistics.median(device),
+        "flash_fwd_launches_per_request": fa.LAUNCHES["fwd"] / calls,
+        "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+        "class_ms_per_request": summary["class_ms_per_request"],
+        "device_idle_share": summary["device_idle_share"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    print("naflexclap_profile " + json.dumps(summary), flush=True)
+    return fa.LAUNCHES["fwd"], calls, first_batch
+
+
+def phase_naflexclap_train(torch, oc, sa, fa, audio):
+    """The NaFlex-audio CLAP training main path: batch 64 of the serving request's patch
+    dicts and seeded token rows, amp_bf16, AdamW with clipping; the trunk's 20 blocks
+    on the three flash kernels a step. Returns the window's flash launches and steps."""
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(NFC_MODEL, precision="amp_bf16", seed=0)
+    depth = model.audio.encoder.tcfg.depth
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    text = modern_token_ids(torch, model.cfg.text_cfg, seed=1)(range(NFC_BATCH))
+    batch = {"audio": {k: v.to("cuda") for k, v in audio.items()}, "text": text.to("cuda")}
+    state, warm, warm_ms, *_ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa, fa)
+    state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    flash, short = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
+    fwd_bodies, bwd_bodies = dict(fa.FWD_BODIES), dict(fa.BWD_BODIES)
+    losses = [float(m["loss"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses), f"naflexclap_train: {len(losses)} losses finite")
+    check(losses[-1] < losses[0], f"naflexclap_train: loss fell on the fixed batch, "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
+    check(flash == {"fwd": depth * n, "bwd_dq": depth * n, "bwd_dkv": depth * n}
+          and fwd_bodies == {"wgmma": depth * n, "simt": 0}
+          and bwd_bodies == {"wgmma": depth * n, "simt": 0} and short == {"fwd": 0, "bwd": 0},
+          f"naflexclap_train: flash launches {flash}, forward by body {fwd_bodies}, backward "
+          f"passes by body {bwd_bodies}, short {short} in {n} steps (expect {depth * n} of each "
+          "flash kernel, all wgmma, no short launch: the text tower is dense)")
+    state, prof_summary = profiled_steps(torch, step, state, batch)
+    print("naflexclap_train_profile " + json.dumps(prof_summary), flush=True)
+    print("naflexclap_train " + json.dumps({
+        "model": NFC_MODEL, "precision": "amp_bf16", "batch": NFC_BATCH, "seq_len": NFC_SEQ,
+        "valid_tokens_mean": float(audio["patch_valid"].sum(dim=1).float().mean()),
+        "window_steps": n, "window_s": wall_s, "clips_per_s": NFC_BATCH * n / wall_s,
+        "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+        "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+        "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+        "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"],
+        "device_idle_share": prof_summary["device_idle_share"],
+        "flash_launches_per_step": {k: v / n for k, v in flash.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    del state, model, optimizer, batch
+    torch.cuda.empty_cache()
+    return flash, n
+
+
+def phase_naflexclap_card_vs_cpu(torch, oc, fa):
+    """fp32, TF32 off: the NaFlex-audio CLAP at full width with 2 layers a tower, a
+    10 s and a 4.3 s clip (816 tokens, one of them ragged): features and every
+    gradient of the contrastive loss, the card (the flash kernels' CUDA-core bodies
+    with the key validity) against the CPU (the dense bias)."""
+    from open_clip_tpu_torch.data.audio import collate_audio
+    from open_clip_tpu_torch.factory import naflex_audio_preprocess
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = json.loads(json.dumps(oc.get_model_config(NFC_MODEL)))
+    raw["audio_cfg"]["naflexvit_cfg"]["depth"] = 2
+    raw["text_cfg"]["layers"] = 2
+    name = NFC_MODEL + "-2layer"
+    oc.add_model_config(raw, name=name)
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    clips = [((0.1 * rng.standard_normal(int(sec * CLAP_RATE))).astype(np.float32), CLAP_RATE)
+             for sec in (10.0, 4.3)]
+    pp = naflex_audio_preprocess(oc.CLIPModelCfg.from_dict(raw).audio_cfg)
+    audio = collate_audio([pp(c) for c in clips])
+    text = modern_token_ids(torch, oc.CLIPModelCfg.from_dict(raw).text_cfg, seed=2)(range(2))
+    results, feats = {}, {}
+    for device in ("cuda", "cpu"):
+        model = oc.create_model(name, precision="fp32", seed=3, device=device)
+        batch = {k: v.to(device) for k, v in audio.items()}
+        reset_counts(fa)
+        with torch.inference_mode():
+            feats[device] = model.encode_audio(batch, normalize=True).cpu()
+        out = oc.clip_forward(model, batch, text.to(device))
+        loss = oc.clip_loss(out["audio_features"], out["text_features"], model.logit_scale.exp())
+        loss.backward()
+        results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
+                            if p.grad is not None}, loss.item())
+        if device == "cuda":
+            launched = (dict(fa.LAUNCHES), dict(fa.FWD_BODIES), dict(fa.BWD_BODIES))
+        del model, out, loss
+    check(launched == ({"fwd": 4, "bwd_dq": 2, "bwd_dkv": 2}, {"wgmma": 0, "simt": 4},
+                       {"wgmma": 0, "simt": 2}),
+          f"naflexclap fp32 card run: flash launches, forward and backward by body {launched} "
+          "(2 serving, 2 in the training forward, 2 backward passes, all CUDA-core)")
+    cos = torch.nn.functional.cosine_similarity(feats["cuda"].double(), feats["cpu"].double(),
+                                                dim=-1).min().item()
+    check(bool(torch.isfinite(feats["cuda"]).all()) and cos >= COSINE_MIN,
+          f"naflexclap encode_audio card vs CPU fp32 (valid {audio['patch_valid'].sum(1).tolist()} "
+          f"of {NFC_SEQ}): min cosine {cos:.7f} (>= {COSINE_MIN})")
+    grads_card_vs_cpu(torch, results, "naflexclap")
+
+
+def wav_bytes(wav, sr: int) -> bytes:
+    """A RIFF WAV of (T,) or (T, C) int16 (PCM) or float32 (IEEE float) samples."""
+    import struct
+
+    channels = 1 if wav.ndim == 1 else wav.shape[1]
+    width = wav.dtype.itemsize
+    tag = 3 if wav.dtype.kind == "f" else 1
+    data = wav.astype(wav.dtype.newbyteorder("<")).tobytes()
+    fmt = struct.pack("<HHIIHH", tag, channels, sr, sr * channels * width, channels * width, 8 * width)
+    return (b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE"
+            + b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(data))
+            + data)
+
+
+def seeded_wav(rng, seconds, sr, channels, kind, freq):
+    """A tone and noise, (T,) or (T, channels), int16 or float32."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.3 * np.sin(2 * np.pi * freq * t) + 0.05 * rng.standard_normal(t.shape)
+    x = np.stack([x, 0.5 * x], axis=1) if channels == 2 else x
+    return (x * 32767).astype(np.int16) if kind == "int16" else x.astype(np.float32)
+
+
+def phase_audio_data_train(torch, oc, sa, fa):
+    """Real audio through the CLI: naflexclap_mediumd (the CLIP BPE text tower, 252
+    audio tokens: the trunk's dense path) trained one epoch from 4 WAV tar shards
+    (16, 44.1 and 48 kHz, mono and stereo, int16 and float32, 1-5 s), the zero-shot
+    split of a 10-class WAV folder after it; then an evaluation-only run on the folder."""
+    import tarfile
+
+    import numpy as np
+
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        rng = np.random.default_rng(7)
+        t0 = time.perf_counter()
+        k = 0
+        for s in range(NFC_DATA_SHARDS):
+            with tarfile.open(root / f"{s:05d}.tar", "w") as tf:
+                for _ in range(NFC_DATA_PER_SHARD):
+                    sr, channels = (16000, 44100, 48000)[k % 3], 1 + (k // 3) % 2
+                    kind = ("int16", "float32")[(k // 6) % 2]
+                    wav = seeded_wav(rng, rng.uniform(1.0, 5.0), sr, channels, kind, 150 + 10 * (k % 50))
+                    tf.addfile(*tar_member(f"a{k:06d}.wav", wav_bytes(wav, sr)))
+                    tf.addfile(*tar_member(f"a{k:06d}.txt", f"the sound of item {k}".encode()))
+                    k += 1
+        for ci, cls in enumerate(ESC50_CLASSES):
+            (root / "zs" / cls).mkdir(parents=True)
+            for i in range(2):
+                wav = seeded_wav(rng, 2.0, (16000, 48000)[i], 1, "int16", 200 + 120 * ci)
+                (root / "zs" / cls / f"{i}.wav").write_bytes(wav_bytes(wav, (16000, 48000)[i]))
+        write_s = time.perf_counter() - t0
+        n = NFC_DATA_SHARDS * NFC_DATA_PER_SHARD
+        steps = n // NFC_DATA_BATCH
+        args = ["--model", NFC_DATA_MODEL, "--dataset-type", "webdataset-audio",
+                "--train-data", f"{root}/{{00000..{NFC_DATA_SHARDS - 1:05d}}}.tar",
+                "--train-num-samples", str(n), "--batch-size", str(NFC_DATA_BATCH), "--epochs", "1",
+                "--precision", "amp_bf16", "--lr", "1e-4", "--wd", "0.2", "--grad-clip-norm", "1.0",
+                "--warmup", "1", "--audio-ext", "wav", "--audio-zeroshot-dataset", str(root / "zs"),
+                "--log-every-n-steps", "1", "--workers", "1", "--logs", str(root / "logs"),
+                "--name", "audio"]
+        reset_counts(sa, fa)
+        t0 = time.perf_counter()
+        state = train_main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rows = [json.loads(x) for x in (root / "logs" / "audio" / "results.jsonl").read_text().splitlines()]
+        train_rows = [r for r in rows if "train/loss" in r]
+        evals = [r for r in rows if "val/audio-zeroshot-top1" in r]
+        layers = state.model.cfg.text_cfg.layers
+        check(state.step == steps and len(train_rows) == steps
+              and all(math.isfinite(r["train/loss"]) for r in train_rows),
+              f"audio_data_train: {state.step} steps from the WAV shards, losses "
+              f"{[round(r['train/loss'], 4) for r in train_rows]}")
+        check(sa.LAUNCHES["bwd"] == layers * steps and sa.LAUNCHES["fwd"] >= layers * steps
+              and fa.LAUNCHES == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0},
+              f"audio_data_train: short launches {sa.LAUNCHES} (the text tower, {layers} a step "
+              f"and the classifier), flash {fa.LAUNCHES} (252 audio tokens: the dense path)")
+        check(len(evals) == 1 and 0.0 <= evals[0]["val/audio-zeroshot-top1"]
+              <= evals[0]["val/audio-zeroshot-top5"] <= 1.0,
+              f"audio_data_train: the zero-shot split after the epoch {evals}")
+        t0 = time.perf_counter()
+        metrics = train_main(["--model", NFC_DATA_MODEL, "--audio-zeroshot-dataset",
+                              f"folder:{root / 'zs'}", "--batch-size", "20", "--precision", "amp_bf16",
+                              "--logs", str(root / "logs"), "--name", "zs"])
+        torch.cuda.synchronize()
+        zs_s = time.perf_counter() - t0
+        check(0.0 <= metrics.get("audio-zeroshot-top1", -1) <= metrics.get("audio-zeroshot-top5", -1)
+              <= 1.0, f"audio zero-shot CLI on the WAV folder: {metrics}")
+        later = train_rows[1:] or train_rows
+        print("audio_data_train " + json.dumps({
+            "model": NFC_DATA_MODEL, "batch": NFC_DATA_BATCH, "steps": steps, "write_s": write_s,
+            "train_run_s": run_s,
+            "median_step_ms": 1e3 * statistics.median(r["train/batch_time"] for r in later),
+            "median_host_data_ms": 1e3 * statistics.median(r["train/data_time"] for r in later),
+            "zero_shot_run_s": zs_s, "zero_shot_clips": 2 * len(ESC50_CLASSES),
+            "zero_shot_top1": metrics.get("audio-zeroshot-top1"),
+            "zero_shot_top5": metrics.get("audio-zeroshot-top5")}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3904,6 +4262,12 @@ def main() -> int:
         bv_l196, bv_l64 = timed("siglip_big_vision", phase_siglip_big_vision, torch, oc, sa, tmp)
         ft_tally, ft_steps, ft_cli_tally = timed("finetune", phase_finetune, torch, oc, sa, fl,
                                                  tmp, plain_summary)
+    nfc_serve_launches, nfc_calls, nfc_audio = timed("naflexclap_serve", phase_naflexclap_serve,
+                                                     torch, oc, sa, fa)
+    nfc_train, nfc_steps = timed("naflexclap_train", phase_naflexclap_train, torch, oc, sa, fa,
+                                 nfc_audio)
+    timed("naflexclap_card_vs_cpu", phase_naflexclap_card_vs_cpu, torch, oc, fa)
+    timed("audio_data_train", phase_audio_data_train, torch, oc, sa, fa)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -4038,6 +4402,17 @@ def main() -> int:
                             launches_per_train_step=sg_tally[("bwd", length)] / sg_steps))
     kernels.append(dict(flash_records["siglip384"]["fwd"], launches=sg384_launches,
                         launches_per_call=sg384_launches / sg384_calls))
+    # the NaFlex-audio CLAP: the trunk's flash forward in naflexclap_serve's requests and
+    # naflexclap_train's window, its two backward kernels in that window (816 tokens,
+    # ragged key validity)
+    kernels.append(dict(flash_records["audio816"]["fwd"],
+                        launches=nfc_serve_launches + nfc_train["fwd"],
+                        launches_serving=nfc_serve_launches, launches_training=nfc_train["fwd"],
+                        launches_per_call=nfc_serve_launches / nfc_calls,
+                        launches_per_train_step=nfc_train["fwd"] / nfc_steps))
+    for which in ("bwd_dq", "bwd_dkv"):
+        kernels.append(dict(flash_records["audio816"][which], launches=nfc_train[which],
+                            launches_per_train_step=nfc_train[which] / nfc_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

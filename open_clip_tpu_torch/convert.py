@@ -38,25 +38,25 @@ from torch import nn
 from .config import CLIPModelCfg
 
 _BLOCK_KEYS = {
-    ("ln_1", "scale"): ("ln_1.weight", False),
-    ("ln_1", "bias"): ("ln_1.bias", False),
-    ("ln_2", "scale"): ("ln_2.weight", False),
-    ("ln_2", "bias"): ("ln_2.bias", False),
-    ("attn", "qkv", "kernel"): ("attn.in_proj_weight", True),
-    ("attn", "qkv", "bias"): ("attn.in_proj_bias", False),
-    ("attn", "out", "kernel"): ("attn.out_proj.weight", True),
-    ("attn", "out", "bias"): ("attn.out_proj.bias", False),
-    ("mlp", "c_fc", "kernel"): ("mlp.c_fc.weight", True),
-    ("mlp", "c_fc", "bias"): ("mlp.c_fc.bias", False),
-    ("mlp", "c_proj", "kernel"): ("mlp.c_proj.weight", True),
-    ("mlp", "c_proj", "bias"): ("mlp.c_proj.bias", False),
-    ("ls_1",): ("ls_1.gamma", False),
-    ("ls_2",): ("ls_2.gamma", False),
+    ("ln_1", "scale"): "ln_1.weight",
+    ("ln_1", "bias"): "ln_1.bias",
+    ("ln_2", "scale"): "ln_2.weight",
+    ("ln_2", "bias"): "ln_2.bias",
+    ("attn", "qkv", "kernel"): "attn.in_proj_weight",
+    ("attn", "qkv", "bias"): "attn.in_proj_bias",
+    ("attn", "out", "kernel"): "attn.out_proj.weight",
+    ("attn", "out", "bias"): "attn.out_proj.bias",
+    ("mlp", "c_fc", "kernel"): "mlp.c_fc.weight",
+    ("mlp", "c_fc", "bias"): "mlp.c_fc.bias",
+    ("mlp", "c_proj", "kernel"): "mlp.c_proj.weight",
+    ("mlp", "c_proj", "bias"): "mlp.c_proj.bias",
+    ("ls_1",): "ls_1.gamma",
+    ("ls_2",): "ls_2.gamma",
     # the NaFlex tower's SwiGLU blocks
-    ("mlp", "w12", "kernel"): ("mlp.w12.weight", True),
-    ("mlp", "w12", "bias"): ("mlp.w12.bias", False),
-    ("mlp", "w3", "kernel"): ("mlp.w3.weight", True),
-    ("mlp", "w3", "bias"): ("mlp.w3.bias", False),
+    ("mlp", "w12", "kernel"): "mlp.w12.weight",
+    ("mlp", "w12", "bias"): "mlp.w12.bias",
+    ("mlp", "w3", "kernel"): "mlp.w3.weight",
+    ("mlp", "w3", "bias"): "mlp.w3.bias",
 }
 
 
@@ -74,17 +74,7 @@ def _t(x) -> torch.Tensor:
 
 def _blocks(blocks: Dict[str, Any], layers: int, prefix: str,
             out: Dict[str, torch.Tensor]) -> None:
-    for path, stacked in _flatten(blocks):
-        if path not in _BLOCK_KEYS:
-            raise KeyError(f"block param {'/'.join(path)} has no counterpart in the port")
-        name, transpose = _BLOCK_KEYS[path]
-        stacked = np.asarray(stacked)
-        if stacked.shape[0] != layers:
-            raise ValueError(f"{prefix}blocks/{'/'.join(path)} stacks {stacked.shape[0]} layers; "
-                             f"the config has {layers}")
-        for i in range(layers):
-            v = _t(stacked[i])
-            out[f"{prefix}transformer.resblocks.{i}.{name}"] = v.T.contiguous() if transpose else v
+    _stacked(blocks, _BLOCK_KEYS, layers, f"{prefix}transformer.resblocks.", out)
 
 
 # the JAX param entries the port's modules hold; any other entry (a patch-embed
@@ -124,7 +114,25 @@ _EXPECTED_NAFLEX = {
 }
 
 
-def _check_keys(params: Dict[str, Any], expected) -> None:
+_EXPECTED_MODERN_TEXT = {
+    ("text",): {"token_embedding", "reg_tokens", "norm_pre", "blocks", "ln_final", "pool",
+                "text_projection"},
+    ("text", "text_projection"): _LINEAR,
+    ("text", "pool"): {"query", "q", "kv", "q_norm", "k_norm"},
+}
+_EXPECTED_NAFLEX_AUDIO = {
+    ("audio", "encoder"): {"patch_embed", "trunk", "attn_pool"},
+    ("audio", "encoder", "trunk"): {"blocks", "ln_post"},
+    ("audio", "encoder", "attn_pool"): _MAP_POOL,
+}
+
+
+def _check_keys(params: Dict[str, Any], expected, modern_text: bool = False) -> None:
+    """Raise for an entry of ``params`` that ``expected`` does not allow; with
+    ``modern_text`` the text tower is held to the modern tower's entries."""
+    if modern_text:
+        expected = {**{k: v for k, v in expected.items() if k[:1] != ("text",)},
+                    **_EXPECTED_MODERN_TEXT}
     for path, allowed in expected.items():
         node = params
         for key in path:
@@ -172,15 +180,76 @@ def _naflex_visual(vis: Dict[str, Any], layers: int, out: Dict[str, torch.Tensor
     _linear(vis["head"], "visual.head", out)
 
 
-def _map_pool(pool: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
-    """The MAP head (the NaFlex tower's ``attn_pool``, the ViT's ``map_pool``) as the
-    port's ``visual.attn_pool``."""
-    out["visual.attn_pool.latent"] = _t(pool["latent"])
+def _map_pool(pool: Dict[str, Any], out: Dict[str, torch.Tensor],
+              prefix: str = "visual.attn_pool") -> None:
+    """The MAP head (the NaFlex tower's ``attn_pool``, the ViT's ``map_pool``, the
+    NaFlex audio encoder's ``attn_pool``) as the port's ``AttentionPoolLatent``."""
+    out[f"{prefix}.latent"] = _t(pool["latent"])
     for name in ("q", "kv", "proj"):
-        _linear(pool[name], f"visual.attn_pool.{name}", out)
-    _norm(pool["norm"], "visual.attn_pool.norm", out)
+        _linear(pool[name], f"{prefix}.{name}", out)
+    _norm(pool["norm"], f"{prefix}.norm", out)
     for name in ("c_fc", "c_proj"):
-        _linear(pool["mlp"][name], f"visual.attn_pool.mlp.{name}", out)
+        _linear(pool["mlp"][name], f"{prefix}.mlp.{name}", out)
+
+
+def _stacked(blocks: Dict[str, Any], table, layers: int, prefix: str,
+             out: Dict[str, torch.Tensor], skip=lambda path, i: False) -> None:
+    """Layer-stacked JAX leaves -> ``{prefix}{i}.{name}`` tensors, ``table`` mapping a
+    leaf's path to the port's name (a kernel is transposed)."""
+    for path, stacked in _flatten(blocks):
+        if path not in table:
+            raise KeyError(f"block param {'/'.join(path)} has no counterpart in the port")
+        stacked = np.asarray(stacked)
+        if stacked.shape[0] != layers:
+            raise ValueError(f"{prefix} blocks/{'/'.join(path)} stacks {stacked.shape[0]} "
+                             f"layers; the config has {layers}")
+        for i in range(layers):
+            if not skip(path, i):
+                v = _t(stacked[i])
+                out[f"{prefix}{i}.{table[path]}"] = v.T.contiguous() if path[-1] == "kernel" else v
+
+
+def _modern_text(txt: Dict[str, Any], layers: int, out: Dict[str, torch.Tensor]) -> None:
+    """The modern text tower's tree as ``text.*`` (``models/modern_text.py``); layer
+    0's stacked ``vr_lambda`` is the JAX tree's dummy and has no counterpart."""
+    out["text.token_embedding.weight"] = _t(txt["token_embedding"])
+    if "reg_tokens" in txt:
+        out["text.reg_tokens"] = _t(txt["reg_tokens"])
+    for name in ("norm_pre", "ln_final"):
+        if name in txt:
+            _norm(txt[name], f"text.{name}", out)
+    table = {path: name for name, path in _MODERN_BLOCK_KEYS.items()}
+    _stacked(txt.get("blocks", {}), table, layers, "text.transformer.resblocks.", out,
+             skip=lambda path, i: i == 0 and path == ("attn", "vr_lambda"))
+    if "pool" in txt:
+        pool = txt["pool"]
+        out["text.pool.query"] = _t(pool["query"])
+        for name in ("q", "kv"):
+            _linear(pool[name], f"text.pool.{name}", out)
+        for name in ("q_norm", "k_norm"):
+            if name in pool:
+                _norm(pool[name], f"text.pool.{name}", out)
+    if "text_projection" in txt:
+        _linear(txt["text_projection"], "text.text_projection", out)
+
+
+_TRUNK_LEAVES = ((("layer_norm1",), ("scale", "bias")), (("layer_norm2",), ("scale", "bias")),
+                 *((("attn", n), ("kernel", "bias")) for n in ("q_proj", "k_proj", "v_proj",
+                                                              "out_proj")),
+                 *((("attn", n), ("scale", "bias")) for n in ("q_norm", "k_norm")),
+                 *((("mlp", n), ("kernel", "bias")) for n in ("fc1", "gate_fc", "fc2")))
+_TRUNK_BLOCK = {**{(*path, leaf): ".".join(path) + (".bias" if leaf == "bias" else ".weight")
+                   for path, leaves in _TRUNK_LEAVES for leaf in leaves},
+                ("ls1",): "ls1.gamma", ("ls2",): "ls2.gamma"}
+
+
+def _naflex_audio(enc: Dict[str, Any], depth: int, out: Dict[str, torch.Tensor]) -> None:
+    """The NaFlex audio encoder's tree as ``audio.encoder.*`` (``models/naflex_audio.py``)."""
+    p = "audio.encoder."
+    _linear(enc["patch_embed"]["proj"], f"{p}patch_embed.proj", out)
+    _stacked(enc["trunk"]["blocks"], _TRUNK_BLOCK, depth, f"{p}trunk.resblocks.", out)
+    _norm(enc["trunk"]["ln_post"], f"{p}trunk.ln_post", out)
+    _map_pool(enc["attn_pool"], out, f"{p}attn_pool")
 
 
 _SWIN_BLOCK = {
@@ -245,30 +314,49 @@ def _htsat(enc: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
 
 def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torch.Tensor]:
     """JAX CLIP or CLAP params -> ``CLIPModel`` state dict (float32 tensors on the CPU)."""
+    from .models.clap import is_naflex_audio
+    from .models.text import is_modern
+
     out: Dict[str, torch.Tensor] = {}
+    modern = is_modern(cfg.text_cfg)
     if cfg.audio_cfg is not None:
-        _check_keys(params, _EXPECTED_CLAP)
-        _htsat(params["audio"]["encoder"], out)
+        naflex_audio = is_naflex_audio(cfg.audio_cfg)
+        _check_keys(params, {**_EXPECTED_CLAP, **(_EXPECTED_NAFLEX_AUDIO if naflex_audio else {})},
+                    modern)
+        if naflex_audio:
+            from .models.naflex_audio import _trunk_cfg_from_audio
+
+            _naflex_audio(params["audio"]["encoder"], _trunk_cfg_from_audio(cfg.audio_cfg).depth,
+                          out)
+        else:
+            _htsat(params["audio"]["encoder"], out)
         _linear(params["audio"]["proj"]["fc1"], "audio.proj.0", out)
         _linear(params["audio"]["proj"]["fc2"], "audio.proj.2", out)
     else:
-        _visual(params, cfg, out)
-    _text(params, cfg, out)
+        _visual(params, cfg, out, modern)
+    if modern:
+        _modern_text(params.get("text", {}), cfg.text_cfg.layers, out)
+        for name in ("logit_scale", "logit_bias"):
+            if name in params:
+                out[name] = _t(params[name])
+    else:
+        _text(params, cfg, out)
     return out
 
 
-def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
+def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor],
+            modern_text: bool = False) -> None:
     from .models.naflex_vit import is_naflex, parse_naflex_cfg
     from .models.swin import is_swin
     from .models.vit import check_vision_cfg
 
     vis = params.get("visual", {})
     if is_swin(cfg.vision_cfg):
-        _check_keys(params, _EXPECTED_SWIN)
+        _check_keys(params, _EXPECTED_SWIN, modern_text)
         _swin_visual(vis, out)
         return
     naflex = is_naflex(cfg.vision_cfg)
-    _check_keys(params, _EXPECTED_NAFLEX if naflex else _EXPECTED)
+    _check_keys(params, _EXPECTED_NAFLEX if naflex else _EXPECTED, modern_text)
     if naflex:
         _naflex_visual(vis, parse_naflex_cfg(cfg.vision_cfg).layers, out)
     else:
@@ -584,7 +672,7 @@ def _unported_trunk(cfg: Optional[CLIPModelCfg], sd: Mapping[str, np.ndarray]) -
         return "the MCi hybrid conv stem (MobileCLIP-B)"
     keys = (("image_encoder.", "MobileCLIP release (image_encoder.*, the MCi stem)"),
             ("visual.trunk.stem.", "ConvNeXt"), ("visual.layer1", "ModifiedResNet"),
-            ("text_decoder.", "CoCa"), ("text.blocks.", "modern text tower"))
+            ("text_decoder.", "CoCa"))
     for prefix, family in keys:
         if any(k.startswith(prefix) for k in sd):
             return family
@@ -633,6 +721,12 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
         rest = {k: v for k, v in sd.items() if not k.startswith(own)}
         tree = torch_clip_to_params(rest, cfg) if rest else {}
         tree["visual"] = tree_vis
+        return tree
+    if any(k.startswith("text.blocks.") for k in sd):  # the modern text tower
+        tree = torch_clip_to_params({k: v for k, v in sd.items() if not k.startswith("text.")},
+                                    cfg)
+        tree["text"] = _convert_modern_text({k[len("text."):]: v for k, v in sd.items()
+                                             if k.startswith("text.")})
         return tree
 
     tree: Dict[str, Any] = {}
@@ -691,6 +785,67 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
     if leftovers:
         logger.warning("unconverted checkpoint keys: %s", leftovers[:20])
         tree["_unconverted"] = leftovers
+    return tree
+
+
+_MODERN_BLOCK_KEYS = {
+    **{f"{m}.{p}.{leaf}": (m, p, "kernel" if leaf == "weight" else "bias")
+       for m, ps in (("attn", ("qkv", "proj", "gate")), ("mlp", ("w12", "w3", "c_fc", "c_proj")))
+       for p in ps for leaf in ("weight", "bias")},
+    **{f"{n}.{leaf}": (n, "scale" if leaf == "weight" else "bias")
+       for n in ("norm1", "norm1_post", "norm2", "norm2_post") for leaf in ("weight", "bias")},
+    **{f"attn.{n}.{leaf}": ("attn", n, "scale" if leaf == "weight" else "bias")
+       for n in ("q_norm", "k_norm") for leaf in ("weight", "bias")},
+    "attn.vr_lambda": ("attn", "vr_lambda"), "ls1.gamma": ("ls1",), "ls2.gamma": ("ls2",),
+}
+
+
+def _norm_tree(sd: Mapping[str, np.ndarray], name: str) -> Dict[str, np.ndarray]:
+    t = {"scale": sd[f"{name}.weight"]}
+    if f"{name}.bias" in sd:
+        t["bias"] = sd[f"{name}.bias"]
+    return t
+
+
+def _convert_modern_text(sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    """A reference ModernTextTransformer state dict (keys without ``text.``) -> the JAX
+    package's stacked tree (its ``_convert_modern_text``): ``blocks.{i}.*`` stack
+    into ``blocks``, kernels transposed to (in, out). Layer 0 has no ``vr_lambda``;
+    the stacked tree carries the 0.5 of the init there."""
+    tree: Dict[str, Any] = {"token_embedding": sd["token_embedding.weight"]}
+    if "reg_tokens" in sd:
+        tree["reg_tokens"] = sd["reg_tokens"].reshape(-1, sd["reg_tokens"].shape[-1])
+    for name in ("norm_pre", "ln_final"):
+        if f"{name}.weight" in sd:
+            tree[name] = _norm_tree(sd, name)
+    per_layer: Dict[int, dict] = {}
+    for k, v in sd.items():
+        m = re.match(r"^blocks\.(\d+)\.(.*)$", k)
+        if not m:
+            continue
+        if m.group(2) not in _MODERN_BLOCK_KEYS:
+            raise KeyError(f"unknown modern-text block key {m.group(2)}")
+        path = _MODERN_BLOCK_KEYS[m.group(2)]
+        _set(per_layer.setdefault(int(m.group(1)), {}), path, v.T if path[-1] == "kernel" else v)
+    if per_layer:
+        if any("vr_lambda" in p.get("attn", {}) for p in per_layer.values()):
+            for p in per_layer.values():
+                p["attn"].setdefault("vr_lambda", np.full((1,), 0.5, dtype=np.float32))
+        tree["blocks"] = _stack_blocks(per_layer)
+    if "pool.query" in sd:
+        pool: Dict[str, Any] = {"query": sd["pool.query"].reshape(-1)}
+        for name in ("q", "kv"):
+            pool[name] = {"kernel": sd[f"pool.{name}.weight"].T}
+            if f"pool.{name}.bias" in sd:
+                pool[name]["bias"] = sd[f"pool.{name}.bias"]
+        for name in ("q_norm", "k_norm"):
+            if f"pool.{name}.weight" in sd:
+                pool[name] = _norm_tree(sd, f"pool.{name}")
+        tree["pool"] = pool
+    if "text_projection.weight" in sd:
+        tree["text_projection"] = {"kernel": sd["text_projection.weight"].T}
+        if "text_projection.bias" in sd:
+            tree["text_projection"]["bias"] = sd["text_projection.bias"]
     return tree
 
 

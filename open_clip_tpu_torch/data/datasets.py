@@ -5,8 +5,10 @@ dicts in token-budget buckets from ``data/naflex.py``, ``synthetic-audio`` wavef
 dicts for CLAP from ``data/audio.py``) and real image data: ``webdataset`` tar
 shards (``data/wds.py``), a ``csv`` of image paths and captions (``CsvDataset``),
 and ImageNet-style class folders for zero-shot (``make_imagenet_val``). Real images
-are JPEGs decoded by the native stage (``native/``: libjpeg, or nvJPEG); the webdataset-naflex
-and webdataset-audio types are not ported yet and raise.
+are JPEGs decoded by the native stage (``native/``: libjpeg, or nvJPEG). Real audio
+comes from ``webdataset-audio`` tar shards (``data/audio.py``), and a folder of WAVs
+per class makes the ``audio-zeroshot`` split (``train/audio_zero_shot.py``). The
+webdataset-naflex type is not ported yet and raises.
 
 ``SyntheticDataset`` yields the JAX class's batches: a blank image, normalised
 with the model's mean and std, and one fixed caption, repeated over the batch (or,
@@ -159,7 +161,8 @@ def _infer_dataset_type(path: str) -> str:
 
 
 def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
-             audio_preprocess: Optional[Callable] = None) -> Dict[str, DataInfo]:
+             audio_preprocess: Optional[Callable] = None,
+             audio_val_preprocess: Optional[Callable] = None) -> Dict[str, DataInfo]:
     """The data dict of the JAX ``get_data``: ``"train"`` (``--train-data`` or a
     synthetic type), ``"val"`` (``--val-data``), ``"imagenet-val"`` and
     ``"imagenet-v2"`` (class folders). ``args`` carries the JAX names, ``world_size``
@@ -168,9 +171,12 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
     Real image train data needs ``--device-preprocess``: its host stage is the uint8
     canvas, and the crop runs in the step; the host PIL train tier has no counterpart.
     Val images are normalized on the host (``transform.host_val_transform``).
-    ``synthetic-audio`` takes the CLAP model's training ``audio_preprocess``."""
+    ``synthetic-audio`` takes the CLAP model's training ``audio_preprocess``;
+    ``webdataset-audio`` takes it for training and ``audio_val_preprocess`` for
+    ``--val-data``, which also makes ``"audio-zeroshot"`` from
+    ``--audio-zeroshot-dataset``."""
     get = lambda k, d=None: getattr(args, k, d)  # noqa: E731
-    if get("dataset_type") in ("webdataset-naflex", "webdataset-audio"):
+    if get("dataset_type") == "webdataset-naflex":
         raise NotImplementedError(f"dataset type {get('dataset_type')!r} is not ported yet")
     world, rank = get("world_size", 1) or 1, get("rank", 0) or 0
     device_pp = bool(get("device_preprocess", False))
@@ -190,6 +196,20 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
             ds = SyntheticAudioDataset(audio_preprocess, tokenizer, dataset_size=n,
                                        batch_size=batch_size)
             return DataInfo(ds, num_samples=n, num_batches=max(1, n // batch_size))
+        if dstype == "webdataset-audio":
+            from .audio import make_wds_audio_pipeline
+
+            pp = audio_preprocess if is_train else audio_val_preprocess
+            if pp is None:
+                raise ValueError("--dataset-type webdataset-audio needs a CLAP model (audio_cfg)")
+            cfg = WdsConfig(urls=split_path, batch_size=batch_size,
+                            caption_key=get("wds_caption_key", "txt"), seed=get("seed", 0),
+                            world_size=world, rank=rank, shuffle_shards=2000 if is_train else 0,
+                            partial_batches=not is_train)
+            n = get("train_num_samples") or 0
+            return DataInfo(make_wds_audio_pipeline(cfg, pp, tokenizer,
+                                                    audio_ext=get("audio_ext", None)),
+                            num_samples=n, num_batches=n // (batch_size * world) if n else 0)
         if dstype == "synthetic-naflex":
             from .naflex import NaFlexDataConfig, SyntheticNaFlexDataset
 
@@ -264,6 +284,15 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
         if get(flag):
             data[key] = make_imagenet_val(get(flag), host_val_transform(preprocess_cfg),
                                           args.batch_size, world_size=world, rank=rank)
+    if get("audio_zeroshot_dataset"):
+        from ..train.audio_zero_shot import build_audio_zero_shot_dataset
+
+        if audio_val_preprocess is None:
+            raise ValueError("--audio-zeroshot-dataset needs a CLAP model (audio_cfg)")
+        loader = build_audio_zero_shot_dataset(get("audio_zeroshot_dataset"), audio_val_preprocess,
+                                               batch_size=args.batch_size, world_size=world,
+                                               rank=rank)
+        data["audio-zeroshot"] = DataInfo(loader, num_samples=getattr(loader, "num_samples", 0))
     return data
 
 

@@ -40,6 +40,7 @@ ERROR_LOG_EVERY = 100
 
 IMAGE_EXTS = ("jpg", "jpeg", "png", "webp", "bmp", "tiff")
 JPEG_EXTS = ("jpg", "jpeg")
+AUDIO_EXTS = ("flac", "wav", "mp3", "ogg", "m4a")
 TEXT_EXTS = ("txt", "text", "caption")
 
 

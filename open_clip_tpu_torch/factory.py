@@ -171,8 +171,13 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
     (its images become patch dicts). The ``image_*`` arguments override the model's
     preprocess settings. For a CLAP model both are the host
     ``AudioPreprocess`` of ``data/audio.py`` ((waveform, sample rate) -> fixed-length
-    waveform dict): a random window for training, the clip's start for evaluation."""
+    waveform dict): a random window for training, the clip's start for evaluation;
+    for a naflexvit audio tower both are the host ``AudioNaFlexPatchify`` at the
+    token count of a 10 s clip ((waveform, sample rate) -> mel patch dict)."""
     model = create_model(model_name, pretrained, **kwargs)
+    if model.cfg.audio_cfg is not None and model.cfg.audio_cfg.model_type == "naflexvit":
+        pp = naflex_audio_preprocess(model.cfg.audio_cfg)
+        return model, pp, pp
     if model.cfg.audio_cfg is not None:
         from .data.audio import audio_transform_v2
 
@@ -183,6 +188,15 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
         "resize_mode": image_resize_mode})
     train = None if is_naflex(model.cfg.vision_cfg) else uint8_image_transform_v2(cfg, True)
     return model, train, make_device_preprocess(cfg)
+
+
+def naflex_audio_preprocess(audio_cfg):
+    """The patchify of a naflexvit audio tower, padded to a 10 s clip's token count."""
+    from .data.naflex_audio import AudioNaFlexPatchify, naflex_audio_eval_seq_len
+    from .models.naflex_audio import audio_naflex_cfg_from_clip_audio
+
+    acfg = audio_naflex_cfg_from_clip_audio(audio_cfg)
+    return AudioNaFlexPatchify(acfg, max_audio_tokens=naflex_audio_eval_seq_len(acfg))
 
 
 def create_model_from_pretrained(model_name: str, pretrained: Optional[str] = None, *,
@@ -202,14 +216,42 @@ def load_checkpoint(model: CLIPModel, path, strict: bool = True) -> CLIPModel:
 
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None) -> SimpleTokenizer:
-    """The CLIP BPE tokenizer at the model config's context length."""
+    """The CLIP BPE tokenizer at the model config's context length, checked against
+    the config's special-token ids (``validate_special_tokens``)."""
     raw = get_model_config(model_name) if model_name else None
     text_cfg = (raw or {}).get("text_cfg", {})
     if text_cfg.get("hf_tokenizer_name") or text_cfg.get("tokenizer_type"):
         vocab = text_cfg.get("hf_tokenizer_name") or text_cfg["tokenizer_type"]
+        if text_cfg.get("tokenizer_type") == "tiktoken":
+            vocab = f"tiktoken {text_cfg.get('tiktoken_name', 'cl100k_base')}"
         raise NotImplementedError(
             f"tokenizer of {model_name!r} is not ported yet: it needs the vocabulary "
             f"{vocab!r}, which is not in the repository (feed token ids instead)")
     if context_length is None:
         context_length = text_cfg.get("context_length", DEFAULT_CONTEXT_LENGTH)
-    return SimpleTokenizer(context_length=context_length, **text_cfg.get("tokenizer_kwargs", {}))
+    tok = SimpleTokenizer(context_length=context_length, **text_cfg.get("tokenizer_kwargs", {}))
+    validate_special_tokens(text_cfg, tok)
+    return tok
+
+
+def validate_special_tokens(text_cfg: Dict[str, Any], tokenizer) -> None:
+    """Raise where the config's special-token ids disagree with the tokenizer's: a
+    wrong ``eos_id`` pools the wrong positions, and ``variable_text`` needs a
+    tokenizer with a pad id of its own (the CLIP BPE tokenizer has none)."""
+    pool_type = text_cfg.get("pool_type", "argmax")
+    if pool_type == "eos" or (text_cfg.get("text_arch") == "modern" and pool_type == "argmax"):
+        eos_id = text_cfg.get("eos_id")
+        if eos_id is None:
+            raise ValueError("pool_type='eos' requires text_cfg.eos_id (must match the "
+                             "tokenizer eos/eot id)")
+        tok_eos = getattr(tokenizer, "eot_token_id", None)
+        if tok_eos is not None and int(tok_eos) != int(eos_id):
+            raise ValueError(f"text_cfg.eos_id ({eos_id}) != tokenizer eos/eot id ({tok_eos}); "
+                             "eos pooling would index the wrong positions")
+    tok_pad = getattr(tokenizer, "pad_token_id", None)
+    if text_cfg.get("variable_text", False) and tok_pad is None:
+        raise ValueError("variable_text=True requires a tokenizer with a reserved pad_token_id")
+    pad_id = text_cfg.get("pad_id")
+    if pad_id is not None and tok_pad is not None and int(tok_pad) != int(pad_id):
+        raise ValueError(f"text_cfg.pad_id ({pad_id}) != tokenizer pad id ({tok_pad}); "
+                         "pad masks and padding would disagree")

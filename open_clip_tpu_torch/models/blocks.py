@@ -99,6 +99,29 @@ class LayerNorm(nn.LayerNorm):
         return layer_norm(x, self.weight, self.bias, self.eps, name=name)
 
 
+class Norm(nn.Module):
+    """RMSNorm (``weight`` only) or LayerNorm (``weight``, ``bias``) by ``norm_type``,
+    with fp32 statistics; the norm of the modern text tower and the GenLIP trunk."""
+
+    def __init__(self, width: int, norm_type: str, eps: float):
+        super().__init__()
+        self.rms = norm_type == "rmsnorm"
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(width))
+        self.bias = None if self.rms else nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rms:
+            return _layers.rms_norm(x, self.weight, self.eps)
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
 class LayerScale(nn.Module):
     def __init__(self, width: int):
         super().__init__()

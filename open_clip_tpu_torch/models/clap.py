@@ -1,12 +1,14 @@
 """CLAP: contrastive language-audio pretraining (counterpart of
 ``open_clip_tpu/models/clap.py``).
 
-The audio tower is the HTSAT encoder (``models/htsat.py``) followed by an
-optional L2 ``pre_norm`` and the 2-layer MLP projection with ``proj_act``; the text
-tower is the CLIP text tower on the model itself, as in ``models/clip.py``. Module
-names follow the reference checkpoint (``audio.encoder.*``, ``audio.proj.0``,
-``audio.proj.2``). The Whisper and NaFlex-ViT audio encoders are not ported and
-raise.
+The audio tower is the HTSAT encoder (``models/htsat.py``) on waveform dicts, or
+the NaFlex spectrogram ViT (``models/naflex_audio.py``, ``model_type ==
+"naflexvit"``) on mel patch dicts, followed by an optional L2 ``pre_norm`` and the
+2-layer MLP projection with ``proj_act``; the text tower is the model's, as in
+``models/clip.py`` (the CLIP tower or the modern one). Module names follow the
+reference checkpoint (``audio.encoder.*``, ``audio.proj.0``, ``audio.proj.2``). The
+Whisper audio encoder is not ported and raises; neither package converts a
+reference checkpoint of a NaFlex audio tower.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 from ..config import CLIPAudioCfg
 from ..ops.layers import ACT_FNS, linear
 from .htsat import HTSAT
+from .naflex_audio import NaFlexAudioEncoder
 
 HTSAT_CONFIGS = {
     "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(4, 8, 16, 32)),
@@ -31,9 +34,11 @@ HTSAT_CONFIGS = {
 def check_audio_cfg(acfg: CLIPAudioCfg) -> None:
     """Raise for the audio towers that are not ported."""
     mt = acfg.model_type.lower()
-    if mt in ("whisper", "naflexvit"):
+    if mt == "whisper":
         raise NotImplementedError(f"the {acfg.model_type} audio encoder is not ported yet "
-                                  "(HTSAT is)")
+                                  "(HTSAT and naflexvit are)")
+    if mt == "naflexvit":
+        return
     if mt != "htsat":
         raise ValueError(f"unsupported audio model type {acfg.model_type!r}")
     if acfg.model_name not in HTSAT_CONFIGS:
@@ -49,14 +54,20 @@ class _Act(nn.Module):
         return self.fn(x)
 
 
+def is_naflex_audio(acfg: CLIPAudioCfg) -> bool:
+    return acfg.model_type.lower() == "naflexvit"
+
+
 class AudioTower(nn.Module):
-    """HTSAT encoder, optional L2 pre-norm, 2-layer MLP projection (``proj.0``, ``proj.2``)."""
+    """HTSAT or NaFlex audio encoder, optional L2 pre-norm, 2-layer MLP projection
+    (``proj.0``, ``proj.2``)."""
 
     def __init__(self, acfg: CLIPAudioCfg, embed_dim: int):
         super().__init__()
         check_audio_cfg(acfg)
         self.cfg = acfg
-        self.encoder = HTSAT(acfg, **HTSAT_CONFIGS[acfg.model_name])
+        self.encoder = (NaFlexAudioEncoder(acfg) if is_naflex_audio(acfg)
+                        else HTSAT(acfg, **HTSAT_CONFIGS[acfg.model_name]))
         width = self.encoder.num_features
         self.proj = nn.Sequential(nn.Linear(width, embed_dim), _Act(acfg.proj_act),
                                   nn.Linear(embed_dim, embed_dim))
@@ -70,10 +81,15 @@ class AudioTower(nn.Module):
             lin.bias.uniform_(-bound, bound, generator=gen)
 
     def forward(self, audio: Dict[str, torch.Tensor], compute_dtype: torch.dtype = torch.float32,
-                apply_proj: bool = True) -> torch.Tensor:
+                apply_proj: bool = True, remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes the NaFlex encoder's blocks in the backward pass; HTSAT
+        takes none, as in the JAX package."""
         from .clip import _l2_normalize
 
-        features = self.encoder(audio, compute_dtype)
+        if is_naflex_audio(self.cfg):
+            features = self.encoder(audio, compute_dtype, remat=remat)
+        else:
+            features = self.encoder(audio, compute_dtype)
         if self.cfg.pre_norm:
             features = _l2_normalize(features)
         if apply_proj:
@@ -83,28 +99,33 @@ class AudioTower(nn.Module):
         return features
 
 
-def encode_audio(model, audio, *, normalize: bool = False) -> torch.Tensor:
+def encode_audio(model, audio, *, normalize: bool = False, remat: bool = False) -> torch.Tensor:
     """A waveform dict ({"waveform": (B, T) fp32, "longer": (B,) bool}) or a bare
-    (B, T) waveform -> (B, embed_dim) features."""
+    (B, T) waveform (HTSAT), or a mel patch dict (naflexvit) -> (B, embed_dim)
+    features."""
     from .clip import _as_tensor, _l2_normalize
 
     if not isinstance(audio, dict):
         audio = {"waveform": audio}
+    if is_naflex_audio(model.cfg.audio_cfg) and "patches" not in audio:
+        raise ValueError("a naflexvit audio tower takes the mel patch dict of "
+                         "data.naflex_audio.AudioNaFlexPatchify, not a waveform")
     audio = {k: _as_tensor(v, model.device) for k, v in audio.items()}
-    feats = model.audio(audio, model.compute_dtype, apply_proj=not model.cfg.audio_cfg.training_head)
+    feats = model.audio(audio, model.compute_dtype, apply_proj=not model.cfg.audio_cfg.training_head,
+                        remat=remat)
     return _l2_normalize(feats) if normalize else feats
 
 
-def clap_forward(model, audio=None, text=None) -> Dict[str, torch.Tensor]:
+def clap_forward(model, audio=None, text=None, *, remat: bool = False) -> Dict[str, torch.Tensor]:
     """The reference ``CLAP.forward`` as a dict: normalized ``audio_features`` and
     ``text_features``, ``logit_scale`` (and ``logit_bias``)."""
     from .clip import encode_text
 
     out: Dict[str, torch.Tensor] = {}
     if audio is not None:
-        out["audio_features"] = encode_audio(model, audio, normalize=True)
+        out["audio_features"] = encode_audio(model, audio, normalize=True, remat=remat)
     if text is not None:
-        out["text_features"] = encode_text(model, text, normalize=True)
+        out["text_features"] = encode_text(model, text, normalize=True, remat=remat)
     out["logit_scale"] = model.logit_scale.float().exp()
     if model.logit_bias is not None:
         out["logit_bias"] = model.logit_bias.float()
@@ -113,8 +134,9 @@ def clap_forward(model, audio=None, text=None) -> Dict[str, torch.Tensor]:
 
 def params_outside_loss(model) -> Set[str]:
     """Names of the parameters that the contrastive loss does not reach: HTSAT's
-    token-semantic head (``tscam_conv``) and classifier (``head``). Under ``jit``
-    their gradients are zeros; the train step gives them zeros here too."""
+    token-semantic head (``tscam_conv``) and classifier (``head``); the NaFlex
+    encoder has none. Under ``jit`` their gradients are zeros; the train step gives
+    them zeros here too."""
     return {n for n, _ in model.named_parameters()
             if n.startswith(("audio.encoder.tscam_conv.", "audio.encoder.head."))}
 
@@ -129,6 +151,9 @@ def torch_clap_to_params(sd, cfg) -> Dict[str, object]:
     sd = normalize_torch_state_dict(sd)
     tree = torch_clip_to_params({k: v for k, v in sd.items() if not k.startswith("audio.")}, cfg)
     mt = cfg.audio_cfg.model_type.lower()
+    if mt == "naflexvit":  # the JAX package has no converter for it either
+        raise NotImplementedError("CLAP checkpoints with a naflexvit audio tower have no "
+                                  "converter (in the JAX package neither)")
     if mt != "htsat":
         raise NotImplementedError(f"CLAP checkpoints with a {cfg.audio_cfg.model_type} audio "
                                   "tower are not ported yet (HTSAT is)")

@@ -1,11 +1,12 @@
 """CLIP and CLAP models (counterpart of ``open_clip_tpu/models/clip.py``).
 
 ``CLIPModel`` is an ``nn.Module`` holding both towers under the reference
-checkpoint's names (``visual.*``, the text tower's parts at the top level,
-``logit_scale``). The vision tower is a ViT, a NaFlex ViT (``naflexvit_*``) or a
-Swin tower (``swin_*``). A CLAP config (one with ``audio_cfg``) holds ``audio``, the
-HTSAT audio tower of ``models/clap.py``, in place of ``visual``; its ``bn0`` uses
-stored statistics in training too, so serving and training run the same forward.
+checkpoint's names (``visual.*``, the text tower's parts at the top level, or the
+modern text tower as ``text.*``, ``logit_scale``). The vision tower is a ViT, a
+NaFlex ViT (``naflexvit_*``) or a Swin tower (``swin_*``). A CLAP config (one with
+``audio_cfg``) holds ``audio``, the HTSAT or NaFlex audio tower of
+``models/clap.py``, in place of ``visual``; HTSAT's ``bn0`` uses stored statistics
+in training too, so serving and training run the same forward.
 The functions ``encode_image``, ``encode_text``, ``encode_audio``, ``clip_forward``
 and ``get_logits`` take the model as their first argument, as the JAX functions
 take (params, cfg); the model's methods call them.
@@ -144,7 +145,8 @@ def encode_text(model: CLIPModel, text, *, normalize: bool = False,
 
 
 def encode_audio(model: CLIPModel, audio, *, normalize: bool = False) -> torch.Tensor:
-    """A waveform dict (or a bare (B, T) waveform) -> (B, embed_dim) features."""
+    """A waveform dict (or a bare (B, T) waveform), or a mel patch dict for a
+    naflexvit tower, -> (B, embed_dim) features."""
     if model.cfg.audio_cfg is None:
         raise ValueError("encode_audio needs a CLAP model (a config with audio_cfg)")
     return clap.encode_audio(model, audio, normalize=normalize)
@@ -156,7 +158,7 @@ def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False
     model ``image`` is the audio batch and the output is ``clap_forward``'s (HTSAT
     has no remat, as in the JAX package)."""
     if model.cfg.audio_cfg is not None:
-        return clap.clap_forward(model, image, text)
+        return clap.clap_forward(model, image, text, remat=remat)
     out: Dict[str, torch.Tensor] = {}
     if image is not None:
         out["image_features"] = encode_image(model, image, normalize=True, train=train,

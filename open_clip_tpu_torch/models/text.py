@@ -9,6 +9,8 @@ takes the position of the highest token id (``argmax``), the EOT token in CLIP's
 vocabulary, or the first, last or EOS token. The projection is a bare (width,
 embed_dim) matrix, an ``nn.Linear`` with a bias (``proj_bias``: SigLIP's
 ``text_projection.weight`` and ``.bias``), or absent (``proj_type == "none"``).
+A config with ``text_arch == "modern"`` gets the modern text tower of
+``models/modern_text.py`` instead, as one module, ``model.text``.
 """
 
 from __future__ import annotations
@@ -21,11 +23,19 @@ from ..ops.layers import linear
 from .blocks import LayerNorm, Transformer, check_block_options
 
 
+def is_modern(cfg: CLIPTextCfg) -> bool:
+    return cfg.text_arch == "modern" and not (cfg.hf_model_name or cfg.hf_model_config)
+
+
 def check_text_cfg(cfg: CLIPTextCfg) -> None:
     """Raise for the text-tower variants this slice does not port."""
     unported = []
     if cfg.hf_model_name or cfg.hf_model_config:
         unported.append("HF text tower")
+    elif is_modern(cfg):
+        from .modern_text import check_modern_text_cfg
+
+        return check_modern_text_cfg(cfg)
     if cfg.text_arch != "clip":
         unported.append(f"text_arch {cfg.text_arch!r}")
     if cfg.embed_cls:
@@ -40,8 +50,13 @@ def check_text_cfg(cfg: CLIPTextCfg) -> None:
 
 
 def add_text_tower(m: nn.Module, cfg: CLIPTextCfg, embed_dim: int, act: str = "gelu") -> None:
-    """Register the text tower's parts on ``m``."""
+    """Register the text tower's parts on ``m`` (the modern tower as ``m.text``)."""
     check_text_cfg(cfg)
+    if is_modern(cfg):
+        from .modern_text import ModernTextTransformer
+
+        m.text = ModernTextTransformer(cfg, embed_dim)
+        return
     width = cfg.width
     m.token_embedding = nn.Embedding(cfg.vocab_size, width)
     m.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, width))
@@ -58,7 +73,10 @@ def add_text_tower(m: nn.Module, cfg: CLIPTextCfg, embed_dim: int, act: str = "g
 
 @torch.no_grad()
 def init_text_tower(m: nn.Module, cfg: CLIPTextCfg, gen: torch.Generator) -> None:
-    """Distributions of the reference ``TextTransformer.init_parameters``."""
+    """Distributions of the reference ``TextTransformer.init_parameters`` (and of
+    the JAX package's ``init_modern_text_tower`` for the modern tower)."""
+    if is_modern(cfg):
+        return m.text.init_weights(gen)
     m.token_embedding.weight.normal_(0.0, 0.02, generator=gen)
     m.positional_embedding.normal_(0.0, 0.01, generator=gen)
     m.transformer.init_weights(gen, "text")
@@ -90,6 +108,8 @@ def apply_text_tower(m: nn.Module, cfg: CLIPTextCfg, text: torch.Tensor,
                      compute_dtype: torch.dtype = torch.float32, *,
                      remat: bool = False) -> torch.Tensor:
     """(B, L) int token ids -> pooled, projected (B, embed_dim)."""
+    if is_modern(cfg):
+        return m.text(text, compute_dtype, remat=remat)
     seq_len = text.shape[1]
     x = m.token_embedding.weight[text].to(compute_dtype)
     x = x + m.positional_embedding[:seq_len].to(compute_dtype)

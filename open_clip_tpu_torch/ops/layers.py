@@ -1,7 +1,7 @@
 """Primitive ops: norms, activations, linear (counterpart of ``open_clip_tpu/ops/layers.py``).
 
-Normalisation statistics are always taken in float32 whatever the compute dtype,
-and the result is cast back to the input dtype. GELU follows the JAX package's
+Normalisation statistics (LayerNorm's and RMSNorm's) are always taken in float32
+whatever the compute dtype, and the result is cast back to the input dtype. GELU follows the JAX package's
 rule: the tanh form in bf16/fp16, the exact erf form in fp32.
 """
 
@@ -65,6 +65,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor
     return layer_norm_plain(x, scale, bias, eps, name=name)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis: fp32 mean of squares and scale, output in x.dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 * x), the OpenAI CLIP activation."""
     return x * torch.sigmoid(1.702 * x)
@@ -81,7 +88,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-ACT_FNS = {"gelu": gelu, "quick_gelu": quick_gelu}
+def relu_squared(x: torch.Tensor) -> torch.Tensor:
+    """relu(x) ** 2, the modern text tower's ``relu2`` MLP activation."""
+    r = torch.relu(x)
+    return r * r
+
+
+ACT_FNS = {"gelu": gelu, "quick_gelu": quick_gelu, "relu2": relu_squared}
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,

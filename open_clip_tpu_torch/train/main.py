@@ -7,7 +7,8 @@ loads from ``--pretrained-image``/``--pretrained-audio``), the optimizer (with
 (which takes precedence over the pretrained weights), and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
 then a checkpoint per ``--save-frequency``), with ``results.jsonl`` and
 ``params.txt`` in the log directory. Without train data the run only evaluates
-(``--val-data``, ``--imagenet-val``) and returns the metrics. Image train data
+(``--val-data``, ``--imagenet-val``, ``--audio-zeroshot-dataset``) and returns the
+metrics. Image train data
 (``--train-data`` tar shards or a CSV) needs ``--device-preprocess``: the host decodes
 JPEGs to uint8 canvases, and the step crops and normalizes them on the device. One
 device a process: the CUDA card of the local rank unless ``--device`` says otherwise. Several
@@ -37,7 +38,7 @@ from ..checkpoint import (checkpoint_to_params, get_latest_checkpoint, load_nati
 from ..convert import params_from_jax
 from ..data import get_data
 from ..data.audio import audio_transform_v2
-from ..factory import create_model, get_tokenizer, resolve_device
+from ..factory import create_model, get_tokenizer, naflex_audio_preprocess, resolve_device
 from ..models import blocks
 from ..models.naflex_vit import is_naflex
 from ..parallel.distributed import (barrier, broadcast_object_from_primary,
@@ -175,16 +176,20 @@ def _run(args):
             raise ValueError("--device-preprocess supports image towers that take image "
                              "tensors (not audio or NaFlex patch dicts)")
         device_pp = make_device_train_preprocess(model.preprocess_cfg, aug_cfg=args.aug_cfg)
-    audio_pp = None
-    if model.cfg.audio_cfg is not None:
-        audio_pp = audio_transform_v2(model.cfg.audio_cfg, is_train=True, audio_aug_cfg=dict(
-            data_fill=args.audio_fill, data_trunc=args.audio_trunc,
-            int16_normalize=args.audio_int16_normalize))
+    audio_pp = audio_val_pp = None
+    acfg = model.cfg.audio_cfg
+    if acfg is not None and acfg.model_type == "naflexvit":
+        audio_pp = audio_val_pp = naflex_audio_preprocess(acfg)
+    elif acfg is not None:
+        aug = dict(data_fill=args.audio_fill, data_trunc=args.audio_trunc,
+                   int16_normalize=args.audio_int16_normalize)
+        audio_pp = audio_transform_v2(acfg, is_train=True, audio_aug_cfg=aug)
+        audio_val_pp = audio_transform_v2(acfg, is_train=False)  # the factory's pair
     tokenizer = _data_tokenizer(args, model)
-    data = get_data(args, model.preprocess_cfg, tokenizer, audio_pp)
+    data = get_data(args, model.preprocess_cfg, tokenizer, audio_pp, audio_val_pp)
     if not data:
         raise ValueError("no data: give --train-data, a synthetic --dataset-type, "
-                         "--val-data or --imagenet-val")
+                         "--val-data, --imagenet-val or --audio-zeroshot-dataset")
     writer = JsonlWriter(log_dir / "results.jsonl") if primary else None
     if "train" not in data:  # evaluation only
         metrics = evaluate(model, data, 0, args, tokenizer=tokenizer, writer=writer)
@@ -241,7 +246,7 @@ def _run(args):
         state = train_one_epoch(state, step_fn, data["train"].dataloader, epoch, args, schedule,
                                 writer, skip_steps=resume_skip if epoch == start_epoch else 0)
         completed = epoch + 1
-        if any(k in data for k in ("val", "imagenet-val", "imagenet-v2")) and (
+        if any(k in data for k in ("val", "imagenet-val", "imagenet-v2", "audio-zeroshot")) and (
                 completed % args.val_frequency == 0 or completed == args.epochs):
             logger.info("eval: %s", evaluate(model, data, completed, args, tokenizer=tokenizer,
                                              writer=writer))

@@ -2,7 +2,7 @@
 ``open_clip_tpu/train/params.py``).
 
 The flags carry the JAX CLI's names and defaults. Those of features that are not
-ported yet (the NaFlex and audio webdatasets, the CoCa and distillation losses,
+ported yet (the NaFlex webdataset, the CoCa and distillation losses,
 tensor parallelism, EMA, remote sync, ...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
@@ -38,14 +38,7 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--image-key",), dict(type=str, default="jpg;png;jpeg;webp")),
     (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
     (("--max-image-pixels",), dict(type=int, default=25_000_000)),
-    (("--audio-ext",), dict(type=str, default="flac")), (("--audio-fusion",), _ON),
-    (("--audio-zeroshot-dataset",), _STRS),
-    (("--audio-zeroshot-split",), dict(type=str, default="test")),
-    (("--audio-zeroshot-audio-key",), dict(type=str, default="audio")),
-    (("--audio-zeroshot-class-key",), dict(type=str, default="category")),
-    (("--audio-zeroshot-target-key",), dict(type=str, default="target")),
-    (("--audio-zeroshot-template",), _STRS),
-    (("--audio-zeroshot-workers",), dict(type=int, default=2)),
+    (("--audio-fusion",), _ON),
     # logging
     (("--log-local",), _ON), (("--report-to",), dict(type=str, default="")),
     (("--wandb-notes",), dict(type=str, default="")),
@@ -121,6 +114,21 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--audio-trunc", type=str, default="rand_trunc",
                         choices=["rand_trunc", "trunc"])
     parser.add_argument("--audio-int16-normalize", action="store_true", default=False)
+    # real audio (--dataset-type webdataset-audio) and the audio zero-shot split
+    parser.add_argument("--audio-ext", type=str, default="flac",
+                        help="the preferred audio member of a sample; the other audio "
+                             "suffixes still match (only WAV decodes)")
+    parser.add_argument("--audio-zeroshot-dataset", type=str, default=None,
+                        help="a folder of <class name>/*.wav (or folder:<dir>)")
+    parser.add_argument("--audio-zeroshot-split", type=str, default="test")
+    parser.add_argument("--audio-zeroshot-audio-key", type=str, default="audio")
+    parser.add_argument("--audio-zeroshot-class-key", type=str, default="category")
+    parser.add_argument("--audio-zeroshot-target-key", type=str, default="target")
+    parser.add_argument("--audio-zeroshot-template", type=str, default=None,
+                        help="templates separated by '|', '{}' marking the class name")
+    parser.add_argument("--audio-zeroshot-workers", type=int, default=2,
+                        help="accepted; the folder loader reads in this process, as the "
+                             "JAX one does")
     parser.add_argument("--workers", type=int, default=4,
                         help="forked decode workers of the webdataset train pipeline")
     # real image data: JPEGs through the native decode stage (no PIL tier)

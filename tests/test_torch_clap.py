@@ -175,8 +175,11 @@ def test_audio_transform_v2_modes():
     assert (train.data_trunc, train.data_fill, val.data_trunc) == ("rand_trunc", "pad", "trunc")
     with pytest.raises(NotImplementedError, match="fusion"):
         paudio_data.audio_transform_v2(dict(AUDIO, enable_fusion=True))
-    with pytest.raises(NotImplementedError, match="webdataset"):
-        paudio_data.make_wds_audio_pipeline()
+    # the audio webdataset takes these transforms (tests/test_torch_audio_data.py)
+    from open_clip_tpu_torch.data.wds import WdsConfig
+
+    pipe = paudio_data.make_wds_audio_pipeline(WdsConfig(urls="a.tar"), train, None)
+    assert pipe.preprocess is train and pipe.urls == ["a.tar"]
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +248,6 @@ def test_pure_bf16_casts_what_the_jax_package_casts(setup):
 
 def test_unported_audio_towers_raise():
     for acfg in ({"model_type": "whisper", "model_name": "tiny"},
-                 {"model_type": "naflexvit", "model_name": "tiny"},
                  dict(AUDIO, enable_fusion=True)):
         cfg = oc.CLIPModelCfg.from_dict({"embed_dim": 32, "audio_cfg": acfg, "text_cfg": CFG["text_cfg"]})
         with pytest.raises(NotImplementedError):
@@ -415,9 +417,10 @@ def test_synthetic_audio_cli_with_resume(tmp_path):
 def test_unported_audio_flags_raise():
     from open_clip_tpu_torch.train.params import parse_args
 
-    for flag in (["--audio-fusion"], ["--audio-ext", "wav"], ["--audio-zeroshot-dataset", "x"]):
-        with pytest.raises(NotImplementedError):
-            parse_args(["--model", NAME] + flag)
+    with pytest.raises(NotImplementedError):
+        parse_args(["--model", NAME, "--audio-fusion"])
+    ns = parse_args(["--model", NAME, "--audio-ext", "wav", "--audio-zeroshot-dataset", "x"])
+    assert (ns.audio_ext, ns.audio_zeroshot_dataset) == ("wav", "x")  # ported
     ns = parse_args(["--model", NAME, "--audio-trunc", "trunc", "--audio-int16-normalize"])
     assert (ns.audio_trunc, ns.audio_int16_normalize) == ("trunc", True)
 

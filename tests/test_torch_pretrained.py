@@ -298,7 +298,6 @@ def test_hf_clap_audio_tree_equals_jax():
     ("ModifiedResNet", {"visual.layer1.0.conv1.weight": torch.zeros(1)}),
     ("CoCa", {"text_decoder.x": torch.zeros(1)}),
     ("MobileCLIP", {"image_encoder.model.x": torch.zeros(1)}),
-    ("modern text", {"text.blocks.0.norm1.weight": torch.zeros(1)}),
 ])
 def test_unported_families_raise(family, sd):
     with pytest.raises(NotImplementedError, match=family):

@@ -132,7 +132,7 @@ def test_use_switchback_runs(tmp_path):
 
 
 @pytest.mark.parametrize("extra,where", [(["--opt", "lion"], "optimizer"),
-                                         (["--dataset-type", "webdataset-audio"], "dataset type")])
+                                         (["--dataset-type", "webdataset-naflex"], "dataset type")])
 def test_unported_choices_raise_in_main(tmp_path, extra, where):
     args = [a for a in _args(tmp_path, "x", "--epochs", "1")]
     if extra[0] == "--dataset-type":
