@@ -146,8 +146,11 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      nvjpeg.h, the cores), the build of the native decode stage (libjpeg where its
      header is, else nvJPEG; the line says which), the committed JPEGs of
      tests/assets_torch against their canvases (made by the JAX package's libjpeg
-     build; max and mean difference, strict and fractional), bad bytes and the
-     grayscale asset, and the decode rate at canvas 256 on 1, 4 and cpu_count threads;
+     build; max and mean difference, strict and fractional), the full-resolution
+     decode that NaFlex data takes on the card against the committed whole-image
+     decodes (full_decodes.npz; libjpeg's, equal to PIL's) and a decode into memory
+     that a kernel queued on the allocating stream still uses (twice), bad bytes and
+     the grayscale asset, and the decode rate at canvas 256 on 1, 4 and cpu_count threads;
  31. data_train, the slice's main path: 16 tar shards of 512 JPEG-caption pairs (the
      assets, each under distinct keys and captions), a 2,048-pair val shard and a
      10-class folder in a temporary directory; the CLI trains ViT-B-32 b256 amp_bf16
@@ -203,6 +206,24 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      (16, 44.1 and 48 kHz, mono and stereo, int16 and float32, written by the script),
      the zero-shot split of a 10-class WAV folder after it, then an evaluation-only run
      of --audio-zeroshot-dataset on the folder: step and host data ms, zero-shot s.
+ 41. naflex_data_train: naflex_ViT-B-16 at full width and depth trained by the CLI for
+     2 epochs from 16 tar shards of the committed JPEGs and seeded PNGs (written with
+     zlib and struct), --dataset-type webdataset-naflex at 256/576/1024 tokens in a
+     16384-token budget with --length-bucketing, amp_bf16, AdamW, --ema 0.999,
+     --save-most-recent and --delete-previous-checkpoint: step ms by bucket, host data
+     ms, images/s, device-busy ms and idle share (3 steps profiled), flash launches a
+     step by bucket, the EMA's device ms, the decode route; and the first batch on the
+     card's route (nvJPEG into the card's memory, resized there) against the CPU's;
+ 42. optimizers: ViT-B-32 b256 amp_bf16 stepped by adamw, nadamw, lion, sgd, lamb,
+     adafactor and muon in turn from the same weights: step ms, each update's device ms
+     (profiled alone), its state's GiB, the peak; each at 2 layers and full width in
+     fp32: the card's update_ against the CPU's on the gradients of 3 CPU train steps,
+     each entry within 1e-4 of its tensor's largest change plus 3 ulp (lion: the share
+     beyond; muon: by the cosine, and per entry with its Newton-Schulz in float32);
+ 43. patch_dropout_train: ViT-B-16 b256 amp_bf16 with patch dropout 0.5 (99 tokens)
+     beside none (197): step and kernel ms, short launches by length;
+ 44. remat_dots: ViT-L-14 b64 amp_bf16 under full remat, names_mm, dots and
+     dots_no_batch from the same weights: step and kernel ms, peak GiB, launches.
 
 Phase 1 also times the short forward and backward at the SigLIP shapes, the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash kernels
@@ -261,7 +282,7 @@ WINDOW_SOURCE = "open_clip_tpu_torch/csrc/window_attention.cu"
 NFC_MODEL, NFC_BATCH, NFC_SEQ, NFC_HEADS = "naflexclap_mediumd_pf4_pt20_moderntextp", 64, 816, 8
 NFC_SECONDS = (3.0, 10.0)
 NFC_LENS = (816, 256, 528, 672, 400, 752)
-NFC_SERVE_REQUESTS, NFC_PROFILED = 3, 2
+NFC_SERVE_REQUESTS, NFC_PROFILED, NFC_MIN_WINDOW = 3, 2, 7
 # real audio through the CLI: WAV tar shards for the CLIP-BPE-text naflexclap config
 NFC_DATA_MODEL, NFC_DATA_SHARDS, NFC_DATA_PER_SHARD, NFC_DATA_BATCH = "naflexclap_mediumd", 4, 32, 32
 CLAP_MODEL = "CLAP-HTSAT-tiny"
@@ -443,7 +464,10 @@ def phase_kernels(torch, sa, text_batch):
              # ViT-B-16-SigLIP at bench_siglip's batch: the image tower's 196 tokens (no
              # class token, the two-pass body) and the non-causal 64-token text tower
              ("siglip_vision", SIGLIP_BATCH, 196, 12, 64, False, bf16),
-             ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False, bf16)]
+             ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False, bf16),
+             # ViT-B-16 at batch 256: 197 tokens, and 99 under patch dropout 0.5
+             ("l197", BATCH, 197, 12, 64, False, bf16),
+             ("l99", BATCH, 99, 12, 64, False, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
@@ -506,7 +530,9 @@ def phase_attention_bwd_kernels(torch, sa):
                                               ("siglip_vision", SIGLIP_BATCH, 196, 12, 64, False,
                                                bf16),
                                               ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False,
-                                               bf16)):
+                                               bf16),
+                                              ("l197", BATCH, 197, 12, 64, False, bf16),
+                                              ("l99", BATCH, 99, 12, 64, False, bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             body = sa.bwd_body(l, hd, dtype)
@@ -3156,6 +3182,7 @@ def phase_decode(torch):
             check(d["mean"] < FRACTIONAL_MEAN and d["max"] < FRACTIONAL_MAX,
                   f"decode {row['name']} {mode} ({name}) vs the strict canvas: mean "
                   f"{d['mean']:.3f} (< {FRACTIONAL_MEAN}), max {d['max']} (< {FRACTIONAL_MAX})")
+    full_decode_check(torch, nd, datas)
     bad, status = nd.decode_resize_one(b"definitely not a jpeg", 64)
     check(status != 0 and not bad.any(), f"decode of bad bytes: status {status}, zeros")
     gray = datas[2]  # the grayscale asset
@@ -3178,6 +3205,70 @@ def phase_decode(torch):
         "decoder": name, "canvas": 256, "fractional": True, "batch": BATCH,
         "mean_jpeg_bytes": mix, "images_per_s_by_threads": rates}), flush=True)
     return name, rates
+
+
+def full_decode_check(torch, nd, datas):
+    """The full-resolution decode that NaFlex data takes on the card, against the
+    committed whole-image decodes of the assets (libjpeg, equal to PIL's): on the
+    libjpeg route bit for bit; on nvJPEG's within the canvases' bound for another
+    decoder (mean < FRACTIONAL_MEAN, max < FRACTIONAL_MAX levels). Then, on nvJPEG's
+    route, a decode into memory that a kernel queued on the allocating stream still
+    reads and writes: it must wait for that kernel and equal the idle card's decode."""
+    import hashlib
+
+    import make_assets
+
+    ref = make_assets.load_full_decodes()
+    route = nd.full_decode_route("cuda")
+    images, status = nd.decode_full_batch(datas, 4, device="cuda")
+    torch.cuda.synchronize()
+    check(not any(status), f"full decode of the assets by route {route}: all status 0")
+    rows = []
+    for i, image in enumerate(images):
+        host = torch.as_tensor(image).cpu().numpy()
+        want = ref["rows"][i]
+        check(host[::make_assets.FULL_ROW_STEP].shape == want.shape,
+              f"full decode {ref['names'][i]}: shape {host.shape}")
+        d = abs(host[::make_assets.FULL_ROW_STEP].astype(int) - want.astype(int))
+        same = hashlib.sha256(host.tobytes()).hexdigest() == ref["sha256"][i]
+        rows.append({"name": ref["names"][i], "shape": list(host.shape), "max": int(d.max()),
+                     "mean": float(d.mean()), "bit_equal": same})
+    print("full_decode_agreement " + json.dumps({"route": route, "row_step":
+                                                 make_assets.FULL_ROW_STEP, "images": rows}),
+          flush=True)
+    for row in rows:
+        if route == "libjpeg-host":
+            check(row["bit_equal"], f"full decode {row['name']} ({route}) equals the committed "
+                  "decode bit for bit")
+        else:
+            check(row["mean"] < FRACTIONAL_MEAN and row["max"] < FRACTIONAL_MAX,
+                  f"full decode {row['name']} ({route}) vs the committed libjpeg decode: mean "
+                  f"{row['mean']:.3f} (< {FRACTIONAL_MEAN}), max {row['max']} "
+                  f"(< {FRACTIONAL_MAX}) levels")
+    if route != "nvjpeg-device":
+        return
+    idle = images[4]
+    side = torch.cuda.Stream()
+    # twice: a kernel's first launch in the process loads its module, which waits for
+    # the card and would hide a decode that does not wait
+    for trial in range(2):
+        with torch.cuda.stream(side):  # the only blocks of this stream's pool are ours
+            x = torch.full(idle.shape, 7, dtype=torch.uint8, device="cuda")
+            ptr = x.data_ptr()
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the card, queued before x's uses
+            total = x.sum(dtype=torch.int64)
+            x.add_(1)
+            del x
+            t0 = time.perf_counter()
+            raced, status = nd.decode_full_batch([datas[4]], 1, device="cuda")
+            call_ms = (time.perf_counter() - t0) * 1e3
+            side.synchronize()
+        check(status == [0] and raced[0].data_ptr() == ptr and total.item() == 7 * idle.numel()
+              and torch.equal(raced[0], idle),
+              f"full decode into memory freed on the host while a queued kernel reads and "
+              f"writes it (trial {trial}, the call {call_ms:.1f} ms): the same block, the "
+              "kernel's sum unchanged, the image equal to the idle card's")
+        del raced
 
 
 def tar_member(name: str, data: bytes):
@@ -3962,7 +4053,10 @@ def phase_naflexclap_train(torch, oc, sa, fa, audio):
     text = modern_token_ids(torch, model.cfg.text_cfg, seed=1)(range(NFC_BATCH))
     batch = {"audio": {k: v.to("cuda") for k, v in audio.items()}, "text": text.to("cuda")}
     state, warm, warm_ms, *_ = run_steps(torch, step, state, batch, 2)
-    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    # at least NFC_MIN_WINDOW steps: from random weights at this lr the loss on the fixed
+    # batch rises for its first ~5 steps and falls after, so the check below reads the
+    # same steps whatever the host's pace
+    n = max(NFC_MIN_WINDOW, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
     reset_counts(sa, fa)
     state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
     flash, short = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
@@ -4148,6 +4242,569 @@ def phase_audio_data_train(torch, oc, sa, fa):
             "zero_shot_top5": metrics.get("audio-zeroshot-top5")}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# NaFlex training from tar shards, the other optimizers, patch dropout, dots remat
+# ---------------------------------------------------------------------------
+
+NFD_SHARDS, NFD_PER_SHARD, NFD_PNG_EVERY = 16, 48, 6  # 768 pairs, every 6th a PNG
+NFD_SEQS, NFD_MAX_TOKENS, NFD_EPOCHS, NFD_THREADS = (256, 576, 1024), 16384, 2, 4
+NFD_PROFILED = 3  # steps of the second epoch under the profiler
+OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "lamb", "adafactor", "muon")
+OPT_WINDOW_S, OPT_PROFILED, OPT_CPU_STEPS, OPT_CPU_BATCH = 0.5, 3, 3, 2
+# the card's optimizer against the CPU's on the same gradients: each entry within
+# OPT_ENTRY_TOL of its tensor's largest change in the 3 steps (fp32 arithmetic in other
+# orders: the clip's global norm, adafactor's means; lamb's norms are summed in
+# float64) plus OPT_ULPS units in the last place of the parameter (each step's p + u
+# rounds once, and an update that differs in its last bits can round the other way).
+# Lion takes the sign of (1 - b1) g + b1 m, which those last bits flip where it
+# cancels: it is held to the share of its entries beyond the bound. Muon's
+# Newton-Schulz runs in bfloat16 (as JAX's does), and the card and the CPU round its
+# products at other points, which ill-conditioned leaves (a stacked L x D vector)
+# amplify: it is held per entry with the iteration in float32 on both sides
+# (muon_fp32_ns), to OPT_NS_TOL, the bound tests/test_torch_optimizers.py holds it to
+# against JAX (15 float32 products over up to 3072 terms summed in other orders), and
+# in bfloat16 by the cosine of the updates
+OPT_ENTRY_TOL, OPT_NS_TOL, OPT_ULPS, OPT_LION_OFF = 1e-4, 1e-3, 3, 1e-6
+PD_MODEL, PD_PROB = "ViT-B-16", 0.5
+REMAT_POLICIES = ("none", "names_mm", "dots", "dots_no_batch")
+
+
+def png_bytes(rgb) -> bytes:
+    """An (H, W, 3) uint8 array as an 8-bit RGB PNG (zlib and struct; row y filtered
+    with type y % 5: None, Sub, Up, Average, Paeth)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    h, w, _ = rgb.shape
+    rows, out, prev = rgb.reshape(h, -1).astype(np.int64), [], None
+    prev = np.zeros(w * 3, np.int64)
+    for y, row in enumerate(rows):
+        left = np.concatenate([np.zeros(3, np.int64), row[:-3]])
+        up_left = np.concatenate([np.zeros(3, np.int64), prev[:-3]])
+        p = left + prev - up_left
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - up_left)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, up_left))
+        pred = [0, left, prev, (left + prev) // 2, paeth][y % 5]
+        out.append(bytes([y % 5]) + ((row - pred) % 256).astype(np.uint8).tobytes())
+        prev = row
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(out), 6)) + chunk(b"IEND", b""))
+
+
+def write_naflex_data(root: Path, datas) -> int:
+    """NFD_SHARDS shards: the committed JPEGs under distinct keys, every
+    NFD_PNG_EVERY-th sample a seeded PNG of its own size; captions of 1 to 12 words.
+    Returns the PNG count."""
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    k = pngs = 0
+    for s in range(NFD_SHARDS):
+        with tarfile.open(root / f"{s:05d}.tar", "w") as tf:
+            for _ in range(NFD_PER_SHARD):
+                if k % NFD_PNG_EVERY == NFD_PNG_EVERY - 1:
+                    h, w = (int(v) for v in rng.integers(160, 480, 2))
+                    yy, xx = np.mgrid[0:h, 0:w]
+                    rgb = np.stack([127 + 120 * np.sin(xx / 23.0 + c + k) * np.cos(yy / 17.0)
+                                    for c in range(3)], -1).astype(np.uint8)
+                    tf.addfile(*tar_member(f"s{k:07d}.png", png_bytes(rgb)))
+                    pngs += 1
+                else:
+                    tf.addfile(*tar_member(f"s{k:07d}.jpg", datas[k % len(datas)]))
+                words = " ".join(["photo"] * int(rng.integers(1, 13)))
+                tf.addfile(*tar_member(f"s{k:07d}.txt", f"a {words} number {k}".encode()))
+                k += 1
+    return pngs
+
+
+def naflex_route_check(torch, oc, root: Path) -> dict:
+    """The first batch of the pipeline on the card's route (nvJPEG, resized on the
+    card) against the CPU's (the host's decoder, nvJPEG where libjpeg is absent, then
+    resized on the host): equal coordinates and validity, patches within the NaFlex
+    transform's 2 levels (0.3 on average). ``full_decode_check`` holds nvJPEG's
+    decode against libjpeg's."""
+    from open_clip_tpu_torch.data.naflex import NaFlexDataConfig, NaFlexWdsPipeline
+    from open_clip_tpu_torch.data.wds import WdsConfig, WdsPipeline
+
+    tok = oc.get_tokenizer(NAFLEX_MODEL)
+    cfg = NaFlexDataConfig(seq_lens=(576,), max_tokens_per_batch=NFD_MAX_TOKENS, seed=0)
+    batches, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        wcfg = WdsConfig(urls=str(root / "{00000..00001}.tar"), shuffle_shards=0,
+                         shuffle_samples=0)
+        pipe = NaFlexWdsPipeline(WdsPipeline(wcfg, None, tok), cfg, 1, tok, device=device,
+                                 decode_threads=NFD_THREADS)
+        t0 = time.perf_counter()
+        batches[device] = (pipe.route, next(iter(pipe)))
+        torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+    (card_route, card), (cpu_route, cpu) = batches["cuda"], batches["cpu"]
+    level = 1 / 255 / 0.26
+    diff = (card["image"]["patches"].cpu() - cpu["image"]["patches"]).abs()
+    same = all(torch.equal(card["image"][k].cpu(), cpu["image"][k])
+               for k in ("patch_coord", "patch_valid")) and torch.equal(card["text"], cpu["text"])
+    check(card["image"]["patches"].device.type == "cuda" and same
+          and diff.max().item() <= 2.01 * level and diff.mean().item() <= 0.3 * level,
+          f"naflex_data_train: the first batch by route {card_route} (on the card) vs "
+          f"{cpu_route}: coordinates, validity and tokens equal, patches max "
+          f"{diff.max().item() / level:.3f} mean {diff.mean().item() / level:.4f} levels "
+          "(tol 2, 0.3)")
+    return {"card_route": card_route, "cpu_route": cpu_route,
+            "max_abs": diff.max().item(), "mean_abs": diff.mean().item(),
+            "max_levels": diff.max().item() / level, "mean_levels": diff.mean().item() / level,
+            "first_batch_s": secs, "batch": int(card["text"].shape[0])}
+
+
+def phase_naflex_data_train(torch, oc, sa, fa):
+    """naflex_ViT-B-16 at full width and depth trained by the CLI from tar shards of
+    JPEGs and PNGs (webdataset-naflex, 256/576/1024 buckets in a 16384-token budget,
+    length bucketing), amp_bf16, AdamW with --ema 0.999, 2 epochs, --save-most-recent
+    and --delete-previous-checkpoint. Returns the flash launches by bucket and the
+    text tower's short launches of the run, and its steps."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import open_clip_tpu_torch.train.main as main_mod
+    from open_clip_tpu_torch.data import naflex as nfdata
+    from open_clip_tpu_torch.native import full_decode_route
+    from open_clip_tpu_torch.train import train_step as ts_mod
+
+    datas, _, _ = load_assets()
+    rec = {"steps": [], "ema": [], "batch_ms": [], "prof": None}
+    flash_by_bucket, short_total = {}, {"fwd": 0, "bwd": 0}
+    saved = main_mod.make_train_step, ts_mod.update_ema_, nfdata.NaFlexWdsPipeline.__iter__
+
+    def make_step(*a, **k):
+        fn = saved[0](*a, **k)
+
+        def step(state, batch):
+            bucket = int(batch["image"]["patches"].shape[1])
+            f0, s0 = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            i = len(rec["steps"])
+            if i == nb + 4:  # the second epoch's fifth step
+                rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                rec["prof"].__enter__()
+                rec["prof_t0"] = time.perf_counter()
+            t = time.perf_counter()
+            ev[0].record()
+            out = fn(state, batch)
+            ev[1].record()
+            rec["steps"].append((bucket, int(batch["text"].shape[0]), t, time.perf_counter(), ev))
+            counts = flash_by_bucket.setdefault(bucket, {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
+            for key in counts:
+                counts[key] += fa.LAUNCHES[key] - f0[key]
+            for key in short_total:
+                short_total[key] += sa.LAUNCHES[key] - s0[key]
+            if i == nb + 4 + NFD_PROFILED - 1 and rec["prof"] is not None:
+                torch.cuda.synchronize()
+                rec["prof_wall_ms"] = (time.perf_counter() - rec["prof_t0"]) * 1e3
+                rec["prof"].__exit__(None, None, None)
+            return out
+        return step
+
+    def ema(e, p, d):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        saved[1](e, p, d)
+        ev[1].record()
+        rec["ema"].append(ev)
+
+    def timed_iter(self):
+        it = saved[2](self)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            rec["batch_ms"].append((time.perf_counter() - t) * 1e3)
+            yield batch
+
+    nb = NFD_SHARDS * NFD_PER_SHARD * NFD_SEQS[0] // NFD_MAX_TOKENS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        pngs = write_naflex_data(root, datas)
+        write_s = time.perf_counter() - t0
+        route = naflex_route_check(torch, oc, root)
+        args = ["--model", NAFLEX_MODEL,
+                "--train-data", str(root / f"{{00000..{NFD_SHARDS - 1:05d}}}.tar"),
+                "--dataset-type", "webdataset-naflex",
+                "--naflex-seq-lens", *map(str, NFD_SEQS), "--naflex-max-tokens",
+                str(NFD_MAX_TOKENS), "--length-bucketing", "--bucket-pool", "256",
+                "--bucket-chunk", "32", "--train-num-samples", str(NFD_SHARDS * NFD_PER_SHARD),
+                "--native-decode-threads", str(NFD_THREADS), "--batch-size", "16",
+                "--precision", "amp_bf16", "--lr", "1e-4", "--wd", "0.2", "--warmup", "2",
+                "--grad-clip-norm", "1.0", "--ema", "0.999", "--epochs", str(NFD_EPOCHS),
+                "--save-most-recent", "--delete-previous-checkpoint",
+                "--log-every-n-steps", "4", "--log-metric-every-n-steps", "1",
+                "--logs", str(root / "logs"), "--name", "nfd"]
+        main_mod.make_train_step = make_step
+        ts_mod.update_ema_ = ema
+        nfdata.NaFlexWdsPipeline.__iter__ = timed_iter
+        reset_counts(sa, fa)
+        try:
+            t0 = time.perf_counter()
+            state = main_mod.main(args)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            main_mod.make_train_step, ts_mod.update_ema_ = saved[:2]
+            nfdata.NaFlexWdsPipeline.__iter__ = saved[2]
+        ck = root / "logs" / "nfd" / "checkpoints"
+        files = sorted(os.listdir(ck))
+        link = os.readlink(ck / "epoch_latest.pt") if (ck / "epoch_latest.pt").is_symlink() else None
+        rows = [json.loads(x) for x in (root / "logs" / "nfd" / "results.jsonl").read_text()
+                .splitlines()]
+    lv, lt = 12, 12
+    n = len(rec["steps"])
+    check(state.step == NFD_EPOCHS * nb == n,
+          f"naflex_data_train: {state.step} steps over {NFD_EPOCHS} epochs (expect "
+          f"{NFD_EPOCHS} x {nb})")
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    check(bool(losses) and all(math.isfinite(x) for x in losses),
+          f"naflex_data_train: {len(losses)} losses finite")
+    check(files == [f"epoch_{NFD_EPOCHS}.pt", "epoch_latest.pt"]
+          and link == f"epoch_{NFD_EPOCHS}.pt" and state.ema is not None,
+          f"naflex_data_train: checkpoints {files}, epoch_latest -> {link}, EMA kept")
+    buckets = sorted({b for b, *_ in rec["steps"]})
+    per_step = {b: {k: v / sum(1 for x in rec["steps"] if x[0] == b) for k, v in c.items()}
+                for b, c in flash_by_bucket.items()}
+    want = {b: ({"fwd": lv, "bwd_dq": lv, "bwd_dkv": lv} if b >= 512 else
+                {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}) for b in buckets}
+    check(per_step == want and any(b >= 512 for b in buckets),
+          f"naflex_data_train: flash launches a step by bucket {per_step} (expect {lv} of each "
+          f"at 576 and 1024 with the key mask, none at 256, the dense path)")
+    check(short_total == {"fwd": lt * n, "bwd": lt * n},
+          f"naflex_data_train: short launches {short_total} in {n} steps (the text tower)")
+    step_ms = {b: [] for b in buckets}
+    images = 0
+    for b, size, t, t_end, ev in rec["steps"][nb:]:  # the second epoch: no first-call work
+        step_ms[b].append(ev[0].elapsed_time(ev[1]))
+        images += size
+    starts = [t for _, _, t, _, _ in rec["steps"][nb:]]
+    wall_s = rec["steps"][-1][3] - starts[0]
+    check(rec["prof"] is not None and "prof_wall_ms" in rec,
+          f"naflex_data_train: steps {nb + 4}..{nb + 3 + NFD_PROFILED} profiled")
+    prof_summary = profile_summary(rec["prof"], rec["prof_wall_ms"], NFD_PROFILED, "step")
+    print("naflex_data_train_profile " + json.dumps(prof_summary), flush=True)
+    ema_ms = [e[0].elapsed_time(e[1]) for e in rec["ema"]]
+    data_rows = [r["train/data_time"] for r in rows if "train/data_time" in r]
+    summary = {
+        "model": NAFLEX_MODEL, "precision": "amp_bf16", "steps": n, "epochs": NFD_EPOCHS,
+        "shards": NFD_SHARDS, "pairs": NFD_SHARDS * NFD_PER_SHARD, "pngs": pngs,
+        "write_data_s": write_s, "run_s": run_s, "decode_route": full_decode_route("cuda"),
+        "decode_threads": NFD_THREADS, "steps_by_bucket": {b: len(v) for b, v in step_ms.items()},
+        "median_step_ms_by_bucket": {b: statistics.median(v) for b, v in step_ms.items() if v},
+        "epoch2_wall_s": wall_s, "images_per_s_epoch2": images / wall_s,
+        "host_data_ms_per_batch": statistics.median(rec["batch_ms"]),
+        "host_data_ms_per_batch_max": max(rec["batch_ms"]),
+        "loop_data_wait_s_mean": data_rows[-1] if data_rows else None,
+        "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"],
+        "device_idle_share": prof_summary["device_idle_share"],
+        "profiled_buckets": [b for b, *_ in rec["steps"][nb + 4: nb + 4 + NFD_PROFILED]],
+        "ema_device_ms_per_step": statistics.median(ema_ms[1:]) if len(ema_ms) > 1 else None,
+        "flash_launches_per_step_by_bucket": per_step,
+        "first_loss": losses[0] if losses else None, "last_loss": losses[-1] if losses else None,
+        "checkpoints": files, "route_check": route}
+    print("naflex_data_train " + json.dumps(summary), flush=True)
+    return flash_by_bucket, short_total, n
+
+
+def optimizer_state_gib(opt_state) -> float:
+    return sum(t.numel() * t.element_size() for v in opt_state.values() if isinstance(v, list)
+               for t in v) / 2 ** 30
+
+
+def phase_optimizers(torch, oc, sa):
+    """ViT-B-32 at batch 256, amp_bf16 (phase 4's recipe), one timed window per
+    optimizer from the same weights: step ms, the optimizer's device ms a step (its
+    update_ profiled alone on the step's gradients), its state's GiB and the peak;
+    then each at 2 layers and full width in fp32: the card's update_ against the CPU's
+    on the gradients of 3 CPU train steps (per tensor, the largest error relative to
+    its largest change). Returns the short launches by tower and the
+    steps of the windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = oc.create_model("ViT-B-32", precision="amp_bf16", seed=0)
+    lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(torch, model.cfg, BATCH, "cuda")
+    results, tally_all, steps_all = {}, {}, 0
+    for name in OPTIMIZERS:
+        with torch.no_grad():
+            model.load_state_dict(init)
+        torch.cuda.reset_peak_memory_stats()
+        opt = oc.create_optimizer(oc.OptimizerCfg(opt=name, lr=5e-4, wd=0.2, grad_clip_norm=1.0,
+                                                  momentum=0.9), model, oc.const_lr(5e-4, 0))
+        state = oc.create_train_state(model, opt)
+        step = oc.make_train_step(model.cfg, opt)
+        state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+        n = max(3, math.ceil(OPT_WINDOW_S * 1e3 / warm_ms[-1]))
+        reset_counts(sa)
+        with tally_by_len(sa) as tally:
+            state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, n)
+        for key, v in tally.items():
+            tally_all[key] = tally_all.get(key, 0) + v
+        steps_all += n
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses) and sa.LAUNCHES == {
+            "fwd": (lv + lt) * n, "bwd": (lv + lt) * n},
+              f"optimizers[{name}]: losses finite ({losses[0]:.4f} -> {losses[-1]:.4f}), short "
+              f"launches {sa.LAUNCHES} in {n} steps")
+        # the optimizer alone: update_ on gradients of this step's size, profiled
+        grads = [torch.randn_like(p) * 1e-3 for p in state.params]
+        with torch.no_grad():
+            opt.update_(state.params, grads, state.opt_state)  # the profiler's own warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(OPT_PROFILED):
+                opt.update_(state.params, grads, state.opt_state)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        ps = profile_summary(prof, prof_ms, OPT_PROFILED, "step")
+        results[name] = {"median_step_ms": statistics.median(step_ms), "window_steps": n,
+                         "images_per_s": BATCH * n / wall_s,
+                         "median_host_ms_per_step": statistics.median(host_ms),
+                         "optimizer_device_ms": ps["device_busy_ms_per_step"],
+                         "optimizer_wall_ms": ps["wall_ms_per_step"],
+                         "optimizer_launches": ps["kernel_launches_per_step"],
+                         "optimizer_class_ms": ps["class_ms_per_step"],
+                         "state_gib": optimizer_state_gib(state.opt_state),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "first_loss": losses[0], "last_loss": losses[-1]}
+        del state, opt, step, grads
+    del model, init
+    for key, err in optimizers_card_vs_cpu(torch, oc).items():
+        name, ns, _ = key.partition("_fp32_ns")
+        results[name]["card_vs_cpu" + ns] = err
+    print("optimizers " + json.dumps({"model": "ViT-B-32", "precision": "amp_bf16",
+                                      "batch": BATCH, "results": results}), flush=True)
+    return tally_all, steps_all
+
+
+def optimizers_card_vs_cpu(torch, oc, device="cuda") -> dict:
+    """Each optimizer at 2 layers and full width in fp32: ``device``'s update_ against
+    the CPU's, from the same weights on the same gradients (those of the CPU's train
+    steps), so that only the optimizer's arithmetic differs."""
+    from open_clip_tpu_torch.config import get_model_config
+    from open_clip_tpu_torch.models.clip import clamp_logit_scale
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_model_config("ViT-B-32")
+    cfg["vision_cfg"]["layers"] = cfg["text_cfg"]["layers"] = 2
+    oc.add_model_config(cfg, name="ViT-B-32-2-layers")
+    from open_clip_tpu_torch.train import optim as optim_mod
+
+    def run(name, seen=None):
+        """(start, the CPU's, the card's parameters, the gradients) after OPT_CPU_STEPS
+        updates: of the CPU's train steps, or on ``seen``, gradients recorded before."""
+        ocfg = oc.OptimizerCfg(opt=name, lr=5e-4, wd=0.2, grad_clip_norm=1.0)
+        m = oc.create_model("ViT-B-32-2-layers", precision="fp32", seed=0, device="cpu")
+        init = {k: v.clone() for k, v in m.state_dict().items()}
+        opt = oc.create_optimizer(ocfg, m, oc.const_lr(5e-4, 0))
+        st = oc.create_train_state(m, opt)
+        start = [p.detach().clone() for p in st.params]
+        if seen is None:
+            seen, update = [], opt.update_
+
+            def record(params, grads, opt_state):
+                seen.append([g.detach().clone() for g in grads])
+                return update(params, grads, opt_state)
+
+            opt.update_ = record
+            step = oc.make_train_step(m.cfg, opt)
+            b = train_batch(torch, m.cfg, OPT_CPU_BATCH, "cpu", seed=3)
+            for _ in range(OPT_CPU_STEPS):
+                st, _ = step(st, b)
+        else:
+            for grads in seen:
+                opt.update_(st.params, grads, st.opt_state)
+                clamp_logit_scale(m)
+        mc = oc.create_model("ViT-B-32-2-layers", precision="fp32", seed=0, device=device)
+        mc.load_state_dict(init)
+        optc = oc.create_optimizer(ocfg, mc, oc.const_lr(5e-4, 0))
+        stc = oc.create_train_state(mc, optc)
+        for grads in seen:  # the train step's update: the optimizer, then the clamp
+            optc.update_(stc.params, [g.to(device) for g in grads], stc.opt_state)
+            clamp_logit_scale(mc)
+        return (start, [p.detach() for p in st.params], [p.detach().cpu() for p in stc.params],
+                seen)
+
+    out, muon_grads = {}, None
+    # muon twice: as the main path runs it (bfloat16 Newton-Schulz), and with the
+    # iteration in float32 on both sides (on the same gradients), where the whole chain
+    # is held per entry
+    for key, name, ns_dtype in [(n, n, None) for n in OPTIMIZERS] + [
+            ("muon_fp32_ns", "muon", torch.float32)]:
+        saved = optim_mod.MUON_DTYPE
+        optim_mod.MUON_DTYPE = ns_dtype or saved
+        try:
+            start, cpu, card, seen = run(name, muon_grads if ns_dtype else None)
+        finally:
+            optim_mod.MUON_DTYPE = saved
+        if key == "muon":
+            muon_grads = seen
+        worst, off, total = 0.0, 0, 0
+        tol = OPT_NS_TOL if key == "muon_fp32_ns" else OPT_ENTRY_TOL
+        for c, r, s0 in zip(card, cpu, start):
+            change = (r.double() - s0.double()).abs().max().item()
+            diff = (c.double() - r.double()).abs()
+            worst = max(worst, diff.max().item() / change if change else
+                        (0.0 if diff.max().item() == 0 else math.inf))
+            mag = torch.maximum(r.abs(), s0.abs())
+            ulp = (torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag).double()
+            off += int((diff > tol * change + OPT_ULPS * ulp).sum())
+            total += diff.numel()
+        flat = lambda ts: torch.cat([t.flatten() for t in ts]).double()  # noqa: E731
+        cos = torch.nn.functional.cosine_similarity(flat(card) - flat(start),
+                                                    flat(cpu) - flat(start), dim=0).item()
+        out[key] = {"max_rel_err": worst, "entries_off": off, "share_off": off / total,
+                    "update_cosine": cos}
+        if key == "lion":
+            ok, bound = off / total <= OPT_LION_OFF, f"share <= {OPT_LION_OFF:g}"
+        elif key == "muon":
+            ok, bound = True, "not bounded per entry: bfloat16, see muon_fp32_ns"
+        else:
+            ok, bound = off == 0, "none allowed"
+        check(ok and math.isfinite(worst) and cos >= 0.999,
+              f"optimizers[{key}] fp32 2-layer card vs CPU on the CPU's gradients, "
+              f"{OPT_CPU_STEPS} steps: entries beyond {tol:g} of their tensor's "
+              f"largest change + {OPT_ULPS} ulp {off} of {total} ({bound}); largest error "
+              f"{worst:.3e} of the largest change; cosine of the updates {cos:.6f} (min 0.999)")
+    return out
+
+
+def phase_patch_dropout_train(torch, oc, sa):
+    """ViT-B-16 at batch 256, amp_bf16, AdamW: a window with patch dropout 0.5 (99
+    tokens a sample: the class token and 98 of 196 patches) beside one without (197):
+    step ms, kernel ms, short launches by length. Returns the launches by (direction,
+    length) and the windows' steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out, tally_all, steps = {}, {}, {}
+    for prob in (PD_PROB, 0.0):
+        torch.cuda.reset_peak_memory_stats()
+        model = oc.create_model(PD_MODEL, precision="amp_bf16", seed=0, force_patch_dropout=prob)
+        lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+        opt = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0), model,
+                                  oc.const_lr(5e-4, 0))
+        state = oc.create_train_state(model, opt)
+        step = oc.make_train_step(model.cfg, opt)
+        batch = train_batch(torch, model.cfg, BATCH, "cuda")
+        state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+        n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+        reset_counts(sa)
+        with tally_by_len(sa) as tally:
+            state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, n)
+        for key, v in tally.items():
+            tally_all[key] = tally_all.get(key, 0) + v
+        steps[prob] = n
+        gh, gw = model.visual.cfg.grid_size
+        length = 1 + (max(1, int(gh * gw * (1 - prob))) if prob else gh * gw)
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses)
+              and tally.get(("fwd", length), 0) == lv * n and tally.get(("bwd", length), 0) == lv * n
+              and tally.get(("fwd", 77), 0) == lt * n,
+              f"patch_dropout_train[{prob}]: short launches by (direction, length) {tally} in {n} "
+              f"steps (expect {lv * n} at L={length}, {lt * n} at 77), losses finite "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            state = run_steps(torch, step, state, batch, 1)[0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
+        ps = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
+        out[str(prob)] = {"tokens": length, "window_steps": n,
+                          "median_step_ms": statistics.median(step_ms),
+                          "images_per_s": BATCH * n / wall_s,
+                          "kernel_ms_per_step": ps["device_busy_ms_per_step"],
+                          "device_idle_share": ps["device_idle_share"],
+                          "short_ms_per_step": {c: ps["class_ms_per_step"].get(c) for c in
+                                                ("short_attention", "short_attention_bwd")},
+                          "median_host_ms_per_step": statistics.median(host_ms),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "short_launches_per_step": {f"{d}_L{l}": v / n
+                                                      for (d, l), v in tally.items()},
+                          "first_loss": losses[0], "last_loss": losses[-1]}
+        del model, opt, state, step
+    print("patch_dropout_train " + json.dumps({"model": PD_MODEL, "batch": BATCH,
+                                               "precision": "amp_bf16", "by_prob": out}),
+          flush=True)
+    return tally_all, steps
+
+
+def phase_remat_dots(torch, oc, sa, blocks):
+    """ViT-L-14 at batch 64, amp_bf16: the same weights stepped under each remat policy
+    (none = full remat, names_mm, dots, dots_no_batch): step ms, kernel ms, peak GiB and
+    short launches; the first loss is the same under every policy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    saved = blocks.REMAT_POLICY
+    out, steps = {}, 0
+    try:
+        model = oc.create_model(L14_MODEL, precision="amp_bf16", seed=0)
+        lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = train_batch(torch, model.cfg, L14_BATCH, "cuda")
+        for policy in REMAT_POLICIES:
+            blocks.REMAT_POLICY = policy
+            steps += 4
+            with torch.no_grad():
+                model.load_state_dict(init)
+            opt = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                      model, oc.const_lr(5e-4, 0))
+            state = oc.create_train_state(model, opt)
+            step = oc.make_train_step(model.cfg, opt, remat=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(sa)
+            state, first, first_ms, _, _, _ = run_steps(torch, step, state, batch, 1)
+            launches = dict(sa.LAUNCHES)
+            state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, 2)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, *_, prof_wall_s = run_steps(torch, step, state, batch, 1)
+            ps = profile_summary(prof, prof_wall_s * 1e3, 1, "step")
+            out[policy] = {"first_loss": float(first[0]["loss"]),
+                           "median_step_ms": statistics.median(step_ms),
+                           "kernel_ms_per_step": ps["device_busy_ms_per_step"],
+                           "matmul_ms_per_step": ps["class_ms_per_step"].get("matmul"),
+                           "peak_mem_gib": peak, "short_launches_per_step": launches,
+                           "images_per_s": L14_BATCH * 2 / wall_s}
+            # the attention kernels are custom ops, not products: recomputed under the
+            # dots policies as under full remat; names_mm saves their output
+            fwd = (lv + lt) * (1 if policy == "names_mm" else 2)
+            check(launches == {"fwd": fwd, "bwd": lv + lt}
+                  and all(math.isfinite(float(m["loss"])) for m in first + window),
+                  f"remat_dots[{policy}]: short launches {launches} in one step (expect "
+                  f"{fwd} forward, {lv + lt} backward), losses finite")
+            del state, opt, step
+        base = out["none"]["first_loss"]
+        check(all(abs(v["first_loss"] - base) <= 1e-3 * abs(base) for v in out.values()),
+              f"remat_dots: first losses {[round(v['first_loss'], 6) for v in out.values()]} "
+              "equal under every policy (rel 1e-3)")
+        check(out["dots"]["peak_mem_gib"] >= out["none"]["peak_mem_gib"],
+              f"remat_dots: dots keeps more than full remat, peak "
+              f"{out['dots']['peak_mem_gib']:.2f} vs {out['none']['peak_mem_gib']:.2f} GiB")
+    finally:
+        blocks.REMAT_POLICY = saved
+    print("remat_dots " + json.dumps({"model": L14_MODEL, "batch": L14_BATCH,
+                                      "precision": "amp_bf16", "by_policy": out}), flush=True)
+    return steps
+
+
 def main() -> int:
     import torch
 
@@ -4268,6 +4925,12 @@ def main() -> int:
                                  nfc_audio)
     timed("naflexclap_card_vs_cpu", phase_naflexclap_card_vs_cpu, torch, oc, fa)
     timed("audio_data_train", phase_audio_data_train, torch, oc, sa, fa)
+    nfd_flash, nfd_short, nfd_steps = timed("naflex_data_train", phase_naflex_data_train, torch,
+                                            oc, sa, fa)
+    opt_tally, opt_steps = timed("optimizers", phase_optimizers, torch, oc, sa)
+    pd_tally, pd_steps = timed("patch_dropout_train", phase_patch_dropout_train, torch, oc, sa)
+    with tally_by_len(sa) as rd_tally:
+        rd_steps = timed("remat_dots", phase_remat_dots, torch, oc, sa, blocks)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -4278,13 +4941,22 @@ def main() -> int:
     # classifier build) and the train window (attention kernels with the switch
     # off, the LayerNorm backward with it on)
     kernels = []
+    # this slice's paths at the same shapes: the optimizer windows (ViT-B-32 b256, 50
+    # and 77 tokens), the text tower of the NaFlex data run, of the patch-dropout
+    # windows and of the ViT-L-14 remat windows (77 tokens)
+    new_paths = {(d, "vision"): opt_tally.get((d, 50), 0) for d in ("fwd", "bwd")}
+    new_paths.update({(d, "text"): opt_tally.get((d, 77), 0) + nfd_short[d]
+                      + pd_tally.get((d, 77), 0) + rd_tally.get((d, 77), 0)
+                      for d in ("fwd", "bwd")})
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
         n_data = data_tally.get(("fwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("fwd", tower)], ft_cli_tally[("fwd", tower)]
         kernels.append(dict(fwd_records[tower],
                             launches=(launches[tower] + n_train + n_dist + n_data
-                                      + load_launches[tower] + n_ft + n_ft_cli),
+                                      + load_launches[tower] + n_ft + n_ft_cli
+                                      + new_paths[("fwd", tower)]),
+                            launches_step_option_paths=new_paths[("fwd", tower)],
                             launches_pretrained_load=load_launches[tower],
                             launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
                             launches_finetune_cli=n_ft_cli,
@@ -4305,7 +4977,9 @@ def main() -> int:
         n_data = data_tally.get(("bwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("bwd", tower)], ft_cli_tally[("bwd", tower)]
         kernels.append(dict(bwd_records[(tower, "bfloat16")],
-                            launches=n_train + n_dist + n_data + n_ft + n_ft_cli,
+                            launches=(n_train + n_dist + n_data + n_ft + n_ft_cli
+                                      + new_paths[("bwd", tower)]),
+                            launches_step_option_paths=new_paths[("bwd", tower)],
                             launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
                             launches_finetune_cli=n_ft_cli,
                             launches_training=n_train,
@@ -4318,10 +4992,23 @@ def main() -> int:
                         launches_path="fp32 train step, B=8 (phase 6)"))
     # ViT-L-14's image tower (L=257): the two-pass forward and the two-kernel backward in
     # the ViT-L-14 train window
-    kernels.append(dict(fwd_records["l257"], launches=l14_tally[("fwd", "vision")],
+    kernels.append(dict(fwd_records["l257"],
+                        launches=l14_tally[("fwd", "vision")] + rd_tally.get(("fwd", 257), 0),
+                        launches_remat_dots=rd_tally.get(("fwd", 257), 0),
                         launches_per_train_step=l14_tally[("fwd", "vision")] / l14_steps))
-    kernels.append(dict(bwd_records[("l257", "bfloat16")], launches=l14_tally[("bwd", "vision")],
+    kernels.append(dict(bwd_records[("l257", "bfloat16")],
+                        launches=l14_tally[("bwd", "vision")] + rd_tally.get(("bwd", 257), 0),
+                        launches_remat_dots=rd_tally.get(("bwd", 257), 0),
                         launches_per_train_step=l14_tally[("bwd", "vision")] / l14_steps))
+    # ViT-B-16 at batch 256: 197 tokens, 99 under patch dropout 0.5 (patch_dropout_train)
+    for name, length, prob in (("l197", 197, 0.0), ("l99", 99, PD_PROB)):
+        kernels.append(dict(fwd_records[name], launches=pd_tally.get(("fwd", length), 0),
+                            launches_per_train_step=pd_tally.get(("fwd", length), 0)
+                            / pd_steps[prob]))
+        kernels.append(dict(bwd_records[(name, "bfloat16")],
+                            launches=pd_tally.get(("bwd", length), 0),
+                            launches_per_train_step=pd_tally.get(("bwd", length), 0)
+                            / pd_steps[prob]))
     for tower, width in (("vision", 768), ("text", 512)):
         kernels.append(dict(ln_records[tower], launches=tally_ln[("ln", width)],
                             launches_per_train_step=tally_ln[("ln", width)] / steps_ln))
@@ -4330,8 +5017,12 @@ def main() -> int:
     kernels.append(dict(flash_records["serve"]["fwd"], launches=nf_serve_launches,
                         launches_per_call=nf_serve_launches / nf_serve_calls))
     for which in ("fwd", "bwd_dq", "bwd_dkv"):
-        kernels.append(dict(flash_records["train"][which], launches=nf_train_launches[which],
-                            launches_per_train_step=nf_train_launches[which] / nf_steps))
+        by_bucket = {b: c[which] for b, c in nfd_flash.items()}
+        kernels.append(dict(flash_records["train"][which],
+                            launches=nf_train_launches[which] + sum(by_bucket.values()),
+                            launches_per_train_step=nf_train_launches[which] / nf_steps,
+                            launches_naflex_data_by_bucket=by_bucket,
+                            launches_per_naflex_data_step=sum(by_bucket.values()) / nfd_steps))
     # window and panel attention: Swin-B serving and training (the window kernels at
     # the stage-0 shape, 49-token windows), CLAP serving and training (the panel
     # kernels at HTSAT's stage-0 shifted shape); the forwards on the tensor-core body

@@ -153,12 +153,16 @@ def save_native(path, state: TrainState, epoch: int) -> None:
             model, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
     else:
         weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    moments = {k: [full_tensor(t).detach().cpu() for t in state.opt_state[k]]
-               for k in ("mu", "nu")}
+    # the optimizer's statistics: every list of tensors in its state
+    stats = {k: [full_tensor(t).detach().cpu() for t in v]
+             for k, v in state.opt_state.items() if isinstance(v, list)}
+    ema = None if state.ema is None else [t.detach().cpu() for t in state.ema]
     if not is_primary():
         return
     payload = {"step": state.step, "epoch": epoch, "model": weights,
-               "optimizer": {"count": state.opt_state["count"], **moments}}
+               "optimizer": {"count": state.opt_state["count"], **stats}}
+    if ema is not None:
+        payload["ema"] = ema
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
     torch.save(payload, tmp)
@@ -190,23 +194,48 @@ def load_native(path, like: TrainState) -> int:
     else:
         like.model.load_state_dict(payload["model"], strict=True)
     opt = payload["optimizer"]
-    for key in ("mu", "nu"):
+    keys = {k for k, v in like.opt_state.items() if isinstance(v, list)}
+    if keys != {k for k, v in opt.items() if isinstance(v, list)}:
+        raise ValueError(f"checkpoint holds optimizer state {sorted(k for k in opt if k != 'count')}, "
+                         f"this optimizer's is {sorted(keys)}")
+    for key in sorted(keys):
         if len(opt[key]) != len(like.opt_state[key]):
             raise ValueError(f"checkpoint holds {len(opt[key])} optimizer tensors, "
                              f"the model has {len(like.opt_state[key])}")
         with torch.no_grad():
             for mine, saved in zip(like.opt_state[key], opt[key]):
                 _load_moment_(mine, saved)
+    if like.ema is not None:
+        if "ema" not in payload:
+            raise ValueError(f"{path} holds no EMA weights, and the run keeps an EMA (--ema)")
+        with torch.no_grad():
+            torch._foreach_copy_(like.ema, [t.to(e.device, e.dtype)
+                                            for t, e in zip(payload["ema"], like.ema)])
     like.opt_state["count"] = int(opt["count"])
     like.step = int(payload["step"])
     return int(payload["epoch"])
 
 
+def checkpoint_epoch(path) -> int:
+    """The epoch a checkpoint closed: from the name it points at (``epoch_N.pt``), else
+    from the file."""
+    real = Path(path).resolve()
+    m = re.fullmatch(r"epoch_(\d+)\.pt", real.name)
+    if m:
+        return int(m.group(1))
+    return int(torch.load(real, map_location="cpu", weights_only=True, mmap=True)["epoch"])
+
+
 def get_latest_checkpoint(ckpt_dir) -> Optional[str]:
-    """The ``epoch_N.pt`` with the highest N in ``ckpt_dir``, or None."""
+    """The ``epoch_N.pt`` with the highest N in ``ckpt_dir``, or ``epoch_latest.pt``
+    (``--save-most-recent``) where its epoch is at least that N, as the JAX CLI picks
+    between its ``epoch_latest`` and ``epoch_N``; None where there is neither."""
     found = []
     for p in Path(ckpt_dir).glob("epoch_*.pt"):
         m = re.fullmatch(r"epoch_(\d+)\.pt", p.name)
         if m:
             found.append((int(m.group(1)), p))
+    latest = Path(ckpt_dir) / "epoch_latest.pt"
+    if latest.exists() and (not found or checkpoint_epoch(latest) >= max(found)[0]):
+        return str(latest)
     return str(max(found)[1]) if found else None

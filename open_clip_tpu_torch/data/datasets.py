@@ -5,10 +5,11 @@ dicts in token-budget buckets from ``data/naflex.py``, ``synthetic-audio`` wavef
 dicts for CLAP from ``data/audio.py``) and real image data: ``webdataset`` tar
 shards (``data/wds.py``), a ``csv`` of image paths and captions (``CsvDataset``),
 and ImageNet-style class folders for zero-shot (``make_imagenet_val``). Real images
-are JPEGs decoded by the native stage (``native/``: libjpeg, or nvJPEG). Real audio
-comes from ``webdataset-audio`` tar shards (``data/audio.py``), and a folder of WAVs
-per class makes the ``audio-zeroshot`` split (``train/audio_zero_shot.py``). The
-webdataset-naflex type is not ported yet and raises.
+are JPEGs decoded by the native stage (``native/``: libjpeg, or nvJPEG) and PNGs
+(``native/png.py``). ``webdataset-naflex`` makes NaFlex patch dicts from tar shards
+(``NaFlexWdsPipeline``, with ``--length-bucketing``'s ``data/bucketing.py``). Real
+audio comes from ``webdataset-audio`` tar shards (``data/audio.py``), and a folder of
+WAVs per class makes the ``audio-zeroshot`` split (``train/audio_zero_shot.py``).
 
 ``SyntheticDataset`` yields the JAX class's batches: a blank image, normalised
 with the model's mean and std, and one fixed caption, repeated over the batch (or,
@@ -36,7 +37,7 @@ import torch
 
 from ..transform import (PreprocessCfg, default_canvas_size, host_val_transform,
                          uint8_image_transform_v2)
-from .wds import JPEG_EXTS, WdsConfig, WdsPipeline, get_dataset_size
+from .wds import WdsConfig, WdsPipeline, check_image, get_dataset_size
 
 
 @dataclass
@@ -51,13 +52,12 @@ class DataInfo:
             setter(epoch)
 
 
-def _read_jpeg(path: str) -> bytes:
-    ext = os.path.splitext(path)[1].lstrip(".").lower()
-    if ext not in JPEG_EXTS:
-        raise NotImplementedError(f"{path!r} is not a JPEG; only JPEG images are decoded "
-                                  "(by the native stage; there is no PIL tier)")
+def _read_image(path: str) -> bytes:
+    """The bytes of a JPEG or PNG file; any other raises (there is no PIL tier)."""
     with open(path, "rb") as fh:
-        return fh.read()
+        data = fh.read()
+    check_image(path, os.path.splitext(path)[1].lstrip(".").lower(), data)
+    return data
 
 
 class CsvDataset:
@@ -112,7 +112,7 @@ class CsvDataset:
                 path, caption = self.rows[i]
                 if not os.path.isabs(path):
                     path = os.path.join(self.root, path)
-                images.append(self.preprocess(_read_jpeg(path)))
+                images.append(self.preprocess(_read_image(path)))
                 captions.append(caption)
             batch = {"image": torch.from_numpy(np.stack(images)),
                      "text": torch.as_tensor(np.asarray(self.tokenizer(captions), dtype=np.int32))}
@@ -176,8 +176,6 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
     ``--val-data``, which also makes ``"audio-zeroshot"`` from
     ``--audio-zeroshot-dataset``."""
     get = lambda k, d=None: getattr(args, k, d)  # noqa: E731
-    if get("dataset_type") == "webdataset-naflex":
-        raise NotImplementedError(f"dataset type {get('dataset_type')!r} is not ported yet")
     world, rank = get("world_size", 1) or 1, get("rank", 0) or 0
     device_pp = bool(get("device_preprocess", False))
     data: Dict[str, DataInfo] = {}
@@ -223,6 +221,35 @@ def get_data(args: Any, preprocess_cfg: PreprocessCfg, tokenizer: Callable,
             n = get("train_num_samples") or 100
             nb = max(1, n // batch_size)
             ds = SyntheticNaFlexDataset(ncfg, tokenizer, num_batches=nb)
+            return DataInfo(ds, num_samples=n, num_batches=nb)
+        if dstype == "webdataset-naflex":
+            from .bucketing import CaptionLength, LengthBucketer
+            from .naflex import NaFlexDataConfig, NaFlexWdsPipeline
+
+            wcfg = WdsConfig(urls=split_path, batch_size=batch_size,
+                             caption_key=get("wds_caption_key", "txt"), seed=get("seed", 0),
+                             world_size=world, rank=rank, shuffle_shards=2000 if is_train else 0,
+                             shuffle_samples=get("wds_shuffle_buffer", 5000) if is_train else 0)
+            probs = lambda k: tuple(get(k)) if get(k) else None  # noqa: E731
+            ncfg = NaFlexDataConfig(
+                seq_lens=tuple(get("naflex_seq_lens", (128, 256, 576, 784, 1024))),
+                seq_len_probs=probs("naflex_seq_len_probs"),
+                patch_sizes=tuple(get("naflex_patch_sizes", (16,))),
+                patch_size_probs=probs("naflex_patch_size_probs"),
+                max_tokens_per_batch=get("naflex_max_tokens", 16384),
+                batch_divisor=get("naflex_batch_divisor", 8),
+                pad_multiple=get("naflex_pad_multiple", None), seed=get("seed", 0))
+            n = get("train_num_samples") or 0
+            nb = max(1, n * ncfg.seq_lens[0] // max(ncfg.max_tokens_per_batch, 1)) if n else 8
+            bucketer = None
+            if is_train and get("length_bucketing", False):
+                bucketer = LengthBucketer([CaptionLength(key="caption", tokenizer=tokenizer)],
+                                          pool=get("bucket_pool", 2048),
+                                          chunk=get("bucket_chunk", 128), seed=get("seed", 0),
+                                          prefetch_pools=get("bucket_prefetch_pools", 0))
+            ds = NaFlexWdsPipeline(WdsPipeline(wcfg, None, tokenizer), ncfg, nb, tokenizer,
+                                   bucketer=bucketer, device=get("device"),
+                                   decode_threads=get("native_decode_threads", 0))
             return DataInfo(ds, num_samples=n, num_batches=nb)
         if dstype == "synthetic":
             canvas = default_canvas_size(preprocess_cfg) if device_pp else None
@@ -321,7 +348,7 @@ class _ImageFolder:
     def __iter__(self):
         for i in range(0, len(self.items), self.batch_size):
             chunk = self.items[i: i + self.batch_size]
-            images = np.stack([self.preprocess(_read_jpeg(path)) for path, _ in chunk])
+            images = np.stack([self.preprocess(_read_image(path)) for path, _ in chunk])
             yield {"image": torch.from_numpy(images),
                    "label": torch.tensor([li for _, li in chunk], dtype=torch.int32)}
 

@@ -13,12 +13,13 @@ The scheduler draws with Python's ``random.Random`` exactly as the JAX package's
 does, so the two give the same schedule for the same seed and epoch. The JAX
 transform takes a PIL image; this one takes a uint8 (H, W, 3) tensor or array (or
 a (B, H, W, 3) batch of equally sized images) and works on the tensor's own
-device, so a server can run it on the card. The webdataset pipeline is not ported
-yet and raises.
+device, so a server can run it on the card. ``NaFlexWdsPipeline`` makes the
+batches from webdataset shards.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import random
 from dataclasses import dataclass
@@ -174,11 +175,87 @@ def naflex_transform_factory(cfg: NaFlexDataConfig, mean=None, std=None) -> Call
 
 
 class NaFlexWdsPipeline:
-    """The webdataset NaFlex pipeline of the JAX package; waits for the webdataset port."""
+    """NaFlex batches from webdataset shards, the JAX package's pipeline: the
+    per-epoch schedule of (patch_size, seq_len, batch_size) drives one transform per
+    bucket over the shard stream (``wds_pipeline._samples``, after the optional
+    ``bucketer`` of ``data/bucketing.py``). Batches are ``{"image": patch dict,
+    "text": (B, L) int32 tokens}``; the stream ending inside a batch ends the epoch.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the webdataset NaFlex pipeline is not ported yet "
-                                  "(synthetic-naflex is)")
+    Each image is decoded whole: a JPEG by the native stage (``decode_full_batch``,
+    ``decode_threads`` threads), a PNG by ``native/png.py``. A sample that fails to
+    decode is skipped and the batch takes the next one (the JAX pipeline's
+    skip-and-replenish); an image that is neither a JPEG nor a PNG raises with its
+    key. With a CUDA ``device`` and the nvJPEG decoder the image is decoded into the
+    card's memory and resized there (``route`` says which route ran); otherwise the
+    patch dicts are made on the host."""
+
+    def __init__(self, wds_pipeline, data_cfg: NaFlexDataConfig, num_batches: int,
+                 tokenizer: Callable, mean=None, std=None, bucketer=None, device=None,
+                 decode_threads: int = 0):
+        self.inner = wds_pipeline
+        self.cfg = data_cfg.resolve()
+        self.scheduler = NaFlexBatchScheduler(self.cfg, num_batches)
+        self.factory = naflex_transform_factory(self.cfg, mean=mean, std=std)
+        self.tokenizer = tokenizer
+        self.bucketer = bucketer
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.decode_threads = decode_threads
+        self.epoch = 0
+
+    @property
+    def route(self) -> str:
+        from ..native.decode import full_decode_route
+
+        return full_decode_route(self.device)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        self.inner.set_epoch(epoch)
+        if self.bucketer is not None:
+            self.bucketer.set_epoch(epoch)
+
+    def _decode(self, recs: List[Dict]) -> List[Optional[torch.Tensor]]:
+        """Each record's (H, W, 3) uint8 image on the transform's device, or None
+        where its decode failed."""
+        from ..native.decode import decode_full_batch
+        from ..native.png import decode_png, is_png
+        from .wds import check_image
+
+        for rec in recs:
+            check_image(rec["__key__"], rec.get("ext", ""), rec["image_bytes"])
+        out: List[Optional[torch.Tensor]] = [None] * len(recs)
+        jpegs = [i for i, rec in enumerate(recs) if not is_png(rec["image_bytes"])]
+        if jpegs:
+            images, _ = decode_full_batch([bytes(recs[i]["image_bytes"]) for i in jpegs],
+                                          self.decode_threads, device=self.device)
+            for i, image in zip(jpegs, images):
+                out[i] = None if image is None else torch.as_tensor(image)
+        for i, rec in enumerate(recs):
+            if is_png(rec["image_bytes"]):
+                try:
+                    out[i] = torch.from_numpy(decode_png(rec["image_bytes"], rec["__key__"]))
+                except ValueError:
+                    continue
+        return [None if x is None else x.to(self.device) for x in out]
+
+    def __iter__(self) -> Iterator[Dict]:
+        schedule = self.scheduler.schedule(self.epoch)
+        stream = self.inner._samples(self.epoch)
+        if self.bucketer is not None:
+            stream = iter(self.bucketer(stream))
+        for patch_size, seq_len, batch_size in schedule:
+            transform = self.factory(seq_len, patch_size)
+            dicts, captions = [], []
+            while len(dicts) < batch_size:
+                recs = list(itertools.islice(stream, batch_size - len(dicts)))
+                if not recs:
+                    return
+                for rec, image in zip(recs, self._decode(recs)):
+                    if image is not None:
+                        dicts.append(transform(image))
+                        captions.append(rec["caption"])
+            yield {"image": collate_naflex(dicts),
+                   "text": torch.as_tensor(np.asarray(self.tokenizer(captions), dtype=np.int32))}
 
 
 class SyntheticNaFlexDataset:

@@ -5,13 +5,14 @@ Brace-expanded shard lists with ``::`` sources and weights, the shard order of
 mode, nothrow tar reading, and ``epoch_batches`` that caps and pads every rank's
 epoch to the same number of steps: the JAX pipeline's samples in its order.
 
-Images go through the host stage of ``transform.py`` (JPEG bytes -> uint8, or the
-val stage's normalized float32) on the native decoder (``native/``). With
-``native_decode_threads > 0`` whole batches decode on that many threads of the
-library in this process; otherwise ``num_workers > 1`` forks decode workers. A
-non-zero decode status is a counted decode failure (too many in a row raise); a
-sample whose image is not a JPEG raises ``NotImplementedError`` with its key, since
-there is no PIL tier to decode it. Batches are ``{"image", "text"}`` CPU tensors;
+Images go through the host stage of ``transform.py`` (JPEG or PNG bytes -> uint8,
+or the val stage's normalized float32) on the native decoder (``native/``; PNG
+through ``native/png.py``). With ``native_decode_threads > 0`` whole batches decode
+on that many threads of the library in this process (the PNG slots one by one);
+otherwise ``num_workers > 1`` forks decode workers. A failed decode is a counted
+decode failure (too many in a row raise); a sample whose image is neither a JPEG
+nor a PNG raises ``NotImplementedError`` with its key, since there is no PIL tier
+to decode it. Batches are ``{"image", "text"}`` CPU tensors;
 ``device_prefetch`` pins them in this process and copies them to the model's device
 without blocking, from a background thread. Workers never touch CUDA, so the
 nvJPEG decoder (which runs on the card) refuses forked workers.
@@ -148,12 +149,21 @@ def extract_caption(sample: Dict[str, Any], caption_key: str = "txt") -> Optiona
     return None
 
 
-def check_jpeg(key: str, ext: str) -> None:
-    """Raise for an image member the native stage cannot decode."""
-    if ext not in JPEG_EXTS:
+def is_jpeg(ext: str, data: bytes) -> bool:
+    """A JPEG by its name or its start of image marker (a corrupt JPEG counts: its
+    decode fails)."""
+    return ext in JPEG_EXTS or bytes(data[:2]) == b"\xff\xd8"
+
+
+def check_image(key: str, ext: str, data: bytes) -> None:
+    """Raise for an image member that neither the native JPEG stage nor the PNG
+    decoder takes (WebP, BMP, TIFF: there is no PIL tier)."""
+    from ..native.png import is_png
+
+    if not (is_jpeg(ext, data) or is_png(data)):
         raise NotImplementedError(
-            f"sample {key!r}: image member '.{ext}' is not a JPEG; only JPEG images are "
-            "decoded (by the native stage; there is no PIL tier)")
+            f"sample {key!r}: image member '.{ext}' is neither a JPEG nor a PNG; only those "
+            "are decoded (by the native stage; there is no PIL tier)")
 
 
 @dataclass
@@ -281,6 +291,7 @@ class WdsPipeline:
         the single-worker stream order. Failed slots drop out; the next chunk tops
         the batch back up to ``batch_size``."""
         from ..native import decode_resize_batch
+        from ..native.png import is_png
 
         cfg = self.cfg
         canvas = int(self.preprocess.native_canvas)
@@ -300,8 +311,14 @@ class WdsPipeline:
                 whole = {"image": decoded, "text": self._tokens(chunk_caps)}
             else:
                 for i, rc in enumerate(status):
-                    if rc == 0:
-                        images.append(decoded[i])
+                    image = decoded[i] if rc == 0 else None
+                    if rc and is_png(chunk_bytes[i]):  # the PNG slots: one by one
+                        try:
+                            image = self.preprocess(chunk_bytes[i])
+                        except ValueError as e:
+                            rc = e
+                    if image is not None:
+                        images.append(image)
                         captions.append(chunk_caps[i])
                         failures = 0
                     else:
@@ -311,7 +328,7 @@ class WdsPipeline:
             return whole
 
         for rec in self._samples(epoch, 0, 1):
-            check_jpeg(rec["__key__"], rec["ext"])
+            check_image(rec["__key__"], rec["ext"], rec["image_bytes"])
             chunk_bytes.append(bytes(rec["image_bytes"]))
             chunk_caps.append(rec["caption"])
             if len(chunk_bytes) + len(images) >= cfg.batch_size:
@@ -341,7 +358,7 @@ class WdsPipeline:
         captions: List[str] = []
         failures = 0
         for rec in self._samples(epoch, worker_id, num_workers):
-            check_jpeg(rec["__key__"], rec["ext"])
+            check_image(rec["__key__"], rec["ext"], rec["image_bytes"])
             try:
                 arr = self.preprocess(rec["image_bytes"])
                 failures = 0

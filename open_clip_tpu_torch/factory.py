@@ -134,9 +134,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     if force_custom_text:
         cfg.custom_text = True
     if force_patch_dropout is not None and cfg.vision_cfg is not None:
-        if force_patch_dropout > 0.0:
-            raise NotImplementedError("patch dropout is not ported yet "
-                                      f"(force_patch_dropout={force_patch_dropout})")
         cfg.vision_cfg.patch_dropout = force_patch_dropout
     if force_image_size is not None and cfg.vision_cfg is not None:
         cfg.vision_cfg.image_size = force_image_size

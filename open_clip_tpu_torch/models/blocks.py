@@ -9,8 +9,8 @@ so a reference state dict loads by name. Semantics of ``apply_block``:
 
 Two module globals mirror the JAX package's: ``MLP_LINEAR_IMPL`` ("dense" or
 "switchback", the int8 SwitchBack forward of both MLP linears) and
-``REMAT_POLICY`` (what a rematerialized block saves: "none", "names" or
-"names_mm"). The training CLI sets both from its flags.
+``REMAT_POLICY`` (what a rematerialized block saves: "none", "names",
+"names_mm", "dots" or "dots_no_batch"). The training CLI sets both from its flags.
 """
 
 from __future__ import annotations
@@ -51,12 +51,27 @@ REMAT_NAME_PRESETS: dict = {
     "names": ("remat_ln1", "remat_attn_ctx", "remat_ln2", "remat_act"),
     "names_mm": ("remat_qkv", "remat_attn_ctx", "remat_fc1"),
 }
-UNPORTED_REMAT_POLICIES = ("dots", "dots_no_batch")
+# the dot policies: "dots" saves every product (JAX's checkpoint_dots), "dots_no_batch"
+# only the products without batch dimensions (dots_with_no_batch_dims_saveable): the
+# projections and MLPs, which are all ``mm`` (``ops/layers.py:linear``), and not the
+# batched products of dense attention. The attention kernels are custom ops, not
+# products, as a Pallas call is not a dot in JAX: both policies recompute them.
+REMAT_DOT_OPS: dict = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+}
+# the JAX package's programmatic "names_custom" (its REMAT_SAVE_NAMES)
+UNPORTED_REMAT_POLICIES = ("names_custom",)
 
 
 def _save_named(saved: tuple, ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return (CheckpointPolicy.MUST_SAVE if _layers.REMAT_TAG in saved
             else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_ops(saved: tuple, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_context_fn():
@@ -65,11 +80,14 @@ def remat_context_fn():
         return None
     if REMAT_POLICY in REMAT_NAME_PRESETS:
         policy = functools.partial(_save_named, REMAT_NAME_PRESETS[REMAT_POLICY])
-        return functools.partial(create_selective_checkpoint_contexts, policy)
-    if REMAT_POLICY in UNPORTED_REMAT_POLICIES:
-        raise NotImplementedError(f"remat policy {REMAT_POLICY!r} is not ported yet "
-                                  f"(none, {', '.join(REMAT_NAME_PRESETS)} are)")
-    raise ValueError(f"unknown remat policy {REMAT_POLICY!r}")
+    elif REMAT_POLICY in REMAT_DOT_OPS:
+        policy = functools.partial(_save_ops, REMAT_DOT_OPS[REMAT_POLICY])
+    elif REMAT_POLICY in UNPORTED_REMAT_POLICIES:
+        raise NotImplementedError(f"remat policy {REMAT_POLICY!r} is not ported yet (none, "
+                                  f"{', '.join([*REMAT_NAME_PRESETS, *REMAT_DOT_OPS])} are)")
+    else:
+        raise ValueError(f"unknown remat policy {REMAT_POLICY!r}")
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def remat_call(fn, *args, **kwargs):

@@ -15,7 +15,7 @@ take (params, cfg); the model's methods call them.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -100,9 +100,9 @@ class CLIPModel(nn.Module):
     def get_logits(self, image, text):
         return get_logits(self, image, text)
 
-    def forward(self, image=None, text=None, *, train: bool = False,
-                remat: bool = False) -> Dict[str, torch.Tensor]:
-        return clip_forward(self, image, text, train=train, remat=remat)
+    def forward(self, image=None, text=None, *, train: bool = False, remat: bool = False,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        return clip_forward(self, image, text, train=train, remat=remat, generator=generator)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -116,11 +116,12 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: bool = False,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
     """(B, H, W, 3) normalized NHWC images, or a NaFlex patch dict for a ``naflexvit_*``
     tower, -> (B, embed_dim) features. ``train`` turns on what only training does
-    (patch dropout, which is not ported yet and raises); ``remat`` recomputes each
-    block in the backward pass."""
+    (a ViT's patch dropout, its noise drawn from ``generator``); ``remat`` recomputes
+    each block in the backward pass."""
     if model.cfg.audio_cfg is not None:
         raise ValueError("a CLAP model encodes audio: use encode_audio")
     if isinstance(image, dict):
@@ -131,7 +132,8 @@ def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: boo
         image = {k: _as_tensor(v, model.device) for k, v in image.items()}
     else:
         image = _as_tensor(image, model.device)
-    pooled = model.visual(image, model.compute_dtype, train=train, remat=remat)
+    pooled = model.visual(image, model.compute_dtype, train=train, remat=remat,
+                          generator=generator)
     return _l2_normalize(pooled) if normalize else pooled
 
 
@@ -153,7 +155,8 @@ def encode_audio(model: CLIPModel, audio, *, normalize: bool = False) -> torch.T
 
 
 def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False,
-                 remat: bool = False) -> Dict[str, torch.Tensor]:
+                 remat: bool = False, generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Dict output of the reference ``CLIP.forward(output_dict=True)``. For a CLAP
     model ``image`` is the audio batch and the output is ``clap_forward``'s (HTSAT
     has no remat, as in the JAX package)."""
@@ -162,7 +165,7 @@ def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False
     out: Dict[str, torch.Tensor] = {}
     if image is not None:
         out["image_features"] = encode_image(model, image, normalize=True, train=train,
-                                             remat=remat)
+                                             remat=remat, generator=generator)
     if text is not None:
         out["text_features"] = encode_text(model, text, normalize=True, remat=remat)
     out["logit_scale"] = model.logit_scale.float().exp()

@@ -333,9 +333,10 @@ class NaFlexVit(nn.Module):
         return linear(pooled, self.head.weight, self.head.bias, transposed=True), tokens
 
     def forward(self, batch: Dict[str, torch.Tensor], compute_dtype: torch.dtype = torch.float32,
-                *, train: bool = False, remat: bool = False) -> torch.Tensor:
-        """patch dict -> pooled, projected (B, embed_dim). ``train`` changes nothing:
-        the tower has no dropout."""
+                *, train: bool = False, remat: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """patch dict -> pooled, projected (B, embed_dim). ``train`` and ``generator``
+        change nothing: the tower has no dropout."""
         return self.forward_tokens(batch, compute_dtype, remat=remat)[0]
 
 

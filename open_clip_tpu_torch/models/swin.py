@@ -15,7 +15,7 @@ on the card every block takes the window kernel (``ops/window_attention.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -84,8 +84,10 @@ class SwinTransformer(nn.Module):
         self.head.proj.bias.zero_()
 
     def forward(self, image: torch.Tensor, compute_dtype: torch.dtype = torch.float32, *,
-                train: bool = False, remat: bool = False) -> torch.Tensor:
-        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim)."""
+                train: bool = False, remat: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim).
+        ``generator`` is unused: the tower draws no noise."""
         ps, ws = self.sc["patch_size"], self.sc["window"]
         h, w = self.image_size[0] // ps, self.image_size[1] // ps
         x = self.patch_embed.proj(patchify(image.to(compute_dtype), ps))

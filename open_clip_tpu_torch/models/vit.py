@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Optional
 
 import torch
 from torch import nn
@@ -169,16 +170,20 @@ class VisionTransformer(nn.Module):
             self.proj.normal_(0.0, scale, generator=gen)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, *,
-                train: bool = False, remat: bool = False) -> torch.Tensor:
-        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim)."""
+                train: bool = False, remat: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim). In
+        training with ``patch_dropout`` > 0 the patch tokens are thinned after the
+        position embedding, with noise drawn from ``generator``."""
         cfg = self.cfg
-        if train and cfg.patch_dropout > 0.0:
-            raise NotImplementedError("patch dropout in training is not ported yet")
         x = self.conv1(patchify(x.to(compute_dtype), cfg.patch_size))
         if self.class_embedding is not None:
             cls = self.class_embedding.to(compute_dtype).expand(x.shape[0], 1, -1)
             x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding[: x.shape[1]].to(compute_dtype)
+        if train and cfg.patch_dropout > 0.0:
+            x = patch_dropout(x, cfg.patch_dropout, num_prefix=int(self.class_embedding is not None),
+                              generator=generator)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
         x = self.transformer(x, remat=remat)
@@ -190,6 +195,34 @@ class VisionTransformer(nn.Module):
         else:
             pooled = _global_pool(cfg, self.ln_post(x))
         return pooled if self.proj is None else linear(pooled, self.proj)
+
+
+def draw_patch_noise(b: int, n: int, device, generator: Optional[torch.Generator]
+                     ) -> torch.Tensor:
+    """(b, n) float32 uniform noise from ``generator`` (the train step seeds it from
+    its step), which orders each sample's patches for patch dropout."""
+    if generator is None:
+        raise ValueError("patch dropout in training needs a torch.Generator")
+    return torch.rand(b, n, generator=generator, device=device)
+
+
+def patch_dropout(x: torch.Tensor, prob: float, num_prefix: int = 1,
+                  noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep ``max(1, int(n * (1 - prob)))`` of each sample's n patch tokens, the
+    first ones of the argsort of (b, n) uniform ``noise`` (drawn from ``generator``
+    where not given), in that order, after the ``num_prefix`` prefix tokens, which
+    are all kept: the JAX package's ``patch_dropout``."""
+    if prob <= 0.0:
+        return x
+    b, l, d = x.shape
+    n = l - num_prefix
+    keep = max(1, int(n * (1.0 - prob)))
+    if noise is None:
+        noise = draw_patch_noise(b, n, x.device, generator)
+    ids = torch.argsort(noise, dim=1, stable=True)[:, :keep].to(x.device)
+    kept = torch.gather(x[:, num_prefix:], 1, ids[..., None].expand(-1, -1, d))
+    return torch.cat([x[:, :num_prefix], kept], dim=1)
 
 
 def _global_pool(cfg: CLIPVisionCfg, x: torch.Tensor) -> torch.Tensor:

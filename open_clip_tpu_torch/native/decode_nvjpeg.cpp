@@ -9,7 +9,8 @@
 // give the full decode's canvas. Each decoding thread borrows a decoder (nvJPEG
 // state, a non-blocking stream, a device buffer and a host buffer) from a pool
 // that lives as long as the process, so no call frees device memory (cudaFree
-// would wait for the whole device).
+// would wait for the whole device). The full decode into the caller's device memory
+// waits on its stream for the caller's stream (oct_decode_full_device_batch).
 //
 // C ABI only, the same as decode.cpp's, bound from Python via ctypes.
 
@@ -272,6 +273,94 @@ int decode_one(const uint8_t* buf, size_t len, int canvas, uint8_t* out, int /*f
 }
 // ---- end of the copy ----
 
+// Full-resolution decode for the NaFlex pipeline, which resizes each image to its
+// own patch grid. Into device memory (`dout`, cap bytes, (h, w, 3) uint8) that the
+// caller took from its stream's allocator: the decoder's stream first waits for
+// `ready` (recorded on the caller's stream), so no kernel queued there before the
+// call still reads or writes that memory when nvJPEG writes it; the decode is waited
+// for before returning, so the caller's stream may read it at once; the image stays
+// on the card. 0 on success, 7 when cap is too small (the size is set), else
+// decode_rgb's codes.
+int decode_full_device(const uint8_t* buf, size_t len, uint8_t* dout, size_t cap, int* w_out,
+                       int* h_out, cudaEvent_t ready) {
+  if (cudaSetDevice(g_device.load()) != cudaSuccess || ensure_handle() != 0) return 6;
+  int ncomp = 0;
+  nvjpegChromaSubsampling_t css;
+  int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+  if (nvjpegGetImageInfo(g_handle, buf, len, &ncomp, &css, widths, heights) !=
+      NVJPEG_STATUS_SUCCESS)
+    return 2;
+  if (ncomp != 1 && ncomp != 3) return 4;
+  const int w = widths[0], h = heights[0];
+  if (w <= 0 || h <= 0) return 2;
+  *w_out = w;
+  *h_out = h;
+  if (static_cast<size_t>(w) * h * 3 > cap) return 7;
+  Decoder* d = acquire();
+  if (d == nullptr) return 6;
+  nvjpegImage_t img;
+  std::memset(&img, 0, sizeof(img));
+  img.channel[0] = dout;
+  img.pitch[0] = static_cast<unsigned int>(w) * 3;
+  int rc = 0;
+  if (cudaStreamWaitEvent(d->stream, ready, 0) != cudaSuccess)
+    rc = 5;
+  else if (nvjpegDecode(g_handle, d->state, buf, len, NVJPEG_OUTPUT_RGBI, &img, d->stream) !=
+           NVJPEG_STATUS_SUCCESS)
+    rc = 3;
+  else if (cudaStreamSynchronize(d->stream) != cudaSuccess)
+    rc = 5;
+  release(d);
+  return rc;
+}
+
+// The same decode, copied back into host memory (`out`, cap bytes).
+int decode_full_host(const uint8_t* buf, size_t len, uint8_t* out, size_t cap, int* w_out,
+                     int* h_out, cudaEvent_t /*ready*/) {
+  if (cudaSetDevice(g_device.load()) != cudaSuccess || ensure_handle() != 0) return 6;
+  Decoder* d = acquire();
+  if (d == nullptr) return 6;
+  std::vector<uint8_t> raw;
+  int w = 0, h = 0;
+  const int rc = decode_rgb(d, buf, len, raw, &w, &h);
+  release(d);
+  if (rc != 0) return rc;
+  *w_out = w;
+  *h_out = h;
+  if (raw.size() > cap) return 7;
+  std::memcpy(out, raw.data(), raw.size());
+  return 0;
+}
+
+using FullDecode = int (*)(const uint8_t*, size_t, uint8_t*, size_t, int*, int*, cudaEvent_t);
+
+// image i into outs[i] (caps[i] bytes) on nthreads threads (<= 1: inline)
+void full_batch(FullDecode fn, const uint8_t** bufs, const size_t* lens, int count,
+                uint8_t** outs, const size_t* caps, int* status, int nthreads,
+                cudaEvent_t ready = nullptr) {
+  auto one = [&](int i) {
+    int w = 0, h = 0;
+    status[i] = fn(bufs[i], lens[i], outs[i], caps[i], &w, &h, ready);
+  };
+  if (nthreads <= 1 || count <= 1) {
+    for (int i = 0; i < count; ++i) one(i);
+    return;
+  }
+  std::atomic<int> next(0);
+  auto work = [&]() {
+    for (;;) {
+      const int i = next.fetch_add(1);
+      if (i >= count) return;
+      one(i);
+    }
+  };
+  std::vector<std::thread> pool;
+  const int n = std::min(nthreads, count);
+  pool.reserve(n);
+  for (int t = 0; t < n; ++t) pool.emplace_back(work);
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 extern "C" {
@@ -314,6 +403,30 @@ void oct_decode_batch(const uint8_t** bufs, const size_t* lens, int count, int c
 void oct_resize(const uint8_t* src, int w_in, int h_in, uint8_t* dst, int w_out,
                 int h_out) {
   resize_bicubic(src, w_in, h_in, dst, w_out, h_out);
+}
+
+// Batches of full-resolution decodes: image i into outs[i] (caps[i] bytes, sized
+// from oct_jpeg_dims), host memory or (the _device form) device memory allocated on
+// `stream` (a cudaStream_t, 0 for the default stream), after whose queued work the
+// images are written.
+void oct_decode_full_batch(const uint8_t** bufs, const size_t* lens, int count, uint8_t** outs,
+                           const size_t* caps, int* status, int nthreads) {
+  full_batch(decode_full_host, bufs, lens, count, outs, caps, status, nthreads);
+}
+
+void oct_decode_full_device_batch(const uint8_t** bufs, const size_t* lens, int count,
+                                  uint8_t** outs, const size_t* caps, int* status,
+                                  int nthreads, void* stream) {
+  cudaEvent_t ready = nullptr;
+  if (cudaSetDevice(g_device.load()) != cudaSuccess ||
+      cudaEventCreateWithFlags(&ready, cudaEventDisableTiming) != cudaSuccess ||
+      cudaEventRecord(ready, static_cast<cudaStream_t>(stream)) != cudaSuccess) {
+    if (ready != nullptr) cudaEventDestroy(ready);
+    for (int i = 0; i < count; ++i) status[i] = 5;
+    return;
+  }
+  full_batch(decode_full_device, bufs, lens, count, outs, caps, status, nthreads, ready);
+  cudaEventDestroy(ready);
 }
 
 // (width, height) from the JPEG header; 0 on success.

@@ -5,7 +5,8 @@ Experiment naming and logging, the model (from ``--pretrained``, and tower-only
 loads from ``--pretrained-image``/``--pretrained-audio``), the optimizer (with
 ``--layer-decay`` and the ``--lock-*`` tower locking) and schedule, data, resume
 (which takes precedence over the pretrained weights), and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
-then a checkpoint per ``--save-frequency``), with ``results.jsonl`` and
+on the ``--ema`` weights where the run keeps them, then a checkpoint per
+``--save-frequency``, ``--save-most-recent`` and ``--delete-previous-checkpoint``), with ``results.jsonl`` and
 ``params.txt`` in the log directory. Without train data the run only evaluates
 (``--val-data``, ``--imagenet-val``, ``--audio-zeroshot-dataset``) and returns the
 metrics. Image train data
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import random
 import sys
 from datetime import datetime
@@ -49,7 +51,8 @@ from .optim import OptimizerCfg, apply_trainable_mask, create_optimizer, trainab
 from .params import parse_args
 from .scheduler import create_scheduler
 from .train_loop import evaluate, train_one_epoch
-from .train_step import TrainState, create_train_state, loss_type_for, make_train_step
+from .train_step import (TrainState, create_train_state, ema_weights, loss_type_for,
+                         make_train_step)
 
 logger = logging.getLogger(__name__)
 
@@ -105,6 +108,42 @@ def load_tower_(model, path, tower: str, flag: str) -> None:
                              f"{tuple(loaded[k].shape)} vs model {tuple(cur.shape)}")
         cur.copy_(loaded[k].to(cur.dtype))
     logger.info("loaded the %s tower from %s", tower, path)
+
+
+def save_epoch_checkpoints(state: TrainState, ckpt_dir: Path, completed: int, args) -> None:
+    """The JAX CLI's checkpoints at the end of an epoch: ``epoch_N.pt`` per
+    ``--save-frequency`` (and after the last epoch); with ``--save-most-recent``
+    ``epoch_latest.pt``, a link swapped to the checkpoint just written or, in an
+    epoch without one, a checkpoint of its own; with ``--delete-previous-checkpoint``
+    the checkpoint ``--save-frequency`` epochs back is deleted. Under a mesh every
+    rank calls it, and the primary touches the files."""
+    primary = args.rank == 0
+    saved = None
+    if completed % args.save_frequency == 0 or completed == args.epochs:
+        saved = ckpt_dir / f"epoch_{completed}.pt"
+        save_native(saved, state, epoch=completed)  # every rank gathers, the primary writes
+        barrier()
+        logger.info("saved checkpoint %s", saved)
+    if args.save_most_recent:
+        latest = ckpt_dir / "epoch_latest.pt"
+        if saved is not None:
+            if primary:
+                link = ckpt_dir / ".latest_tmp"
+                if link.is_symlink() or link.exists():
+                    link.unlink()
+                os.symlink(saved.name, link)
+                os.replace(link, latest)  # the swap is atomic
+        else:
+            if primary and latest.is_symlink():
+                latest.unlink()
+            save_native(latest, state, epoch=completed)
+        barrier()
+    if args.delete_previous_checkpoint:
+        prev_epoch = completed - args.save_frequency
+        prev = ckpt_dir / f"epoch_{prev_epoch}.pt"
+        if primary and prev_epoch > 0 and prev.exists():
+            prev.unlink()
+        barrier()
 
 
 def main(args=None):
@@ -185,6 +224,10 @@ def _run(args):
                    int16_normalize=args.audio_int16_normalize)
         audio_pp = audio_transform_v2(acfg, is_train=True, audio_aug_cfg=aug)
         audio_val_pp = audio_transform_v2(acfg, is_train=False)  # the factory's pair
+    if args.dataset_type.endswith("-naflex") and not (
+            model.cfg.vision_cfg is not None and is_naflex(model.cfg.vision_cfg)):
+        raise ValueError(f"dataset type {args.dataset_type!r} makes NaFlex patch dicts, which "
+                         f"only a naflexvit tower takes ({args.model} takes image tensors)")
     tokenizer = _data_tokenizer(args, model)
     data = get_data(args, model.preprocess_cfg, tokenizer, audio_pp, audio_val_pp)
     if not data:
@@ -206,7 +249,8 @@ def _run(args):
     schedule = create_scheduler("const" if args.skip_scheduler else args.lr_scheduler,
                                 args.lr, args.warmup, total_steps, **cooldown)
     opt_cfg = OptimizerCfg(opt=args.opt, lr=args.lr, wd=args.wd, beta1=args.beta1,
-                           beta2=args.beta2, eps=args.eps, grad_clip_norm=args.grad_clip_norm,
+                           beta2=args.beta2, eps=args.eps, momentum=args.momentum,
+                           grad_clip_norm=args.grad_clip_norm,
                            wd_exclude_patterns=tuple(args.wd_exclude_patterns or ()),
                            layer_decay=args.layer_decay, image_layer_decay=args.image_layer_decay,
                            text_layer_decay=args.text_layer_decay,
@@ -220,7 +264,7 @@ def _run(args):
             model, lock_image=args.lock_image,
             lock_image_unlocked_groups=args.lock_image_unlocked_groups,
             lock_text=args.lock_text, lock_text_unlocked_layers=args.lock_text_unlocked_layers))
-    state = create_train_state(model, optimizer)
+    state = create_train_state(model, optimizer, ema=args.ema is not None)
 
     start_epoch = 0
     if args.resume:
@@ -234,7 +278,8 @@ def _run(args):
                               loss_type=loss_type_for(model.cfg, siglip=args.siglip),
                               mesh=mesh, local_loss=args.local_loss, dist_impl=args.loss_dist_impl,
                               remat=args.grad_checkpointing, accum_steps=args.accum_freq,
-                              device_preprocess=device_pp, preprocess_seed=args.seed,
+                              ema_decay=args.ema, device_preprocess=device_pp,
+                              preprocess_seed=args.seed,
                               naflex_loss_scale=args.naflex_loss_scale,
                               reference_batch_size=args.batch_size)
     # a checkpoint taken in the middle of an epoch resumes past the batches it trained on
@@ -248,13 +293,11 @@ def _run(args):
         completed = epoch + 1
         if any(k in data for k in ("val", "imagenet-val", "imagenet-v2", "audio-zeroshot")) and (
                 completed % args.val_frequency == 0 or completed == args.epochs):
-            logger.info("eval: %s", evaluate(model, data, completed, args, tokenizer=tokenizer,
-                                             writer=writer))
-        if completed % args.save_frequency == 0 or completed == args.epochs:
-            path = ckpt_dir / f"epoch_{completed}.pt"
-            save_native(path, state, epoch=completed)  # every rank gathers, the primary writes
-            barrier()
-            logger.info("saved checkpoint %s", path)
+            with ema_weights(state):  # the EMA weights where the run keeps them
+                metrics = evaluate(model, data, completed, args, tokenizer=tokenizer,
+                                   writer=writer)
+            logger.info("eval: %s", metrics)
+        save_epoch_checkpoints(state, ckpt_dir, completed, args)
     return state
 
 

@@ -1,20 +1,34 @@
-"""Optimizer construction (counterpart of ``open_clip_tpu/train/optim.py``): AdamW.
+"""Optimizer construction (counterpart of ``open_clip_tpu/train/optim.py``).
 
 ``create_optimizer`` gives the arithmetic of the JAX package's optax chain, in
 its order: clip by global norm (``g`` unchanged below the limit, else
-``g / norm * clip``; no epsilon is added to the norm), Adam's moments with bias
-correction and ``eps`` outside the square root, ``+ wd * p`` on the leaves the
-weight-decay mask selects, ``* -lr(count)`` with the schedule read at the
-optimizer's own count (0 on the first step), then ``p + update``.
+``g / norm * clip``; no epsilon is added to the norm), the optimizer's scaling,
+``+ wd * p`` on the leaves the weight-decay mask selects, ``* -lr(count)`` with the
+schedule read at the optimizer's own count (0 on the first step), then
+``p + update``. The scalings are optax's: ``adamw`` (Adam's moments with bias
+correction and ``eps`` outside the square root), ``nadamw`` (Adam with the
+Nesterov look-ahead), ``lion``, ``sgd``/``momentum`` (a Nesterov trace of
+``--momentum``), ``lamb`` (Adam, then the trust ratio), ``adafactor``
+(``scale_by_factored_rms`` with its defaults) and ``muon`` (the JAX package's
+Newton-Schulz scaling).
 
-The optimizer itself holds no tensors: its state (count and the two moments) is
-a dict made by ``init`` and kept in the train state, as optax keeps it. Updates
-are made in place with ``torch._foreach_*`` (the JAX package has no kernel of its
-own here either). Under FSDP2 (``parallel.mesh.shard_model``) the parameters and
-their gradients are sharded: the moments are made with the parameters' sharding,
-the update runs on each rank's shards, and the global norm sums the squares of the
-shards over the ranks that hold them, so clipping sees the whole gradient as
-``clip_by_global_norm`` does. Other optimizers are not ported yet and raise.
+The optimizer itself holds no tensors: its state (the count and the optimizer's
+statistics) is a dict made by ``init`` and kept in the train state, as optax keeps
+it. Updates are made in place with ``torch._foreach_*`` (the JAX package has no
+kernel of its own here either). Under FSDP2 (``parallel.mesh.shard_model``) the
+parameters and their gradients are sharded: the statistics are made with the
+parameters' sharding, the update runs on each rank's shards, and the global norm
+sums the squares of the shards over the ranks that hold them, so clipping sees
+the whole gradient as ``clip_by_global_norm`` does. lamb, adafactor and muon read a
+whole leaf and raise for sharded parameters.
+
+Those three read the JAX tree's leaves, and the JAX blocks are stacked along a
+layer axis where the port holds one tensor per block: ``jax_leaves`` rebuilds the
+leaves (the tensors of ``transformer.resblocks.{i}`` and ``trunk.resblocks.{i}``
+stacked by name, each tensor in its JAX layout), so that lamb takes one trust
+ratio for all the layers of a stacked leaf, adafactor factors the axes JAX
+factors, and muon orthogonalizes a stacked per-layer vector as one layers x width
+matrix and passes a leaf of rank 4 in JAX (a Swin patch embedding) through.
 
 Fine-tuning follows the JAX chain's order: layer-wise lr decay
 (``layer_decay_scales``) multiplies the update after the weight decay is added and
@@ -236,27 +250,207 @@ def trainable_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], lock_image
     return out
 
 
-class AdamW:
-    """Clip, Adam, decoupled weight decay, the layer-decay scales and the schedule,
-    then the trainable mask, applied in place."""
+OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "momentum", "lamb", "adafactor", "muon")
+# the rules that read a leaf's shape or norm, which the JAX tree's leaves decide
+_LEAF_RULES = ("lamb", "adafactor", "muon")
+# the JAX tree stacks these blocks along a leading layer axis
+_STACK_RE = re.compile(r"(?:^|\.)(?:transformer|trunk)\.resblocks\.(\d+)\.")
+# optax.scale_by_factored_rms()'s defaults
+_FACTOR_DECAY, _FACTOR_MIN_DIM, _FACTOR_EPS = 0.8, 128, 1e-30
+
+
+@dataclass
+class Leaf:
+    """One leaf of the JAX tree: ``members`` are the indices of its port tensors in
+    ``named_parameters()`` order (layer i of a stacked leaf at position i),
+    ``layers`` the leaf's stacked layer count (0: not stacked) and ``views`` map each
+    member to its JAX layout (an (in, out) kernel for an ``nn.Linear`` weight, the
+    (kh, kw, in, out) kernel for a convolution), as views of the same storage."""
+
+    name: str
+    members: List[int]
+    layers: int
+    views: List[Callable[[torch.Tensor], torch.Tensor]]
+
+    def shape(self, params: Sequence[torch.Tensor]) -> Tuple[int, ...]:
+        """The JAX leaf's shape."""
+        one = tuple(self.views[0](params[self.members[0]]).shape)
+        return (self.layers,) + one if self.layers else one
+
+    def gather(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The members of ``tensors`` as the JAX leaf: stacked (a copy) or a view."""
+        if self.layers:
+            return torch.stack([v(tensors[i]) for i, v in zip(self.members, self.views)])
+        return self.views[0](tensors[self.members[0]])
+
+    def scatter(self, leaf: torch.Tensor, like: Sequence[torch.Tensor]):
+        """(index, tensor) for each member: the JAX-layout ``leaf`` back in the
+        port's layout of ``like``'s members."""
+        rows = leaf.unbind(0) if self.layers else (leaf,)
+        for i, view, row in zip(self.members, self.views, rows):
+            out = torch.empty_like(like[i])
+            view(out).copy_(row)
+            yield i, out
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _transposed(t: torch.Tensor) -> torch.Tensor:
+    return t.t()
+
+
+def _jax_view(model: nn.Module, name: str, p: torch.Tensor, stacked: bool) -> Callable:
+    """The map from the port tensor ``name`` to its JAX layout."""
+    from ..models.vit import PatchEmbed
+
+    if stacked:  # a block's 2-D tensors are all kernels
+        return _transposed if p.ndim == 2 else _same
+    owner = model.get_submodule(name.rpartition(".")[0])
+    if isinstance(owner, PatchEmbed):
+        if name.endswith("patch_embed.proj.weight"):  # the Swin and HTSAT convolutions
+            ph, pw = owner.patch_size
+            return lambda t: t.view(ph, pw, -1, t.shape[-1])
+        return _same  # the ViT's kernel keeps JAX's patchify layout
+    if isinstance(owner, nn.Conv2d) and p.ndim == 4:
+        return lambda t: t.permute(2, 3, 1, 0)
+    if isinstance(owner, nn.Linear) and p.ndim == 2:
+        return _transposed
+    return _same
+
+
+def jax_leaves(model: nn.Module) -> List[Leaf]:
+    """The model's parameters grouped into the JAX tree's leaves: the tensors of
+    ``transformer.resblocks.{i}`` and ``trunk.resblocks.{i}`` stack into one leaf per
+    name (the JAX blocks' layer axis), every other tensor is a leaf of its own (the
+    Swin and HTSAT ``blocks`` lists are unstacked in JAX too)."""
+    named = list(model.named_parameters())
+    depth: Dict[str, int] = {}
+    for name, _ in named:
+        m = _STACK_RE.search(name)
+        if m:
+            depth[name[:m.start(1)]] = max(depth.get(name[:m.start(1)], 0), int(m.group(1)) + 1)
+    leaves: List[Leaf] = []
+    stacks: Dict[str, Leaf] = {}
+    for i, (name, p) in enumerate(named):
+        m = _STACK_RE.search(name)
+        if m is None:
+            leaves.append(Leaf(name, [i], 0, [_jax_view(model, name, p, False)]))
+            continue
+        key = f"{name[:m.start(1)]}*{name[m.end(1):]}"
+        if key not in stacks:
+            stacks[key] = Leaf(key, [], depth[name[:m.start(1)]], [])
+            leaves.append(stacks[key])
+        stacks[key].members.append(i)
+        stacks[key].views.append(_jax_view(model, name, p, True))
+    for leaf in stacks.values():
+        if len(leaf.members) != leaf.layers:  # the modern text tower's vr_lambda
+            leaf.layers = -1  # the JAX leaf has a row the port does not hold
+    return leaves
+
+
+def _whole(leaf: Leaf) -> None:
+    if leaf.layers < 0:
+        raise NotImplementedError(f"{leaf.name}: the JAX leaf stacks a layer the port does not "
+                                  "hold (the modern text tower's first vr_lambda); lamb and "
+                                  "muon are not ported for it")
+
+
+# the dtype of muon's Newton-Schulz iteration (the JAX package's bfloat16)
+MUON_DTYPE = torch.bfloat16
+
+
+def newton_schulz(g: torch.Tensor, steps: int = 5) -> torch.Tensor:
+    """Muon's quintic Newton-Schulz orthogonalization of the last two axes, in
+    ``MUON_DTYPE`` (batched over any leading axes), op for op as the JAX package
+    computes it."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    x = g.to(MUON_DTYPE)
+    transpose = x.shape[-2] > x.shape[-1]
+    if transpose:
+        x = x.mT
+    x = x / (torch.linalg.matrix_norm(x, keepdim=True) + 1e-7)
+    for _ in range(steps):
+        xxt = x @ x.mT
+        x = a * x + (b * xxt + c * (xxt @ xxt)) @ x
+    if transpose:
+        x = x.mT
+    return x.to(g.dtype)
+
+
+def _factored_dims(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
+    """optax's choice: the two largest axes (second largest, largest), or None when
+    the second largest is below the minimum size."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Optimizer:
+    """The JAX package's optax chain, applied in place: clip by global norm, the
+    optimizer's scaling (``scale_by_*``), ``+ wd * p`` under the weight-decay mask,
+    the layer-decay scales, ``* -lr(count)``, then the trainable mask."""
 
     def __init__(self, cfg: OptimizerCfg, decay: List[bool], schedule: Callable[[int], float],
-                 scales: Optional[List[Factor]] = None):
+                 scales: Optional[List[Factor]] = None, leaves: Optional[List[Leaf]] = None):
         self.cfg = cfg
+        self.name = cfg.opt.lower().replace("timm/", "")
         self.decay = decay
         self.schedule = schedule
-        self.mu_dtype = _MU_DTYPES[cfg.mu_dtype]
+        # Adam's first moment dtype; lamb's Adam keeps the parameter's (as in JAX)
+        self.mu_dtype = _MU_DTYPES[cfg.mu_dtype] if self.name in ("adamw", "nadamw") else None
         self.scales = None if scales is None else _Factors(scales)  # None: no layer decay
         self.mask: Optional[_Factors] = None  # None: every tensor trains
+        self.leaves = leaves  # the JAX leaves, for the rules that read them
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
-        """Zero moments beside ``params`` (in their order; sharded as they are) and a
-        count of 0."""
+        """The optimizer's state beside ``params`` (in their order; sharded as they
+        are) with a count of 0: the moments (``mu``, ``nu``) of Adam and lamb, ``mu``
+        of lion, ``trace`` of sgd, ``momentum`` of muon, adafactor's ``v_row``,
+        ``v_col`` and ``v``, one each for every JAX leaf (a factored leaf's row and
+        column statistics, else its full statistic; the unused ones are one zero, as
+        optax keeps them)."""
         if len(params) != len(self.decay):
             raise ValueError(f"optimizer was built for {len(self.decay)} tensors, got {len(params)}")
-        return {"count": 0,
-                "mu": [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params],
-                "nu": [torch.zeros_like(p) for p in params]}
+        if self.leaves is not None and any(is_sharded(p) for p in params):
+            raise NotImplementedError(f"{self.name} reads whole JAX leaves; it is not ported for "
+                                      "sharded parameters (adamw, nadamw, lion and sgd are)")
+        zeros = lambda dtype=None: [torch.zeros_like(p, dtype=dtype or p.dtype)  # noqa: E731
+                                    for p in params]
+        state: Dict = {"count": 0}
+        if self.name in ("adamw", "nadamw", "lamb"):
+            state.update(mu=zeros(self.mu_dtype), nu=zeros())
+        elif self.name == "lion":
+            state["mu"] = zeros()
+        elif self.name in ("sgd", "momentum"):
+            state["trace"] = zeros()
+        elif self.name == "muon":
+            state["momentum"] = zeros()
+        elif self.name == "adafactor":
+            state.update(self._adafactor_init(params))
+        return state
+
+    def _adafactor_init(self, params: Sequence[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
+        out: Dict[str, List[torch.Tensor]] = {"v_row": [], "v_col": [], "v": []}
+        with torch.no_grad():
+            for leaf in self.leaves:
+                p = leaf.gather(params)
+                one, dims = p.new_zeros((1,)), _factored_dims(tuple(p.shape))
+                if dims is None:
+                    row, col, full = one, one.clone(), torch.zeros(p.shape, dtype=p.dtype,
+                                                                   device=p.device)
+                else:
+                    d1, d0 = dims
+                    row = p.new_zeros([n for k, n in enumerate(p.shape) if k != d0])
+                    col = p.new_zeros([n for k, n in enumerate(p.shape) if k != d1])
+                    full = one
+                for key, t in (("v_row", row), ("v_col", col), ("v", full)):
+                    out[key].append(t)
+        return out
 
     @torch.no_grad()
     def update_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -267,7 +461,6 @@ class AdamW:
         norm = global_norm(grads)
         # sharded tensors update shard by shard: their local parts are views
         params, grads = [local_tensor(p) for p in params], [local_tensor(g) for g in grads]
-        moments = {k: [local_tensor(m) for m in state[k]] for k in ("mu", "nu")}
         if cfg.grad_clip_norm:
             below = norm < cfg.grad_clip_norm
             one = torch.ones_like(norm)
@@ -275,6 +468,26 @@ class AdamW:
             grads = torch._foreach_div(grads, torch.where(below, one, norm))
             torch._foreach_mul_(grads, torch.where(below, one, one * cfg.grad_clip_norm))
         count = state["count"] + 1
+        moments = {k: [local_tensor(m) for m in v] for k, v in state.items() if k != "count"}
+        updates = getattr(self, f"_scale_{self.name.replace('momentum', 'sgd')}")(
+            params, grads, moments, count)
+        if cfg.wd:
+            picked = [(u, p) for u, p, d in zip(updates, params, self.decay) if d]
+            if picked:
+                torch._foreach_add_([u for u, _ in picked], [p for _, p in picked], alpha=cfg.wd)
+        if self.scales is not None:
+            self.scales.mul_(updates)
+        torch._foreach_mul_(updates, -self.schedule(state["count"]))
+        if self.mask is not None:
+            self.mask.mul_(updates)
+        torch._foreach_add_(params, updates)
+        state["count"] = count
+        return norm
+
+    def _adam(self, grads, moments, count: int, nesterov: bool = False) -> List[torch.Tensor]:
+        """``optax.scale_by_adam``: eps outside the square root; with ``nesterov``
+        the first moment is looked one step ahead, as NAdam has it."""
+        cfg = self.cfg
         # the moment is kept in mu_dtype; the step's arithmetic is in the gradient's dtype
         mu = moments["mu"] if self.mu_dtype is None else [m.to(g.dtype)
                                                           for m, g in zip(moments["mu"], grads)]
@@ -288,20 +501,112 @@ class AdamW:
         denom = torch._foreach_div(nu, 1 - cfg.beta2 ** count)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, cfg.eps)
-        updates = torch._foreach_div(mu, 1 - cfg.beta1 ** count)
+        b1 = cfg.beta1
+        if nesterov:  # b1 * mu / (1 - b1^(t+1)) + (1 - b1) * g / (1 - b1^t)
+            updates = torch._foreach_div(mu, 1 - b1 ** (count + 1))
+            torch._foreach_mul_(updates, b1)
+            ahead = torch._foreach_div(grads, 1 - b1 ** count)
+            torch._foreach_mul_(ahead, 1 - b1)
+            torch._foreach_add_(updates, ahead)
+        else:
+            updates = torch._foreach_div(mu, 1 - b1 ** count)
         torch._foreach_div_(updates, denom)
-        if cfg.wd:
-            picked = [(u, p) for u, p, d in zip(updates, params, self.decay) if d]
-            if picked:
-                torch._foreach_add_([u for u, _ in picked], [p for _, p in picked], alpha=cfg.wd)
-        if self.scales is not None:
-            self.scales.mul_(updates)
-        torch._foreach_mul_(updates, -self.schedule(state["count"]))
-        if self.mask is not None:
-            self.mask.mul_(updates)
-        torch._foreach_add_(params, updates)
-        state["count"] = count
-        return norm
+        return updates
+
+    def _scale_adamw(self, params, grads, moments, count):
+        return self._adam(grads, moments, count)
+
+    def _scale_nadamw(self, params, grads, moments, count):
+        return self._adam(grads, moments, count, nesterov=True)
+
+    def _scale_lion(self, params, grads, moments, count):
+        """``optax.scale_by_lion``: sign((1 - b1) g + b1 m), then m <- (1 - b2) g + b2 m."""
+        b1, b2 = self.cfg.beta1, self.cfg.beta2
+        mu = moments["mu"]
+        updates = torch._foreach_mul(grads, 1.0 - b1)
+        torch._foreach_add_(updates, torch._foreach_mul(mu, b1))
+        torch._foreach_sign_(updates)
+        torch._foreach_mul_(mu, b2)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b2))
+        return updates
+
+    def _scale_sgd(self, params, grads, moments, count):
+        """``optax.trace(decay=momentum, nesterov=True)``: t <- g + m t; g + m t."""
+        trace = moments["trace"]
+        torch._foreach_mul_(trace, self.cfg.momentum)
+        torch._foreach_add_(trace, grads)
+        updates = torch._foreach_mul(trace, self.cfg.momentum)
+        torch._foreach_add_(updates, grads)
+        return updates
+
+    def _scale_lamb(self, params, grads, moments, count):
+        """Adam, then ``optax.scale_by_trust_ratio``: each JAX leaf's update times
+        |leaf params| / |leaf update| (1 where either is 0), one ratio for all the
+        layers of a stacked leaf."""
+        updates = self._adam(grads, moments, count)
+        # summed in float64: the float32 norm of a leaf of 25 M entries (a token
+        # embedding) is off by ~1.5e-3 on the CPU
+        pn = torch._foreach_norm(params, 2, dtype=torch.float64)
+        un = torch._foreach_norm(updates, 2, dtype=torch.float64)
+        for leaf in self.leaves:
+            _whole(leaf)
+            idx = leaf.members
+            p_norm = torch.linalg.vector_norm(torch.stack([pn[i] for i in idx]))
+            u_norm = torch.linalg.vector_norm(torch.stack([un[i] for i in idx]))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                                p_norm / u_norm)
+            torch._foreach_mul_([updates[i] for i in idx], ratio.to(updates[idx[0]].dtype))
+        return updates
+
+    def _scale_adafactor(self, params, grads, moments, count):
+        """``optax.scale_by_factored_rms()`` on each JAX leaf: its two largest axes,
+        where the second has 128 or more, are factored (per layer for a stacked
+        leaf's kernels), any other leaf keeps its full second moment."""
+        t = np.float32(count)  # optax's step + 1
+        decay = float(np.float32(1.0) - t ** np.float32(-_FACTOR_DECAY))
+        keep = float(np.float32(1.0) - np.float32(decay))
+        updates: List[torch.Tensor] = [None] * len(params)
+        for j, leaf in enumerate(self.leaves):
+            g = leaf.gather(grads)
+            sq = g * g + _FACTOR_EPS
+            dims = _factored_dims(tuple(g.shape))
+            if dims is None:
+                v = moments["v"][j]
+                v.mul_(decay).add_(sq * keep)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                vr, vc = moments["v_row"][j], moments["v_col"][j]
+                vr.mul_(decay).add_(sq.mean(d0) * keep)
+                vc.mul_(decay).add_(sq.mean(d1) * keep)
+                row_mean = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                u = g * ((vr / row_mean) ** -0.5).unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+            for i, out in leaf.scatter(u, params):
+                updates[i] = out
+        return updates
+
+    def _scale_muon(self, params, grads, moments, count):
+        """The JAX package's ``scale_by_muon``: Nesterov momentum, then each JAX leaf
+        of rank 2 orthogonalized (a stacked per-layer vector as one layers x width
+        matrix), of rank 3 per slice of its first axis (per layer for a stacked
+        matrix), times sqrt(max of its last two axes) * 0.2; other ranks pass."""
+        mom = self.cfg.momentum
+        buf = moments["momentum"]
+        torch._foreach_mul_(buf, mom)
+        torch._foreach_add_(buf, grads)
+        eff = list(torch._foreach_mul(buf, mom))
+        torch._foreach_add_(eff, grads)
+        for leaf in self.leaves:
+            shape = leaf.shape(params)
+            if len(shape) not in (2, 3):
+                continue
+            if leaf.layers:
+                _whole(leaf)
+            scale = float(np.sqrt(np.float32(max(shape[-2], shape[-1]))) * np.float32(0.2))
+            # a stacked leaf: (L, D) as one matrix, (L, in, out) per layer
+            for i, out in leaf.scatter(newton_schulz(leaf.gather(eff)) * scale, eff):
+                eff[i] = out
+        return eff
 
 
 class _Factors:
@@ -332,16 +637,24 @@ class _Factors:
 
 
 def create_optimizer(cfg: OptimizerCfg, params: Union[nn.Module, Dict[str, torch.Tensor]],
-                     schedule: Callable[[int], float], num_layers: Optional[int] = None) -> AdamW:
-    """The optimizer for a model (or a name -> tensor dict); its ``init`` and
-    ``update_`` take the tensors in the order of ``named_parameters()``. Layer-wise
-    lr decay is on where ``layer_decay`` or a tower's own factor is below 1, with
-    ``num_layers`` the depth of a tower that has no stacked blocks (the JAX CLI passes
-    the vision tower's layers)."""
-    if cfg.opt.lower().replace("timm/", "") != "adamw":
-        raise NotImplementedError(f"optimizer {cfg.opt!r} is not ported yet (adamw is)")
+                     schedule: Callable[[int], float], num_layers: Optional[int] = None
+                     ) -> Optimizer:
+    """The optimizer ``cfg.opt`` names for a model (or, for the rules that read
+    tensors one by one, a name -> tensor dict); its ``init`` and ``update_`` take the
+    tensors in the order of ``named_parameters()``. Layer-wise lr decay is on where
+    ``layer_decay`` or a tower's own factor is below 1, with ``num_layers`` the depth
+    of a tower that has no stacked blocks (the JAX CLI passes the vision tower's
+    layers). An unknown name raises ``ValueError``, as in the JAX package."""
+    name = cfg.opt.lower().replace("timm/", "")
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.opt!r}")
     if cfg.mu_dtype not in _MU_DTYPES:
         raise ValueError(f"mu_dtype {cfg.mu_dtype!r}; one of {sorted(map(str, _MU_DTYPES))}")
+    leaves = None
+    if name in _LEAF_RULES:
+        if not isinstance(params, nn.Module):
+            raise ValueError(f"{name} reads the JAX tree's leaves: pass the model")
+        leaves = jax_leaves(params)
     mask = wd_mask(params, cfg.wd_exclude_names, cfg.wd_exclude_patterns)
     tower_decay = {t: own if own is not None else cfg.layer_decay for t, own in (
         ("visual", cfg.image_layer_decay), ("text", cfg.text_layer_decay),
@@ -350,10 +663,10 @@ def create_optimizer(cfg: OptimizerCfg, params: Union[nn.Module, Dict[str, torch
     if any(d is not None and d < 1.0 for d in (cfg.layer_decay, *tower_decay.values())):
         scales = list(layer_decay_scales(params, cfg.layer_decay, num_layers,
                                          tower_decay=tower_decay).values())
-    return AdamW(cfg, list(mask.values()), schedule, scales)
+    return Optimizer(cfg, list(mask.values()), schedule, scales, leaves)
 
 
-def apply_trainable_mask(optimizer: AdamW, mask: Dict[str, Factor]) -> AdamW:
+def apply_trainable_mask(optimizer: Optimizer, mask: Dict[str, Factor]) -> Optimizer:
     """The optimizer with ``mask`` (``trainable_mask``, in ``named_parameters()``
     order) multiplying each final update: a 0 leaves that tensor as it was, bit for
     bit. Set in place; returns the optimizer."""

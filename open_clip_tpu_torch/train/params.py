@@ -1,9 +1,10 @@
 """Command-line arguments of the training CLI (counterpart of
 ``open_clip_tpu/train/params.py``).
 
-The flags carry the JAX CLI's names and defaults. Those of features that are not
-ported yet (the NaFlex webdataset, the CoCa and distillation losses,
-tensor parallelism, EMA, remote sync, ...) still parse, and ``parse_args`` raises
+The flags carry the JAX CLI's names and defaults. Those the JAX CLI parses and
+never reads parse here too and change nothing. Those of features that are not
+ported yet (the CoCa and distillation losses, tensor parallelism, remote sync,
+...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
@@ -15,7 +16,6 @@ import argparse
 import ast
 from typing import List, Tuple
 
-from ..models.blocks import UNPORTED_REMAT_POLICIES
 from .optim import get_default_params
 
 _INTS = dict(type=int, default=None)
@@ -26,18 +26,6 @@ _ON = dict(action="store_true", default=False)
 # flags of what is not ported yet: (option strings, add_argument keywords)
 _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     # data
-    (("--naflex-seq-len-probs",), dict(type=float, nargs="+", default=None)),
-    (("--naflex-patch-size-probs",), dict(type=float, nargs="+", default=None)),
-    (("--naflex-pad-multiple",), _INTS), (("--naflex-max-text-tokens",), _INTS),
-    (("--naflex-num-train-image-tokens",), _INTS),
-    (("--use-naflex",), _ON), (("--force-naflex-vision",), _ON),
-    (("--text-pad-multiple",), _INTS), (("--length-bucketing",), _ON),
-    (("--bucket-pool",), dict(type=int, default=2048)),
-    (("--bucket-chunk",), dict(type=int, default=128)),
-    (("--bucket-prefetch-pools",), dict(type=int, default=0)),
-    (("--image-key",), dict(type=str, default="jpg;png;jpeg;webp")),
-    (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
-    (("--max-image-pixels",), dict(type=int, default=25_000_000)),
     (("--audio-fusion",), _ON),
     # logging
     (("--log-local",), _ON), (("--report-to",), dict(type=str, default="")),
@@ -46,19 +34,10 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--copy-codebase",), _ON), (("--cache-dir",), _STRS), (("--profile-dir",), _STRS),
     (("--remote-sync",), _STRS), (("--remote-sync-frequency",), dict(type=int, default=300)),
     (("--remote-sync-protocol",), dict(type=str, default="fsspec")),
-    # evaluation
-    (("--val-retrieval-precision",), dict(type=str, default="fp32")),
     # model
     (("--scan-unroll",), dict(type=int, default=1)),
-    # optimizer
-    (("--momentum",), dict(type=float, default=0.9)),
-    (("--opt-kwargs",), dict(nargs="*", default={})),
-    (("--opt-fallback-list",), dict(type=str, nargs="*", default=None)),
-    (("--text-pooler-own-group",), dict(dest="text_pooler_in_head", action="store_false",
-                                        default=True)),
     # frozen batch-norm statistics belong to the ResNet towers
     (("--lock-image-freeze-bn-stats",), _ON),
-    (("--ema",), _FLOATS),
     # losses
     (("--coca-caption-loss-weight",), dict(type=float, default=2.0)),
     (("--coca-contrastive-loss-weight",), dict(type=float, default=1.0)),
@@ -69,8 +48,22 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--audio-multiprocessing-context",), _STRS),
     (("--audio-zeroshot-multiprocessing-context",), _STRS),
     # checkpointing
-    (("--save-most-recent",), _ON), (("--delete-previous-checkpoint",), _ON),
     (("--checkpoint-format",), dict(type=str, default="orbax")),
+]
+
+# flags the JAX CLI parses and never reads: accepted, and they change nothing
+_NOOP: List[Tuple[Tuple[str, ...], dict]] = [
+    (("--image-key",), dict(type=str, default="jpg;png;jpeg;webp")),
+    (("--json-text-key-probs",), dict(type=float, nargs="*", default=None)),
+    (("--max-image-pixels",), dict(type=int, default=25_000_000)),
+    (("--val-retrieval-precision",), dict(type=str, default="fp32")),
+    (("--naflex-max-text-tokens",), _INTS), (("--naflex-num-train-image-tokens",), _INTS),
+    (("--use-naflex",), _ON), (("--force-naflex-vision",), _ON),
+    (("--text-pad-multiple",), _INTS),
+    (("--opt-kwargs",), dict(nargs="*", default={})),
+    (("--opt-fallback-list",), dict(type=str, nargs="*", default=None)),
+    (("--text-pooler-own-group",), dict(dest="text_pooler_in_head", action="store_false",
+                                        default=True)),
 ]
 
 
@@ -104,6 +97,15 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--naflex-max-tokens", "--naflex-max-tokens-per-batch",
                         dest="naflex_max_tokens", type=int, default=16384)
     parser.add_argument("--naflex-batch-divisor", type=int, default=8)
+    parser.add_argument("--naflex-seq-len-probs", type=float, nargs="+", default=None)
+    parser.add_argument("--naflex-patch-size-probs", type=float, nargs="+", default=None)
+    parser.add_argument("--naflex-pad-multiple", type=int, default=None,
+                        help="accepted; as in the JAX CLI, nothing reads it")
+    # length bucketing of the webdataset-naflex stream (data/bucketing.py)
+    parser.add_argument("--length-bucketing", action="store_true", default=False)
+    parser.add_argument("--bucket-pool", type=int, default=2048)
+    parser.add_argument("--bucket-chunk", type=int, default=128)
+    parser.add_argument("--bucket-prefetch-pools", type=int, default=0)
     parser.add_argument("--naflex-loss-scale", type=str, default="none",
                         choices=["none", "linear", "sqrt"],
                         help="scale the loss by (actual batch / --batch-size) for "
@@ -185,7 +187,12 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--beta2", type=float, default=None)
     parser.add_argument("--eps", type=float, default=None)
     parser.add_argument("--wd", type=float, default=0.2)
-    parser.add_argument("--opt", type=str, default="adamw", help="only 'adamw' is ported")
+    parser.add_argument("--opt", type=str, default="adamw",
+                        help="adamw, nadamw, lion, sgd (momentum), lamb, adafactor or muon")
+    parser.add_argument("--momentum", type=float, default=0.9,
+                        help="sgd's and muon's momentum")
+    parser.add_argument("--ema", type=float, default=None,
+                        help="keep an EMA of the weights with this decay; evaluation uses it")
     parser.add_argument("--warmup", type=int, default=10000)
     parser.add_argument("--lr-scheduler", type=str, default="cosine",
                         choices=["cosine", "const", "const-cooldown"])
@@ -207,8 +214,9 @@ def parse_args(args=None) -> argparse.Namespace:
                         choices=["none", "names", "names_mm", "dots", "dots_no_batch"],
                         help="what --grad-checkpointing saves: 'none' (recompute the whole "
                              "block), 'names' (LN outputs, attention output, activation) or "
-                             "'names_mm' (fused qkv, attention output, fc1); the dots "
-                             "policies are not ported")
+                             "'names_mm' (fused qkv, attention output, fc1), 'dots' "
+                             "(every product) or 'dots_no_batch' (the products without "
+                             "batch dimensions)")
     parser.add_argument("--use-switchback", action="store_true", default=False,
                         help="int8 SwitchBack forward for the transformer MLP linears "
                              "(reference --use-bnb-linear)")
@@ -230,7 +238,7 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--force-quick-gelu", action="store_true", default=False)
     parser.add_argument("--force-custom-text", action="store_true", default=False)
     parser.add_argument("--force-patch-dropout", type=float, default=None,
-                        help="only 0 (patch dropout is not ported)")
+                        help="the fraction of image patches a ViT drops in training")
     parser.add_argument("--force-image-size", type=int, nargs="+", default=None)
     parser.add_argument("--force-context-length", type=int, default=None)
     parser.add_argument("--layer-decay", type=float, default=None,
@@ -283,12 +291,20 @@ def parse_args(args=None) -> argparse.Namespace:
 
     # checkpointing
     parser.add_argument("--save-frequency", type=int, default=1)
+    parser.add_argument("--save-most-recent", action="store_true", default=False,
+                        help="keep epoch_latest.pt pointing at (or holding) the last epoch")
+    parser.add_argument("--delete-previous-checkpoint", action="store_true", default=False,
+                        help="delete the checkpoint --save-frequency epochs back")
     parser.add_argument("--resume", type=str, default=None, help="path or 'latest'")
 
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
                         help="default: the CUDA card (raises without one); 'cpu' runs the "
                              "plain PyTorch path")
+
+    parsed_only = parser.add_argument_group("accepted and not read, as in the JAX CLI")
+    for flags, kw in _NOOP:
+        parsed_only.add_argument(*flags, **kw, help=argparse.SUPPRESS)
 
     group = parser.add_argument_group("not ported yet (raise when set)")
     unported = []
@@ -298,12 +314,8 @@ def parse_args(args=None) -> argparse.Namespace:
 
     ns = parser.parse_args(args)
     used = [flag for flag, dest, default in unported if getattr(ns, dest) != default]
-    if ns.remat_policy in UNPORTED_REMAT_POLICIES:
-        used.append(f"--remat-policy {ns.remat_policy}")
     if ns.mesh_tensor != 1:
         used.append(f"--mesh-tensor {ns.mesh_tensor} (tensor parallelism)")
-    if ns.force_patch_dropout:
-        used.append(f"--force-patch-dropout {ns.force_patch_dropout} (patch dropout)")
     if used:
         raise NotImplementedError(f"not ported yet: {', '.join(used)}")
 

@@ -27,9 +27,11 @@ The metrics are tensors on the model's device; reading them waits for the step.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -37,8 +39,8 @@ from ..config import CLIPModelCfg
 from ..loss import SIGLIP_DIST_IMPLS, clip_loss, siglip_loss
 from ..models import blocks
 from ..models.clip import LOGIT_SCALE_MAX, CLIPModel, clamp_logit_scale, clip_forward
-from ..parallel.mesh import sync_replicated_grads
-from .optim import AdamW
+from ..parallel.mesh import is_sharded, sync_replicated_grads
+from .optim import Optimizer
 
 UNPORTED_LOSSES = ("coca", "distill", "genlip", "genlap")
 
@@ -63,6 +65,8 @@ class TrainState:
     step: int
     model: CLIPModel
     opt_state: Dict
+    # the exponential moving average of the parameters (``--ema``), in their order
+    ema: Optional[List[torch.Tensor]] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -70,24 +74,66 @@ class TrainState:
         return [p for _, p in self.model.named_parameters()]
 
 
-def create_train_state(model: CLIPModel, optimizer: AdamW) -> TrainState:
-    """Step 0 with zero moments. The model is the caller's and is trained in place."""
+def create_train_state(model: CLIPModel, optimizer: Optimizer, ema: bool = False) -> TrainState:
+    """Step 0 with the optimizer's zero state and, with ``ema``, a copy of the
+    parameters to average. The model is the caller's and is trained in place."""
     for p in model.parameters():
         p.requires_grad_(True)
     state = TrainState(step=0, model=model, opt_state={})
     state.opt_state = optimizer.init(state.params)
+    if ema:
+        if any(is_sharded(p) for p in state.params):
+            raise NotImplementedError("the EMA of sharded parameters is not ported yet")
+        state.ema = [p.detach().clone() for p in state.params]
     return state
 
 
-def _features(model: CLIPModel, batch, remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+@torch.no_grad()
+def update_ema_(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
+    """e <- e * d + p * (1 - d), in the EMA's dtype, with d and 1 - d in float32 as
+    the JAX step has them."""
+    d = np.float32(decay)
+    torch._foreach_mul_(ema, float(d))
+    part = torch._foreach_mul([p.detach().to(e.dtype) for p, e in zip(params, ema)],
+                              float(np.float32(1.0) - d))
+    torch._foreach_add_(ema, part)
+
+
+@contextlib.contextmanager
+def ema_weights(state: TrainState):
+    """While open, the model holds the EMA weights (evaluation on them); the raw
+    weights come back when it closes. Without an EMA copy it changes nothing."""
+    if state.ema is None:
+        yield state.model
+        return
+    raw = [p.detach().clone() for p in state.params]
+    with torch.no_grad():
+        torch._foreach_copy_([p.data for p in state.params], state.ema)
+    try:
+        yield state.model
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_([p.data for p in state.params], raw)
+
+
+def _features(model: CLIPModel, batch, remat: bool,
+              gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(primary, text) features; a CLAP batch's audio features take the image slot.
-    The model is called as a module, so that FSDP2's hooks run under a mesh."""
+    The model is called as a module, so that FSDP2's hooks run under a mesh. ``gen``
+    draws the patch-dropout noise."""
     key = "audio" if "audio" in batch else "image"
-    out = model(batch[key], batch["text"], train=True, remat=remat)
+    out = model(batch[key], batch["text"], train=True, remat=remat, generator=gen)
     return out[f"{key}_features"], out["text_features"]
 
 
-def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "clip",
+def _seed(preprocess_seed: int, step: int) -> int:
+    """The seed of a step's draws: a function of (seed, step, rank) alone, so that a
+    resumed run draws what an uninterrupted one would."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return (preprocess_seed * 1_000_003 + step) * 4099 + rank
+
+
+def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str = "clip",
                     mesh=None, local_loss: bool = True, dist_impl: str = "bidir",
                     remat: bool = False, accum_steps: int = 1,
                     ema_decay: Optional[float] = None,
@@ -124,14 +170,18 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     and normalizes it on the device before the forward, once for the whole batch
     (before GradCache's cut). ``gen`` is a ``torch.Generator`` on the batch's device
     seeded from (``preprocess_seed``, the state's step, the rank), so that a resumed
-    run draws the crops an uninterrupted one would."""
+    run draws the crops an uninterrupted one would.
+
+    A ViT with ``patch_dropout`` draws each microbatch's patch noise from a
+    generator seeded the same way (and apart from the crop's).
+
+    ``ema_decay``: after the update and the logit-scale clamp, the state's EMA copy
+    (``create_train_state(ema=True)``) moves to ``e * d + p * (1 - d)``."""
     if loss_type in UNPORTED_LOSSES:
         raise NotImplementedError(f"the {loss_type} train step is not ported yet "
                                   "(clip and siglip are)")
     if loss_type not in ("clip", "siglip"):
         raise ValueError(f"unknown loss_type {loss_type!r}")
-    if ema_decay is not None:
-        raise NotImplementedError("EMA of the weights is not ported yet")
     if freeze_bn_stats:
         raise NotImplementedError("frozen batch-norm statistics belong to the ResNet towers, "
                                   "which are not ported yet")
@@ -140,6 +190,8 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
                                   "loss_type='siglip'")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+    if ema_decay is not None and mesh is not None:
+        raise NotImplementedError("the EMA of the weights under a mesh is not ported yet")
     if naflex_loss_scale not in ("none", "linear", "sqrt"):
         raise ValueError(f"unknown naflex_loss_scale {naflex_loss_scale!r}")
     if loss_type == "siglip" and dist_impl not in SIGLIP_DIST_IMPLS:
@@ -162,10 +214,19 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         image = batch.get("image")
         if device_preprocess is None or image is None or isinstance(image, dict):
             return batch
-        rank = dist.get_rank() if dist.is_initialized() else 0
         gen = torch.Generator(device=image.device)
-        gen.manual_seed((preprocess_seed * 1_000_003 + state.step) * 4099 + rank)
+        gen.manual_seed(_seed(preprocess_seed, state.step))
         return {**batch, "image": device_preprocess(gen, image)}
+
+    def _dropout_gen(state: TrainState, batch, micro: int = 0) -> Optional[torch.Generator]:
+        """The patch-dropout generator of microbatch ``micro`` (GradCache's two passes
+        over a microbatch make it afresh, so both draw the same patches)."""
+        vcfg = cfg.vision_cfg
+        if vcfg is None or not vcfg.patch_dropout or isinstance(batch.get("image"), dict):
+            return None
+        gen = torch.Generator(device=batch["image"].device)
+        gen.manual_seed(_seed(preprocess_seed, state.step) * 64 + 32 + micro)
+        return gen
 
     def _loss_ratio(batch, n: int) -> float:
         if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
@@ -194,6 +255,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
             loss /= dist.get_world_size()
         grad_norm = optimizer.update_(params, grads, state.opt_state)
         clamp_logit_scale(model, clamp_scale)
+        if ema_decay is not None:
+            if state.ema is None:
+                raise ValueError("ema_decay needs a state made with create_train_state(ema=True)")
+            update_ema_(state.ema, params, ema_decay)
         with torch.no_grad():
             metrics = {"loss": loss,
                        "logit_scale": model.logit_scale.detach().float().exp(),
@@ -206,7 +271,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
     def simple_step(state: TrainState, batch):
         model = state.model
         batch = _preprocess(state, batch)
-        imf, txf = _features(model, batch, remat)
+        imf, txf = _features(model, batch, remat, _dropout_gen(state, batch))
         loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
         loss.backward()
         return _apply_updates(state, loss)
@@ -228,7 +293,8 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         micro = [{k: rows(v, i) for k, v in batch.items()} for i in range(accum_steps)]
         # phase 1: features without gradients, one loss backward w.r.t. the features
         with torch.no_grad():
-            feats = [_features(model, mb, remat) for mb in micro]
+            feats = [_features(model, mb, remat, _dropout_gen(state, mb, i))
+                     for i, mb in enumerate(micro)]
         all_imf = torch.cat([f[0] for f in feats]).requires_grad_()
         all_txf = torch.cat([f[1] for f in feats]).requires_grad_()
         loss = _loss(model, all_imf, all_txf)
@@ -239,7 +305,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: AdamW, *, loss_type: str = "cl
         for i, mb in enumerate(micro):
             if mesh is not None:
                 model.set_requires_gradient_sync(i == accum_steps - 1)
-            imf, txf = _features(model, mb, remat)
+            imf, txf = _features(model, mb, remat, _dropout_gen(state, mb, i))
             part = slice(i * size, (i + 1) * size)
             torch.autograd.backward([imf, txf], [all_imf.grad[part].to(imf.dtype),
                                                  all_txf.grad[part].to(txf.dtype)])

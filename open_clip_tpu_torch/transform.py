@@ -3,8 +3,9 @@
 Two halves, split between the host and the device as in the JAX package's
 ``--device-preprocess`` path:
 
-- **Host, uint8.** JPEG bytes become fixed-shape uint8 HWC through the native
-  decode stage (``native/``: libjpeg, or nvJPEG where libjpeg is absent):
+- **Host, uint8.** JPEG (and PNG) bytes become fixed-shape uint8 HWC through the
+  native decode stage (``native/``: libjpeg, or nvJPEG where libjpeg is absent;
+  ``native/png.py`` for PNG):
   ``_Uint8ValTransform`` at the model size,
   ``_Uint8CanvasTransform`` at a slightly larger square canvas
   (``default_canvas_size``) for training. ``host_val_transform`` also normalizes the
@@ -90,8 +91,14 @@ def _check_native(cfg: PreprocessCfg, size: Tuple[int, int]) -> None:
 
 
 def _decode(data, canvas: int, fractional: bool) -> np.ndarray:
+    """JPEG or PNG bytes -> (canvas, canvas, 3) uint8: shortest-edge resize and
+    center crop (a PNG is decoded whole, then resized by the native stage)."""
     from .native import decode_resize_one
+    from .native.decode import resize_to_canvas
+    from .native.png import decode_png, is_png
 
+    if is_png(data):
+        return resize_to_canvas(decode_png(data), canvas)
     out, status = decode_resize_one(bytes(data), canvas, fractional=fractional)
     if status:
         raise ValueError(f"native JPEG decode failed (status {status})")

@@ -1,6 +1,7 @@
 """Make the JPEG test assets of the port and the canvases they decode to.
 
     JAX_PLATFORMS=cpu python tests/assets_torch/make_assets.py
+    python tests/assets_torch/make_assets.py --full-decodes
 
 Twelve JPEGs from 320x240 to 1024x768 (one grayscale, one at quality 98), drawn from
 seed 0 with numpy and encoded with PIL, and ``canvases.npz``: each image's 256-px canvas from the JAX package's native
@@ -9,6 +10,12 @@ To stay small the file keeps every fourth row of each canvas (``ROW_STEP``), the
 strict rows as differences along the width (mod 256) and the fractional ones as
 their difference from the strict; ``load_canvases`` undoes both. The card run
 (``chip_smoke.py``, which has no PIL and no JAX) and the CPU tests read these files.
+
+``--full-decodes`` writes ``full_decodes.npz`` from the committed JPEGs alone: each
+image decoded whole by PIL (libjpeg; the port's libjpeg full decode equals it bit
+for bit), every ``FULL_ROW_STEP``-th row kept as differences along the width, and
+the SHA-256 of each whole decode; ``load_full_decodes`` reads it. The card holds
+nvJPEG's full decode against these rows.
 """
 
 import io
@@ -20,6 +27,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 CANVAS = 256
 ROW_STEP = 4  # the rows of each canvas kept: 0, 4, 8, ...
+FULL_ROW_STEP = 8  # the rows of each full decode kept: 0, 8, 16, ...
 # (width, height, quality, grayscale)
 SPECS = [(320, 240, 90, False), (400, 300, 85, False), (480, 360, 90, True),
          (512, 384, 90, False), (640, 480, 90, False), (480, 640, 90, False),
@@ -38,6 +46,37 @@ def load_canvases(path=os.path.join(HERE, "canvases.npz")):
     strict = np.cumsum(z["strict_delta"], axis=2, dtype=np.uint8)  # wraps mod 256
     frac = (strict.astype(np.int16) + z["fractional_minus_strict"]).astype(np.uint8)
     return {"names": [str(n) for n in z["names"]], "strict": strict, "fractional": frac}
+
+
+def load_full_decodes(path=os.path.join(HERE, "full_decodes.npz")):
+    """{"names", "rows", "sha256"}: per image its (ceil(H / FULL_ROW_STEP), W, 3)
+    uint8 rows 0, FULL_ROW_STEP, ... of the whole RGB decode, and the hex SHA-256 of
+    the whole (H, W, 3) decode's bytes."""
+    z = np.load(path)
+    names_ = [str(n) for n in z["names"]]
+    rows = [np.cumsum(z[f"rows_delta_{i}"], axis=1, dtype=np.uint8) for i in range(len(names_))]
+    return {"names": names_, "rows": rows, "sha256": [str(h) for h in z["sha256"]]}
+
+
+def write_full_decodes():
+    import hashlib
+
+    from PIL import Image
+
+    deltas, digests = {}, []
+    for i, name in enumerate(names()):
+        with Image.open(os.path.join(HERE, name)) as im:
+            full = np.asarray(im.convert("RGB"))
+        digests.append(hashlib.sha256(np.ascontiguousarray(full).tobytes()).hexdigest())
+        deltas[f"rows_delta_{i}"] = np.diff(full[::FULL_ROW_STEP], axis=1,
+                                            prepend=0).astype(np.uint8)
+    np.savez_compressed(os.path.join(HERE, "full_decodes.npz"), names=np.array(names()),
+                        sha256=np.array(digests), **deltas)
+    back = load_full_decodes()
+    for i, name in enumerate(names()):
+        with Image.open(os.path.join(HERE, name)) as im:
+            assert np.array_equal(back["rows"][i],
+                                  np.asarray(im.convert("RGB"))[::FULL_ROW_STEP]), name
 
 
 def _image(rng, w, h, gray):
@@ -84,4 +123,4 @@ def main():
     assert np.array_equal(back["strict"], strict) and np.array_equal(back["fractional"], frac)
 
 if __name__ == "__main__":
-    main()
+    write_full_decodes() if "--full-decodes" in sys.argv[1:] else main()

@@ -311,6 +311,28 @@ with tempfile.TemporaryDirectory() as d:
                 ("local-dir:" + d + "/dir", None)]:
             got = oc.create_model(name, pretrained=pre, device="cpu").encode_image(x)
             assert torch.equal(got, want), name
+import struct, zlib
+from open_clip_tpu_torch.data import bucketing
+from open_clip_tpu_torch.native import png
+def _chunk(kind, body):
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+rows = b"".join(b"\\x00" + bytes(range(6)) for _ in range(2))
+data = (png.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, 8, 2, 0, 0, 0))
+        + _chunk(b"IDAT", zlib.compress(rows)) + _chunk(b"IEND", b""))
+assert png.decode_png(data).tolist() == [[[0, 1, 2], [3, 4, 5]]] * 2
+imgs, status = native.decode_full_batch([open("tests/assets_torch/img00_320x240.jpg", "rb").read()], 1)
+assert status == [0] and imgs[0].shape == (240, 320, 3)
+order = bucketing.LengthBucketer(pool=4, chunk=1)([{{"caption": np.zeros(n)}} for n in (3, 1, 2)])
+assert sorted(len(s["caption"]) for s in order) == [1, 2, 3]
+for name in ("muon", "lamb", "adafactor", "lion", "nadamw", "sgd"):
+    opt = optim.create_optimizer(optim.OptimizerCfg(opt=name), model, scheduler.const_lr(1e-3, 0))
+    state = train_step.create_train_state(model, opt, ema=True)
+    state, metrics = train_step.make_train_step(cfg, opt, ema_decay=0.9)(state, batch)
+    assert bool(torch.isfinite(metrics["loss"])), name
+cfg.vision_cfg.patch_dropout = 0.5
+blocks.REMAT_POLICY = "dots_no_batch"
+state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
+assert bool(torch.isfinite(metrics["loss"]))
 print("ok")
 """
 

@@ -84,7 +84,8 @@ def _add(tf, name, data):
 @pytest.fixture(scope="module")
 def shards(tmp_path_factory):
     """SHARDS tar shards of PER_SHARD samples (one a corrupt JPEG), a truncated shard,
-    one with a PNG member, a CSV and a class folder, all from seed 0."""
+    one with a PNG member, one with a WebP member, a CSV and a class folder, all from
+    seed 0."""
     d = tmp_path_factory.mktemp("wds")
     rng = np.random.default_rng(0)
     k = 0
@@ -103,6 +104,11 @@ def shards(tmp_path_factory):
         Image.new("RGB", (8, 8)).save(buf, "PNG")
         _add(tf, "p0.png", buf.getvalue())
         _add(tf, "p0.txt", b"a png")
+    with tarfile.open(d / "webp.tar", "w") as tf:
+        buf = io.BytesIO()
+        Image.new("RGB", (8, 8)).save(buf, "WEBP")
+        _add(tf, "w0.webp", buf.getvalue())
+        _add(tf, "w0.txt", b"a webp")
     os.makedirs(d / "imgs")
     rows = ["filepath\ttitle"]
     for i in range(11):
@@ -224,9 +230,10 @@ def test_pipeline_corrupt_shard_and_partial_val_batches(shards, toks):
 
 
 def test_pipeline_non_jpeg_raises_with_its_key(shards, toks):
-    _, pp = _pipelines(shards, toks, urls=str(shards / "png.tar"), shuffle_shards=0,
+    """A member that is neither a JPEG nor a PNG (WebP) raises with its key."""
+    _, pp = _pipelines(shards, toks, urls=str(shards / "webp.tar"), shuffle_shards=0,
                        shuffle_samples=0, partial_batches=True)
-    with pytest.raises(NotImplementedError, match=r"'p0'.*\.png"):
+    with pytest.raises(NotImplementedError, match=r"'w0'.*\.webp"):
         list(pp)
 
 

@@ -246,9 +246,29 @@ def test_synthetic_naflex_dataset_matches_jax():
                                            y["image"][k].astype(np.float32), atol=1e-6)
 
 
-def test_webdataset_pipeline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="webdataset"):
-        pdata.NaFlexWdsPipeline(None, pdata.NaFlexDataConfig(), 1, None)
+def test_webdataset_pipeline_is_not_ported(tmp_path):
+    """The webdataset pipeline is ported; what it does not decode (a WebP member,
+    there being no PIL tier) raises with the sample's key."""
+    import io
+    import tarfile
+
+    from open_clip_tpu_torch.data.wds import WdsConfig, WdsPipeline
+
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8)).save(buf, "WEBP")
+    with tarfile.open(tmp_path / "w.tar", "w") as tf:
+        for name, data in (("w0.webp", buf.getvalue()), ("w0.txt", b"a webp")):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    inner = WdsPipeline(WdsConfig(urls=str(tmp_path / "w.tar"), shuffle_shards=0,
+                                  shuffle_samples=0), None, lambda t: np.zeros((len(t), 4)))
+    pipe = pdata.NaFlexWdsPipeline(inner, pdata.NaFlexDataConfig(seq_lens=(16,),
+                                                                 max_tokens_per_batch=16,
+                                                                 batch_divisor=1), 1,
+                                   lambda t: np.zeros((len(t), 4)))
+    with pytest.raises(NotImplementedError, match=r"'w0'.*\.webp"):
+        list(pipe)
 
 
 # ---------------------------------------------------------------------------

@@ -573,8 +573,9 @@ def test_tags_and_hub_names_raise():
         oc.create_model("hf-hub:timm/ViT-B-16-SigLIP", device="cpu")
     with pytest.raises(RuntimeError, match="required"):
         oc.create_model_from_pretrained("tiny-pre-vit", device="cpu")
-    with pytest.raises(NotImplementedError, match="patch dropout"):
-        oc.create_model("tiny-pre-vit", force_patch_dropout=0.5, device="cpu")
+    # patch dropout is ported: the override lands in the config as in the JAX package
+    assert oc.create_model("tiny-pre-vit", force_patch_dropout=0.5,
+                           device="cpu").cfg.vision_cfg.patch_dropout == 0.5
 
 
 def test_force_overrides_give_jax_config():

@@ -437,8 +437,8 @@ def test_unported_remat_policies_raise(setup):
     model = _port_state(params, cfg)[0].model
     saved = pblocks.REMAT_POLICY
     try:
-        pblocks.REMAT_POLICY = "dots"
-        with pytest.raises(NotImplementedError, match="dots"):
+        pblocks.REMAT_POLICY = "names_custom"  # the JAX package's programmatic preset
+        with pytest.raises(NotImplementedError, match="names_custom"):
             oc.encode_image(model, torch.from_numpy(images), remat=True)
     finally:
         pblocks.REMAT_POLICY = saved

@@ -249,7 +249,7 @@ def test_eval_forward_matches_clip_forward(setup):
 
 @pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca"},
                                 {"loss_type": "distill"}, {"loss_type": "genlip"},
-                                {"ema_decay": 0.999}, {"freeze_bn_stats": True}])
+                                {"ema_decay": 0.999, "mesh": "a mesh"}, {"freeze_bn_stats": True}])
 def test_unported_step_options_raise(setup, kw):
     _, params, cfg, _, _ = setup
     _, opt = _port_state(params, cfg)
@@ -274,8 +274,13 @@ def test_patch_dropout_in_training_raises(setup):
     model.load_state_dict(params_from_jax(params, cfg), strict=True)
     with torch.no_grad():
         clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts))  # serving: fine
-    with pytest.raises(NotImplementedError, match="patch dropout"):
+    # patch dropout is ported: training draws its noise from a generator, and refuses
+    # to run without one
+    with pytest.raises(ValueError, match="torch.Generator"):
         clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts), train=True)
+    out = clip_forward(model, torch.from_numpy(images), torch.from_numpy(texts), train=True,
+                       generator=torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(out["image_features"]).all())
 
 
 # ViT-L-14's token count at a tiny width: a 64-pixel image in 4-pixel patches is a
