@@ -101,14 +101,13 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      336 quantization launches a step); the loss falls; then the same step with the
      mma product and the plain quantization patched in (the earlier bodies,
      profiled: the switchback and quantization ms and the launches a step, beside the
-     kernels'), the kernels' step again (host ms in the order new, old, new), with the
-     switch off (profiled), and with it on under full remat;
+     kernels'), with the switch off (profiled), and with it on under full remat;
  19. ViT-B-32 at batch 256 with the switch on: library steps, then the CLI with
      --use-switchback --grad-checkpointing --remat-policy names_mm;
  20. ViT-H-14's widths with 2 layers per tower, the switch on, fp32 (TF32 off), card
      against CPU: features, loss and every gradient;
  21. ViT-L-14 training, the JAX package's bench_vit_l14 step: batch 64, amp_bf16,
-     AdamW, clip 1.0, timed and profiled like phase 4, the loss falls; 24 + 12 short
+     AdamW (lr 1e-5), clip 1.0, timed and profiled like phase 4, the loss falls; 24 + 12 short
      forward and backward launches a step, all on the tensor-core bodies (the image
      tower's 257 tokens on the two-pass forward and the two-kernel backward); then 2
      steps under names_mm from the same initial weights, with the same first loss;
@@ -224,8 +223,32 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      beside none (197): step and kernel ms, short launches by length;
  44. remat_dots: ViT-L-14 b64 amp_bf16 under full remat, names_mm, dots and
      dots_no_batch from the same weights: step and kernel ms, peak GiB, launches.
+ 45. coca_serve: coca_ViT-B-32 in pure_bf16 (seed 0): a 10-class classifier (its CLS
+     text tower dense: the pad mask is a bias), requests of 64 uint8 images
+     (encode_image + top-5), of 64 caption rows (encode_text), greedy captions of 30
+     tokens through the KV cache at b64 and beam search over 6 beams at b16, each
+     timed over a window and profiled; 12 short forwards (L=50) an image-tower call and
+     none in the cached decode (its one-query attention is plain), the pool and the
+     text tower dense (select_impl counted); the bf16 cached decode's logits against
+     the uncached forward, teacher-forced on the greedy tokens (12 + 12 short launches:
+     the image tower and the decoder at L=76); fp32 (TF32 off) card against CPU
+     (features and decoder logits), and cached against uncached greedy captions token
+     for token with the teacher-forced logits;
+ 46. coca_train: coca_ViT-B-32 b256 amp_bf16, AdamW, clip 1.0, loss_type "coca" (the
+     caption through the chunked linear CE) on a fixed batch, timed and profiled like
+     phase 4: the loss and the caption term fall, 12 + 12 short forward and backward
+     launches a step (image tower and decoder, tensor-core bodies), none for the text
+     tower; the chunked CE and the dense attention timed alone at the step's shapes
+     (their shares of the kernel ms); 2 steps under full remat from the same weights;
+     the CLI (b64, 4 steps, --val-data synthetic: val_generative_loss), a checkpoint
+     and --resume;
+ 47. distill_train: a ViT-B-32 student and a ViT-B-32 teacher (seed 1), b256 amp_bf16,
+     loss_type "distill" (lr 1e-4), timed and profiled like phase 4: the loss falls, 24 + 24
+     short forwards (student and teacher) and 12 + 12 backwards a step, the teacher's
+     weights unchanged.
 
-Phase 1 also times the short forward and backward at the SigLIP shapes, the flash
+Phase 1 also times the short forward and backward at CoCa's decoder shape (B=256, L=76,
+H=8, causal) and at the SigLIP shapes, the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash kernels
 at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity); phase 17 also times the
 SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
@@ -243,6 +266,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import statistics
@@ -267,7 +291,7 @@ CLASSES = 10
 DISTINCT_REQUESTS = 8  # request tensors made once and reused in turn
 WINDOW_S = 0.5  # the timed serving windows last at least this long
 TRAIN_WINDOW_S = 2.0  # and the timed training windows this long
-TRAIN_PROFILED_STEPS = 3
+TRAIN_PROFILED_STEPS = 2
 CLI_STEPS_PER_EPOCH = 16
 PROFILED_REQUESTS = 10
 PHASES = ("preprocess", "encode_image", "logits_top5")
@@ -302,6 +326,16 @@ L14_MODEL, L14_BATCH = "ViT-L-14", 64  # the JAX package's bench_vit_l14 step
 SIGLIP_MODEL, SIGLIP_BATCH = "ViT-B-16-SigLIP", 256
 SIGLIP384_MODEL, SIGLIP384_BATCH = "ViT-B-16-SigLIP-384", 64
 SIGLIP_CLI_STEPS = 6
+# CoCa: requests of 64 images (encode_image, greedy captions of 30 tokens) and 16 for
+# beam search over 6 beams; the train step at batch 256; the distillation step's
+# teacher is a ViT-B-32 from another seed
+COCA_MODEL, COCA_SERVE_BATCH, COCA_BEAM_BATCH, COCA_BEAMS, COCA_SEQ = "coca_ViT-B-32", 64, 16, 6, 30
+COCA_CLI_BATCH, COCA_CLI_STEPS = 64, 4
+# the cached decode against the uncached forward in pure_bf16: the two paths round to bf16
+# in different places (the cached one-query softmax is fp32, the uncached attention casts
+# its probabilities to bf16), which moves a 49408-logit row's cosine to 0.99983 on the
+# H100 (the same in four runs); the limit leaves 3x that gap. fp32 is held to COSINE_MIN
+COCA_BF16_COSINE_MIN = 0.9995
 # the MLP products (M, K, N) of ViT-H-14 at batch 32 (257 and 77 tokens) and of
 # ViT-B-32 at batch 256 (50 and 77 tokens), then ragged shapes
 SB_SHAPES = {"h14_vision_fc": (8224, 1280, 5120), "h14_vision_proj": (8224, 5120, 1280),
@@ -467,7 +501,9 @@ def phase_kernels(torch, sa, text_batch):
              ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False, bf16),
              # ViT-B-16 at batch 256: 197 tokens, and 99 under patch dropout 0.5
              ("l197", BATCH, 197, 12, 64, False, bf16),
-             ("l99", BATCH, 99, 12, 64, False, bf16)]
+             ("l99", BATCH, 99, 12, 64, False, bf16),
+             # coca_ViT-B-32's decoder self-attention at the train batch
+             ("coca_decoder", BATCH, 76, 8, 64, True, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
@@ -532,7 +568,8 @@ def phase_attention_bwd_kernels(torch, sa):
                                               ("siglip_text", SIGLIP_BATCH, 64, 12, 64, False,
                                                bf16),
                                               ("l197", BATCH, 197, 12, 64, False, bf16),
-                                              ("l99", BATCH, 99, 12, 64, False, bf16)):
+                                              ("l99", BATCH, 99, 12, 64, False, bf16),
+                                              ("coca_decoder", BATCH, 76, 8, 64, True, bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             body = sa.bwd_body(l, hd, dtype)
@@ -829,10 +866,12 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
                          f"launches_per_{unit}": c / n} for k, ms, c in top]}
 
 
-def serve_window(request, profiled: int):
+def serve_window(request, profiled: int, cpu_events: bool = True):
     """Requests one at a time for at least WINDOW_S (latency in ms, from request(1)
-    on), then ``profiled`` more under torch.profiler. Returns the latencies, the
-    window's seconds, the last request's output, the profiler and its wall ms."""
+    on), then ``profiled`` more under torch.profiler (without ``cpu_events`` it records
+    the card's kernels alone, which keeps a request of tens of thousands of small ops
+    quick to profile). Returns the latencies, the window's seconds, the last request's
+    output, the profiler and its wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
     lat = []
@@ -842,7 +881,8 @@ def serve_window(request, profiled: int):
         feats, top5 = request(len(lat) + 1)
         lat.append((time.perf_counter() - t0) * 1e3)
     window_s = time.perf_counter() - t_start
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu_events + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for i in range(profiled):
             request(i)
@@ -2280,10 +2320,9 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
     """ViT-H-14 training with --use-switchback: amp_bf16, AdamW at the CLI's defaults
     (its schedule too), clip 1.0, remat with names_mm, one fixed batch of 32 images and
     texts; 2 warm-up steps, a window, a profile. Then the same step with the earlier
-    bodies patched in (the mma product, the plain quantization; profiled), the new
-    bodies again (so the host ms run new, old, new), with the switch off (names_mm;
-    profiled) and with the switch on under full remat. Each profile gives the
-    quantization's device ms a step (``quantize_ranges``).
+    bodies patched in (the mma product, the plain quantization; profiled), with the
+    switch off (names_mm; profiled) and with the switch on under full remat. Each
+    profile gives the quantization's device ms a step (``quantize_ranges``).
     Returns the main run's product launches by body, its quantization launches and its
     steps."""
     from torch.profiler import ProfilerActivity, profile
@@ -2304,7 +2343,6 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
         for label, impl, policy, parent, profiled, sb_per_block, sa_per_block in (
                 ("switchback_names_mm", "switchback", "names_mm", False, True, 3, 1),
                 ("switchback_names_mm_parent_bodies", "switchback", "names_mm", True, True, 3, 1),
-                ("switchback_names_mm_again", "switchback", "names_mm", False, False, 3, 1),
                 ("dense_names_mm", "dense", "names_mm", False, True, 0, 1),
                 ("switchback_full_remat", "switchback", "none", False, False, 4, 2)):
             blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY = impl, policy
@@ -2375,12 +2413,18 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
 
 def phase_l14_train(torch, oc, sa, fl, blocks):
     """ViT-L-14 training, the step of the JAX package's bench_vit_l14: batch 64, amp_bf16,
-    AdamW (lr 5e-4, wd 0.2), clip 1.0, one fixed batch; 2 warm-up steps, a window, a
-    profile; then 2 steps under names_mm from the same initial weights, which must give
-    the same first loss. The image tower's 257 tokens take the short kernels' two-pass
-    forward and two-kernel backward, the text tower's 77 the one-pass forward and the
-    fused backward, all on the tensor cores. Returns the window's launches by tower and
-    its steps."""
+    AdamW (wd 0.2; lr 1e-5, no longer bench_vit_l14's 5e-4: on this fixed batch, with
+    no warm-up, the loss at 5e-4 oscillates from step to step, 4.1982 at the first step,
+    5.0201 at the 12th, 4.3104 at the 14th, 3.8740 at the 17th, so whether the window's
+    last loss was below the first depended on how many steps the window took; the 20
+    losses are the same bit for bit with the package of the commit before CoCa, so the
+    oscillation is the recipe's, not a fault of the towers; at 1e-5 the loss falls every
+    step, and the step's time does not depend on the lr), clip 1.0, one fixed batch; 2
+    warm-up steps, a window, a profile; then 2 steps under names_mm from the same initial
+    weights, which must give the same first loss. The image tower's 257 tokens take the
+    short kernels' two-pass forward and two-kernel backward, the text tower's 77 the
+    one-pass forward and the fused backward, all on the tensor cores. Returns the
+    window's launches by tower and its steps."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = blocks.REMAT_POLICY
@@ -2391,8 +2435,8 @@ def phase_l14_train(torch, oc, sa, fl, blocks):
         init = {k: v.clone() for k, v in model.state_dict().items()}
 
         def fresh(remat=False):
-            optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
-                                            model, oc.const_lr(5e-4, 0))
+            optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-5, wd=0.2, grad_clip_norm=1.0),
+                                            model, oc.const_lr(1e-5, 0))
             return oc.create_train_state(model, optimizer), oc.make_train_step(
                 model.cfg, optimizer, remat=remat)
 
@@ -4250,7 +4294,7 @@ NFD_SHARDS, NFD_PER_SHARD, NFD_PNG_EVERY = 16, 48, 6  # 768 pairs, every 6th a P
 NFD_SEQS, NFD_MAX_TOKENS, NFD_EPOCHS, NFD_THREADS = (256, 576, 1024), 16384, 2, 4
 NFD_PROFILED = 3  # steps of the second epoch under the profiler
 OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "lamb", "adafactor", "muon")
-OPT_WINDOW_S, OPT_PROFILED, OPT_CPU_STEPS, OPT_CPU_BATCH = 0.5, 3, 3, 2
+OPT_WINDOW_S, OPT_PROFILED, OPT_CPU_STEPS, OPT_CPU_BATCH = 0.5, 2, 3, 2
 # the card's optimizer against the CPU's on the same gradients: each entry within
 # OPT_ENTRY_TOL of its tensor's largest change in the 3 steps (fp32 arithmetic in other
 # orders: the clip's global norm, adafactor's means; lamb's norms are summed in
@@ -4805,6 +4849,450 @@ def phase_remat_dots(torch, oc, sa, blocks):
     return steps
 
 
+@contextlib.contextmanager
+def card_clocks(readings: dict):
+    """While open, a thread reads the card's SM and memory clocks, power draw and
+    active throttle reasons (nvidia-smi) over and over; on exit ``readings`` gets their
+    extremes, beside a kernel time that a lowered clock would have stretched."""
+    import threading
+
+    rows, stop = [], threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+                                  "clocks_throttle_reasons.active", "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60).stdout
+            try:
+                sm, mem, power, reasons = (x.strip() for x in out.strip().split(","))
+                rows.append((float(sm), float(mem), float(power), reasons))
+            except ValueError:
+                pass
+
+    thread = threading.Thread(target=loop, daemon=True)
+    thread.start()
+    try:
+        yield readings
+    finally:
+        stop.set()
+        thread.join()
+        readings.update(samples=len(rows), sm_mhz_min=min((r[0] for r in rows), default=None),
+                        mem_mhz_min=min((r[1] for r in rows), default=None),
+                        power_w_max=max((r[2] for r in rows), default=None),
+                        throttle_reasons=sorted({r[3] for r in rows}))
+
+
+def coca_texts(torch, n, context, seed, device="cuda"):
+    """n caption rows of the CLIP vocabulary: the start token, random tokens, the end
+    token at a seeded length of 5 to ``context`` - 1, then pad (0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(1, 49406, (n, context), generator=gen, device=device)
+    ids[:, 0] = 49406
+    ends = torch.randint(5, context, (n,), generator=gen, device=device)
+    pos = torch.arange(context, device=device)[None]
+    ids = torch.where(pos == ends[:, None], 49407, ids)
+    return torch.where(pos > ends[:, None], 0, ids)
+
+
+def coca_teacher_forced_cosine(torch, coca, model, pixels, ids) -> float:
+    """The cached decode's logits of every position against the uncached forward on
+    the same tokens (the buffer padded to the context length), over the positions
+    whose prefix holds no pad: the smallest cosine."""
+    import torch.nn.functional as F
+
+    n, seq = ids.shape
+    image_embs = coca._image_tokens(model, pixels)
+    cache = coca.DecodeCache(model, image_embs, seq)
+    cached = torch.stack([coca._cached_decode_logits(model, ids[:, t - 1], t, cache)
+                          for t in range(1, seq)], dim=1)
+    ctx = model.cfg.text_cfg.context_length
+    full = coca.coca_forward(model, pixels, F.pad(ids, (0, ctx - seq)))["logits"][:, :seq - 1]
+    ok = (ids[:, :seq - 1] != 0).cumprod(dim=1).bool()
+    cos = F.cosine_similarity(cached.double(), full.double(), dim=-1)
+    return cos[ok].min().item()
+
+
+def phase_coca_serve(torch, oc, sa, attn, nf):
+    """coca_ViT-B-32 in pure_bf16 (seed 0): a 10-class zero-shot classifier, requests
+    of 64 uint8 images (device preprocess -> encode_image, then greedy captions of 30
+    tokens through the KV cache) and of 16 for beam search over 6 beams, each timed
+    over a window and profiled; the cached decode against the uncached forward on
+    the same tokens; fp32 card against CPU. Returns the short launches by direction
+    and length, and the requests that made them."""
+    from open_clip_tpu_torch.models import coca
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, preprocess = oc.create_model_and_transforms(COCA_MODEL, precision="pure_bf16",
+                                                          seed=0)
+    tokenizer = oc.get_tokenizer(COCA_MODEL)
+    lv, lt, ld = (model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers,
+                  model.cfg.multimodal_cfg.layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    requests = [torch.randint(0, 256, (COCA_SERVE_BATCH, *IMAGE_HW, 3), dtype=torch.uint8,
+                              device="cuda", generator=gen) for _ in range(DISTINCT_REQUESTS)]
+    texts = coca_texts(torch, COCA_SERVE_BATCH, model.cfg.text_cfg.context_length, 0)
+    out, calls = {}, {}
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+        reset_counts(sa)
+        with tally_by_len(sa) as tally, attention_paths(attn, nf) as paths:
+            t0 = time.perf_counter()
+            clf = oc.build_zero_shot_classifier(model, tokenizer, oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                                oc.SIMPLE_IMAGENET_TEMPLATES,
+                                                num_classes_per_batch=CLASSES)
+            torch.cuda.synchronize()
+            out["classifier_ms"] = (time.perf_counter() - t0) * 1e3
+            clf_tally, clf_paths = dict(tally), dict(paths)
+            clf32 = clf.float()
+
+            def encode(i):
+                feats = model.encode_image(preprocess(requests[i % DISTINCT_REQUESTS]),
+                                           normalize=True)
+                return feats, (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices.cpu()
+
+            def encode_text(i):
+                f = model.encode_text(texts.roll(i, 0), normalize=True)
+                return f, f[:1].cpu()
+
+            def greedy(i):
+                ids = model.generate(preprocess(requests[i % DISTINCT_REQUESTS]),
+                                     generation_type="greedy", seq_len=COCA_SEQ)
+                return ids, ids.cpu()
+
+            def beam(i):
+                pixels = preprocess(requests[i % DISTINCT_REQUESTS][:COCA_BEAM_BATCH])
+                ids = model.generate(pixels, num_beams=COCA_BEAMS, seq_len=COCA_SEQ)
+                return ids, ids.cpu()
+
+            for name, request, n, profiled in (("encode_image", encode, COCA_SERVE_BATCH, 5),
+                                               ("encode_text", encode_text, COCA_SERVE_BATCH, 5),
+                                               ("greedy", greedy, COCA_SERVE_BATCH, 1),
+                                               ("beam", beam, COCA_BEAM_BATCH, 1)):
+                before = sum(tally.values())
+                t0 = time.perf_counter()
+                request(0)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                lat, window_s, res, host, prof, prof_ms = serve_window(
+                    request, profiled, cpu_events=name not in ("greedy", "beam"))
+                calls[name] = 1 + len(lat) + profiled
+                summary = profile_summary(prof, prof_ms, profiled)
+                out[name] = {"batch": n, "first_request_ms": first_ms, "window_requests": len(lat),
+                             "window_s": window_s, "images_per_s": n * len(lat) / window_s,
+                             "median_request_ms": statistics.median(lat),
+                             "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+                             "device_idle_share": summary["device_idle_share"],
+                             "short_launches": sum(tally.values()) - before}
+                print(f"coca_serve_profile[{name}] " + json.dumps(summary), flush=True)
+                out[name + "_result"] = (res, host)
+            serve_tally, serve_paths = dict(tally), dict(paths)
+            seconds = {"serve": time.perf_counter() - t_phase}
+            ids = greedy(0)[0]
+            reset_counts(sa)
+            with tally_by_len(sa) as tf_tally:
+                cos = coca_teacher_forced_cosine(torch, coca, model,
+                                                 preprocess(requests[0]), ids)
+            tf_tally = dict(tf_tally)
+    ctx = model.cfg.text_cfg.context_length
+    li = model.cfg.vision_cfg.grid_size[0] * model.cfg.vision_cfg.grid_size[1] + 1
+    check(clf_tally == {} and clf_paths.get(("dense", ctx + 1)) == lt
+          and tuple(clf.shape) == (model.cfg.embed_dim, CLASSES) and bool(torch.isfinite(clf).all()),
+          f"coca_serve: classifier {tuple(clf.shape)} finite; its text tower dense "
+          f"({clf_paths}), no short launch ({clf_tally})")
+    image_calls = calls["encode_image"] + calls["greedy"] + calls["beam"]
+    check(serve_tally == {("fwd", li): lv * image_calls},
+          f"coca_serve: short launches {serve_tally} for {image_calls} image-tower calls "
+          f"(expect {lv} at L={li} each; the cached decode's one-query attention is plain)")
+    want_paths = {("short", li): lv * image_calls, ("dense", li): image_calls,
+                  ("dense", ctx + 1): lt * (1 + calls["encode_text"])}
+    check(all(serve_paths.get(k) == v for k, v in want_paths.items()),
+          f"coca_serve: attention paths {serve_paths} (the attentional pool dense once an "
+          f"image call, the CLS text tower dense, expect {want_paths})")
+    feats, top5 = out.pop("encode_image_result")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
+          and tuple(top5.shape) == (COCA_SERVE_BATCH, 5),
+          f"coca_serve: image features {tuple(feats.shape)} finite and unit, top-5 {tuple(top5.shape)}")
+    out.pop("encode_text_result")
+    for name in ("greedy", "beam"):
+        got = out.pop(name + "_result")[1]
+        n = COCA_SERVE_BATCH if name == "greedy" else COCA_BEAM_BATCH
+        ended = (got == 49407).any(dim=1)
+        after_end = (torch.arange(COCA_SEQ)[None] > (got == 49407).int().argmax(dim=1)[:, None])
+        check(tuple(got.shape) == (n, COCA_SEQ) and bool((got[:, 0] == 49406).all())
+              and bool((got[ended][after_end[ended]] == 0).all())
+              and int(got.min()) >= 0 and int(got.max()) < 49408,
+              f"coca_serve: {name} captions {tuple(got.shape)} start with the start token, "
+              f"ids in the vocabulary, pad after an end token ({int(ended.sum())} ended)")
+        out[name + "_caption_0"] = tokenizer.decode(got[0].tolist())
+    seconds["teacher_forced"] = time.perf_counter() - t_phase - seconds["serve"]
+    # the image tower runs once for the cache and once in the uncached forward
+    check(tf_tally == {("fwd", li): 2 * lv, ("fwd", ctx): ld} and cos >= COCA_BF16_COSINE_MIN,
+          f"coca_serve: bf16 cached decode logits vs the uncached forward, teacher-forced: min "
+          f"cosine {cos:.6f} (>= {COCA_BF16_COSINE_MIN}: each path rounds to bf16 in its own "
+          f"places); short launches {tf_tally} (the decoder at L={ctx})")
+    out["teacher_forced_min_cosine_bf16"] = cos
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    t0 = time.perf_counter()
+    # fp32, TF32 off: the card against the CPU on two images and two captions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = oc.create_model(COCA_MODEL, precision="fp32", seed=1, device="cpu")
+    gpu = copy.deepcopy(cpu).cuda()  # the same weights, one init
+    images = requests[1][:2].cpu()
+    caps = tokenizer(["a photo of a cat on a mat.", "two dogs running on the beach"])
+    pp = oc.make_device_preprocess(cpu.preprocess_cfg)
+    with torch.inference_mode():
+        g = coca.coca_forward(gpu, pp(images.cuda()), caps)
+        c = coca.coca_forward(cpu, pp(images), caps)
+        # fp32 on the card: the cached decode against the re-encoding one, token for token,
+        # and its logits against the uncached forward, teacher-forced
+        pixels = pp(requests[0][:8])
+        ids = gpu.generate(pixels, generation_type="greedy", seq_len=COCA_SEQ)
+        ids_uncached = gpu.generate(pixels, generation_type="greedy", seq_len=COCA_SEQ,
+                                    kv_cache=False)
+        cos32 = coca_teacher_forced_cosine(torch, coca, gpu, pixels, ids)
+    for key in ("image_features", "text_features", "logits"):
+        a, b = g[key].cpu().double(), c[key].double()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+        check(bool(torch.isfinite(a).all()) and cos >= COSINE_MIN,
+              f"coca card vs CPU fp32 {key} {tuple(a.shape)}: min cosine {cos:.7f} (>= {COSINE_MIN})")
+    check(torch.equal(ids, ids_uncached) and cos32 >= COSINE_MIN,
+          f"coca fp32 on the card: cached greedy captions equal the uncached ones token for token "
+          f"({tuple(ids.shape)}); cached logits vs the uncached forward, teacher-forced: min cosine "
+          f"{cos32:.7f} (>= {COSINE_MIN})")
+    seconds["fp32_checks"] = time.perf_counter() - t0
+    out["teacher_forced_min_cosine_fp32"] = cos32
+    print("coca_serve " + json.dumps({"model": COCA_MODEL, "precision": "pure_bf16",
+                                      "seq_len": COCA_SEQ, "beams": COCA_BEAMS, **out,
+                                      "seconds": seconds}), flush=True)
+    return serve_tally, tf_tally, {"image": image_calls, "teacher_forced": 1}
+
+
+def coca_component_ms(torch, model, batch) -> dict:
+    """Device ms a step of the CoCa step's parts that take no kernel of the port, each
+    run alone at the step's shapes (forward and backward; the sum of its kernels'
+    device time, profiled):
+    the chunked cross-entropy of the caption, and the dense attention of the CLS text
+    tower (12 layers, L=77 with its pad bias), the attentional pooler (256 queries over
+    50 tokens) and the decoder's 12 cross-attentions (76 queries over 255 tokens)."""
+    from open_clip_tpu_torch.ops.attention import dense_attention
+    from open_clip_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+
+    cfg = model.cfg
+    b, ctx = batch["text"].shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = torch.bfloat16
+
+    def timed_ms(fn, reps=3):
+        """The device-busy ms of one call (its kernels' sum, profiled over ``reps``): an
+        event span would hold the host's gaps between these small launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return profile_summary(prof, wall_ms, reps, "call")["device_busy_ms_per_call"]
+
+    width = cfg.multimodal_cfg.width
+    hidden = torch.randn(b * (ctx - 1), width, generator=gen, device="cuda", dtype=dt,
+                         requires_grad=True)
+    weight = model.text_decoder.text_projection.detach().t().contiguous().requires_grad_()
+    labels = batch["text"][:, 1:].reshape(-1).masked_fill(batch["text"][:, 1:].reshape(-1) == 0,
+                                                          -100)
+
+    def ce():
+        fused_linear_cross_entropy(hidden, weight, labels).backward()
+
+    def attention(lq, lk, heads, hd, bias=None, causal=False):
+        q = torch.randn(b, lq, heads, hd, generator=gen, device="cuda", dtype=dt,
+                        requires_grad=True)
+        k = torch.randn(b, lk, heads, hd, generator=gen, device="cuda", dtype=dt,
+                        requires_grad=True)
+        v = torch.randn(b, lk, heads, hd, generator=gen, device="cuda", dtype=dt,
+                        requires_grad=True)
+        return lambda: dense_attention(q, k, v, bias, causal=causal).sum().backward()
+
+    tc, vc, mc = cfg.text_cfg, cfg.vision_cfg, cfg.multimodal_cfg
+    text_bias = torch.zeros(b, 1, 1, ctx + 1, device="cuda")
+    grid = vc.grid_size[0] * vc.grid_size[1] + 1
+    parts = {"fused_ce": timed_ms(ce),
+             "dense_text_tower": tc.layers * timed_ms(attention(ctx + 1, ctx + 1, tc.heads,
+                                                                tc.width // tc.heads, text_bias,
+                                                                True)),
+             "dense_attn_pool": timed_ms(attention(vc.attn_pooler_queries, grid,
+                                                   vc.attn_pooler_heads,
+                                                   cfg.embed_dim // vc.attn_pooler_heads)),
+             "dense_cross_attention": mc.layers * timed_ms(attention(
+                 ctx, vc.attn_pooler_queries - 1, mc.heads, mc.width // mc.heads))}
+    parts["dense_attention"] = sum(v for k, v in parts.items() if k.startswith("dense_"))
+    return parts
+
+
+def phase_coca_train(torch, oc, sa):
+    """The CoCa step: coca_ViT-B-32 in amp_bf16 at batch 256, AdamW (wd 0.2), clip 1.0,
+    one fixed batch of images and captions (pad after a seeded end), loss_type "coca"
+    (InfoNCE + 2 x the caption cross-entropy through the chunked linear CE): 2 warm-up
+    steps, a window, profiled steps, then 2 steps under full remat from the same
+    weights; the device ms of the fused CE and of the dense attention timed alone; then
+    the CLI on synthetic data (batch 64) with a val split (val_generative_loss), a
+    checkpoint and --resume. Returns the window's short launches by (direction, L)
+    and its steps."""
+    model = oc.create_model(COCA_MODEL, precision="amp_bf16", seed=0)
+    lv, ld = model.cfg.vision_cfg.layers, model.cfg.multimodal_cfg.layers
+    ctx = model.cfg.text_cfg.context_length
+    li = model.cfg.vision_cfg.grid_size[0] * model.cfg.vision_cfg.grid_size[1] + 1
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    size = model.cfg.vision_cfg.image_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.randn(BATCH, size, size, 3, generator=gen, device="cuda"),
+             "text": coca_texts(torch, BATCH, ctx, 1)}
+    torch.cuda.reset_peak_memory_stats()
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0), model,
+                                    oc.const_lr(5e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer, loss_type="coca")
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa)
+    with tally_by_len(sa) as tally:
+        state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    tally, bodies = dict(tally), (dict(sa.FWD_BODIES), dict(sa.BWD_BODIES))
+    losses = [float(m["loss"]) for m in warm + window]
+    caption = [float(m["caption_loss"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses + caption) and losses[-1] < losses[0]
+          and caption[-1] < caption[0],
+          f"coca_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(caption {caption[0]:.4f} -> {caption[-1]:.4f})")
+    want = {("fwd", li): lv * n, ("bwd", li): lv * n, ("fwd", ctx): ld * n, ("bwd", ctx): ld * n}
+    check(tally == want and bodies[0] == {"mma": (lv + ld) * n, "simt": 0} and bodies[1] == bodies[0],
+          f"coca_train: short launches {tally} in {n} steps, by body {bodies} (expect {lv} image "
+          f"and {ld} decoder of each a step on the tensor cores; the CLS text tower is dense)")
+    with card_clocks({}) as clocks:
+        state, prof = profiled_steps(torch, step, state, batch)
+    print("coca_train_profile " + json.dumps(prof), flush=True)
+    parts = coca_component_ms(torch, model, batch)
+    kernel_ms = prof["device_busy_ms_per_step"]
+    summary = {"model": COCA_MODEL, "precision": "amp_bf16", "batch": BATCH, "window_steps": n,
+               "window_s": wall_s, "images_per_s": BATCH * n / wall_s,
+               "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+               "host_lead_ms_at_end": lead_ms, "kernel_ms_per_step": kernel_ms,
+               "device_idle_share": prof["device_idle_share"], "clocks_during_profile": clocks,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "first_caption_loss": caption[0], "last_caption_loss": caption[-1],
+               "contrastive_loss": float(window[-1]["contrastive_loss"]),
+               "short_launches_per_step": {f"{d}_L{l}": v / n for (d, l), v in tally.items()},
+               "parts_ms_per_step_alone": parts,
+               "fused_ce_share": parts["fused_ce"] / kernel_ms if kernel_ms else None,
+               "dense_attention_share": parts["dense_attention"] / kernel_ms if kernel_ms else None}
+    # full remat from the same weights: the towers' blocks and the decoder's pairs again
+    with torch.no_grad():
+        model.load_state_dict(init)
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0), model,
+                                    oc.const_lr(5e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    reset_counts(sa)
+    with tally_by_len(sa) as rt:
+        state, rm, remat_ms, *_ = run_steps(torch, oc.make_train_step(
+            model.cfg, optimizer, loss_type="coca", remat=True), state, batch, 2)
+    want = {("fwd", li): 2 * lv * 2, ("bwd", li): lv * 2, ("fwd", ctx): 2 * ld * 2,
+            ("bwd", ctx): ld * 2}
+    check(dict(rt) == want and abs(float(rm[0]["loss"]) - losses[0]) <= 2e-2 * abs(losses[0]),
+          f"coca_train[remat]: short launches {dict(rt)} in 2 steps (expect {want}); first loss "
+          f"{float(rm[0]['loss']):.4f} vs {losses[0]:.4f} (rel 2e-2)")
+    summary["remat_median_step_ms"] = statistics.median(remat_ms)
+    summary["remat_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, optimizer, model
+    # the CLI: train, evaluate (val_generative_loss), checkpoint, resume
+    from open_clip_tpu_torch.train.main import main as train_main
+
+    with tempfile.TemporaryDirectory() as logs:
+        args = ["--model", COCA_MODEL, "--dataset-type", "synthetic", "--batch-size",
+                str(COCA_CLI_BATCH), "--train-num-samples", str(COCA_CLI_BATCH * COCA_CLI_STEPS),
+                "--val-data", "synthetic", "--precision", "amp_bf16", "--grad-clip-norm", "1.0",
+                "--lr", "5e-4", "--warmup", "2", "--log-every-n-steps", "2", "--workers", "1",
+                "--logs", logs, "--name", "coca"]
+        t0 = time.perf_counter()
+        st = train_main(args + ["--epochs", "1"])
+        first_s = time.perf_counter() - t0
+        run = Path(logs) / "coca"
+        rows = [json.loads(x) for x in (run / "results.jsonl").read_text().splitlines()]
+        val = [r for r in rows if "val/val_generative_loss" in r]
+        check(st.step == COCA_CLI_STEPS and bool(val)
+              and math.isfinite(val[-1]["val/val_generative_loss"])
+              and math.isfinite(val[-1]["val/clip_val_loss"])
+              and (run / "checkpoints" / "epoch_1.pt").exists(),
+              f"coca CLI: {st.step} steps, val_generative_loss "
+              f"{val[-1]['val/val_generative_loss'] if val else None}, epoch_1.pt written")
+        st = train_main(args + ["--epochs", "2", "--resume", "latest"])
+        check(st.step == 2 * COCA_CLI_STEPS and (run / "checkpoints" / "epoch_2.pt").exists(),
+              f"coca CLI: --resume latest went on to step {st.step}")
+        summary["cli_first_run_s"] = first_s
+        summary["cli_val"] = {k: v for k, v in val[-1].items()} if val else None
+    print("coca_train " + json.dumps(summary), flush=True)
+    return tally, n
+
+
+def phase_distill_train(torch, oc, sa, fl):
+    """The distillation step: a ViT-B-32 student (seed 0) and a ViT-B-32 teacher (seed
+    1), amp_bf16, batch 256, AdamW (wd 0.2; lr 1e-4: at 5e-4 with no warm-up this fixed
+    batch's loss rose in one of three runs on the H100, 11.2156 -> 11.6794 over 22
+    steps, the KL to a random teacher leading it), clip 1.0, loss_type "distill"
+    (InfoNCE + the KL to the teacher's logits), on phase 4's fixed batch: warm-up, a
+    window, profiled steps. Returns the window's short launches by (direction, tower)
+    and its steps."""
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model("ViT-B-32", precision="amp_bf16", seed=0)
+    teacher = oc.create_model("ViT-B-32", precision="amp_bf16", seed=1).eval().requires_grad_(False)
+    t_init = {k: v.clone() for k, v in teacher.state_dict().items()}
+    lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.2, grad_clip_norm=1.0), model,
+                                    oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer, loss_type="distill", teacher=teacher)
+    batch = train_batch(torch, model.cfg, BATCH, "cuda")
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa)
+    with tally_by_shape(sa, fl) as tally:
+        state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    tally = dict(tally)
+    losses = [float(m["loss"]) for m in warm + window]
+    dl = [float(m["distill_loss"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses + dl) and losses[-1] < losses[0],
+          f"distill_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(distill term {dl[0]:.4f} -> {dl[-1]:.4f})")
+    want = {("fwd", "vision"): 2 * lv * n, ("fwd", "text"): 2 * lt * n,
+            ("bwd", "vision"): lv * n, ("bwd", "text"): lt * n}
+    check(tally == want, f"distill_train: short launches {tally} in {n} steps (expect the "
+          f"student's forward and backward and the teacher's forward: {want})")
+    check(all(torch.equal(v, t_init[k]) for k, v in teacher.state_dict().items()),
+          "distill_train: the teacher's weights did not move")
+    state, prof = profiled_steps(torch, step, state, batch)
+    print("distill_train_profile " + json.dumps(prof), flush=True)
+    print("distill_train " + json.dumps({
+        "model": "ViT-B-32", "teacher": "ViT-B-32", "precision": "amp_bf16", "batch": BATCH,
+        "lr": 1e-4,
+        "window_steps": n, "window_s": wall_s, "images_per_s": BATCH * n / wall_s,
+        "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+        "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+        "host_lead_ms_at_end": lead_ms, "kernel_ms_per_step": prof["device_busy_ms_per_step"],
+        "device_idle_share": prof["device_idle_share"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "first_loss": losses[0], "last_loss": losses[-1], "first_distill_loss": dl[0],
+        "last_distill_loss": dl[-1],
+        "short_launches_per_step": {f"{d}_{t}": v / n for (d, t), v in tally.items()}}),
+        flush=True)
+    return tally, n
+
+
 def main() -> int:
     import torch
 
@@ -4931,6 +5419,10 @@ def main() -> int:
     pd_tally, pd_steps = timed("patch_dropout_train", phase_patch_dropout_train, torch, oc, sa)
     with tally_by_len(sa) as rd_tally:
         rd_steps = timed("remat_dots", phase_remat_dots, torch, oc, sa, blocks)
+    coca_serve_tally, coca_tf_tally, coca_calls = timed("coca_serve", phase_coca_serve, torch, oc,
+                                                        sa, attn, nf)
+    coca_tally, coca_steps = timed("coca_train", phase_coca_train, torch, oc, sa)
+    distill_tally, distill_steps = timed("distill_train", phase_distill_train, torch, oc, sa, fl)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -4948,6 +5440,12 @@ def main() -> int:
     new_paths.update({(d, "text"): opt_tally.get((d, 77), 0) + nfd_short[d]
                       + pd_tally.get((d, 77), 0) + rd_tally.get((d, 77), 0)
                       for d in ("fwd", "bwd")})
+    # this slice's paths at the same shapes: CoCa's image tower (50 tokens) serving,
+    # teacher-forced and training; the distillation window (student and teacher)
+    coca_paths = {(d, t): (distill_tally.get((d, t), 0) + (
+        coca_serve_tally.get((d, 50), 0) + coca_tf_tally.get((d, 50), 0)
+        + coca_tally.get((d, 50), 0) if t == "vision" else 0))
+        for d in ("fwd", "bwd") for t in ("vision", "text")}
     for tower in ("vision", "text"):
         n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
         n_data = data_tally.get(("fwd", tower), 0)
@@ -4955,7 +5453,10 @@ def main() -> int:
         kernels.append(dict(fwd_records[tower],
                             launches=(launches[tower] + n_train + n_dist + n_data
                                       + load_launches[tower] + n_ft + n_ft_cli
-                                      + new_paths[("fwd", tower)]),
+                                      + new_paths[("fwd", tower)] + coca_paths[("fwd", tower)]),
+                            launches_coca_and_distill_paths=coca_paths[("fwd", tower)],
+                            launches_distill_per_train_step=distill_tally.get(("fwd", tower), 0)
+                            / distill_steps,
                             launches_step_option_paths=new_paths[("fwd", tower)],
                             launches_pretrained_load=load_launches[tower],
                             launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
@@ -4978,7 +5479,8 @@ def main() -> int:
         n_ft, n_ft_cli = ft_tally[("bwd", tower)], ft_cli_tally[("bwd", tower)]
         kernels.append(dict(bwd_records[(tower, "bfloat16")],
                             launches=(n_train + n_dist + n_data + n_ft + n_ft_cli
-                                      + new_paths[("bwd", tower)]),
+                                      + new_paths[("bwd", tower)] + coca_paths[("bwd", tower)]),
+                            launches_coca_and_distill_paths=coca_paths[("bwd", tower)],
                             launches_step_option_paths=new_paths[("bwd", tower)],
                             launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
                             launches_finetune_cli=n_ft_cli,
@@ -5104,6 +5606,19 @@ def main() -> int:
     for which in ("bwd_dq", "bwd_dkv"):
         kernels.append(dict(flash_records["audio816"][which], launches=nfc_train[which],
                             launches_per_train_step=nfc_train[which] / nfc_steps))
+    # CoCa's decoder self-attention (L=76, causal): the coca_train window and the
+    # teacher-forced forward of coca_serve (the cached decode's one-query attention is
+    # plain, as in the JAX package)
+    kernels.append(dict(fwd_records["coca_decoder"],
+                        launches=coca_tally.get(("fwd", 76), 0) + coca_tf_tally.get(("fwd", 76), 0),
+                        launches_training=coca_tally.get(("fwd", 76), 0),
+                        launches_per_train_step=coca_tally.get(("fwd", 76), 0) / coca_steps,
+                        launches_teacher_forced=coca_tf_tally.get(("fwd", 76), 0),
+                        launches_coca_image_tower_per_request=(
+                            coca_serve_tally.get(("fwd", 50), 0) / coca_calls["image"])))
+    kernels.append(dict(bwd_records[("coca_decoder", "bfloat16")],
+                        launches=coca_tally.get(("bwd", 76), 0),
+                        launches_per_train_step=coca_tally.get(("bwd", 76), 0) / coca_steps))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

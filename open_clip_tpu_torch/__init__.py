@@ -5,8 +5,9 @@ through the device-side preprocess, ``encode_image``/``encode_text`` and
 ``build_zero_shot_classifier``; NaFlex models (``naflex_ViT-B-16``) take patch dicts
 from ``data.naflex.NaFlexTransform``; Swin towers (``swin_base_patch4_window7_224``)
 take images; CLAP models (``CLAP-HTSAT-tiny``) take waveform dicts from
-``data.audio.AudioPreprocess`` into ``encode_audio``, with the log-mel on the card.
-Weights: ``create_model(name, pretrained=<file>)`` and ``local-dir:<dir>`` load the
+``data.audio.AudioPreprocess`` into ``encode_audio``, with the log-mel on the card;
+CoCa models (``coca_ViT-B-32``) also caption: ``model.generate(images)``, then
+``tokenizer.decode``. Weights: ``create_model(name, pretrained=<file>)`` and ``local-dir:<dir>`` load the
 reference's ``.pt``/``.bin``/``.safetensors``/``.npz`` checkpoints (``checkpoint.py``,
 ``convert.py``), ``convert.load_big_vision_weights`` big_vision SigLIP files, and
 ``save_for_hf`` writes a model directory. Training: ``clip_loss``,
@@ -24,6 +25,7 @@ from .config import (
     CLIPModelCfg,
     CLIPTextCfg,
     CLIPVisionCfg,
+    MultimodalCfg,
     add_model_config,
     get_model_config,
     list_models,
@@ -64,7 +66,7 @@ from .zero_shot_metadata import (
 )
 
 __all__ = [
-    "CLIPAudioCfg", "CLIPModelCfg", "CLIPTextCfg", "CLIPVisionCfg", "add_model_config", "get_model_config",
+    "CLIPAudioCfg", "CLIPModelCfg", "CLIPTextCfg", "CLIPVisionCfg", "MultimodalCfg", "add_model_config", "get_model_config",
     "list_models",
     "IMAGENET_MEAN", "IMAGENET_STD", "INCEPTION_MEAN", "INCEPTION_STD",
     "OPENAI_DATASET_MEAN", "OPENAI_DATASET_STD",

@@ -2,9 +2,9 @@
 
 Schema-compatible with the reference open_clip JSON model configs and with the
 JAX package's ``config.py``. The audio section parses into ``CLIPAudioCfg`` (the
-HTSAT towers are ported); the CoCa decoder, NaFlex-audio, GenLIP and GenLAP
-sections are kept as raw dicts: those families are not ported, and a model that
-has one raises at build time.
+HTSAT towers are ported) and the CoCa decoder's into ``MultimodalCfg``; the
+NaFlex-audio, GenLIP and GenLAP sections are kept as raw dicts: those families are
+not ported, and a model that has one raises at build time.
 """
 
 from __future__ import annotations
@@ -161,6 +161,18 @@ class CLIPTextCfg:
 
 
 @dataclass
+class MultimodalCfg(CLIPTextCfg):
+    """The CoCa multimodal decoder's config (the JAX package's ``MultimodalCfg``)."""
+
+    mlp_ratio: float = 4.0
+    dim_head: int = 64
+    heads: int = 8
+    n_queries: int = 256
+    attn_pooler_heads: int = 8
+    cross_attn_ratio: int = 1
+
+
+@dataclass
 class CLIPAudioCfg:
     """Audio tower config (the JAX package's ``CLIPAudioCfg``)."""
 
@@ -199,7 +211,7 @@ class CLIPModelCfg:
     embed_dim: int = 512
     vision_cfg: Optional[CLIPVisionCfg] = None
     text_cfg: Optional[CLIPTextCfg] = None
-    multimodal_cfg: Optional[dict] = None
+    multimodal_cfg: Optional[MultimodalCfg] = None
     audio_cfg: Optional[CLIPAudioCfg] = None
     audio_naflex_cfg: Optional[dict] = None
     genlip_cfg: Optional[dict] = None
@@ -215,6 +227,7 @@ class CLIPModelCfg:
         vision = d.pop("vision_cfg", None)
         text = d.pop("text_cfg", None)
         audio = d.pop("audio_cfg", None)
+        mm = d.pop("multimodal_cfg", None)
         out = cls(**_filter_cfg(cls, d))
         if vision is not None:
             out.vision_cfg = CLIPVisionCfg(**_filter_cfg(CLIPVisionCfg, vision))
@@ -222,6 +235,8 @@ class CLIPModelCfg:
             out.text_cfg = CLIPTextCfg(**_filter_cfg(CLIPTextCfg, text))
         if audio is not None:
             out.audio_cfg = CLIPAudioCfg(**_filter_cfg(CLIPAudioCfg, audio))
+        if mm is not None:
+            out.multimodal_cfg = MultimodalCfg(**_filter_cfg(MultimodalCfg, mm))
         return out
 
     def to_dict(self) -> Dict[str, Any]:
@@ -231,11 +246,9 @@ class CLIPModelCfg:
             return {k: v for k, v in dataclasses.asdict(dc).items() if v is not None}
 
         d: Dict[str, Any] = {"embed_dim": self.embed_dim}
-        for name in ("vision_cfg", "text_cfg", "audio_cfg"):
+        for name in ("vision_cfg", "text_cfg", "multimodal_cfg", "audio_cfg"):
             if getattr(self, name) is not None:
                 d[name] = clean(getattr(self, name))
-        if self.multimodal_cfg is not None:
-            d["multimodal_cfg"] = dict(self.multimodal_cfg)
         for k in ("quick_gelu", "custom_text"):
             if getattr(self, k):
                 d[k] = True

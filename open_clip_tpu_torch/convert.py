@@ -8,7 +8,10 @@ keys are the reference checkpoint's, the ones the JAX package's
 ``params_to_torch_state_dict(params, custom_text=False)`` emits; a NaFlex visual
 tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names and
 a ViT's MAP head (``map_pool``, SigLIP's) onto the same ``visual.attn_pool.*`` names,
-a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, and the
+a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, CoCa's
+attentional pooler(s) (``attn_pool``, ``attn_pool_contrastive``) onto
+``visual.attn_pool*.{query,ln_q,ln_k,attn.{q,k,v,out}_proj}``, its ``cls_emb`` and
+``text_decoder`` onto the reference's names, and the
 CLAP tree of ``init_clap`` (``audio.encoder``, ``audio.proj``, ``text``,
 ``logit_scale``) onto ``audio.encoder.*`` (HTSAT, ``models/htsat.py``) and
 ``audio.proj.0``/``audio.proj.2``. Convolution kernels (kh, kw, in, out) keep the
@@ -82,15 +85,16 @@ def _blocks(blocks: Dict[str, Any], layers: int, prefix: str,
 # than being dropped
 _LINEAR = {"kernel", "bias"}
 _NORM = {"scale", "bias"}
-_ROOT = {(): {"visual", "text", "logit_scale", "logit_bias"},
+_ROOT = {(): {"visual", "text", "logit_scale", "logit_bias", "text_decoder"},
          ("text",): {"token_embedding", "positional_embedding", "ln_final", "text_projection",
-                     "blocks"}}
+                     "blocks", "cls_emb"},
+         ("text_decoder",): {"blocks", "cross_blocks", "ln_final", "text_projection"}}
 _MAP_POOL = {"latent", "q", "kv", "proj", "norm", "mlp"}
 _EXPECTED = {
     **_ROOT,
     ("text", "text_projection"): _LINEAR,
     ("visual",): {"patch_embed", "class_embedding", "positional_embedding", "ln_pre", "ln_post",
-                  "proj", "blocks", "map_pool"},
+                  "proj", "blocks", "map_pool", "attn_pool", "attn_pool_contrastive"},
     ("visual", "patch_embed"): _LINEAR,
     ("visual", "map_pool"): _MAP_POOL,
     ("visual", "map_pool", "mlp"): {"c_fc", "c_proj"},
@@ -371,14 +375,27 @@ def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tens
                 _norm(vis[ln], f"visual.{ln}", out)
         if "map_pool" in vis:
             _map_pool(vis["map_pool"], out)
+        for name in ("attn_pool", "attn_pool_contrastive"):
+            if name in vis:
+                _attentional_pool(vis[name], f"visual.{name}", out)
         if "blocks" in vis:
             _blocks(vis["blocks"], check_vision_cfg(cfg.vision_cfg).layers, "visual.", out)
+
+
+def _attentional_pool(pool: Dict[str, Any], prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """CoCa's attentional pooler (JAX ``init_attentional_pooler``) as the port's
+    ``AttentionalPooler``."""
+    out[f"{prefix}.query"] = _t(pool["query"])
+    for name in ("q", "k", "v", "out"):
+        _linear(pool["attn"][name], f"{prefix}.attn.{name}_proj", out)
+    for name in ("ln_q", "ln_k"):
+        _norm(pool[name], f"{prefix}.{name}", out)
 
 
 def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor]) -> None:
     txt = params.get("text", {})
     for src, dst in (("token_embedding", "token_embedding.weight"),
-                     ("positional_embedding", "positional_embedding")):
+                     ("positional_embedding", "positional_embedding"), ("cls_emb", "cls_emb")):
         if src in txt:
             out[dst] = _t(txt[src])
     _norm(txt.get("ln_final", {}), "ln_final", out)
@@ -389,6 +406,12 @@ def _text(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor
         out["text_projection"] = _t(tp)
     if "blocks" in txt:
         _blocks(txt["blocks"], cfg.text_cfg.layers, "", out)
+    if "text_decoder" in params:
+        from .models.coca import decoder_params_from_jax
+
+        if cfg.multimodal_cfg is None:
+            raise KeyError("JAX params hold a text_decoder, but the config has no CoCa decoder")
+        decoder_params_from_jax(params["text_decoder"], cfg.multimodal_cfg.layers, out)
     for name in ("logit_scale", "logit_bias"):
         if name in params:
             out[name] = _t(params[name])
@@ -671,8 +694,7 @@ def _unported_trunk(cfg: Optional[CLIPModelCfg], sd: Mapping[str, np.ndarray]) -
     if name.startswith("vit_base_mci"):
         return "the MCi hybrid conv stem (MobileCLIP-B)"
     keys = (("image_encoder.", "MobileCLIP release (image_encoder.*, the MCi stem)"),
-            ("visual.trunk.stem.", "ConvNeXt"), ("visual.layer1", "ModifiedResNet"),
-            ("text_decoder.", "CoCa"))
+            ("visual.trunk.stem.", "ConvNeXt"), ("visual.layer1", "ModifiedResNet"))
     for prefix, family in keys:
         if any(k.startswith(prefix) for k in sd):
             return family
@@ -687,8 +709,9 @@ def _unported_trunk(cfg: Optional[CLIPModelCfg], sd: Mapping[str, np.ndarray]) -
 def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = None
                          ) -> Dict[str, Any]:
     """A reference CLIP / CustomTextCLIP state dict -> the JAX package's param tree
-    (numpy leaves), for the families the port builds: the native ViT and text towers,
-    and the timm ViT, NaFlexVit and Swin trunks. Keys it cannot place are logged and
+    (numpy leaves), for the families the port builds: the native ViT and text towers
+    (CoCa's attentional poolers, CLS token and ``text_decoder`` too), and the timm ViT,
+    NaFlexVit and Swin trunks. Keys it cannot place are logged and
     listed under ``_unconverted``, as in the JAX package; a checkpoint of a family the
     port does not build raises."""
     sd = normalize_torch_state_dict(sd)
@@ -721,6 +744,14 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
         rest = {k: v for k, v in sd.items() if not k.startswith(own)}
         tree = torch_clip_to_params(rest, cfg) if rest else {}
         tree["visual"] = tree_vis
+        return tree
+    if any(k.startswith("text_decoder.") for k in sd):  # CoCa's multimodal decoder
+        from .models.coca import convert_multimodal_decoder
+
+        tree = torch_clip_to_params({k: v for k, v in sd.items()
+                                     if not k.startswith("text_decoder.")}, cfg)
+        tree["text_decoder"] = convert_multimodal_decoder(
+            {k[len("text_decoder."):]: v for k, v in sd.items() if k.startswith("text_decoder.")})
         return tree
     if any(k.startswith("text.blocks.") for k in sd):  # the modern text tower
         tree = torch_clip_to_params({k: v for k, v in sd.items() if not k.startswith("text.")},
@@ -852,10 +883,13 @@ def _convert_modern_text(sd: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 def reference_state_dict(model: nn.Module, custom_text: bool = True) -> Dict[str, torch.Tensor]:
     """The model's weights in the reference checkpoint's layout and names (the JAX
     package's ``params_to_torch_state_dict``): the patch embedding as the conv's
-    (W, 3, P, P), the text tower under ``text.`` when ``custom_text``. That inverse
-    covers the native ViT and text towers only; a model with any other part raises
-    rather than giving a dict that silently lacks it."""
-    from .models.vit import VisionTransformer
+    (W, 3, P, P), the text tower under ``text.`` when ``custom_text``, and for CoCa
+    the attentional poolers as ``nn.MultiheadAttention``'s (``in_proj_weight`` where
+    the context width is the pooler's, else ``{q,k,v}_proj_weight``, and one
+    ``in_proj_bias``) and ``text_decoder.*`` as it is. That inverse covers the native
+    ViT and text towers only; a model with any other part raises rather than giving a
+    dict that silently lacks it."""
+    from .models.vit import AttentionalPooler, VisionTransformer
 
     tower = getattr(model, "visual", None) or getattr(model, "audio", None)
     if not isinstance(tower, VisionTransformer):
@@ -863,22 +897,38 @@ def reference_state_dict(model: nn.Module, custom_text: bool = True) -> Dict[str
                                   f"(this model's is {type(tower).__name__})")
     text_prefix = "text." if custom_text else ""
     text_parts = ("token_embedding.", "positional_embedding", "ln_final.", "text_projection",
-                  "transformer.")
+                  "transformer.", "cls_emb")
+    pools = tuple(f"visual.{n}." for n in ("attn_pool", "attn_pool_contrastive")
+                  if isinstance(getattr(tower, n, None), AttentionalPooler))
     out: Dict[str, torch.Tensor] = {}
-    for k, v in model.state_dict().items():
-        v = v.detach().cpu()
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k, v in sd.items():
         if k == "visual.conv1.weight":  # (P*P*3, W) -> (W, 3, P, P)
             p = int(round((v.shape[0] // 3) ** 0.5))
             out[k] = v.reshape(p, p, 3, -1).permute(3, 2, 0, 1).contiguous()
+        elif k.startswith(pools):
+            continue  # below
         elif k.startswith(("visual.conv1.", "visual.attn_pool.")):
             raise NotImplementedError(f"{k}: the reference layout has no place for it here "
                                       "(the JAX package's inverse drops it)")
-        elif k.startswith(("visual.", "logit_scale", "logit_bias")):
+        elif k.startswith(("visual.", "logit_scale", "logit_bias", "text_decoder.")):
             out[k] = v
         elif k.startswith(text_parts):
             out[text_prefix + k] = v
         else:
             raise NotImplementedError(f"{k}: not a part of the native ViT and text towers")
+    for prefix in pools:
+        w = {n: sd[f"{prefix}attn.{n}_proj.weight"] for n in ("q", "k", "v")}
+        for n in ("query", "ln_q.weight", "ln_q.bias", "ln_k.weight", "ln_k.bias",
+                  "attn.out_proj.weight", "attn.out_proj.bias"):
+            out[prefix + n] = sd[prefix + n]
+        if w["k"].shape[1] == w["q"].shape[1]:
+            out[prefix + "attn.in_proj_weight"] = torch.cat([w["q"], w["k"], w["v"]])
+        else:
+            for n in ("q", "k", "v"):
+                out[prefix + f"attn.{n}_proj_weight"] = w[n]
+        out[prefix + "attn.in_proj_bias"] = torch.cat(
+            [sd[f"{prefix}attn.{n}_proj.bias"] for n in ("q", "k", "v")])
     return out
 
 

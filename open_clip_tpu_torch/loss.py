@@ -5,8 +5,11 @@ features, ``scale * imf @ txf.T``, the mean cross-entropy of the logits both way
 against the diagonal. ``siglip_loss`` is its pairwise sigmoid loss (SigLIP):
 ``-log sigmoid(z * logit)`` summed over every (image, text) pair, z = +1 on the
 diagonal and -1 elsewhere, divided by the batch; ``siglip_loss_chunked`` is the same
-sum over a longer set of texts, taken in column chunks. All loss math runs in
-float32 whatever the feature dtype.
+sum over a longer set of texts, taken in column chunks. ``caption_cross_entropy``
+is CoCa's caption term and ``distill_kl`` the distillation term. ``create_loss``
+(the JAX factory) returns the loss object of a run: ``CoCaLoss`` or
+``DistillClipLoss``, both built on ``ClipLoss``, or ``SigLipLoss``. All loss math runs
+in float32 whatever the feature dtype.
 
 Across processes (``group``, or ``world_size > 1`` on the default group) each rank
 passes its own rows and gets its own loss, the JAX function's value inside
@@ -235,3 +238,135 @@ def siglip_loss_chunked(image_features: torch.Tensor, text_features: torch.Tenso
         total = total + _sigmoid_pair_sum(imf, txf[c0:c0 + chunk_size], scale, bias, c0,
                                           diag_offset)
     return total / imf.shape[0]
+
+
+def caption_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          pad_id: int = 0) -> torch.Tensor:
+    """Token-level cross-entropy of (..., V) logits, in float32, over the positions
+    whose label is not ``pad_id`` (the reference CoCaLoss's ``ignore_index``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    mask = (labels != pad_id).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def distill_kl(image_features: torch.Tensor, text_features: torch.Tensor,
+               logit_scale: torch.Tensor, t_image_features: torch.Tensor,
+               t_text_features: torch.Tensor, t_logit_scale: torch.Tensor, *,
+               group=None) -> torch.Tensor:
+    """The distillation term (the JAX train step's, and ``DistillClipLoss``'s): 0.5 (KL
+    image->text + KL text->image) as cross-entropies of the student's log-softmax under
+    the teacher's softmax, in float32. Scales are exp()ed. Across processes
+    (``group``) this rank's rows meet every rank's columns, student and teacher alike."""
+    group = _loss_group(1, group)
+    imf, txf = image_features.float(), text_features.float()
+    t_imf, t_txf = t_image_features.float(), t_text_features.float()
+    s, ts = logit_scale.float(), t_logit_scale.float()
+    s_i, s_t = s * imf @ gather_features(txf, group).T, s * txf @ gather_features(imf, group).T
+    t_i, t_t = (ts * t_imf @ gather_features(t_txf, group).T,
+                ts * t_txf @ gather_features(t_imf, group).T)
+    return 0.5 * (_soft_cross_entropy(t_i, s_i) + _soft_cross_entropy(t_t, s_t))
+
+
+def _soft_cross_entropy(teacher_logits: torch.Tensor, student_logits: torch.Tensor):
+    """The mean over rows of -sum softmax(teacher) * log_softmax(student)."""
+    return -(torch.softmax(teacher_logits, dim=-1)
+             * torch.log_softmax(student_logits, dim=-1)).sum(-1).mean()
+
+
+class ClipLoss:
+    """The reference ``ClipLoss`` as a callable over ``clip_loss`` (``group`` in place
+    of the rank and world-size arguments); the base of ``CoCaLoss`` and
+    ``DistillClipLoss``."""
+
+    def __init__(self, local_loss: bool = True, group=None, **_ignored):
+        self.local_loss = local_loss
+        self.group = group
+
+    def __call__(self, image_features, text_features, logit_scale, output_dict: bool = False,
+                 **_):
+        loss = clip_loss(image_features, text_features, logit_scale, group=self.group,
+                         local_loss=self.local_loss)
+        return {"contrastive_loss": loss} if output_dict else loss
+
+
+class SigLipLoss:
+    """The reference ``SigLipLoss`` as a callable over ``siglip_loss`` (what
+    ``create_loss`` returns with ``siglip``)."""
+
+    def __init__(self, group=None, dist_impl: Optional[str] = None, **_ignored):
+        self.group = group
+        self.dist_impl = dist_impl or "bidir"
+
+    def __call__(self, image_features, text_features, logit_scale, logit_bias=None,
+                 output_dict: bool = False, **_):
+        loss = siglip_loss(image_features, text_features, logit_scale, logit_bias,
+                           group=self.group, dist_impl=self.dist_impl)
+        return {"contrastive_loss": loss} if output_dict else loss
+
+
+class CoCaLoss(ClipLoss):
+    """Contrastive plus captioning cross-entropy (the JAX ``CoCaLoss``): each term
+    times its weight; the caption term over (B, L, V) logits, pad labels left out."""
+
+    def __init__(self, caption_loss_weight: float = 2.0, clip_loss_weight: float = 1.0,
+                 pad_id: int = 0, **kw):
+        super().__init__(**kw)
+        self.caption_loss_weight = caption_loss_weight
+        self.clip_loss_weight = clip_loss_weight
+        self.pad_id = pad_id
+
+    def __call__(self, image_features, text_features, logits, labels, logit_scale,
+                 output_dict: bool = False, **_):
+        if self.clip_loss_weight:
+            closs = clip_loss(image_features, text_features, logit_scale, group=self.group,
+                              local_loss=self.local_loss) * self.clip_loss_weight
+        else:
+            closs = logits.new_zeros((), dtype=torch.float32)
+        caption = caption_cross_entropy(logits, labels, self.pad_id) * self.caption_loss_weight
+        if output_dict:
+            return {"contrastive_loss": closs, "caption_loss": caption}
+        return closs, caption
+
+
+class DistillClipLoss(ClipLoss):
+    """Contrastive plus the KL distillation from a teacher's features (the JAX
+    ``DistillClipLoss``): across processes the student's and the teacher's logits
+    take every rank's columns."""
+
+    def __call__(self, image_features, text_features, logit_scale, dist_image_features=None,
+                 dist_text_features=None, dist_logit_scale=None, output_dict: bool = False,
+                 **_):
+        closs = clip_loss(image_features, text_features, logit_scale, group=self.group,
+                          local_loss=self.local_loss)
+        dloss = distill_kl(image_features, text_features, logit_scale, dist_image_features,
+                           dist_text_features, dist_logit_scale, group=self.group)
+        if output_dict:
+            return {"contrastive_loss": closs, "distill_loss": dloss}
+        return closs, dloss
+
+
+def create_loss(args):
+    """The loss object a run trains with (the JAX ``create_loss``), chosen as the train
+    step chooses its loss (``loss_type_for`` on the named model's config): distillation
+    when ``distill`` is set, CoCa for a config with a multimodal decoder (the registry's
+    ``coca_*``, JAX's rule by name), the sigmoid loss with ``siglip``, else InfoNCE.
+    ``args``: a namespace or dict with the CLI's names."""
+    from .config import parse_model_cfg
+    from .train.train_step import loss_type_for
+
+    get = (args.get if isinstance(args, dict) else lambda k, d=None: getattr(args, k, d))
+    group = get("group", None)
+    loss_type = loss_type_for(parse_model_cfg(get("model")), distill=bool(get("distill", False)),
+                              siglip=bool(get("siglip", False)))
+    if loss_type == "distill":
+        return DistillClipLoss(local_loss=get("local_loss", True), group=group)
+    if loss_type == "coca":
+        return CoCaLoss(caption_loss_weight=get("coca_caption_loss_weight", 2.0),
+                        clip_loss_weight=get("coca_contrastive_loss_weight", 1.0),
+                        local_loss=get("local_loss", True), group=group)
+    if loss_type == "siglip":
+        return SigLipLoss(group=group, dist_impl=get("loss_dist_impl", None))
+    if loss_type != "clip":
+        raise NotImplementedError(f"the {loss_type} loss is not ported yet")
+    return ClipLoss(local_loss=get("local_loss", True), group=group)

@@ -160,10 +160,13 @@ class Attention(nn.Module):
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x: torch.Tensor, *, causal: bool = False,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_valid: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kv``: cross-attention's keys and values (CoCa's decoder)."""
         return multi_head_attention(x, self.in_proj_weight, self.in_proj_bias,
                                     self.out_proj.weight, self.out_proj.bias,
-                                    num_heads=self.heads, causal=causal, key_valid=key_valid)
+                                    num_heads=self.heads, causal=causal, key_valid=key_valid,
+                                    bias=bias, kv=kv)
 
 
 class Mlp(nn.Module):
@@ -196,8 +199,9 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_2 = LayerScale(width)
 
     def forward(self, x: torch.Tensor, *, causal: bool = False,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.attn(self.ln_1(x, "remat_ln1"), causal=causal, key_valid=key_valid)
+                key_valid: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.attn(self.ln_1(x, "remat_ln1"), causal=causal, key_valid=key_valid, bias=bias)
         if self.ls_init_value is not None:
             h = self.ls_1(h)
         x = x + h
@@ -251,13 +255,15 @@ class Transformer(nn.Module):
             ResidualAttentionBlock(width, heads, mlp_width, **block_kw) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, *, causal: bool = False, remat: bool = False,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``key_valid``: optional (B, L) key-padding mask, the same for every block."""
+                key_valid: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``key_valid``: optional (B, L) key-padding mask, and ``bias`` an optional
+        additive attention bias, the same for every block."""
         for block in self.resblocks:
             if remat and torch.is_grad_enabled():
-                x = remat_call(block, x, causal=causal, key_valid=key_valid)
+                x = remat_call(block, x, causal=causal, key_valid=key_valid, bias=bias)
             else:
-                x = block(x, causal=causal, key_valid=key_valid)
+                x = block(x, causal=causal, key_valid=key_valid, bias=bias)
         return x
 
     def init_weights(self, gen: torch.Generator, scheme: str) -> None:

@@ -3,7 +3,9 @@
 ``CLIPModel`` is an ``nn.Module`` holding both towers under the reference
 checkpoint's names (``visual.*``, the text tower's parts at the top level, or the
 modern text tower as ``text.*``, ``logit_scale``). The vision tower is a ViT, a
-NaFlex ViT (``naflexvit_*``) or a Swin tower (``swin_*``). A CLAP config (one with
+NaFlex ViT (``naflexvit_*``) or a Swin tower (``swin_*``). A CoCa config (one with
+``multimodal_cfg``) adds the multimodal decoder ``text_decoder`` of
+``models/coca.py``; its forward is ``coca_forward`` and ``generate`` captions. A CLAP config (one with
 ``audio_cfg``) holds ``audio``, the HTSAT or NaFlex audio tower of
 ``models/clap.py``, in place of ``visual``; HTSAT's ``bn0`` uses stored statistics
 in training too, so serving and training run the same forward.
@@ -38,7 +40,6 @@ def check_model_cfg(cfg: CLIPModelCfg) -> None:
     changes nothing the model computes, so it is accepted."""
     first = cfg.audio_cfg if cfg.audio_cfg is not None else cfg.vision_cfg
     unported = [name for name, on in (
-        ("CoCa decoder", cfg.multimodal_cfg is not None),
         ("NaFlex audio tower", cfg.audio_naflex_cfg is not None),
         ("GenLIP/GenLAP", cfg.genlip_cfg is not None or cfg.genlap_cfg is not None),
         ("model without both towers", first is None or cfg.text_cfg is None)) if on]
@@ -64,6 +65,10 @@ class CLIPModel(nn.Module):
         else:
             self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act)
         text_mod.add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act)
+        if cfg.multimodal_cfg is not None:
+            from .coca import MultimodalDecoder
+
+            self.text_decoder = MultimodalDecoder(cfg.multimodal_cfg, cfg.text_cfg.vocab_size, act)
         self.logit_scale = nn.Parameter(torch.empty(()))
         self.logit_bias = None if cfg.init_logit_bias is None else nn.Parameter(torch.empty(()))
         self.preprocess_cfg = None  # set by the factory
@@ -74,6 +79,8 @@ class CLIPModel(nn.Module):
         cfg = self.cfg
         (self.audio if cfg.audio_cfg is not None else self.visual).init_weights(gen)
         text_mod.init_text_tower(self, cfg.text_cfg, gen)
+        if cfg.multimodal_cfg is not None:
+            self.text_decoder.init_weights(gen)
         self.logit_scale.fill_(DEFAULT_LOGIT_SCALE if cfg.init_logit_scale is None
                                else cfg.init_logit_scale)
         if self.logit_bias is not None:
@@ -101,8 +108,28 @@ class CLIPModel(nn.Module):
         return get_logits(self, image, text)
 
     def forward(self, image=None, text=None, *, train: bool = False, remat: bool = False,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        return clip_forward(self, image, text, train=train, remat=remat, generator=generator)
+                generator: Optional[torch.Generator] = None, **coca_kw) -> Dict[str, torch.Tensor]:
+        """``coca_kw``: ``return_hidden`` and ``decode`` of ``coca_forward``."""
+        return clip_forward(self, image, text, train=train, remat=remat, generator=generator,
+                            **coca_kw)
+
+    def generate(self, image, *, seed: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None, **kw) -> torch.Tensor:
+        """Caption images (CoCa configs), the JAX ``CLIPModel.generate``: beam search
+        by default (``generation_type="beam_search"``, or any ``num_beams``), else
+        ``coca.generate``'s greedy or sampled decode, which draws from ``generator``
+        or, given ``seed``, a generator on the model's device seeded with it."""
+        if self.cfg.multimodal_cfg is None:
+            raise ValueError("generate() requires a CoCa config (multimodal_cfg)")
+        from . import coca
+
+        gt = kw.pop("generation_type", "beam_search")
+        if gt == "beam_search" or "num_beams" in kw:
+            return coca.generate_beam(self, image, **kw)
+        if generator is None and seed is not None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+        return coca.generate(self, image, generator, generation_type=gt, **kw)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -155,11 +182,19 @@ def encode_audio(model: CLIPModel, audio, *, normalize: bool = False) -> torch.T
 
 
 def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False,
-                 remat: bool = False, generator: Optional[torch.Generator] = None
+                 remat: bool = False, generator: Optional[torch.Generator] = None, **coca_kw
                  ) -> Dict[str, torch.Tensor]:
     """Dict output of the reference ``CLIP.forward(output_dict=True)``. For a CLAP
     model ``image`` is the audio batch and the output is ``clap_forward``'s (HTSAT
-    has no remat, as in the JAX package)."""
+    has no remat, as in the JAX package); a CoCa model's is ``coca_forward``'s,
+    which takes ``coca_kw``."""
+    if model.cfg.multimodal_cfg is not None:
+        from .coca import coca_forward
+
+        return coca_forward(model, image, text, train=train, remat=remat, generator=generator,
+                            **coca_kw)
+    if coca_kw:
+        raise TypeError(f"{sorted(coca_kw)} belong to a CoCa model's forward")
     if model.cfg.audio_cfg is not None:
         return clap.clap_forward(model, image, text, remat=remat)
     out: Dict[str, torch.Tensor] = {}
@@ -176,7 +211,8 @@ def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False
 
 def get_logits(model: CLIPModel, image, text):
     """(logits_per_image, logits_per_text)."""
-    out = clip_forward(model, image, text)
+    out = clip_forward(model, image, text,
+                       **({"decode": False} if model.cfg.multimodal_cfg is not None else {}))
     logits = out["logit_scale"] * out["image_features"].float() @ out["text_features"].float().T
     if "logit_bias" in out:
         logits = logits + out["logit_bias"]

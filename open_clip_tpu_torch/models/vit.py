@@ -5,8 +5,9 @@ package's ``(ph, pw, 3)`` flatten order) followed by one matmul, as in the JAX
 package; the class token (when the trunk has one), learned positional embedding
 (added in the compute dtype after the class token), ``ln_pre``, the block stack,
 ``ln_post`` and the ``tok``/``avg``/``map`` pool and projection follow
-``apply_vision_tower``. The timm trunks the JAX package builds natively (SigLIP's,
-timm CLIP's and the gap ViTs) resolve to this tower by name.
+``apply_vision_tower``, and so do CoCa's attentional poolers (``attentional_pool``:
+``True``, ``"parallel"`` or ``"cascade"``). The timm trunks the JAX package builds
+natively (SigLIP's, timm CLIP's and the gap ViTs) resolve to this tower by name.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import torch
 from torch import nn
 
 from ..config import CLIPVisionCfg, to_2tuple
+from ..ops.attention import cross_attention
 from ..ops.layers import linear
 from .blocks import LayerNorm, Transformer, check_block_options
-from .naflex_vit import AttentionPoolLatent
+from .naflex_vit import AttentionPoolLatent, _ln_init_, _torch_linear_init_
 
 
 def patchify(x: torch.Tensor, patch_size) -> torch.Tensor:
@@ -110,8 +112,8 @@ def check_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
     unported = []
     if cfg.is_resnet:
         unported.append("ModifiedResNet")
-    if cfg.attentional_pool:
-        unported.append("attentional pool")
+    if cfg.attentional_pool not in (False, True, "parallel", "cascade"):
+        unported.append(f"attentional_pool {cfg.attentional_pool!r}")
     if cfg.pool_type not in ("tok", "avg", "map"):
         unported.append(f"pool_type {cfg.pool_type!r}")
     if cfg.pos_embed_type != "learnable":
@@ -124,11 +126,57 @@ def check_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
     return cfg
 
 
+class AttentionalPooler(nn.Module):
+    """CoCa's attentional pooler (the JAX package's ``init_attentional_pooler`` /
+    ``apply_attentional_pooler``): ``n_queries`` learned queries of width ``d_model``,
+    after ``ln_q``, attend over the ``ln_k``-normalised (B, L, ``context_dim``) tokens
+    through separate q, k and v projections (k and v from ``context_dim``)."""
+
+    def __init__(self, d_model: int, context_dim: int, n_head: int, n_queries: int,
+                 norm_eps: float = 1e-5):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Parameter(torch.empty(n_queries, d_model))
+        self.attn = nn.ModuleDict({"q_proj": nn.Linear(d_model, d_model),
+                                   "k_proj": nn.Linear(context_dim, d_model),
+                                   "v_proj": nn.Linear(context_dim, d_model),
+                                   "out_proj": nn.Linear(d_model, d_model)})
+        self.ln_q = LayerNorm(d_model, eps=norm_eps)
+        self.ln_k = LayerNorm(context_dim, eps=norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, context_dim) -> (B, n_queries, d_model)."""
+        k = self.ln_k(x)
+        q = self.ln_q(self.query.to(x.dtype)).expand(x.shape[0], -1, -1)
+        a = self.attn
+        return cross_attention(q, k, *((a[n].weight, a[n].bias) for n in
+                                       ("q_proj", "k_proj", "v_proj", "out_proj")),
+                               num_heads=self.n_head)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """JAX's distributions: normal(0, 1) queries, xavier-uniform q/k/v kernels
+        with zero biases, ``nn.Linear``'s default for the output projection."""
+        self.query.normal_(0.0, 1.0, generator=gen)
+        for name in ("q_proj", "k_proj", "v_proj"):
+            lin = self.attn[name]
+            bound = (6.0 / (lin.in_features + lin.out_features)) ** 0.5
+            lin.weight.uniform_(-bound, bound, generator=gen)
+            lin.bias.zero_()
+        _torch_linear_init_(self.attn["out_proj"], gen)
+        _ln_init_(self.ln_q)
+        _ln_init_(self.ln_k)
+
+
 class VisionTransformer(nn.Module):
     """The ViT tower. A class-token-free trunk (SigLIP's) has no ``class_embedding``;
     a ``map`` pool is the MAP head ``attn_pool`` (one latent query, its MLP at 4x the
     width for every size, GELU, as in the JAX package); a timm trunk with
-    ``timm_proj == "none"`` has no ``proj`` and its pooled width is the embedding."""
+    ``timm_proj == "none"`` has no ``proj`` and its pooled width is the embedding.
+    CoCa's ``attentional_pool`` makes ``attn_pool`` an ``AttentionalPooler`` of
+    ``attn_pooler_queries`` queries (and, for ``"parallel"``/``"cascade"``,
+    ``attn_pool_contrastive`` of one), whose width is the embedding's: ``ln_post``
+    and ``proj`` are then ``embed_dim`` wide."""
 
     def __init__(self, cfg: CLIPVisionCfg, embed_dim: int, act: str = "gelu"):
         super().__init__()
@@ -146,10 +194,20 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(width, cfg.layers, cfg.heads, int(width * cfg.mlp_ratio),
                                        act=act, ls_init_value=cfg.ls_init_value,
                                        norm_eps=cfg.norm_eps)
-        self.ln_post = LayerNorm(width, eps=cfg.norm_eps)
-        self.attn_pool = (AttentionPoolLatent(width, cfg.heads, int(width * 4.0), cfg.norm_eps,
-                                              "gelu") if cfg.pool_type == "map" else None)
-        self.proj = None if no_proj else nn.Parameter(torch.empty(width, embed_dim))
+        pool_dim = width
+        self.attn_pool = self.attn_pool_contrastive = None
+        if cfg.attentional_pool:
+            pool_dim = embed_dim
+            self.attn_pool = AttentionalPooler(embed_dim, width, cfg.attn_pooler_heads,
+                                               cfg.attn_pooler_queries, cfg.norm_eps)
+            if isinstance(cfg.attentional_pool, str):
+                self.attn_pool_contrastive = AttentionalPooler(
+                    embed_dim, width, cfg.attn_pooler_heads, 1, cfg.norm_eps)
+        elif cfg.pool_type == "map":
+            self.attn_pool = AttentionPoolLatent(width, cfg.heads, int(width * 4.0), cfg.norm_eps,
+                                                 "gelu")
+        self.ln_post = LayerNorm(pool_dim, eps=cfg.norm_eps)
+        self.proj = None if no_proj else nn.Parameter(torch.empty(pool_dim, embed_dim))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -164,15 +222,18 @@ class VisionTransformer(nn.Module):
                 ln.weight.fill_(1.0)
                 ln.bias.zero_()
         self.transformer.init_weights(gen, "vision")
-        if self.attn_pool is not None:
-            self.attn_pool.init_weights(gen)
+        for pool in (self.attn_pool, self.attn_pool_contrastive):
+            if pool is not None:
+                pool.init_weights(gen)
         if self.proj is not None:
             self.proj.normal_(0.0, scale, generator=gen)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32, *,
                 train: bool = False, remat: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim). In
+                generator: Optional[torch.Generator] = None, return_tokens: bool = False):
+        """(B, H, W, 3) normalized NHWC -> pooled, projected (B, embed_dim), or with
+        ``return_tokens`` (pooled, tokens), the JAX tower's pair (tokens: the patch
+        tokens after ``ln_post``, or CoCa's pooled queries but the first). In
         training with ``patch_dropout`` > 0 the patch tokens are thinned after the
         position embedding, with noise drawn from ``generator``."""
         cfg = self.cfg
@@ -187,14 +248,32 @@ class VisionTransformer(nn.Module):
         if self.ln_pre is not None:
             x = self.ln_pre(x)
         x = self.transformer(x, remat=remat)
-        if self.attn_pool is not None:
+        pooled, tokens = self._pool(x)
+        if self.proj is not None:
+            pooled = linear(pooled, self.proj)
+        return (pooled, tokens) if return_tokens else pooled
+
+    def _pool(self, x: torch.Tensor):
+        """(pooled, tokens) of the block stack's output, the JAX ``_pool``."""
+        cfg = self.cfg
+        if cfg.attentional_pool is True:  # the OpenCLIP CoCa form: pool, then ln_post
+            x = self.ln_post(self.attn_pool(x))
+            if cfg.pool_type == "tok":
+                return x[:, 0], x[:, 1:]
+            return x.mean(dim=1), x
+        if cfg.attentional_pool:  # "parallel" / "cascade" (CoCa paper)
             x = self.ln_post(x)
-            pooled = self.attn_pool(x, torch.ones(x.shape[:2], dtype=torch.bool, device=x.device))
-        elif cfg.final_ln_after_pool:
-            pooled = self.ln_post(_global_pool(cfg, x))
-        else:
-            pooled = _global_pool(cfg, self.ln_post(x))
-        return pooled if self.proj is None else linear(pooled, self.proj)
+            tokens = self.attn_pool(x)
+            src = x if cfg.attentional_pool == "parallel" else tokens
+            return self.attn_pool_contrastive(src)[:, 0], tokens
+        if self.attn_pool is not None:  # the MAP head
+            x = self.ln_post(x)
+            return self.attn_pool(x, torch.ones(x.shape[:2], dtype=torch.bool,
+                                                device=x.device)), x
+        if cfg.final_ln_after_pool:
+            return self.ln_post(_global_pool(cfg, x)), _pool_tokens(cfg, x)
+        x = self.ln_post(x)
+        return _global_pool(cfg, x), _pool_tokens(cfg, x)
 
 
 def draw_patch_noise(b: int, n: int, device, generator: Optional[torch.Generator]
@@ -229,3 +308,8 @@ def _global_pool(cfg: CLIPVisionCfg, x: torch.Tensor) -> torch.Tensor:
     if cfg.pool_type == "avg":
         return x[:, int(cfg.class_token):].mean(dim=1)
     return x[:, 0]
+
+
+def _pool_tokens(cfg: CLIPVisionCfg, x: torch.Tensor) -> torch.Tensor:
+    """The tokens the JAX ``_global_pool`` returns beside the pooled one."""
+    return x[:, int(cfg.class_token):] if cfg.pool_type == "avg" else x[:, 1:]

@@ -8,8 +8,9 @@ with a key-padding mask, no bias, L >= 512 and a head width the flash kernels
 take, the flash kernels (they mask in-kernel); without a mask, the short kernel
 where ``short_attention.supports`` accepts the shape; else, without a mask or
 bias and with L >= 512, the flash kernels again (a plain ViT at L = 577 lands
-here). Everything else, cross-attention and everything on the CPU take the dense
-path, which folds the mask into an additive bias.
+here). Everything else, cross-attention (``multi_head_attention(kv=...)``,
+``cross_attention``) and everything on the CPU take the dense path, which folds the
+mask into an additive bias.
 """
 
 from __future__ import annotations
@@ -87,15 +88,41 @@ def multi_head_attention(x: torch.Tensor, in_proj_weight: torch.Tensor,
                          in_proj_bias: Optional[torch.Tensor], out_weight: torch.Tensor,
                          out_bias: Optional[torch.Tensor], *, num_heads: int,
                          causal: bool = False,
-                         key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused-qkv self-attention with torch-layout (out, in) weights: (B, L, D) -> (B, L, D).
-    ``key_valid``: optional (B, L) key-padding mask. The fused projection and the
-    attention output carry the JAX package's remat tags ``remat_qkv`` and
-    ``remat_attn_ctx``."""
+                         key_valid: Optional[torch.Tensor] = None,
+                         kv: Optional[torch.Tensor] = None,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused-qkv attention with torch-layout (out, in) weights: (B, L, D) -> (B, L, D).
+    ``key_valid``: optional (B, L) key-padding mask; ``bias``: an optional additive
+    bias that broadcasts to (B, H, L, L) (it takes the dense path). Self-attention's fused projection
+    and the attention output carry the JAX package's remat tags ``remat_qkv`` and
+    ``remat_attn_ctx``. With ``kv`` (B, Lk, D) it is cross-attention, the JAX
+    ``kv=`` form: q from the first third of the fused projection applied to ``x``,
+    k and v from the other two applied to ``kv``."""
+    if kv is not None:
+        bq, bk, bv = (None,) * 3 if in_proj_bias is None else in_proj_bias.chunk(3)
+        wq, wk, wv = in_proj_weight.chunk(3)
+        return cross_attention(x, kv, (wq, bq), (wk, bk), (wv, bv), (out_weight, out_bias),
+                               num_heads=num_heads)
     b, l, d = x.shape
     hd = d // num_heads
     qkv = linear(x, in_proj_weight, in_proj_bias, transposed=True, name="remat_qkv")
     q, k, v = qkv.view(b, l, 3, num_heads, hd).unbind(2)  # views: no copies
-    out = dot_product_attention(q, k, v, causal=causal, key_valid=key_valid,
+    out = dot_product_attention(q, k, v, bias=bias, causal=causal, key_valid=key_valid,
                                 name="remat_attn_ctx").reshape(b, l, d)
     return linear(out, out_weight, out_bias, transposed=True)
+
+
+def cross_attention(x: torch.Tensor, kv: torch.Tensor, q_proj, k_proj, v_proj, out_proj, *,
+                    num_heads: int) -> torch.Tensor:
+    """Attention of the (B, Lq, D) queries ``x`` over the (B, Lk, Dk) ``kv``, each
+    projection a (torch-layout (out, in) weight, bias or None) pair; (B, Lq, D) out.
+    Lq differs from Lk (CoCa's decoder and attentional pooler), so it takes the dense
+    path on every device, as in the JAX package."""
+    b, lq, d = x.shape
+    lk = kv.shape[1]
+    hd = d // num_heads
+    q = linear(x, *q_proj, transposed=True).view(b, lq, num_heads, hd)
+    k = linear(kv, *k_proj, transposed=True).view(b, lk, num_heads, hd)
+    v = linear(kv, *v_proj, transposed=True).view(b, lk, num_heads, hd)
+    out = dot_product_attention(q, k, v, name="remat_attn_ctx").reshape(b, lq, d)
+    return linear(out, *out_proj, transposed=True)

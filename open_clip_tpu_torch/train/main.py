@@ -7,7 +7,10 @@ loads from ``--pretrained-image``/``--pretrained-audio``), the optimizer (with
 (which takes precedence over the pretrained weights), and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
 on the ``--ema`` weights where the run keeps them, then a checkpoint per
 ``--save-frequency``, ``--save-most-recent`` and ``--delete-previous-checkpoint``), with ``results.jsonl`` and
-``params.txt`` in the log directory. Without train data the run only evaluates
+``params.txt`` in the log directory. CoCa models train with their caption term
+(``--coca-caption-loss-weight``, ``--coca-contrastive-loss-weight``) and evaluate
+its loss; ``--distill-model`` trains against a frozen teacher built as the model is
+(``--distill-pretrained``, else random weights from ``--seed``). Without train data the run only evaluates
 (``--val-data``, ``--imagenet-val``, ``--audio-zeroshot-dataset``) and returns the
 metrics. Image train data
 (``--train-data`` tar shards or a CSV) needs ``--device-preprocess``: the host decodes
@@ -197,6 +200,10 @@ def _run(args):
     for flag, tower in (("pretrained_image", "visual"), ("pretrained_audio", "audio")):
         if getattr(args, flag):
             load_tower_(model, getattr(args, flag), tower, "--" + flag.replace("_", "-"))
+    loss_type = loss_type_for(model.cfg, distill=bool(args.distill_model), siglip=args.siglip)
+    if loss_type in ("coca", "distill") and (args.world_size > 1 or args.mesh_fsdp > 1):
+        raise NotImplementedError(f"the {loss_type} step under a mesh (--mesh-fsdp, or several "
+                                  "processes) is not ported yet")
     mesh = None
     if args.world_size > 1:
         mesh = create_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp, device=device.type)
@@ -265,6 +272,11 @@ def _run(args):
             lock_image_unlocked_groups=args.lock_image_unlocked_groups,
             lock_text=args.lock_text, lock_text_unlocked_layers=args.lock_text_unlocked_layers))
     state = create_train_state(model, optimizer, ema=args.ema is not None)
+    teacher = None
+    if args.distill_model:
+        teacher = create_model(args.distill_model, args.distill_pretrained or None,
+                               precision=args.precision, device=args.device, seed=args.seed)
+        teacher.eval().requires_grad_(False)
 
     start_epoch = 0
     if args.resume:
@@ -274,14 +286,16 @@ def _run(args):
             start_epoch = load_native(resume_path, like=state)
             start_epoch = int(broadcast_scalar_from_primary(start_epoch))
 
-    step_fn = make_train_step(model.cfg, optimizer,
-                              loss_type=loss_type_for(model.cfg, siglip=args.siglip),
+    step_fn = make_train_step(model.cfg, optimizer, loss_type=loss_type,
                               mesh=mesh, local_loss=args.local_loss, dist_impl=args.loss_dist_impl,
                               remat=args.grad_checkpointing, accum_steps=args.accum_freq,
                               ema_decay=args.ema, device_preprocess=device_pp,
                               preprocess_seed=args.seed,
                               naflex_loss_scale=args.naflex_loss_scale,
-                              reference_batch_size=args.batch_size)
+                              reference_batch_size=args.batch_size,
+                              caption_loss_weight=args.coca_caption_loss_weight,
+                              clip_loss_weight=args.coca_contrastive_loss_weight,
+                              teacher=teacher)
     # a checkpoint taken in the middle of an epoch resumes past the batches it trained on
     resume_skip = max(0, state.step - start_epoch * steps_per_epoch)
 

@@ -145,14 +145,18 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(norms)
 
 
-_BLOCK_RE = re.compile(r"(?:^|\.)transformer\.resblocks\.(\d+)\.")
+# the blocks the JAX tree stacks and ``layer_decay_scales`` ladders (CoCa's decoder
+# self-attention blocks among them; its cross blocks are the JAX ``cross_blocks``,
+# which its ladder leaves out)
+_BLOCK_RE = re.compile(r"(?:^|\.)(?:transformer|text_decoder)\.resblocks\.(\d+)\.")
 
 
 def _tower(name: str) -> str:
     """The JAX tree's top-level key of a port parameter: the text tower's parts sit
     at the port's top level, under ``text`` in the JAX tree."""
     head = name.split(".")[0]
-    return head if head in ("visual", "audio", "logit_scale", "logit_bias") else "text"
+    return head if head in ("visual", "audio", "logit_scale", "logit_bias",
+                            "text_decoder") else "text"
 
 
 def _stack_depths(names: Iterable[str]) -> Dict[str, int]:
@@ -204,7 +208,7 @@ def layer_decay_scales(params: Union[nn.Module, Dict[str, torch.Tensor]], decay:
             n = p.shape[1] if p.ndim == 2 and name.endswith(".weight") else p.shape[0]
             ladder = np.float32(d) ** (np.float32(n) - np.arange(n, dtype=np.float32))
             out[name] = _along_first_jax_axis(name, p, torch.from_numpy(ladder))
-        elif name in ("visual.proj", "text_projection", "logit_scale", "logit_bias") or \
+        elif parts[-1] in ("proj", "text_projection", "logit_scale", "logit_bias") or \
                 "ln_post" in parts or "ln_final" in parts:
             out[name] = 1.0
         else:
@@ -254,7 +258,8 @@ OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "momentum", "lamb", "adafactor",
 # the rules that read a leaf's shape or norm, which the JAX tree's leaves decide
 _LEAF_RULES = ("lamb", "adafactor", "muon")
 # the JAX tree stacks these blocks along a leading layer axis
-_STACK_RE = re.compile(r"(?:^|\.)(?:transformer|trunk)\.resblocks\.(\d+)\.")
+_STACK_RE = re.compile(
+    r"(?:^|\.)(?:(?:transformer|trunk)\.resblocks|text_decoder\.(?:resblocks|cross_attn))\.(\d+)\.")
 # optax.scale_by_factored_rms()'s defaults
 _FACTOR_DECAY, _FACTOR_MIN_DIM, _FACTOR_EPS = 0.8, 128, 1e-30
 
@@ -322,8 +327,9 @@ def _jax_view(model: nn.Module, name: str, p: torch.Tensor, stacked: bool) -> Ca
 
 def jax_leaves(model: nn.Module) -> List[Leaf]:
     """The model's parameters grouped into the JAX tree's leaves: the tensors of
-    ``transformer.resblocks.{i}`` and ``trunk.resblocks.{i}`` stack into one leaf per
-    name (the JAX blocks' layer axis), every other tensor is a leaf of its own (the
+    ``transformer.resblocks.{i}``, ``trunk.resblocks.{i}`` and CoCa's
+    ``text_decoder.resblocks.{i}`` and ``text_decoder.cross_attn.{i}`` stack into one
+    leaf per name (the JAX blocks' layer axis), every other tensor is a leaf of its own (the
     Swin and HTSAT ``blocks`` lists are unstacked in JAX too)."""
     named = list(model.named_parameters())
     depth: Dict[str, int] = {}

@@ -3,8 +3,7 @@
 
 The flags carry the JAX CLI's names and defaults. Those the JAX CLI parses and
 never reads parse here too and change nothing. Those of features that are not
-ported yet (the CoCa and distillation losses, tensor parallelism, remote sync,
-...) still parse, and ``parse_args`` raises
+ported yet (tensor parallelism, remote sync, compilation, ...) still parse, and ``parse_args`` raises
 ``NotImplementedError`` when one is set to anything but its default: a JAX command
 line is refused, not half-obeyed. One flag is the port's own: ``--device`` (default: the CUDA card,
 raising where there is none; ``cpu`` runs the plain PyTorch path).
@@ -38,10 +37,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--scan-unroll",), dict(type=int, default=1)),
     # frozen batch-norm statistics belong to the ResNet towers
     (("--lock-image-freeze-bn-stats",), _ON),
-    # losses
-    (("--coca-caption-loss-weight",), dict(type=float, default=2.0)),
-    (("--coca-contrastive-loss-weight",), dict(type=float, default=1.0)),
-    (("--distill-model",), _STRS), (("--distill-pretrained",), _STRS),
     # compilation (the port has no compiled step) and audio loader processes
     (("--torchcompile",), _ON), (("--torchcompile-backend",), _STRS),
     (("--torchcompile-mode",), _STRS), (("--torchcompile-strategy",), _STRS),
@@ -224,8 +219,15 @@ def parse_args(args=None) -> argparse.Namespace:
                         help="reference int8 flag; maps onto the SwitchBack path "
                              "(same as --use-switchback)")
 
-    # losses: the sigmoid loss (SigLIP) in place of InfoNCE
+    # losses: the sigmoid loss (SigLIP) in place of InfoNCE, CoCa's weights of its
+    # two terms, and distillation from a teacher
     parser.add_argument("--siglip", action="store_true", default=False)
+    parser.add_argument("--coca-caption-loss-weight", type=float, default=2.0)
+    parser.add_argument("--coca-contrastive-loss-weight", type=float, default=1.0)
+    parser.add_argument("--distill-model", type=str, default=None,
+                        help="train against this teacher (a model name)")
+    parser.add_argument("--distill-pretrained", type=str, default=None,
+                        help="the teacher's checkpoint (default: random weights from --seed)")
 
     # weights to start from, and fine-tuning
     parser.add_argument("--pretrained", type=str, default="",

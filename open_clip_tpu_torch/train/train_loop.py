@@ -10,7 +10,8 @@ INFO on the primary only.
 
 ``evaluate`` is the JAX function's: zero-shot over the class folders
 (``zero_shot.py``), then the val loader through ``make_eval_step`` (normalized
-features and the in-batch symmetric cross-entropy in fp32) with two batches in
+features and the in-batch symmetric cross-entropy in fp32; for CoCa also the
+caption cross-entropy of the decoder, ``val_generative_loss``) with two batches in
 flight, the features drained to the host as it goes, reassembled in global order
 across processes and ranked by ``metrics.get_clip_metrics``. A model sharded by
 FSDP2 is called as a module on every rank the same number of times
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from ..data.wds import device_prefetch
 from .metrics import get_clip_metrics
-from .train_step import TrainState
+from .train_step import TrainState, caption_loss
 
 logger = logging.getLogger(__name__)
 
@@ -143,19 +144,27 @@ def placeholder_batch(model, text: bool = True) -> Dict[str, torch.Tensor]:
 def make_eval_step() -> Callable[[Any, Dict], Dict[str, torch.Tensor]]:
     """``step(model, batch)`` -> normalized ``primary_features`` and ``text_features``,
     ``logit_scale`` and ``loss``, the in-batch cross-entropy of both directions in
-    fp32. The model is called as a module, so that FSDP2's hooks gather its shards."""
+    fp32, and for CoCa ``gen_loss``, the caption cross-entropy of positions :-1
+    against the text at 1: without the pad labels (the JAX step's over the whole
+    logits; here through the chunked linear cross-entropy, the same sum). The model
+    is called as a module, so that FSDP2's hooks gather its shards."""
 
     @torch.no_grad()
     def step(model, batch) -> Dict[str, torch.Tensor]:
-        out = model(batch.get("audio", batch.get("image")), batch["text"])
+        coca = model.cfg.multimodal_cfg is not None
+        out = model(batch.get("audio", batch.get("image")), batch["text"],
+                    **({"return_hidden": True} if coca else {}))
         primary = out.get("image_features", out.get("audio_features"))
         txf = out["text_features"]
         scale = out["logit_scale"]
         logits = scale * primary.float() @ txf.float().T
         labels = torch.arange(primary.shape[0], device=logits.device)
         loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
-        return {"primary_features": primary, "text_features": txf, "logit_scale": scale,
-                "loss": loss}
+        res = {"primary_features": primary, "text_features": txf, "logit_scale": scale,
+               "loss": loss}
+        if coca:
+            res["gen_loss"] = caption_loss(model, out["hidden"], batch["text"])
+        return res
 
     return step
 
@@ -167,13 +176,14 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args: Any, tokenizer=None,
     ``{image_to_text,text_to_image}_{R@1,R@5,R@10,mean_rank,median_rank}``,
     ``num_samples`` and ``epoch``. Under several processes the rank-split loaders'
     features come back in global order (by each batch's ``index``, else by stride) and
-    the sums over ``host_psum``. GenLIP and CoCa models have no port and raise."""
+    the sums over ``host_psum``; a CoCa model adds ``val_generative_loss``. GenLIP
+    and GenLAP models have no port and raise."""
     from ..parallel.distributed import host_gather_by_index, host_gather_stride, host_psum
     from .zero_shot import zero_shot_eval
 
     cfg = model.cfg
-    if hasattr(cfg, "trunk_cfg") or getattr(cfg, "multimodal_cfg", None) is not None:
-        raise NotImplementedError("evaluation of GenLIP and CoCa models is not ported")
+    if hasattr(cfg, "trunk_cfg"):
+        raise NotImplementedError("evaluation of GenLIP and GenLAP models is not ported")
     metrics: Dict[str, float] = dict(zero_shot_eval(model, data, epoch, args, tokenizer=tokenizer))
     if "audio-zeroshot" in data:
         from .audio_zero_shot import audio_zero_shot_eval, parse_templates
@@ -185,17 +195,20 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args: Any, tokenizer=None,
     if "val" in data:
         eval_step = make_eval_step()
         all_imf, all_txf, all_idx = [], [], []
-        loss_sum, n, scale = 0.0, 0, None
+        loss_sum, n, scale, gen_sum, gen_n = 0.0, 0, None, 0.0, 0
         primary_key = "image"
         pending = []
 
         def drain(res, bs, idx):
-            nonlocal loss_sum, n, scale
+            nonlocal loss_sum, n, scale, gen_sum, gen_n
             all_imf.append(res["primary_features"].float().cpu().numpy())
             all_txf.append(res["text_features"].float().cpu().numpy())
             if idx is not None:
                 all_idx.append(idx)
             loss_sum += float(res["loss"]) * bs
+            if "gen_loss" in res:
+                gen_sum += float(res["gen_loss"]) * bs
+                gen_n += bs
             scale = float(res["logit_scale"])
             n += bs
 
@@ -213,7 +226,9 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args: Any, tokenizer=None,
                 drain(*pending.pop(0))
         for item in pending:
             drain(*item)
-        loss_sum, n = host_psum([loss_sum, n])
+        loss_sum, n, gen_sum, gen_n = host_psum([loss_sum, n, gen_sum, gen_n])
+        if gen_n:
+            metrics["val_generative_loss"] = float(gen_sum / gen_n)
         if n and all_imf:
             imf, txf = np.concatenate(all_imf), np.concatenate(all_txf)
             if all_idx:

@@ -16,6 +16,16 @@ microbatch's features without gradients and one loss backward with respect to
 the features; phase 2 runs each microbatch's forward again and backpropagates
 the cached feature gradients. That gives the gradient of the full batch.
 
+CoCa (``loss_type="coca"``) adds the caption term: the decoder's hidden states at
+positions :-1 predict the text at 1: (pad labels ignored) through the chunked
+linear cross-entropy on ``text_decoder.text_projection`` (``ops/fused_ce.py``), so
+the (B, L, vocab) logits never exist whole. Under GradCache the caption term is a
+sum over samples, so each microbatch's phase-2 forward also backpropagates its own
+caption loss over ``accum_steps``. Distillation (``loss_type="distill"``, a
+``teacher`` model) adds the KL between the teacher's and the student's logits of
+the batch; the teacher's features come from its eval forward under ``no_grad``,
+and under GradCache the term joins the loss of the cached features.
+
 Under a mesh (``parallel.mesh``: the model under ``shard_model``) every rank takes
 its own rows, the loss is gathered over the mesh's ranks when there is more than
 one, FSDP2 averages the sharded gradients over the ranks and the step averages the
@@ -36,13 +46,15 @@ import torch
 import torch.distributed as dist
 
 from ..config import CLIPModelCfg
-from ..loss import SIGLIP_DIST_IMPLS, clip_loss, siglip_loss
+from ..loss import SIGLIP_DIST_IMPLS, clip_loss, distill_kl, siglip_loss
 from ..models import blocks
 from ..models.clip import LOGIT_SCALE_MAX, CLIPModel, clamp_logit_scale, clip_forward
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..parallel.mesh import is_sharded, sync_replicated_grads
 from .optim import Optimizer
 
-UNPORTED_LOSSES = ("coca", "distill", "genlip", "genlap")
+UNPORTED_LOSSES = ("genlip", "genlap")
+LOSS_TYPES = ("clip", "siglip", "coca", "distill")
 
 
 def loss_type_for(cfg, *, distill: bool = False, siglip: bool = False) -> str:
@@ -117,13 +129,39 @@ def ema_weights(state: TrainState):
 
 
 def _features(model: CLIPModel, batch, remat: bool,
-              gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              gen: Optional[torch.Generator] = None, **coca_kw) -> Tuple[torch.Tensor, ...]:
     """(primary, text) features; a CLAP batch's audio features take the image slot.
     The model is called as a module, so that FSDP2's hooks run under a mesh. ``gen``
-    draws the patch-dropout noise."""
+    draws the patch-dropout noise. A CoCa model runs without its decoder, or with
+    ``return_hidden=True`` returns the decoder's hidden states third."""
     key = "audio" if "audio" in batch else "image"
-    out = model(batch[key], batch["text"], train=True, remat=remat, generator=gen)
-    return out[f"{key}_features"], out["text_features"]
+    if model.cfg.multimodal_cfg is not None:
+        coca_kw = coca_kw or {"decode": False}
+    out = model(batch[key], batch["text"], train=True, remat=remat, generator=gen, **coca_kw)
+    feats = (out[f"{key}_features"], out["text_features"])
+    return feats + (out["hidden"],) if "hidden" in out else feats
+
+
+def caption_loss(model: CLIPModel, hidden: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
+    """CoCa's caption term (the JAX step's): the hidden states at positions :-1
+    predict ``text[:, 1:]``, pad labels ignored, through the chunked linear
+    cross-entropy on ``text_decoder.text_projection``."""
+    pad_id = model.cfg.text_cfg.pad_id
+    tgt = text[:, 1:].long()
+    labels = torch.where(tgt == pad_id, -100, tgt).reshape(-1)
+    hid = hidden[:, :-1]
+    return fused_linear_cross_entropy(hid.reshape(-1, hid.shape[-1]),
+                                      model.text_decoder.text_projection.t(), labels)
+
+
+@torch.no_grad()
+def teacher_features(teacher: CLIPModel, batch) -> Tuple[torch.Tensor, ...]:
+    """The teacher's float32 (image, text) features and exp(logit scale), from its
+    eval forward (no patch dropout; a CoCa teacher without its decoder)."""
+    coca = {"decode": False} if teacher.cfg.multimodal_cfg is not None else {}
+    out = teacher(batch["image"], batch["text"], train=False, **coca)
+    return (out["image_features"].float(), out["text_features"].float(),
+            teacher.logit_scale.float().exp())
 
 
 def _seed(preprocess_seed: int, step: int) -> int:
@@ -142,7 +180,9 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
                     device_preprocess: Optional[Callable] = None,
                     preprocess_seed: int = 0,
                     naflex_loss_scale: str = "none",
-                    reference_batch_size: Optional[int] = None
+                    reference_batch_size: Optional[int] = None,
+                    caption_loss_weight: float = 2.0, clip_loss_weight: float = 1.0,
+                    teacher: Optional[CLIPModel] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``step(state, batch) -> (state, metrics)`` for a batch
     ``{"image": (B, H, W, 3) normalized NHWC, "text": (B, L) token ids}``; for a
@@ -176,16 +216,28 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
     generator seeded the same way (and apart from the crop's).
 
     ``ema_decay``: after the update and the logit-scale clamp, the state's EMA copy
-    (``create_train_state(ema=True)``) moves to ``e * d + p * (1 - d)``."""
+    (``create_train_state(ema=True)``) moves to ``e * d + p * (1 - d)``.
+
+    "coca" (a config with ``multimodal_cfg``): the loss is ``clip_loss_weight`` x
+    InfoNCE + ``caption_loss_weight`` x the caption term; "distill": InfoNCE plus
+    the KL to ``teacher`` (a ``CLIPModel``, frozen). Their metrics also hold
+    ``contrastive_loss`` and ``caption_loss`` or ``distill_loss``. Neither is ported
+    under a mesh yet."""
     if loss_type in UNPORTED_LOSSES:
         raise NotImplementedError(f"the {loss_type} train step is not ported yet "
-                                  "(clip and siglip are)")
-    if loss_type not in ("clip", "siglip"):
+                                  f"({', '.join(LOSS_TYPES)} are)")
+    if loss_type not in LOSS_TYPES:
         raise ValueError(f"unknown loss_type {loss_type!r}")
+    if loss_type in ("coca", "distill") and mesh is not None:
+        raise NotImplementedError(f"the {loss_type} train step under a mesh is not ported yet")
+    if loss_type == "coca" and cfg.multimodal_cfg is None:
+        raise ValueError("the coca step needs a CoCa config (multimodal_cfg)")
+    if loss_type == "distill" and teacher is None:
+        raise ValueError("the distill step needs a teacher model")
     if freeze_bn_stats:
         raise NotImplementedError("frozen batch-norm statistics belong to the ResNet towers, "
                                   "which are not ported yet")
-    if loss_type == "clip" and cfg.init_logit_bias is not None:
+    if loss_type != "siglip" and cfg.init_logit_bias is not None:
         raise NotImplementedError("a logit bias belongs to the siglip step: pass "
                                   "loss_type='siglip'")
     if accum_steps < 1:
@@ -236,7 +288,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         ratio = n / reference_batch_size
         return ratio if naflex_loss_scale == "linear" else ratio ** 0.5
 
-    def _apply_updates(state: TrainState, loss: torch.Tensor):
+    def _apply_updates(state: TrainState, loss: torch.Tensor, aux: Optional[Dict] = None):
         model = state.model
         params = state.params
         outside = model.params_outside_loss()
@@ -262,7 +314,8 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         with torch.no_grad():
             metrics = {"loss": loss,
                        "logit_scale": model.logit_scale.detach().float().exp(),
-                       "grad_norm": grad_norm}
+                       "grad_norm": grad_norm,
+                       **{k: v.detach() for k, v in (aux or {}).items()}}
         for p in params:
             p.grad = None
         state.step += 1
@@ -271,10 +324,24 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
     def simple_step(state: TrainState, batch):
         model = state.model
         batch = _preprocess(state, batch)
-        imf, txf = _features(model, batch, remat, _dropout_gen(state, batch))
-        loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
+        gen = _dropout_gen(state, batch)
+        aux = {}
+        if loss_type == "coca":
+            imf, txf, hidden = _features(model, batch, remat, gen, return_hidden=True)
+            closs = _loss(model, imf, txf)
+            cap = caption_loss(model, hidden, batch["text"])
+            loss = clip_loss_weight * closs + caption_loss_weight * cap
+            aux = {"contrastive_loss": closs, "caption_loss": cap}
+        else:
+            imf, txf = _features(model, batch, remat, gen)
+            loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
+            if loss_type == "distill":
+                dloss = distill_kl(imf, txf, model.logit_scale.exp(),
+                                   *teacher_features(teacher, batch))
+                aux = {"contrastive_loss": loss, "distill_loss": dloss}
+                loss = loss + dloss
         loss.backward()
-        return _apply_updates(state, loss)
+        return _apply_updates(state, loss, aux)
 
     def accum_step(state: TrainState, batch):
         """GradCache accumulation over ``accum_steps`` equal slices of the batch."""
@@ -298,18 +365,40 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         all_imf = torch.cat([f[0] for f in feats]).requires_grad_()
         all_txf = torch.cat([f[1] for f in feats]).requires_grad_()
         loss = _loss(model, all_imf, all_txf)
+        aux = {}
+        if loss_type == "distill":  # the KL joins the loss of the cached features
+            t_feats = [teacher_features(teacher, mb) for mb in micro]
+            dloss = distill_kl(all_imf, all_txf, model.logit_scale.exp(),
+                               torch.cat([f[0] for f in t_feats]),
+                               torch.cat([f[1] for f in t_feats]), t_feats[0][2])
+            aux = {"contrastive_loss": loss, "distill_loss": dloss}
+            loss = loss + dloss
         loss = loss * _loss_ratio(batch, n)  # the cached feature gradients carry the ratio
-        loss.backward()  # fills the features' grads and the logit scale's (and bias')
-        # phase 2: each microbatch's forward again, with the cached feature gradients;
-        # under a mesh the gradients are reduced after the last microbatch only
+        contrastive_w = clip_loss_weight if loss_type == "coca" else 1.0
+        # fills the features' grads and the logit scale's (and bias')
+        (contrastive_w * loss).backward()
+        # phase 2: each microbatch's forward again, with the cached feature gradients
+        # (and CoCa's caption loss of the microbatch); under a mesh the gradients are
+        # reduced after the last microbatch only
+        cap_sum = 0.0
         for i, mb in enumerate(micro):
             if mesh is not None:
                 model.set_requires_gradient_sync(i == accum_steps - 1)
-            imf, txf = _features(model, mb, remat, _dropout_gen(state, mb, i))
             part = slice(i * size, (i + 1) * size)
-            torch.autograd.backward([imf, txf], [all_imf.grad[part].to(imf.dtype),
-                                                 all_txf.grad[part].to(txf.dtype)])
-        return _apply_updates(state, loss)
+            out = _features(model, mb, remat, _dropout_gen(state, mb, i),
+                            **({"return_hidden": True} if loss_type == "coca" else {}))
+            tensors = [out[0], out[1]]
+            grads = [all_imf.grad[part].to(out[0].dtype), all_txf.grad[part].to(out[1].dtype)]
+            if loss_type == "coca":
+                cap = caption_loss(model, out[2], mb["text"])
+                tensors.append(caption_loss_weight * cap / accum_steps)
+                grads.append(None)
+                cap_sum = cap_sum + cap.detach()
+            torch.autograd.backward(tensors, grads)
+        if loss_type == "coca":
+            aux = {"contrastive_loss": loss, "caption_loss": cap_sum / accum_steps}
+            loss = clip_loss_weight * loss + caption_loss_weight * cap_sum / accum_steps
+        return _apply_updates(state, loss, aux)
 
     return accum_step if accum_steps > 1 else simple_step
 

@@ -296,7 +296,8 @@ def test_hf_clap_audio_tree_equals_jax():
 @pytest.mark.parametrize("family,sd", [
     ("ConvNeXt", {"visual.trunk.stem.0.weight": torch.zeros(1)}),
     ("ModifiedResNet", {"visual.layer1.0.conv1.weight": torch.zeros(1)}),
-    ("CoCa", {"text_decoder.x": torch.zeros(1)}),
+    # CoCa checkpoints convert now (tests/test_torch_coca.py); the relative-position ViT not
+    ("relpos-ViT", {"visual.trunk.blocks.0.attn.rel_pos.mlp.fc1.weight": torch.zeros(1)}),
     ("MobileCLIP", {"image_encoder.model.x": torch.zeros(1)}),
 ])
 def test_unported_families_raise(family, sd):

@@ -247,8 +247,9 @@ def test_eval_forward_matches_clip_forward(setup):
     assert all(torch.equal(out[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca"},
-                                {"loss_type": "distill"}, {"loss_type": "genlip"},
+@pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca", "mesh": "a mesh"},
+                                {"loss_type": "distill", "mesh": "a mesh"},
+                                {"loss_type": "genlip"},
                                 {"ema_decay": 0.999, "mesh": "a mesh"}, {"freeze_bn_stats": True}])
 def test_unported_step_options_raise(setup, kw):
     _, params, cfg, _, _ = setup

@@ -104,10 +104,11 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--coca-caption-loss-weight", "1.0"], ["--coca-contrastive-loss-weight", "0.5"],
-    ["--lock-image-freeze-bn-stats"], ["--distill-pretrained", "x.pt"],
+    ["--audio-fusion"], ["--wandb-project-name", "x"],
+    ["--lock-image-freeze-bn-stats"], ["--torchcompile-mode", "max-autotune"],
     ["--log-local"], ["--wandb-notes", "x"],
-    ["--copy-codebase"], ["--mesh-tensor", "2"], ["--distill-model", "ViT-B-32"],
+    ["--copy-codebase"], ["--mesh-tensor", "2"],
+    ["--audio-zeroshot-multiprocessing-context", "spawn"],
     ["--scan-unroll", "2"], ["--cache-dir", "x"], ["--profile-dir", "x"],
     ["--remote-sync", "s3://x"], ["--report-to", "wandb"], ["--checkpoint-format", "torch"],
     ["--torchcompile-backend", "inductor"], ["--torchcompile"],
