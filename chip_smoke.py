@@ -96,9 +96,10 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      the plain version on the CPU; kernel, mma body, plain,
      torch._int_mm plus the dequant, bare torch._int_mm and bf16 F.linear time, and
      the bounds;
- 18. ViT-H-14 training with the switch on: amp_bf16, AdamW, clip 1.0, remat with the
-     names_mm preset, batch 32, timed and profiled like phase 4 (168 wgmma product and
-     336 quantization launches a step); the loss falls; then the same step with the
+ 18. ViT-H-14 training with the switch on, at full width with 8 of its 32 image blocks
+     and 6 of its 24 text blocks (the script's time limit): amp_bf16, AdamW, clip 1.0,
+     remat with the names_mm preset, batch 32, timed and profiled like phase 4 (42
+     wgmma product and 84 quantization launches a step); the loss falls; then the same step with the
      mma product and the plain quantization patched in (the earlier bodies,
      profiled: the switchback and quantization ms and the launches a step, beside the
      kernels'), with the switch off (profiled), and with it on under full remat;
@@ -140,7 +141,7 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      share and peak GiB side by side; then GradCache steps (accum_steps=2) in both;
  29. dist_cli: python -m open_clip_tpu_torch.train.main in a child process under
      torchrun's variables (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR and a free
-     MASTER_PORT): an NCCL group of one, one epoch, then a second through --resume.
+     MASTER_PORT): an NCCL group of one, one epoch at b64, then a second through --resume.
  30. decode: what the host has for JPEG decoding (g++, jpeglib.h, libjpeg.so*,
      nvjpeg.h, the cores), the build of the native decode stage (libjpeg where its
      header is, else nvJPEG; the line says which), the committed JPEGs of
@@ -151,7 +152,7 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      that a kernel queued on the allocating stream still uses (twice), bad bytes and
      the grayscale asset, and the decode rate at canvas 256 on 1, 4 and cpu_count threads;
  31. data_train, the slice's main path: 16 tar shards of 512 JPEG-caption pairs (the
-     assets, each under distinct keys and captions), a 2,048-pair val shard and a
+     assets, each under distinct keys and captions), a 512-pair val shard and a
      10-class folder in a temporary directory; the CLI trains ViT-B-32 b256 amp_bf16
      from the shards (--device-preprocess, --native-decode-threads cpu_count) for one
      epoch of 32 steps, then evaluates (val retrieval, zero-shot with 1000 classes x
@@ -216,12 +217,13 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
  42. optimizers: ViT-B-32 b256 amp_bf16 stepped by adamw, nadamw, lion, sgd, lamb,
      adafactor and muon in turn from the same weights: step ms, each update's device ms
      (profiled alone), its state's GiB, the peak; each at 2 layers and full width in
-     fp32: the card's update_ against the CPU's on the gradients of 3 CPU train steps,
+     fp32: the card's update_ against the CPU's on the gradients of 2 CPU train steps,
      each entry within 1e-4 of its tensor's largest change plus 3 ulp (lion: the share
      beyond; muon: by the cosine, and per entry with its Newton-Schulz in float32);
  43. patch_dropout_train: ViT-B-16 b256 amp_bf16 with patch dropout 0.5 (99 tokens)
      beside none (197): step and kernel ms, short launches by length;
- 44. remat_dots: ViT-L-14 b64 amp_bf16 under full remat, names_mm, dots and
+ 44. remat_dots: ViT-L-14 (12 image and 6 text blocks at full width) b64 amp_bf16 under
+     full remat, names_mm, dots and
      dots_no_batch from the same weights: step and kernel ms, peak GiB, launches.
  45. coca_serve: coca_ViT-B-32 in pure_bf16 (seed 0): a 10-class classifier (its CLS
      text tower dense: the pad mask is a bias), requests of 64 uint8 images
@@ -246,11 +248,35 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      loss_type "distill" (lr 1e-4), timed and profiled like phase 4: the loss falls, 24 + 24
      short forwards (student and teacher) and 12 + 12 backwards a step, the teacher's
      weights unchanged.
+ 48. genlip_serve: naflexgenlip_b16 (bf16 compute; its weights stay fp32, as the JAX
+     factory keeps them) from seeded patch dicts and token ids (the tiktoken
+     vocabulary is not in the repository): encode_image requests of 32 images at 1024
+     tokens (ragged 1024/768 validity; 12 wgmma flash forwards a request, no other
+     attention kernel), 16 captions of 128 ids scored against one image's prefix cache
+     (dense), greedy captions of 32 tokens at b16 over 256-token prefixes with the KV
+     cache (timed and profiled) and without (timed); then fp32 (TF32 off): cached captions
+     equal uncached ones token for token, and cached scores equal the joint forward's,
+     whose trunk takes the flash kernels with prefix_len 1024 at 1152 tokens;
+ 49. genlip_train: the JAX package's bench_genlip step, b32 of 1024 image + 128 text
+     tokens (ragged captions), amp_bf16, AdamW (lr 1e-4, wd 0.1), clip 1.0, full remat,
+     timed and profiled like phase 4: the loss falls; 24 flash forwards (12 and remat's
+     12 again), 12 dq and 12 dk/dv a step, all wgmma, every call with prefix_len 1024;
+     then one accum_freq 2 step against the simple step from the same weights (plain
+     gradient descent: loss and update);
+ 50. genlap_serve_train: naflexgenlap_betwixt, 32 ten-second clips through the
+     factory's mel patchify (63 tokens: dense), encode_audio, cached scoring, and the
+     packed (pack_prefix) caption step in amp_bf16: the loss falls, no flash or short
+     launch;
+ 51. genlip_card_vs_cpu: fp32 (TF32 off), naflexgenlip_b16's widths at depth 2, 448
+     image + 96 text tokens (one caption ragged): the card's trunk on the flash
+     kernels' CUDA-core bodies with prefix_len 448 against the CPU's dense bias:
+     logits on the valid rows, the caption loss and every gradient.
 
 Phase 1 also times the short forward and backward at CoCa's decoder shape (B=256, L=76,
 H=8, causal) and at the SigLIP shapes, the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash kernels
-at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity); phase 17 also times the
+at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity) and at GenLIP's train step
+(B=32, L=1152, H=12, causal with prefix_len 1024, ragged captions); phase 17 also times the
 SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
 
 Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
@@ -293,7 +319,7 @@ WINDOW_S = 0.5  # the timed serving windows last at least this long
 TRAIN_WINDOW_S = 2.0  # and the timed training windows this long
 TRAIN_PROFILED_STEPS = 2
 CLI_STEPS_PER_EPOCH = 16
-PROFILED_REQUESTS = 10
+PROFILED_REQUESTS = 5
 PHASES = ("preprocess", "encode_image", "logits_top5")
 NAFLEX_MODEL = "naflex_ViT-B-16"
 NF_SERVE_BATCH, NF_IMAGE_HW, NF_SERVE_SEQ = 32, (384, 512), 576
@@ -320,6 +346,10 @@ SWIN_SERVE_BATCH, SWIN_TRAIN_BATCH = 64, 32
 FWD_DETERMINISM_CASES = ("swin_s0_shift", "htsat_s0_shift_serve")
 SB_SOURCE = "open_clip_tpu_torch/csrc/switchback.cu"
 H14_MODEL, H14_BATCH = "ViT-H-14", 32
+# the script's time limit: ViT-H-14's train runs take 8 of its 32 image blocks and 6 of
+# its 24 text blocks (full width, the same kernels and shapes a block), remat_dots
+# ViT-L-14's 12 and 6 of 24 and 12
+H14_DEPTH, RD_DEPTH = (8, 6), (12, 6)
 L14_MODEL, L14_BATCH = "ViT-L-14", 64  # the JAX package's bench_vit_l14 step
 # the JAX package's bench_siglip step (batch 256, 224 px, 64 text tokens); the 384-px
 # tower (576 tokens, the flash forward) served at a quarter of that batch
@@ -331,6 +361,14 @@ SIGLIP_CLI_STEPS = 6
 # teacher is a ViT-B-32 from another seed
 COCA_MODEL, COCA_SERVE_BATCH, COCA_BEAM_BATCH, COCA_BEAMS, COCA_SEQ = "coca_ViT-B-32", 64, 16, 6, 30
 COCA_CLI_BATCH, COCA_CLI_STEPS = 64, 4
+# GenLIP (random weights, seeded token ids: the tiktoken vocabulary is not in the
+# repository): encode_image requests of 32 images at 1024 tokens, 16 captions of 128
+# scored against one image's cache, greedy captions of 32 tokens at b16 over 256-token
+# prefixes (the JAX package's bench_generation); the train step is bench_genlip's at
+# batch 32 (1024 image + 128 text tokens). GenLAP: 32 ten-second clips
+GENLIP_MODEL, GENLIP_BATCH, GENLIP_NI, GENLIP_LT, GENLIP_CAPTIONS = "naflexgenlip_b16", 32, 1024, 128, 16
+GENLIP_GEN_BATCH, GENLIP_GEN_NI, GENLIP_GEN_SEQ, GENLIP_PROFILED = 16, 256, 32, 4
+GENLAP_MODEL, GENLAP_SECONDS = "naflexgenlap_betwixt", 10
 # the cached decode against the uncached forward in pure_bf16: the two paths round to bf16
 # in different places (the cached one-query softmax is fp32, the uncached attention casts
 # its probabilities to bf16), which moves a 49408-logit row's cosine to 0.99983 on the
@@ -440,7 +478,17 @@ def tally_by_shape(sa, fl):
         sa._launch_fwd, sa.short_attention_bwd, fl.layer_norm_bwd = fwd, bwd, ln
 
 
-def graph_ms(fn, iters: int = 50, replays: int = 5) -> float:
+def cut_depth(oc, name: str, vision: int, text: int) -> str:
+    """Register ``name``'s config with ``vision`` image and ``text`` text blocks (the
+    widths and every other field kept); returns the new name."""
+    raw = json.loads(json.dumps(oc.get_model_config(name)))
+    raw["vision_cfg"]["layers"], raw["text_cfg"]["layers"] = vision, text
+    cut = f"{name}-{vision}-{text}-layers"
+    oc.add_model_config(raw, name=cut)
+    return cut
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
     """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA graph, so
     no host work sits between the launches; the median over ``replays`` replays."""
     import torch
@@ -689,7 +737,11 @@ def phase_flash_kernels(torch, fa):
              # ViT-B-16-SigLIP-384's image tower: 576 tokens and no key mask
              ("siglip384", SIGLIP384_BATCH, 576, 12, 64, False, 0, None, True),
              # the NaFlex-audio trunk: 816 = 6 * 128 + 48 tokens, clips of 3-10 s
-             ("audio816", NFC_BATCH, NFC_SEQ, NFC_HEADS, 64, False, 0, NFC_LENS, True)]
+             ("audio816", NFC_BATCH, NFC_SEQ, NFC_HEADS, 64, False, 0, NFC_LENS, True),
+             # GenLIP's train step: [1024 image ; 128 text] under the prefix-LM mask, the
+             # captions ragged (the lengths of genlip_train's batch)
+             ("genlip_train", GENLIP_BATCH, GENLIP_NI + GENLIP_LT, 12, 64, True, GENLIP_NI,
+              tuple(GENLIP_NI + n for n in (128, 101, 64, 128, 87, 33, 128, 120)), True)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -866,11 +918,10 @@ def profile_summary(prof, wall_ms: float, n: int, unit: str = "request") -> dict
                          f"launches_per_{unit}": c / n} for k, ms, c in top]}
 
 
-def serve_window(request, profiled: int, cpu_events: bool = True):
+def serve_window(request, profiled: int):
     """Requests one at a time for at least WINDOW_S (latency in ms, from request(1)
-    on), then ``profiled`` more under torch.profiler (without ``cpu_events`` it records
-    the card's kernels alone, which keeps a request of tens of thousands of small ops
-    quick to profile). Returns the latencies, the window's seconds, the last request's
+    on), then ``profiled`` more under torch.profiler, which records the card's kernels
+    alone: CPU events would add host time to every op and so to the idle share. Returns the latencies, the window's seconds, the last request's
     output, the profiler and its wall ms."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -881,8 +932,7 @@ def serve_window(request, profiled: int, cpu_events: bool = True):
         feats, top5 = request(len(lat) + 1)
         lat.append((time.perf_counter() - t0) * 1e3)
     window_s = time.perf_counter() - t_start
-    activities = [ProfilerActivity.CPU] * cpu_events + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(profiled):
             request(i)
@@ -950,7 +1000,7 @@ def phase_serve(torch, oc, sa):
                 phase_ms[n].append(ev[j].elapsed_time(ev[j + 1]))
         window_s = time.perf_counter() - t_start
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(PROFILED_REQUESTS):
                 request(i)
@@ -1051,9 +1101,9 @@ def profiled_steps(torch, step, state, batch):
     Returns the state and the steps' profile summary (kernel ms a step, by class)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
     return state, profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
 
@@ -1101,9 +1151,9 @@ def phase_train(torch, oc, sa, fl, layers_mod, fused_ln: bool):
         ln_expect = (2 * lv + 2 + 2 * lt + 1) * n if fused_ln else 0
         check(counts["ln"] == ln_expect,
               f"{label}: {counts['ln']} LayerNorm backward launches in {n} steps (expect {ln_expect})")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=[ProfilerActivity.CUDA]):
             state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
         prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
         print(f"{label.replace('train', 'train_profile')} " + json.dumps(prof_summary), flush=True)
@@ -1285,7 +1335,7 @@ def phase_naflex_serve(torch, oc, sa, fa):
             for j, n in enumerate(phases):
                 phase_ms[n].append(ev[j].elapsed_time(ev[j + 1]))
         window_s = time.perf_counter() - t_start
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(PROFILED_REQUESTS):
                 request(i)
@@ -1373,9 +1423,9 @@ def phase_naflex_train(torch, oc, sa, fa):
                "flash_fwd_launches_per_step_by_body": {k: v / n for k, v in flash_bodies.items()},
                "flash_bwd_passes_per_step_by_body": {k: v / n for k, v in flash_bwd_bodies.items()},
                "short_launches_per_step": {k: v / n for k, v in short.items()}}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CUDA]):
         state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
     prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
     print("naflex_train_profile " + json.dumps(prof_summary), flush=True)
@@ -1774,7 +1824,7 @@ def phase_clap_serve(torch, oc, sa, swa, wa):
             for j, n in enumerate(phases):
                 phase_ms[n].append(ev[j].elapsed_time(ev[j + 1]))
         window_s = time.perf_counter() - t_start
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(PROFILED_REQUESTS):
                 request(i)
@@ -2322,14 +2372,16 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
     texts; 2 warm-up steps, a window, a profile. Then the same step with the earlier
     bodies patched in (the mma product, the plain quantization; profiled), with the
     switch off (names_mm; profiled) and with the switch on under full remat. Each
-    profile gives the quantization's device ms a step (``quantize_ranges``).
+    profile gives the quantization's device ms a step (the kernel's class; the plain
+    version's through ``quantize_ranges``, in steps profiled with CPU events).
     Returns the main run's product launches by body, its quantization launches and its
     steps."""
     from torch.profiler import ProfilerActivity, profile
 
     saved = blocks.MLP_LINEAR_IMPL, blocks.REMAT_POLICY
     try:
-        model = oc.create_model(H14_MODEL, precision="amp_bf16", seed=0)
+        model = oc.create_model(cut_depth(oc, H14_MODEL, *H14_DEPTH), precision="amp_bf16",
+                                seed=0)
         lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
         # the CLI's defaults: lr 5e-4 under a cosine schedule with 10,000 warm-up steps
         optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
@@ -2384,19 +2436,25 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
                     main_run = ({"wgmma": sb.FWD_BODIES["wgmma"], "mma": sb.FWD_BODIES["mma"]},
                                 sb.LAUNCHES["quantize"], n)
                 if profiled:
-                    stack.enter_context(quantize_ranges(sb))
                     if main:  # the profiler's first window pays its start-up
-                        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                        with profile(activities=[ProfilerActivity.CUDA]):
                             state = run_steps(torch, step, state, batch, 1)[0]
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
                         state, *_, prof_wall_s = run_steps(torch, step, state, batch,
                                                            TRAIN_PROFILED_STEPS)
                     summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
-                    # the quantization's kernels a step: the kernel's class, or the plain
-                    # version's ops in their ranges (each is 0 where the other runs)
-                    quantize_ms = max(summary["class_ms_per_step"].get("switchback_quantize", 0.0),
-                                      range_ops_ms(prof, "switchback_quantize")
-                                      / TRAIN_PROFILED_STEPS)
+                    # the quantization's kernels a step: the kernel's class; the plain
+                    # version's ops are found by their host ranges, which need CPU events,
+                    # so they are read in profiled steps of their own (the summary above,
+                    # like every other profile here, records the card's kernels alone)
+                    quantize_ms = summary["class_ms_per_step"].get("switchback_quantize", 0.0)
+                    if parent:
+                        stack.enter_context(quantize_ranges(sb))
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as ranges_prof:
+                            state = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)[0]
+                        quantize_ms = (range_ops_ms(ranges_prof, "switchback_quantize")
+                                       / TRAIN_PROFILED_STEPS)
                     print(f"h14_train_profile[{label}] " + json.dumps(
                         dict(summary, quantize_ms_per_step=quantize_ms)), flush=True)
                     runs[label].update(
@@ -2404,7 +2462,8 @@ def phase_h14_train(torch, oc, sa, sb, blocks):
                         kernel_launches_per_step=summary["kernel_launches_per_step"],
                         class_ms_per_step=summary["class_ms_per_step"],
                         quantize_ms_per_step=quantize_ms)
-        print("h14_train " + json.dumps({"model": H14_MODEL, "precision": "amp_bf16",
+        print("h14_train " + json.dumps({"model": H14_MODEL, "layers": [lv, lt],
+                                         "precision": "amp_bf16",
                                          "batch": H14_BATCH, "runs": runs}), flush=True)
         return main_run
     finally:
@@ -2430,7 +2489,8 @@ def phase_l14_train(torch, oc, sa, fl, blocks):
     saved = blocks.REMAT_POLICY
     try:
         torch.cuda.reset_peak_memory_stats()
-        model = oc.create_model(L14_MODEL, precision="amp_bf16", seed=0)
+        model = oc.create_model(cut_depth(oc, L14_MODEL, *RD_DEPTH), precision="amp_bf16",
+                                seed=0)
         lv, lt = model.cfg.vision_cfg.layers, model.cfg.text_cfg.layers
         init = {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -2459,9 +2519,9 @@ def phase_l14_train(torch, oc, sa, fl, blocks):
         check(all(tally.get((d, "vision"), 0) == lv * n and tally.get((d, "text"), 0) == lt * n
                   for d in ("fwd", "bwd")),
               f"l14_train: per step {lv} vision and {lt} text launches of each kernel")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=[ProfilerActivity.CUDA]):
             state = run_steps(torch, step, state, batch, 1)[0]  # the profiler's own warm-up
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
         prof_summary = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
         print("l14_train_profile " + json.dumps(prof_summary), flush=True)
@@ -4038,7 +4098,7 @@ def phase_naflexclap_serve(torch, oc, sa, fa):
             device.append(ev[1].elapsed_time(ev[2]))
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(NFC_PROFILED):
                 request(i)
@@ -4294,7 +4354,7 @@ NFD_SHARDS, NFD_PER_SHARD, NFD_PNG_EVERY = 16, 48, 6  # 768 pairs, every 6th a P
 NFD_SEQS, NFD_MAX_TOKENS, NFD_EPOCHS, NFD_THREADS = (256, 576, 1024), 16384, 2, 4
 NFD_PROFILED = 3  # steps of the second epoch under the profiler
 OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "lamb", "adafactor", "muon")
-OPT_WINDOW_S, OPT_PROFILED, OPT_CPU_STEPS, OPT_CPU_BATCH = 0.5, 2, 3, 2
+OPT_WINDOW_S, OPT_PROFILED, OPT_CPU_STEPS, OPT_CPU_BATCH = 0.5, 2, 2, 2
 # the card's optimizer against the CPU's on the same gradients: each entry within
 # OPT_ENTRY_TOL of its tensor's largest change in the 3 steps (fp32 arithmetic in other
 # orders: the clip's global norm, adafactor's means; lamb's norms are summed in
@@ -4436,7 +4496,7 @@ def phase_naflex_data_train(torch, oc, sa, fa):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             i = len(rec["steps"])
             if i == nb + 4:  # the second epoch's fifth step
-                rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                rec["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 rec["prof"].__enter__()
                 rec["prof_t0"] = time.perf_counter()
             t = time.perf_counter()
@@ -4611,7 +4671,7 @@ def phase_optimizers(torch, oc, sa):
         with torch.no_grad():
             opt.update_(state.params, grads, state.opt_state)  # the profiler's own warm-up
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(OPT_PROFILED):
                 opt.update_(state.params, grads, state.opt_state)
@@ -4652,12 +4712,13 @@ def optimizers_card_vs_cpu(torch, oc, device="cuda") -> dict:
     oc.add_model_config(cfg, name="ViT-B-32-2-layers")
     from open_clip_tpu_torch.train import optim as optim_mod
 
+    base = oc.create_model("ViT-B-32-2-layers", precision="fp32", seed=0, device="cpu")
+
     def run(name, seen=None):
         """(start, the CPU's, the card's parameters, the gradients) after OPT_CPU_STEPS
         updates: of the CPU's train steps, or on ``seen``, gradients recorded before."""
         ocfg = oc.OptimizerCfg(opt=name, lr=5e-4, wd=0.2, grad_clip_norm=1.0)
-        m = oc.create_model("ViT-B-32-2-layers", precision="fp32", seed=0, device="cpu")
-        init = {k: v.clone() for k, v in m.state_dict().items()}
+        m = copy.deepcopy(base)
         opt = oc.create_optimizer(ocfg, m, oc.const_lr(5e-4, 0))
         st = oc.create_train_state(m, opt)
         start = [p.detach().clone() for p in st.params]
@@ -4677,8 +4738,7 @@ def optimizers_card_vs_cpu(torch, oc, device="cuda") -> dict:
             for grads in seen:
                 opt.update_(st.params, grads, st.opt_state)
                 clamp_logit_scale(m)
-        mc = oc.create_model("ViT-B-32-2-layers", precision="fp32", seed=0, device=device)
-        mc.load_state_dict(init)
+        mc = copy.deepcopy(base).to(device)
         optc = oc.create_optimizer(ocfg, mc, oc.const_lr(5e-4, 0))
         stc = oc.create_train_state(mc, optc)
         for grads in seen:  # the train step's update: the optimizer, then the clamp
@@ -4765,9 +4825,9 @@ def phase_patch_dropout_train(torch, oc, sa):
               f"patch_dropout_train[{prob}]: short launches by (direction, length) {tally} in {n} "
               f"steps (expect {lv * n} at L={length}, {lt * n} at 77), losses finite "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=[ProfilerActivity.CUDA]):
             state = run_steps(torch, step, state, batch, 1)[0]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             state, *_, prof_wall_s = run_steps(torch, step, state, batch, TRAIN_PROFILED_STEPS)
         ps = profile_summary(prof, prof_wall_s * 1e3, TRAIN_PROFILED_STEPS, "step")
         out[str(prob)] = {"tokens": length, "window_steps": n,
@@ -4818,7 +4878,7 @@ def phase_remat_dots(torch, oc, sa, blocks):
             launches = dict(sa.LAUNCHES)
             state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, 2)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 state, *_, prof_wall_s = run_steps(torch, step, state, batch, 1)
             ps = profile_summary(prof, prof_wall_s * 1e3, 1, "step")
             out[policy] = {"first_loss": float(first[0]["loss"]),
@@ -4844,7 +4904,8 @@ def phase_remat_dots(torch, oc, sa, blocks):
               f"{out['dots']['peak_mem_gib']:.2f} vs {out['none']['peak_mem_gib']:.2f} GiB")
     finally:
         blocks.REMAT_POLICY = saved
-    print("remat_dots " + json.dumps({"model": L14_MODEL, "batch": L14_BATCH,
+    print("remat_dots " + json.dumps({"model": L14_MODEL, "layers": list(RD_DEPTH),
+                                      "batch": L14_BATCH,
                                       "precision": "amp_bf16", "by_policy": out}), flush=True)
     return steps
 
@@ -4973,7 +5034,7 @@ def phase_coca_serve(torch, oc, sa, attn, nf):
                 request(0)
                 first_ms = (time.perf_counter() - t0) * 1e3
                 lat, window_s, res, host, prof, prof_ms = serve_window(
-                    request, profiled, cpu_events=name not in ("greedy", "beam"))
+                    request, profiled)
                 calls[name] = 1 + len(lat) + profiled
                 summary = profile_summary(prof, prof_ms, profiled)
                 out[name] = {"batch": n, "first_request_ms": first_ms, "window_requests": len(lat),
@@ -5091,7 +5152,7 @@ def coca_component_ms(torch, model, batch) -> dict:
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
@@ -5293,6 +5354,430 @@ def phase_distill_train(torch, oc, sa, fl):
     return tally, n
 
 
+# ---------------------------------------------------------------------------
+# GenLIP and GenLAP
+# ---------------------------------------------------------------------------
+
+def genlip_image(torch, b, grids, seed, device="cuda", patch_dim=768):
+    """NaFlex patch dicts of ``b`` images, image i on grids[i % len(grids)] = (gh, gw)
+    patches of 16 px, padded to the largest grid's token count: row-major (y, x)
+    coordinates with the valid patches first, as NaFlexTransform lays them out, and
+    random-normal patch values from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = max(gh * gw for gh, gw in grids)
+    coord = torch.zeros(b, n, 2, dtype=torch.long, device=device)
+    valid = torch.zeros(b, n, dtype=torch.bool, device=device)
+    for i in range(b):
+        gh, gw = grids[i % len(grids)]
+        yx = torch.stack(torch.meshgrid(torch.arange(gh), torch.arange(gw), indexing="ij"), -1)
+        coord[i, :gh * gw] = yx.reshape(-1, 2).to(device)
+        valid[i, :gh * gw] = True
+    return {"patches": torch.randn(b, n, patch_dim, generator=gen, device=device),
+            "patch_coord": coord, "patch_valid": valid}
+
+
+def genlip_text(torch, text_cfg, b, length, lens, seed, device="cuda"):
+    """(b, length) token ids from a seed (the tiktoken vocabulary is not in the
+    repository): the start id, seeded ids below the special ones, then the end id
+    and pad after lens[i % len(lens)] tokens."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(1, text_cfg.eos_id, (b, length), generator=gen, device=device)
+    ids[:, 0] = text_cfg.bos_id
+    for i in range(b):
+        n = lens[i % len(lens)]
+        if n < length:
+            ids[i, n - 1] = text_cfg.eos_id
+            ids[i, n:] = text_cfg.pad_id
+    return ids
+
+
+@contextlib.contextmanager
+def tally_flash_masks(fa):
+    """While open, count ``flash_attention``'s calls by (L, causal, prefix_len): the
+    mask each trunk call hands the kernels (a call's forward launches once, again when
+    remat recomputes it, and its backward once)."""
+    tally, call = {}, fa.flash_attention
+
+    def counted(q, k, v, *, causal=False, prefix_len=0, **kw):
+        key = (q.shape[1], bool(causal), int(prefix_len))
+        tally[key] = tally.get(key, 0) + 1
+        return call(q, k, v, causal=causal, prefix_len=prefix_len, **kw)
+
+    fa.flash_attention = counted
+    try:
+        yield tally
+    finally:
+        fa.flash_attention = call
+
+
+def phase_genlip_serve(torch, oc, sa, fa):
+    """naflexgenlip_b16 serving (pure_bf16: bf16 compute; GenLIP keeps fp32 weights, as
+    the JAX factory does): encode_image of 32 images at 1024 tokens (32x32 grids and
+    24x32, ragged key validity) a request, its 12 trunk blocks on the flash forward;
+    prefix_cache of one image and score_captions of 16 captions against it (dense, as
+    in JAX); greedy captions of 32 tokens at b16 over a 256-token prefix (16x16
+    grids), through the KV cache and by running the trunk each step. Then fp32 (TF32
+    off, the same weights): cached captions equal uncached ones token for token, and
+    the cached scores equal the joint forward's (which takes the flash kernels with
+    prefix_len 1024 at 1152 tokens). Returns the flash forward launches of the
+    encode_image calls and the calls."""
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model = oc.create_model(GENLIP_MODEL, precision="pure_bf16", seed=0)
+    tc, depth = model.cfg.text_cfg, model.cfg.trunk_cfg.depth
+    images = [genlip_image(torch, GENLIP_BATCH, ((32, 32), (24, 32)), seed=i) for i in range(2)]
+    captions = genlip_text(torch, tc, GENLIP_CAPTIONS, GENLIP_LT, (128, 40, 97, 12), seed=5)
+    prefix = genlip_image(torch, GENLIP_GEN_BATCH, ((16, 16),), seed=7)
+    out, seconds = {}, {"build": time.perf_counter() - t_phase}
+    with torch.inference_mode():
+        reset_counts(sa, fa)
+
+        def encode(i):
+            feats = model.encode_image(images[i % 2], normalize=True)
+            return feats, feats[:1].cpu()
+
+        with tally_flash_masks(fa) as masks:
+            t0 = time.perf_counter()
+            encode(0)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            lat, window_s, feats, _, prof, prof_ms = serve_window(encode, GENLIP_PROFILED)
+        calls = 1 + len(lat) + GENLIP_PROFILED
+        flash, bodies, short = dict(fa.LAUNCHES), dict(fa.FWD_BODIES), dict(sa.LAUNCHES)
+        summary = profile_summary(prof, prof_ms, GENLIP_PROFILED)
+        print("genlip_serve_profile[encode_image] " + json.dumps(summary), flush=True)
+        out["encode_image"] = {"batch": GENLIP_BATCH, "seq_len": GENLIP_NI, "first_request_ms": first_ms,
+                               "window_requests": len(lat), "window_s": window_s,
+                               "median_request_ms": statistics.median(lat),
+                               "images_per_s": GENLIP_BATCH * len(lat) / window_s,
+                               "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+                               "device_idle_share": summary["device_idle_share"]}
+        seconds["encode_image"] = time.perf_counter() - t_phase - seconds["build"]
+        check(flash == {"fwd": depth * calls, "bwd_dq": 0, "bwd_dkv": 0}
+              and bodies == {"wgmma": depth * calls, "simt": 0} and short == {"fwd": 0, "bwd": 0}
+              and masks == {(GENLIP_NI, False, 0): depth * calls},
+              f"genlip_serve encode_image: flash launches {flash}, by body {bodies}, calls by "
+              f"(L, causal, prefix) {masks}, short {short} for {calls} requests (expect {depth} "
+              f"bidirectional wgmma forwards at L={GENLIP_NI} each)")
+        fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+        check(tuple(feats.shape) == (GENLIP_BATCH, model.cfg.embed_dim)
+              and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all()),
+              f"genlip_serve encode_image: features {tuple(feats.shape)} finite and unit")
+
+        # scoring: one image's cache, 16 captions against it
+        one = {k: v[:1] for k, v in images[0].items()}
+        reset_counts(fa)
+
+        def score(i):
+            scores = model.score_captions(model.prefix_cache(one), captions)
+            return scores, scores.cpu()
+
+        t0 = time.perf_counter()
+        score(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat, window_s, scores, _, prof, prof_ms = serve_window(score, 2)
+        summary = profile_summary(prof, prof_ms, 2)
+        out["score_captions"] = {"captions": GENLIP_CAPTIONS, "caption_len": GENLIP_LT,
+                                 "first_request_ms": first_ms, "window_requests": len(lat),
+                                 "median_request_ms": statistics.median(lat),
+                                 "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+                                 "device_idle_share": summary["device_idle_share"]}
+        check(tuple(scores.shape) == (GENLIP_CAPTIONS,) and bool(torch.isfinite(scores).all())
+              and bool((scores < 0).all()) and fa.LAUNCHES["fwd"] == 0,
+              f"genlip_serve score_captions: {tuple(scores.shape)} finite log-probabilities "
+              f"(max {float(scores.max()):.3f}); the cached paths are dense "
+              f"(flash {dict(fa.LAUNCHES)})")
+        seconds["score_captions"] = time.perf_counter() - t_phase - sum(seconds.values())
+
+        # greedy captions, cached and uncached, at b16 over 256-token prefixes
+        for name, kv in (("greedy_cached", True), ("greedy_uncached", False)):
+            def caption(i, kv=kv):
+                ids = model.generate(prefix, seq_len=GENLIP_GEN_SEQ, kv_cache=kv)
+                return ids, ids.cpu()
+
+            t0 = time.perf_counter()
+            caption(0)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            # the cached decode is profiled (one batch, ~24k launches); the uncached one,
+            # the parity path, is timed only
+            lat, window_s, ids, _, prof, prof_ms = serve_window(caption, int(kv))
+            out[name] = {"batch": GENLIP_GEN_BATCH, "prefix_tokens": GENLIP_GEN_NI,
+                         "seq_len": GENLIP_GEN_SEQ, "first_request_ms": first_ms,
+                         "window_requests": len(lat), "median_request_ms": statistics.median(lat),
+                         "captions_per_s": GENLIP_GEN_BATCH * len(lat) / window_s}
+            if kv:
+                summary = profile_summary(prof, prof_ms, 1)
+                print(f"genlip_serve_profile[{name}] " + json.dumps(summary), flush=True)
+                out[name].update(
+                    kernel_ms_per_request=summary["device_busy_ms_per_request"],
+                    kernel_launches_per_request=summary["kernel_launches_per_request"],
+                    device_idle_share=summary["device_idle_share"])
+            out[name + "_ids"] = ids
+        got = out.pop("greedy_cached_ids")
+        out.pop("greedy_uncached_ids")
+        check(tuple(got.shape) == (GENLIP_GEN_BATCH, GENLIP_GEN_SEQ)
+              and bool((got[:, 0] == tc.bos_id).all()) and int(got.min()) >= 0
+              and int(got.max()) < tc.vocab_size,
+              f"genlip_serve greedy: captions {tuple(got.shape)} start with the start id, ids in "
+              "the vocabulary")
+        seconds["generate"] = time.perf_counter() - t_phase - sum(seconds.values())
+
+        # fp32 (TF32 off; GenLIP's weights are fp32 already): cached captions against
+        # uncached ones, and cached scores against the joint forward's (flash, prefix 1024)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model.compute_dtype = torch.float32
+        few = {k: v[:4] for k, v in prefix.items()}
+        ids32 = model.generate(few, seq_len=GENLIP_GEN_SEQ)
+        ids32_uncached = model.generate(few, seq_len=GENLIP_GEN_SEQ, kv_cache=False)
+        check(torch.equal(ids32, ids32_uncached),
+              f"genlip_serve fp32: cached greedy captions equal the uncached ones token for "
+              f"token ({tuple(ids32.shape)})")
+        four = captions[:4]
+        cached = model.score_captions(model.prefix_cache(one), four)
+        reset_counts(fa)
+        with tally_flash_masks(fa) as masks:
+            logits = model({k: v.expand(4, -1, *v.shape[2:]) for k, v in one.items()}, four)["logits"]
+        lp = torch.log_softmax(logits[:, GENLIP_NI - 1:GENLIP_NI - 1 + GENLIP_LT].float(), -1)
+        lp = torch.gather(lp, 2, four[..., None])[..., 0]
+        tv = four != tc.pad_id
+        joint = (lp * tv).sum(1) / tv.sum(1)
+        err = (cached - joint).abs().max().item()
+        check(masks == {(GENLIP_NI + GENLIP_LT, True, GENLIP_NI): depth} and err <= 1e-4,
+              f"genlip_serve fp32: cached scores vs the joint forward's (flash calls by (L, "
+              f"causal, prefix) {masks}): max abs diff {err:.2e} (<= 1e-4)")
+        seconds["fp32_checks"] = time.perf_counter() - t_phase - sum(seconds.values())
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("genlip_serve " + json.dumps({"model": GENLIP_MODEL, "precision": "pure_bf16",
+                                        **out, "seconds": seconds}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return flash["fwd"], calls
+
+
+def phase_genlip_train(torch, oc, sa, fa, blocks):
+    """The JAX package's bench_genlip step: naflexgenlip_b16, batch 32, 1024 image tokens
+    (32x32 grids) + 128 text tokens (ragged: the end id, then pad), amp_bf16, AdamW (lr
+    1e-4, wd 0.1), clip 1.0, full remat, the caption loss through the chunked linear
+    CE; 2 warm-up steps, a timed window, profiled steps. Every step launches the flash
+    forward 24 times (12 blocks, and 12 again in remat's recompute), dq and dk/dv 12
+    times, all with prefix_len 1024 at L = 1152. Then one accum_freq 2 step against the
+    simple step from the same weights (plain gradient descent, lr 1e-2: the update is
+    the gradient; drop path off; halves with the same text lengths, so the two losses
+    are one quantity). Returns the window's flash launches and steps."""
+    torch.cuda.reset_peak_memory_stats()
+    blocks.REMAT_POLICY = "none"
+    model = oc.create_model(GENLIP_MODEL, precision="amp_bf16", seed=0)
+    depth, tc = model.cfg.trunk_cfg.depth, model.cfg.text_cfg
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.1, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer, loss_type="genlip", remat=True)
+    lens = (128, 101, 64, 128, 87, 33, 128, 120)  # each half of the batch has the same lengths
+    batch = {"image": genlip_image(torch, GENLIP_BATCH, ((32, 32),), seed=11),
+             "text": genlip_text(torch, tc, GENLIP_BATCH, GENLIP_LT, lens, seed=12)}
+    state, warm, warm_ms, *_ = run_steps(torch, step, state, batch, 2)
+    n = max(4, math.ceil(TRAIN_WINDOW_S * 1e3 / warm_ms[-1]))
+    reset_counts(sa, fa)
+    with tally_flash_masks(fa) as masks:
+        state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    flash, short = dict(fa.LAUNCHES), dict(sa.LAUNCHES)
+    fwd_bodies, bwd_bodies = dict(fa.FWD_BODIES), dict(fa.BWD_BODIES)
+    losses = [float(m["loss"]) for m in warm + window]
+    seq = GENLIP_NI + GENLIP_LT
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"genlip_train: {len(losses)} losses finite, fell on the fixed batch "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(flash == {"fwd": 2 * depth * n, "bwd_dq": depth * n, "bwd_dkv": depth * n}
+          and fwd_bodies == {"wgmma": 2 * depth * n, "simt": 0}
+          and bwd_bodies == {"wgmma": depth * n, "simt": 0} and short == {"fwd": 0, "bwd": 0}
+          and masks == {(seq, True, GENLIP_NI): 2 * depth * n},
+          f"genlip_train: flash launches {flash}, forward by body {fwd_bodies}, backward passes "
+          f"by body {bwd_bodies}, calls by (L, causal, prefix) {masks}, short {short} in {n} "
+          f"steps (expect {2 * depth} forwards with remat's recompute, {depth} dq and dk/dv a "
+          f"step, all wgmma, prefix_len {GENLIP_NI} at L={seq})")
+    state, prof_summary = profiled_steps(torch, step, state, batch)
+    print("genlip_train_profile " + json.dumps(prof_summary), flush=True)
+    summary = {"model": GENLIP_MODEL, "precision": "amp_bf16", "batch": GENLIP_BATCH,
+               "image_tokens": GENLIP_NI, "text_tokens": GENLIP_LT, "remat": "full",
+               "window_steps": n, "window_s": wall_s,
+               "tokens_per_s": GENLIP_BATCH * seq * n / wall_s,
+               "median_step_ms": statistics.median(step_ms), "min_step_ms": min(step_ms),
+               "max_step_ms": max(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+               "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+               "device_busy_ms_per_step": prof_summary["device_busy_ms_per_step"],
+               "device_idle_share": prof_summary["device_idle_share"],
+               "flash_launches_per_step": {k: v / n for k, v in flash.items()},
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state, model, optimizer
+    torch.cuda.empty_cache()
+    # accumulation: one step of each from the same weights
+    updates, results = {}, {}
+    for accum in (1, 2):
+        model = oc.create_model(GENLIP_MODEL, precision="amp_bf16", seed=0)
+        model.cfg.trunk_cfg.drop_path_rate = 0.0  # the two cut the batch into other draws
+        opt = oc.create_optimizer(oc.OptimizerCfg(opt="sgd", momentum=0.0, lr=1e-2, wd=0.0,
+                                                  grad_clip_norm=None), model, oc.const_lr(1e-2, 0))
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        _, m = oc.make_train_step(model.cfg, opt, loss_type="genlip", remat=True,
+                                  accum_steps=accum)(oc.create_train_state(model, opt), batch)
+        updates[accum] = {k: (before[k] - p.detach()).float() for k, p in model.named_parameters()}
+        results[accum] = float(m["loss"])
+        del model, opt, before
+        torch.cuda.empty_cache()
+    # the cosines see the update's direction, the norms' ratios its scale: a lost or
+    # doubled 1/accum_steps keeps every cosine at 1 (and the loss, which accum_step
+    # averages on its own), and moves every ratio to 2 or 0.5
+    cos, ratio = {}, {}
+    for k, u in updates[1].items():
+        v = updates[2][k]
+        if bool((u == 0).all()) and bool((v == 0).all()):
+            continue  # visual_proj: outside the caption loss in both
+        cos[k] = torch.nn.functional.cosine_similarity(u.flatten(), v.flatten(), dim=0).item()
+        ratio[k] = (v.norm() / u.norm()).item()
+    worst = min(cos, key=cos.get)
+    worst_ratio = max(ratio, key=lambda k: abs(ratio[k] - 1))
+    u_all = torch.cat([u.flatten() for u in updates[1].values()])
+    v_all = torch.cat([v.flatten() for v in updates[2].values()])
+    whole = torch.nn.functional.cosine_similarity(u_all, v_all, dim=0).item()
+    whole_ratio = (v_all.norm() / u_all.norm()).item()
+    rel = abs(results[2] - results[1]) / abs(results[1])
+    # bf16 products round differently where the batch is cut in two (the library picks
+    # other tiles for the other row count); a LayerNorm scale's gradient sums such
+    # terms of both signs over 36,864 tokens and cancels most (0.998 read on the H100).
+    # That rounding is mostly across the update's direction, so the norms move by less
+    check(rel <= 1e-3 and whole >= 0.9999 and cos[worst] >= 0.995
+          and abs(whole_ratio - 1) <= 1e-2 and abs(ratio[worst_ratio] - 1) <= 2e-2,
+          f"genlip_train accum_freq 2 vs the simple step from the same weights (amp_bf16): loss "
+          f"{results[2]:.5f} vs {results[1]:.5f} (rel {rel:.1e} <= 1e-3), update cosine "
+          f"{whole:.7f} over all parameters (>= 0.9999), min {cos[worst]:.6f} at {worst} over "
+          f"{len(cos)} tensors (>= 0.995); update norm ratio {whole_ratio:.6f} over all "
+          f"parameters (within 1e-2 of 1), furthest {ratio[worst_ratio]:.6f} at {worst_ratio} "
+          f"(within 2e-2 of 1)")
+    summary["accum2_loss_rel"], summary["accum2_min_update_cosine"] = rel, cos[worst]
+    summary["accum2_update_cosine"] = whole
+    summary["accum2_update_norm_ratio"] = whole_ratio
+    summary["accum2_furthest_tensor_norm_ratio"] = ratio[worst_ratio]
+    print("genlip_train " + json.dumps(summary), flush=True)
+    return flash, n
+
+
+def phase_genlap_serve_train(torch, oc, sa, fa):
+    """naflexgenlap_betwixt at full width: 32 ten-second clips patchified on the host
+    (the factory's AudioNaFlexPatchify: full-height 64x16 mel patches, 1-D time
+    positions), encode_audio in pure_bf16; one clip's prefix cache and 16 captions
+    scored against it; then the packed (pack_prefix) caption step in amp_bf16, AdamW,
+    clip 1.0, on 32 clips and captions: the loss falls; everything dense (62 tokens),
+    no flash or short launch."""
+    from open_clip_tpu_torch.data.audio import collate_audio
+    from open_clip_tpu_torch.factory import generative_transforms
+
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(GENLAP_MODEL, precision="pure_bf16", seed=0)
+    tc = model.cfg.text_cfg
+    pp, _ = generative_transforms(model)
+    rng = np.random.default_rng(13)
+    clips = [((0.1 * rng.standard_normal(GENLAP_SECONDS * CLAP_RATE)).astype(np.float32), CLAP_RATE)
+             for _ in range(GENLIP_BATCH)]
+    t0 = time.perf_counter()
+    audio = {k: v.to("cuda") for k, v in collate_audio([pp(c) for c in clips]).items()}
+    patchify_ms = (time.perf_counter() - t0) * 1e3
+    captions = genlip_text(torch, tc, GENLIP_CAPTIONS, 48, (48, 20, 33, 9), seed=14)
+    out = {"host_patchify_ms": patchify_ms, "tokens": int(audio["patches"].shape[1])}
+    reset_counts(sa, fa)
+    with torch.inference_mode():
+        def encode(i):
+            feats = model.encode_audio(audio, normalize=True)
+            return feats, feats[:1].cpu()
+
+        lat, window_s, feats, _, prof, prof_ms = serve_window(encode, 2)
+        summary = profile_summary(prof, prof_ms, 2)
+        out["encode_audio"] = {"batch": GENLIP_BATCH, "median_request_ms": statistics.median(lat),
+                               "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+                               "device_idle_share": summary["device_idle_share"]}
+        one = {k: v[:1] for k, v in audio.items()}
+        t0 = time.perf_counter()
+        scores = model.score_captions(model.prefix_cache(one), captions).cpu()
+        out["score_captions_ms"] = (time.perf_counter() - t0) * 1e3
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (GENLIP_BATCH, model.cfg.embed_dim)
+          and bool(torch.isfinite(feats).all()) and bool(((fn - 1).abs() < 1e-2).all())
+          and tuple(scores.shape) == (GENLIP_CAPTIONS,) and bool(torch.isfinite(scores).all()),
+          f"genlap_serve: encode_audio {tuple(feats.shape)} finite and unit at "
+          f"{out['tokens']} tokens; cached scores {tuple(scores.shape)} finite")
+    del model
+    model = oc.create_model(GENLAP_MODEL, precision="amp_bf16", seed=0)
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=1e-4, wd=0.1, grad_clip_norm=1.0),
+                                    model, oc.const_lr(1e-4, 0))
+    step = oc.make_train_step(model.cfg, optimizer, loss_type="genlap")
+    batch = {"audio": audio, "text": genlip_text(torch, tc, GENLIP_BATCH, 48, (48, 20, 33, 9), seed=15)}
+    state, warm, *_ = run_steps(torch, step, oc.create_train_state(model, optimizer), batch, 2)
+    state, window, step_ms, host_ms, _, wall_s = run_steps(torch, step, state, batch, 6)
+    losses = [float(m["loss"]) for m in warm + window]
+    check(model.cfg.trunk_cfg.pack_prefix and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] and dict(fa.LAUNCHES) == {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+          and dict(sa.LAUNCHES) == {"fwd": 0, "bwd": 0},
+          f"genlap_train (packed): {len(losses)} losses finite, fell {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; dense (flash {dict(fa.LAUNCHES)}, short {dict(sa.LAUNCHES)})")
+    out["train"] = {"batch": GENLIP_BATCH, "caption_len": 48, "pack_prefix": True,
+                    "median_step_ms": statistics.median(step_ms),
+                    "median_host_ms_per_step": statistics.median(host_ms),
+                    "first_loss": losses[0], "last_loss": losses[-1]}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("genlap_serve_train " + json.dumps({"model": GENLAP_MODEL, **out}), flush=True)
+    del state, model, optimizer
+    torch.cuda.empty_cache()
+
+
+def phase_genlip_card_vs_cpu(torch, oc, fa):
+    """fp32, TF32 off: naflexgenlip_b16's widths (vocabulary 100280) at depth 2, drop path
+    0, two images of 448 valid tokens (16x28) and captions of 96 ids (one ragged): 544
+    tokens, so the card's trunk takes the flash kernels (CUDA-core bodies) with
+    prefix_len 448 and the CPU the dense bias. Logits on the valid rows, the caption
+    loss and every gradient, card against CPU. Padded query rows are left out by name:
+    the dense bias opens their diagonal, the flash mask does not (models/genlip.py);
+    the loss reads no padded row, since the text's validity is front-contiguous and
+    every image patch is valid."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw = json.loads(json.dumps(oc.get_model_config(GENLIP_MODEL)))
+    raw["genlip_cfg"].update(depth=2, drop_path_rate=0.0)
+    name = GENLIP_MODEL + "-2layer"
+    oc.add_model_config(raw, name=name)
+    image = genlip_image(torch, 2, ((16, 28),), seed=21, device="cpu")
+    model = oc.create_model(name, precision="fp32", seed=3, device="cpu")
+    text = genlip_text(torch, model.cfg.text_cfg, 2, 96, (96, 57), seed=22, device="cpu")
+    ni = image["patches"].shape[1]
+    rows = torch.cat([image["patch_valid"], text != model.cfg.text_cfg.pad_id], 1)
+    results, logits = {}, {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(device)
+        batch = {k: v.to(device) for k, v in image.items()}
+        reset_counts(fa)
+        with tally_flash_masks(fa) as masks:
+            with torch.no_grad():
+                logits[device] = m(batch, text.to(device))["logits"][rows.to(device)].cpu().double()
+            loss = m(batch, text.to(device), compute_loss=True)["loss"]
+            loss.backward()
+        results[device] = ({k: p.grad.detach().cpu().double() for k, p in m.named_parameters()
+                            if p.grad is not None}, loss.item())
+        if device == "cuda":
+            launched = (dict(fa.LAUNCHES), dict(fa.FWD_BODIES), dict(fa.BWD_BODIES), dict(masks))
+        del m, loss
+    check(launched == ({"fwd": 4, "bwd_dq": 2, "bwd_dkv": 2}, {"wgmma": 0, "simt": 4},
+                       {"wgmma": 0, "simt": 2}, {(ni + 96, True, ni): 4}),
+          f"genlip fp32 card run: flash launches, forward and backward by body, calls by (L, "
+          f"causal, prefix) {launched} (2 in the logits forward, 2 in the loss's, 2 backward "
+          f"passes, all CUDA-core, prefix_len {ni})")
+    err = ((logits["cuda"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max()).item()
+    check(bool(torch.isfinite(logits["cuda"]).all()) and err <= 1e-4,
+          f"genlip logits card vs CPU fp32 on the {int(rows.sum())} valid rows of "
+          f"{rows.numel()} (vocabulary {logits['cpu'].shape[-1]}): max abs diff {err:.2e} of the "
+          "largest (<= 1e-4)")
+    grads_card_vs_cpu(torch, results, "genlip")
+
+
 def main() -> int:
     import torch
 
@@ -5423,6 +5908,10 @@ def main() -> int:
                                                         sa, attn, nf)
     coca_tally, coca_steps = timed("coca_train", phase_coca_train, torch, oc, sa)
     distill_tally, distill_steps = timed("distill_train", phase_distill_train, torch, oc, sa, fl)
+    gl_serve_launches, gl_serve_calls = timed("genlip_serve", phase_genlip_serve, torch, oc, sa, fa)
+    gl_train, gl_steps = timed("genlip_train", phase_genlip_train, torch, oc, sa, fa, blocks)
+    timed("genlap_serve_train", phase_genlap_serve_train, torch, oc, sa, fa)
+    timed("genlip_card_vs_cpu", phase_genlip_card_vs_cpu, torch, oc, fa)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -5518,13 +6007,22 @@ def main() -> int:
     # train window (all three, at the train bucket)
     kernels.append(dict(flash_records["serve"]["fwd"], launches=nf_serve_launches,
                         launches_per_call=nf_serve_launches / nf_serve_calls))
+    # GenLIP's encode_image (B=32, L=1024, ragged 1024/768 validity, bidirectional) runs
+    # the forward at the NaFlex train record's length and masks
     for which in ("fwd", "bwd_dq", "bwd_dkv"):
         by_bucket = {b: c[which] for b, c in nfd_flash.items()}
+        serving = gl_serve_launches if which == "fwd" else 0
         kernels.append(dict(flash_records["train"][which],
-                            launches=nf_train_launches[which] + sum(by_bucket.values()),
+                            launches=nf_train_launches[which] + sum(by_bucket.values()) + serving,
                             launches_per_train_step=nf_train_launches[which] / nf_steps,
                             launches_naflex_data_by_bucket=by_bucket,
-                            launches_per_naflex_data_step=sum(by_bucket.values()) / nfd_steps))
+                            launches_per_naflex_data_step=sum(by_bucket.values()) / nfd_steps,
+                            launches_genlip_serving=serving,
+                            launches_genlip_per_request=serving / gl_serve_calls))
+    # GenLIP's train step (bench_genlip): all three kernels with prefix_len 1024 at L=1152
+    for which in ("fwd", "bwd_dq", "bwd_dkv"):
+        kernels.append(dict(flash_records["genlip_train"][which], launches=gl_train[which],
+                            launches_per_train_step=gl_train[which] / gl_steps))
     # window and panel attention: Swin-B serving and training (the window kernels at
     # the stage-0 shape, 49-token windows), CLAP serving and training (the panel
     # kernels at HTSAT's stage-0 shifted shape); the forwards on the tensor-core body

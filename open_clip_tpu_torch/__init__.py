@@ -53,6 +53,8 @@ from .models.clip import (
     encode_text,
     get_logits,
 )
+from .models.genlip import GenLipModel as NaFlexGenLip
+from .models.genlap import GenLapModel as NaFlexGenLap
 from .train.optim import OptimizerCfg, create_optimizer
 from .train.scheduler import const_lr, cosine_lr, create_scheduler
 from .train.train_step import TrainState, create_train_state, make_train_step
@@ -78,6 +80,7 @@ __all__ = [
     "clip_loss", "OptimizerCfg", "create_optimizer", "const_lr", "cosine_lr", "create_scheduler",
     "TrainState", "create_train_state", "make_train_step",
     "CLIPModel", "clip_forward", "encode_audio", "encode_image", "encode_text", "get_logits",
+    "NaFlexGenLip", "NaFlexGenLap",
     "DEFAULT_CONTEXT_LENGTH", "SimpleTokenizer", "tokenize",
     "PreprocessCfg", "make_device_preprocess",
     "build_zero_shot_classifier",

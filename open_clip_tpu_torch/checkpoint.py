@@ -67,7 +67,13 @@ def checkpoint_to_params(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A reference state dict -> the JAX package's param tree for ``cfg``: a CLAP
     model's through the CLAP converters (transformers' ``ClapModel`` keys told
     apart by ``audio_model.``/``audio_projection.``), any other through
-    ``torch_clip_to_params``. The keys it could not place are dropped (logged)."""
+    ``torch_clip_to_params``; GenLIP's and GenLAP's through their own. The keys it
+    could not place are dropped (logged)."""
+    if hasattr(cfg, "trunk_cfg"):
+        from .models.genlap import torch_genlap_to_params
+        from .models.genlip import torch_genlip_to_params
+
+        return (torch_genlap_to_params if hasattr(cfg, "audio_cfg") else torch_genlip_to_params)(sd)
     if cfg.audio_cfg is not None:
         from .models.clap import hf_clap_to_params, torch_clap_to_params
 

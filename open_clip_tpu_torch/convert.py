@@ -317,7 +317,13 @@ def _htsat(enc: Dict[str, Any], out: Dict[str, torch.Tensor]) -> None:
 
 
 def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torch.Tensor]:
-    """JAX CLIP or CLAP params -> ``CLIPModel`` state dict (float32 tensors on the CPU)."""
+    """JAX CLIP or CLAP params -> ``CLIPModel`` state dict (float32 tensors on the CPU);
+    GenLIP or GenLAP params (``cfg`` a ``GenLipModelCfg`` or ``GenLapModelCfg``) ->
+    ``GenLipModel``'s."""
+    if hasattr(cfg, "trunk_cfg"):
+        from .models.genlip import params_from_jax as genlip_params
+
+        return genlip_params(params, cfg)
     from .models.clap import is_naflex_audio
     from .models.text import is_modern
 

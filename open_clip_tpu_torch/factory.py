@@ -114,21 +114,25 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     a registry tag raises after reading its settings), on ``device`` (CUDA by
     default). The ``force_*`` overrides change the config before the model is built;
     a checkpoint's position embeddings are resized to a forced image size or context
-    length."""
+    length. A GenLIP or GenLAP config builds ``GenLipModel`` or ``GenLapModel``
+    (``_create_generative``)."""
     if precision not in _PRECISION_DTYPES:
         raise ValueError(f"unknown precision {precision!r}; one of {sorted(_PRECISION_DTYPES)}")
     device = resolve_device(device)
     if not model_name.startswith((HF_HUB_PREFIX, LOCAL_DIR_PREFIX)):
         model_name = model_name.replace("/", "-")
     raw, pretrained_cfg, ckpt_path = _resolve(model_name, pretrained)
-    cfg = CLIPModelCfg.from_dict(raw)
-    if pretrained_cfg.get("preprocess_cfg", {}).get("quick_gelu") and not cfg.quick_gelu:
-        force_quick_gelu = True
     if pretrained and ckpt_path is None and not model_name.startswith(LOCAL_DIR_PREFIX):
         raise NotImplementedError(
             f"pretrained tag {pretrained!r} of {model_name}: downloading is not ported; its "
             f"weights are at {pretrained_location(pretrained_cfg)}: fetch the file and pass "
             "its path as pretrained=")
+    dtype = _PRECISION_DTYPES[precision]
+    if raw.get("genlip_cfg") is not None or raw.get("genlap_cfg") is not None:
+        return _create_generative(raw, ckpt_path, dtype, seed, device)
+    cfg = CLIPModelCfg.from_dict(raw)
+    if pretrained_cfg.get("preprocess_cfg", {}).get("quick_gelu") and not cfg.quick_gelu:
+        force_quick_gelu = True
     if force_quick_gelu:
         cfg.quick_gelu = True
     if force_custom_text:
@@ -142,7 +146,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
     if require_pretrained and not ckpt_path:
         raise RuntimeError(f"pretrained weights required but not resolved for {model_name}")
 
-    dtype = _PRECISION_DTYPES[precision]
     model = CLIPModel(cfg, compute_dtype=dtype)
     model.init_weights(torch.Generator().manual_seed(seed))
     if ckpt_path:
@@ -152,6 +155,33 @@ def create_model(model_name: str, pretrained: Optional[str] = None, precision: s
         convert_params_dtype_(model, dtype)
     if cfg.vision_cfg is not None:
         model.preprocess_cfg = _build_preprocess_cfg(cfg, pretrained_cfg)
+    return model.to(device)
+
+
+def model_from_config(raw: Dict[str, Any], compute_dtype: torch.dtype = torch.float32):
+    """The uninitialised module a config dict builds: ``GenLapModel``,
+    ``GenLipModel`` or ``CLIPModel``."""
+    if raw.get("genlap_cfg") is not None:
+        from .models.genlap import GenLapModel, GenLapModelCfg
+
+        return GenLapModel(GenLapModelCfg.from_dict(raw), compute_dtype)
+    if raw.get("genlip_cfg") is not None:
+        from .models.genlip import GenLipModel, GenLipModelCfg
+
+        return GenLipModel(GenLipModelCfg.from_dict(raw), compute_dtype)
+    return CLIPModel(CLIPModelCfg.from_dict(raw), compute_dtype)
+
+
+def _create_generative(raw: Dict[str, Any], ckpt_path: Optional[str], dtype: torch.dtype,
+                       seed: int, device: torch.device):
+    """GenLIP/GenLAP as the JAX ``_create_genlip`` builds them: the ``force_*``
+    overrides do not apply, the precision sets the compute dtype only (the weights
+    stay float32), and a checkpoint file replaces every weight."""
+    model = model_from_config(raw, dtype)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if ckpt_path:
+        logger.info("loading pretrained weights from %s", ckpt_path)
+        _load_checkpoint_into(model, ckpt_path)
     return model.to(device)
 
 
@@ -170,8 +200,11 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
     ``AudioPreprocess`` of ``data/audio.py`` ((waveform, sample rate) -> fixed-length
     waveform dict): a random window for training, the clip's start for evaluation;
     for a naflexvit audio tower both are the host ``AudioNaFlexPatchify`` at the
-    token count of a 10 s clip ((waveform, sample rate) -> mel patch dict)."""
+    token count of a 10 s clip ((waveform, sample rate) -> mel patch dict); GenLIP and
+    GenLAP take ``generative_transforms``."""
     model = create_model(model_name, pretrained, **kwargs)
+    if hasattr(model.cfg, "trunk_cfg"):
+        return (model, *generative_transforms(model))
     if model.cfg.audio_cfg is not None and model.cfg.audio_cfg.model_type == "naflexvit":
         pp = naflex_audio_preprocess(model.cfg.audio_cfg)
         return model, pp, pp
@@ -185,6 +218,24 @@ def create_model_and_transforms(model_name: str, pretrained: Optional[str] = Non
         "resize_mode": image_resize_mode})
     train = None if is_naflex(model.cfg.vision_cfg) else uint8_image_transform_v2(cfg, True)
     return model, train, make_device_preprocess(cfg)
+
+
+def generative_transforms(model):
+    """(train, val) transforms of GenLIP and GenLAP, the JAX package's: GenLAP's mel
+    patchify padded to a 10 s clip's token count, and for GenLIP a factory
+    ``(seq_len, patch_size=None) -> NaFlexTransform`` of the bucket."""
+    if hasattr(model.cfg, "audio_cfg"):
+        from .data.naflex_audio import AudioNaFlexPatchify, naflex_audio_eval_seq_len
+
+        acfg = model.cfg.audio_cfg
+        pp = AudioNaFlexPatchify(acfg, max_audio_tokens=naflex_audio_eval_seq_len(acfg))
+        return pp, pp
+    from .data.naflex import NaFlexTransform
+
+    def bucket(seq_len: int, patch_size: Optional[int] = None) -> NaFlexTransform:
+        return NaFlexTransform(seq_len, patch_size or model.cfg.vision_cfg.patch_size)
+
+    return bucket, bucket
 
 
 def naflex_audio_preprocess(audio_cfg):
@@ -220,7 +271,8 @@ def get_tokenizer(model_name: str = "", context_length: Optional[int] = None) ->
     if text_cfg.get("hf_tokenizer_name") or text_cfg.get("tokenizer_type"):
         vocab = text_cfg.get("hf_tokenizer_name") or text_cfg["tokenizer_type"]
         if text_cfg.get("tokenizer_type") == "tiktoken":
-            vocab = f"tiktoken {text_cfg.get('tiktoken_name', 'cl100k_base')}"
+            name = text_cfg.get("tiktoken_name", "cl100k_base")
+            vocab = f"tiktoken {name}: the file {name}.tiktoken and the tiktoken package"
         raise NotImplementedError(
             f"tokenizer of {model_name!r} is not ported yet: it needs the vocabulary "
             f"{vocab!r}, which is not in the repository (feed token ids instead)")

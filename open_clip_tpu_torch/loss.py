@@ -8,7 +8,8 @@ diagonal and -1 elsewhere, divided by the batch; ``siglip_loss_chunked`` is the 
 sum over a longer set of texts, taken in column chunks. ``caption_cross_entropy``
 is CoCa's caption term and ``distill_kl`` the distillation term. ``create_loss``
 (the JAX factory) returns the loss object of a run: ``CoCaLoss`` or
-``DistillClipLoss``, both built on ``ClipLoss``, or ``SigLipLoss``. All loss math runs
+``DistillClipLoss``, both built on ``ClipLoss``, ``SigLipLoss``, or ``GenLipLoss``
+(GenLIP's and GenLAP's caption loss from whole logits). All loss math runs
 in float32 whatever the feature dtype.
 
 Across processes (``group``, or ``world_size > 1`` on the default group) each rank
@@ -346,12 +347,32 @@ class DistillClipLoss(ClipLoss):
         return closs, dloss
 
 
+class GenLipLoss:
+    """GenLIP's caption loss from logits (the JAX ``GenLipLoss``): the mean
+    next-token cross-entropy of already shifted (..., V) logits against their labels,
+    float32, rows labelled ``ignore_index`` left out. Training takes the model's own
+    fused form (``models/genlip.py:genlip_forward(compute_loss=True)``); this one
+    reads whole logits."""
+
+    def __init__(self, ignore_index: int = -100):
+        self.ignore_index = ignore_index
+
+    def __call__(self, logits: torch.Tensor, labels: torch.Tensor, output_dict: bool = False):
+        logits = logits.reshape(-1, logits.shape[-1]).float()
+        labels = labels.reshape(-1).long()
+        keep = labels != self.ignore_index
+        lp = torch.gather(torch.log_softmax(logits, dim=-1), 1, labels.clamp_min(0)[:, None])[:, 0]
+        loss = -(lp * keep).sum() / keep.sum().clamp_min(1)
+        return {"caption_loss": loss} if output_dict else loss
+
+
 def create_loss(args):
     """The loss object a run trains with (the JAX ``create_loss``), chosen as the train
     step chooses its loss (``loss_type_for`` on the named model's config): distillation
     when ``distill`` is set, CoCa for a config with a multimodal decoder (the registry's
-    ``coca_*``, JAX's rule by name), the sigmoid loss with ``siglip``, else InfoNCE.
-    ``args``: a namespace or dict with the CLI's names."""
+    ``coca_*``, JAX's rule by name), ``GenLipLoss`` for a GenLIP or GenLAP config
+    (where the JAX rule by name falls to InfoNCE), the sigmoid loss with ``siglip``,
+    else InfoNCE. ``args``: a namespace or dict with the CLI's names."""
     from .config import parse_model_cfg
     from .train.train_step import loss_type_for
 
@@ -367,6 +388,6 @@ def create_loss(args):
                         local_loss=get("local_loss", True), group=group)
     if loss_type == "siglip":
         return SigLipLoss(group=group, dist_impl=get("loss_dist_impl", None))
-    if loss_type != "clip":
-        raise NotImplementedError(f"the {loss_type} loss is not ported yet")
+    if loss_type in ("genlip", "genlap"):
+        return GenLipLoss()
     return ClipLoss(local_loss=get("local_loss", True), group=group)

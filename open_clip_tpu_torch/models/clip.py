@@ -35,13 +35,16 @@ LOGIT_SCALE_MAX = math.log(100.0)
 
 
 def check_model_cfg(cfg: CLIPModelCfg) -> None:
-    """Raise for the model families that are not ported (towers raise for their own).
+    """Raise for the model families that are not ported (towers raise for their own)
+    and for the GenLIP and GenLAP configs, which build their own models.
     ``custom_text`` only names the text tower's keys in an exported state dict and
     changes nothing the model computes, so it is accepted."""
+    if cfg.genlip_cfg is not None or cfg.genlap_cfg is not None:
+        raise ValueError("a GenLIP or GenLAP config builds models/genlip.py:GenLipModel or "
+                         "models/genlap.py:GenLapModel (factory.model_from_config), not CLIPModel")
     first = cfg.audio_cfg if cfg.audio_cfg is not None else cfg.vision_cfg
     unported = [name for name, on in (
         ("NaFlex audio tower", cfg.audio_naflex_cfg is not None),
-        ("GenLIP/GenLAP", cfg.genlip_cfg is not None or cfg.genlap_cfg is not None),
         ("model without both towers", first is None or cfg.text_cfg is None)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")

@@ -7,7 +7,9 @@ loads from ``--pretrained-image``/``--pretrained-audio``), the optimizer (with
 (which takes precedence over the pretrained weights), and the epoch loop (train, evaluate at ``--val-frequency`` and after the last epoch,
 on the ``--ema`` weights where the run keeps them, then a checkpoint per
 ``--save-frequency``, ``--save-most-recent`` and ``--delete-previous-checkpoint``), with ``results.jsonl`` and
-``params.txt`` in the log directory. CoCa models train with their caption term
+``params.txt`` in the log directory. GenLIP and GenLAP models reach their step's
+loss type, then stop where the JAX CLI does: at the tokenizer, whose tiktoken
+vocabulary is not in the repository. CoCa models train with their caption term
 (``--coca-caption-loss-weight``, ``--coca-contrastive-loss-weight``) and evaluate
 its loss; ``--distill-model`` trains against a frozen teacher built as the model is
 (``--distill-pretrained``, else random weights from ``--seed``). Without train data the run only evaluates
@@ -201,9 +203,14 @@ def _run(args):
         if getattr(args, flag):
             load_tower_(model, getattr(args, flag), tower, "--" + flag.replace("_", "-"))
     loss_type = loss_type_for(model.cfg, distill=bool(args.distill_model), siglip=args.siglip)
-    if loss_type in ("coca", "distill") and (args.world_size > 1 or args.mesh_fsdp > 1):
+    if loss_type in ("coca", "distill", "genlip", "genlap") and (
+            args.world_size > 1 or args.mesh_fsdp > 1):
         raise NotImplementedError(f"the {loss_type} step under a mesh (--mesh-fsdp, or several "
                                   "processes) is not ported yet")
+    if loss_type in ("genlip", "genlap"):
+        # the JAX CLI builds the tokenizer before any data, and GenLIP's needs the
+        # tiktoken vocabulary, which is not in the repository: this raises there
+        get_tokenizer(args.model)
     mesh = None
     if args.world_size > 1:
         mesh = create_mesh(data=args.mesh_data, fsdp=args.mesh_fsdp, device=device.type)

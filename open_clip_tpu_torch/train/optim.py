@@ -147,8 +147,12 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 # the blocks the JAX tree stacks and ``layer_decay_scales`` ladders (CoCa's decoder
 # self-attention blocks among them; its cross blocks are the JAX ``cross_blocks``,
-# which its ladder leaves out)
-_BLOCK_RE = re.compile(r"(?:^|\.)(?:transformer|text_decoder)\.resblocks\.(\d+)\.")
+# which its ladder leaves out; GenLIP's top-level trunk, not the NaFlex audio
+# encoder's, whose JAX tree nests it deeper)
+_BLOCK_RE = re.compile(r"(?:(?:^|\.)(?:transformer|text_decoder)|^trunk)\.resblocks\.(\d+)\.")
+# the top-level keys of the JAX GenLIP/GenLAP tree, each a tower of its own there
+GENLIP_KEYS = ("patch_embed", "text_embed", "in_proj", "out_proj", "text_norm_pre", "lm_head",
+               "trunk", "visual_proj")
 
 
 def _tower(name: str) -> str:
@@ -156,7 +160,7 @@ def _tower(name: str) -> str:
     at the port's top level, under ``text`` in the JAX tree."""
     head = name.split(".")[0]
     return head if head in ("visual", "audio", "logit_scale", "logit_bias",
-                            "text_decoder") else "text"
+                            "text_decoder") + GENLIP_KEYS else "text"
 
 
 def _stack_depths(names: Iterable[str]) -> Dict[str, int]:

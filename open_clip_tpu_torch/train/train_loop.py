@@ -176,14 +176,16 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args: Any, tokenizer=None,
     ``{image_to_text,text_to_image}_{R@1,R@5,R@10,mean_rank,median_rank}``,
     ``num_samples`` and ``epoch``. Under several processes the rank-split loaders'
     features come back in global order (by each batch's ``index``, else by stride) and
-    the sums over ``host_psum``; a CoCa model adds ``val_generative_loss``. GenLIP
-    and GenLAP models have no port and raise."""
+    the sums over ``host_psum``; a CoCa model adds ``val_generative_loss``. A GenLIP
+    or GenLAP model has no contrastive head: its validation is the caption loss over
+    ``val`` alone, ``val_generative_loss`` (the mean over samples) and
+    ``num_samples``, as in the JAX package."""
     from ..parallel.distributed import host_gather_by_index, host_gather_stride, host_psum
     from .zero_shot import zero_shot_eval
 
     cfg = model.cfg
     if hasattr(cfg, "trunk_cfg"):
-        raise NotImplementedError("evaluation of GenLIP and GenLAP models is not ported")
+        return _evaluate_generative(model, data, epoch, writer)
     metrics: Dict[str, float] = dict(zero_shot_eval(model, data, epoch, args, tokenizer=tokenizer))
     if "audio-zeroshot" in data:
         from .audio_zero_shot import audio_zero_shot_eval, parse_templates
@@ -243,6 +245,30 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args: Any, tokenizer=None,
                 chunk_size=getattr(args, "val_retrieval_chunk_size", None) or 4096))
             metrics["num_samples"] = int(n)
 
+    metrics["epoch"] = epoch
+    if writer is not None:
+        writer.log({f"val/{k}": v for k, v in metrics.items()}, step=epoch)
+    return metrics
+
+
+@torch.no_grad()
+def _evaluate_generative(model, data: Dict[str, Any], epoch: int, writer=None) -> Dict[str, float]:
+    """GenLIP's and GenLAP's ``evaluate``: each val batch's caption loss (the model's
+    fused loss, eval mode) weighted by its size."""
+    from ..parallel.distributed import host_psum
+
+    metrics: Dict[str, float] = {}
+    if "val" in data:
+        key = model.prefix_key
+        loss_sum, n = 0.0, 0
+        for batch in device_prefetch(data["val"].dataloader, model.device):
+            bs = batch["text"].shape[0]
+            loss_sum += float(model(batch[key], batch["text"], compute_loss=True)["loss"]) * bs
+            n += bs
+        loss_sum, n = host_psum([loss_sum, n])
+        if n:
+            metrics["val_generative_loss"] = float(loss_sum / n)
+            metrics["num_samples"] = int(n)
     metrics["epoch"] = epoch
     if writer is not None:
         writer.log({f"val/{k}": v for k, v in metrics.items()}, step=epoch)

@@ -53,18 +53,23 @@ from ..ops.fused_ce import fused_linear_cross_entropy
 from ..parallel.mesh import is_sharded, sync_replicated_grads
 from .optim import Optimizer
 
-UNPORTED_LOSSES = ("genlip", "genlap")
-LOSS_TYPES = ("clip", "siglip", "coca", "distill")
+GEN_LOSSES = ("genlip", "genlap")
+LOSS_TYPES = ("clip", "siglip", "coca", "distill") + GEN_LOSSES
 
 
 def loss_type_for(cfg, *, distill: bool = False, siglip: bool = False) -> str:
     """The loss a config trains with (the JAX package's ``task.loss_type_for``):
-    distillation when asked, GenLIP/GenLAP by their config, siglip when asked, CoCa
-    for a config with a multimodal decoder, else clip."""
+    distillation when asked, GenLIP/GenLAP by their config (a ``GenLipModelCfg`` or
+    ``GenLapModelCfg``, or a ``CLIPModelCfg`` read from such a config), siglip when
+    asked, CoCa for a config with a multimodal decoder, else clip."""
     if distill:
         return "distill"
     if hasattr(cfg, "trunk_cfg"):
         return "genlap" if getattr(cfg, "audio_cfg", None) is not None else "genlip"
+    if getattr(cfg, "genlap_cfg", None) is not None:
+        return "genlap"
+    if getattr(cfg, "genlip_cfg", None) is not None:
+        return "genlip"
     if siglip:
         return "siglip"
     if getattr(cfg, "multimodal_cfg", None) is not None:
@@ -221,15 +226,27 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
     "coca" (a config with ``multimodal_cfg``): the loss is ``clip_loss_weight`` x
     InfoNCE + ``caption_loss_weight`` x the caption term; "distill": InfoNCE plus
     the KL to ``teacher`` (a ``CLIPModel``, frozen). Their metrics also hold
-    ``contrastive_loss`` and ``caption_loss`` or ``distill_loss``. Neither is ported
-    under a mesh yet."""
-    if loss_type in UNPORTED_LOSSES:
-        raise NotImplementedError(f"the {loss_type} train step is not ported yet "
-                                  f"({', '.join(LOSS_TYPES)} are)")
+    ``contrastive_loss`` and ``caption_loss`` or ``distill_loss``.
+
+    "genlip" / "genlap" (``cfg`` a ``GenLipModelCfg`` / ``GenLapModelCfg``; the batch
+    ``{"image" | "audio": patch dict, "text": ids}``): the model's own caption loss
+    (``genlip_forward(compute_loss=True)``), drop path drawn from a generator on the
+    model's device seeded as the patch dropout's; ``logit_scale`` in the metrics is
+    0. Accumulation averages the plain gradients of the microbatches (the loss is a
+    sum over samples: no GradCache pass). CoCa, distillation, GenLIP and GenLAP are
+    not ported under a mesh yet."""
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"unknown loss_type {loss_type!r}")
-    if loss_type in ("coca", "distill") and mesh is not None:
+    if loss_type in ("coca", "distill") + GEN_LOSSES and mesh is not None:
         raise NotImplementedError(f"the {loss_type} train step under a mesh is not ported yet")
+    gen = loss_type in GEN_LOSSES
+    if gen != hasattr(cfg, "trunk_cfg") or (
+            gen and (loss_type == "genlap") != hasattr(cfg, "audio_cfg")):
+        raise ValueError(f"the {loss_type} step does not train this config "
+                         f"(loss_type_for gives {loss_type_for(cfg)!r})")
+    if gen:
+        return _make_gen_step(cfg, optimizer, loss_type, remat=remat, accum_steps=accum_steps,
+                              ema_decay=ema_decay, preprocess_seed=preprocess_seed)
     if loss_type == "coca" and cfg.multimodal_cfg is None:
         raise ValueError("the coca step needs a CoCa config (multimodal_cfg)")
     if loss_type == "distill" and teacher is None:
@@ -289,37 +306,8 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         return ratio if naflex_loss_scale == "linear" else ratio ** 0.5
 
     def _apply_updates(state: TrainState, loss: torch.Tensor, aux: Optional[Dict] = None):
-        model = state.model
-        params = state.params
-        outside = model.params_outside_loss()
-        for name, p in model.named_parameters():
-            if p.grad is None and name in outside:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if any(g is None for g in grads):
-            missing = [n for n, p in model.named_parameters() if p.grad is None]
-            raise RuntimeError(f"no gradient reached {missing}")
-        loss = loss.detach()
-        if mesh is not None:
-            sync_replicated_grads(params)
-            loss = loss.clone()
-            dist.all_reduce(loss)
-            loss /= dist.get_world_size()
-        grad_norm = optimizer.update_(params, grads, state.opt_state)
-        clamp_logit_scale(model, clamp_scale)
-        if ema_decay is not None:
-            if state.ema is None:
-                raise ValueError("ema_decay needs a state made with create_train_state(ema=True)")
-            update_ema_(state.ema, params, ema_decay)
-        with torch.no_grad():
-            metrics = {"loss": loss,
-                       "logit_scale": model.logit_scale.detach().float().exp(),
-                       "grad_norm": grad_norm,
-                       **{k: v.detach() for k, v in (aux or {}).items()}}
-        for p in params:
-            p.grad = None
-        state.step += 1
-        return state, metrics
+        return apply_updates_(state, optimizer, loss, aux, mesh=mesh, ema_decay=ema_decay,
+                              clamp_scale=clamp_scale)
 
     def simple_step(state: TrainState, batch):
         model = state.model
@@ -347,17 +335,9 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         """GradCache accumulation over ``accum_steps`` equal slices of the batch."""
         model = state.model
         batch = _preprocess(state, batch)
+        micro = microbatches(batch, accum_steps)
         n = batch["text"].shape[0]
-        if n % accum_steps:
-            raise ValueError(f"batch of {n} does not split into {accum_steps} microbatches")
         size = n // accum_steps
-
-        def rows(v, i):  # a patch or waveform dict is sliced entry by entry
-            if isinstance(v, dict):
-                return {k: rows(x, i) for k, x in v.items()}
-            return v[i * size:(i + 1) * size]
-
-        micro = [{k: rows(v, i) for k, v in batch.items()} for i in range(accum_steps)]
         # phase 1: features without gradients, one loss backward w.r.t. the features
         with torch.no_grad():
             feats = [_features(model, mb, remat, _dropout_gen(state, mb, i))
@@ -399,6 +379,107 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
             aux = {"contrastive_loss": loss, "caption_loss": cap_sum / accum_steps}
             loss = clip_loss_weight * loss + caption_loss_weight * cap_sum / accum_steps
         return _apply_updates(state, loss, aux)
+
+    return accum_step if accum_steps > 1 else simple_step
+
+
+def microbatches(batch, accum_steps: int) -> List[Dict]:
+    """``batch`` cut into ``accum_steps`` equal slices of rows; a patch or waveform
+    dict is sliced entry by entry."""
+    n = batch["text"].shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch of {n} does not split into {accum_steps} microbatches")
+    size = n // accum_steps
+
+    def rows(v, i):
+        if isinstance(v, dict):
+            return {k: rows(x, i) for k, x in v.items()}
+        return v[i * size:(i + 1) * size]
+
+    return [{k: rows(v, i) for k, v in batch.items()} for i in range(accum_steps)]
+
+
+def apply_updates_(state: TrainState, optimizer: Optimizer, loss: torch.Tensor,
+                   aux: Optional[Dict] = None, *, mesh=None, ema_decay: Optional[float] = None,
+                   clamp_scale: float = LOGIT_SCALE_MAX):
+    """The end of every step: zero gradients for the parameters outside the loss,
+    under a mesh the replicated gradients' and the loss's average over the ranks,
+    the optimizer's update, the logit-scale clamp, the EMA; then the metrics (a
+    model without a logit scale reports 0, as the JAX step does), the gradients
+    cleared and the step advanced."""
+    model = state.model
+    params = state.params
+    outside = model.params_outside_loss()
+    for name, p in model.named_parameters():
+        if p.grad is None and name in outside:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    if any(g is None for g in grads):
+        missing = [n for n, p in model.named_parameters() if p.grad is None]
+        raise RuntimeError(f"no gradient reached {missing}")
+    loss = loss.detach()
+    if mesh is not None:
+        sync_replicated_grads(params)
+        loss = loss.clone()
+        dist.all_reduce(loss)
+        loss /= dist.get_world_size()
+    grad_norm = optimizer.update_(params, grads, state.opt_state)
+    scale = getattr(model, "logit_scale", None)
+    if scale is not None:
+        clamp_logit_scale(model, clamp_scale)
+    if ema_decay is not None:
+        if state.ema is None:
+            raise ValueError("ema_decay needs a state made with create_train_state(ema=True)")
+        update_ema_(state.ema, params, ema_decay)
+    with torch.no_grad():
+        metrics = {"loss": loss,
+                   "logit_scale": (scale.detach().float().exp() if scale is not None
+                                   else loss.new_zeros((), dtype=torch.float32)),
+                   "grad_norm": grad_norm,
+                   **{k: v.detach() for k, v in (aux or {}).items()}}
+    for p in params:
+        p.grad = None
+    state.step += 1
+    return state, metrics
+
+
+def gen_loss(model, batch, *, remat: bool = False, generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+    """GenLIP's or GenLAP's caption loss of a batch, in training mode."""
+    prefix = batch["audio"] if "audio" in batch else batch["image"]
+    return model(prefix, batch["text"], compute_loss=True, train=True, remat=remat,
+                 generator=generator)["loss"]
+
+
+def _make_gen_step(cfg, optimizer: Optimizer, loss_type: str, *, remat: bool, accum_steps: int,
+                   ema_decay: Optional[float], preprocess_seed: int):
+    """``make_train_step``'s "genlip" / "genlap" step."""
+    drop = cfg.trunk_cfg.drop_path_rate > 1e-6
+
+    def _gen(state: TrainState, micro: int) -> Optional[torch.Generator]:
+        if not drop:
+            return None
+        gen = torch.Generator(device=state.model.device)
+        gen.manual_seed(_seed(preprocess_seed, state.step) * 64 + 32 + micro)
+        return gen
+
+    def simple_step(state: TrainState, batch):
+        loss = gen_loss(state.model, batch, remat=remat, generator=_gen(state, 0))
+        loss.backward()
+        return apply_updates_(state, optimizer, loss, ema_decay=ema_decay)
+
+    def accum_step(state: TrainState, batch):
+        """The JAX ``gen_accum_step``: the gradients of ``accum_steps`` equal slices
+        summed, then scaled by 1 / ``accum_steps``; the loss their mean."""
+        total = 0.0
+        for i, mb in enumerate(microbatches(batch, accum_steps)):
+            loss = gen_loss(state.model, mb, remat=remat, generator=_gen(state, i))
+            loss.backward()
+            total = total + loss.detach()
+        inv = 1.0 / accum_steps
+        with torch.no_grad():
+            torch._foreach_mul_([p.grad for p in state.params if p.grad is not None], inv)
+        return apply_updates_(state, optimizer, total * inv, ema_decay=ema_decay)
 
     return accum_step if accum_steps > 1 else simple_step
 

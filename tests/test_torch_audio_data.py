@@ -42,6 +42,8 @@ from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch.train import audio_zero_shot as pzs
 from open_clip_tpu_torch.train.main import main
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 NAME = "tiny-torch-naflexclap-bpe"
 CFG = {"embed_dim": 32,
        "audio_cfg": {"model_type": "naflexvit", "sample_rate": 16000, "window_size": 256,

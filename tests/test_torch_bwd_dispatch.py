@@ -17,6 +17,8 @@ import torch
 from open_clip_tpu_torch.ops import short_attention as sa
 from open_clip_tpu_torch.ops import window_attention as wa
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 BF16, FP32 = torch.bfloat16, torch.float32
 
 

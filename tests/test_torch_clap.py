@@ -46,6 +46,8 @@ from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 from open_clip_tpu_torch.train.main import main
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 MICRO = dict(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4), spec_size=64)
 AUDIO = {"model_type": "HTSAT", "model_name": "micro", "sample_rate": 16000, "window_size": 256,
          "hop_size": 64, "mel_bins": 32, "fmin": 50, "fmax": 8000, "clip_samples": 8000,

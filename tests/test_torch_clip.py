@@ -33,6 +33,8 @@ import open_clip_tpu_torch as oc
 from open_clip_tpu_torch.convert import convert_params_dtype_, params_from_jax
 from open_clip_tpu_torch.models.clip import CLIPModel
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "open_clip_tpu_torch"
 TINY = {
@@ -203,7 +205,7 @@ def test_create_model_runs_on_the_card_unless_told(monkeypatch):
 @pytest.mark.parametrize("name,kwargs", [
     ("RN50", {}),
     ("coca_roberta-ViT-B-32", {}),  # CoCa builds; its HF text tower does not
-    ("naflexgenlip_b16", {}),
+    ("EVA02-B-16", {}),  # a timm tower
     # nothing is downloaded: a hub name (and a registry tag, below) raises
     ("hf-hub:laion/clap-htsat-unfused", {}),
     ("ViT-B-32", {"pretrained": "openai"}),
@@ -242,6 +244,7 @@ import sys
 for name in ("jax", "jaxlib", "open_clip_tpu", "PIL"):
     sys.modules[name] = None  # any import of them now raises
 import numpy as np, torch
+torch.set_num_threads(1)
 import chip_smoke
 import open_clip_tpu_torch as oc
 from open_clip_tpu_torch.models.clip import CLIPModel
@@ -334,6 +337,20 @@ cfg.vision_cfg.patch_dropout = 0.5
 blocks.REMAT_POLICY = "dots_no_batch"
 state, metrics = train_step.make_train_step(cfg, opt, remat=True)(state, batch)
 assert bool(torch.isfinite(metrics["loss"]))
+blocks.REMAT_POLICY = "none"
+from open_clip_tpu_torch.models import genlap, genlip
+glip = oc.create_model("naflexgenlip_test", device="cpu")
+gp = naflex.NaFlexTransform(12, 16)(torch.zeros(2, 40, 48, 3, dtype=torch.uint8))
+gt = torch.randint(0, 1000, (2, 6))
+with torch.no_grad():
+    assert glip.encode_image(gp).shape == (2, 64)
+    assert glip.generate(gp, seq_len=4).shape == (2, 4)
+    assert glip.score_captions(glip.prefix_cache(gp), gt).shape == (2,)
+gopt = optim.create_optimizer(optim.OptimizerCfg(), glip, scheduler.const_lr(1e-3, 0))
+_, metrics = train_step.make_train_step(glip.cfg, gopt, loss_type="genlip", accum_steps=2)(
+    train_step.create_train_state(glip, gopt), {{"image": gp, "text": gt}})
+assert bool(torch.isfinite(metrics["loss"])) and float(metrics["logit_scale"]) == 0.0
+assert isinstance(oc.create_model("naflexgenlap_test_2d", device="cpu"), genlap.GenLapModel)
 print("ok")
 """
 

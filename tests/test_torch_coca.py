@@ -52,6 +52,8 @@ from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import train_loop as ploop
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 VOCAB, SOT, EOS = 100, 98, 99
 BATCH, CTX = 4, 12
 GEN = dict(seq_len=10, min_seq_len=3, sot_token_id=SOT, eos_token_id=EOS)

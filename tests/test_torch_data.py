@@ -57,6 +57,8 @@ from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets_torch")
 sys.path.insert(0, ASSETS)
 import make_assets  # noqa: E402

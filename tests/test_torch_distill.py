@@ -33,6 +33,8 @@ from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 STUDENT = {
     "embed_dim": 32,
     "vision_cfg": {"image_size": 32, "layers": 2, "width": 64, "patch_size": 16, "head_width": 32},

@@ -54,6 +54,8 @@ from open_clip_tpu_torch.train import metrics as pmetrics
 from open_clip_tpu_torch.train import train_loop as ploop
 from open_clip_tpu_torch.train.main import main
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 REPO = Path(__file__).resolve().parents[1]
 MICRO = {
     "embed_dim": 32,

@@ -26,6 +26,8 @@ import open_clip_tpu.ops.flash_attention as jfa
 from open_clip_tpu_torch.ops import attention as pattn
 from open_clip_tpu_torch.ops import flash_attention as pfa
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 OUT_TOL = {"float32": 2e-5, "bfloat16": 3e-2}

@@ -23,6 +23,8 @@ from open_clip_tpu.ops.layers import layer_norm as jax_layer_norm
 from open_clip_tpu_torch.ops import fused_ln as pfl
 from open_clip_tpu_torch.ops import layers as pl
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DX_TOL = {"float32": 1e-5, "bfloat16": 2e-2}

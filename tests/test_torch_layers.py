@@ -15,6 +15,11 @@ import torch
 from open_clip_tpu.ops import layers as jl
 from open_clip_tpu_torch.ops import layers as pl
 
+# one intra-op thread a test process: the tier-1 command runs six xdist workers, and
+# PyTorch's default of a thread per core has them contend for the cores (the port's
+# tests took ~3x as long)
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 BF16_ULP = 2.0 ** -7
 

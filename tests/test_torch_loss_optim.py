@@ -25,6 +25,8 @@ from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TINY = {
     "embed_dim": 64,
     "vision_cfg": {"image_size": 32, "layers": 2, "width": 128, "patch_size": 16, "head_width": 64},

@@ -35,6 +35,8 @@ from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch.ops.layers import relu_squared, rms_norm
 from open_clip_tpu_torch.train import optim as poptim
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 BASE_TEXT = {
     "text_arch": "modern", "context_length": 16, "variable_text": True, "vocab_size": 128,
     "width": 64, "heads": 4, "layers": 3, "mlp_ratio": 2.0, "pad_id": 0, "eos_id": 2,

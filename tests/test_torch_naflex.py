@@ -33,6 +33,8 @@ from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TEXT = {"context_length": 12, "vocab_size": 64, "width": 64, "heads": 2, "layers": 2}
 
 

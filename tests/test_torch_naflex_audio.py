@@ -57,6 +57,8 @@ from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 AUDIO = {"model_type": "naflexvit", "sample_rate": 16000, "window_size": 256, "hop_size": 64,
          "mel_bins": 32, "fmin": 50, "fmax": 8000, "patch_freq": 8, "patch_time": 4}
 TRUNKS = {

@@ -43,6 +43,8 @@ from open_clip_tpu_torch.models.clip import CLIPModel
 from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TEXT = {"context_length": 16, "width": 64, "heads": 2, "layers": 2, "vocab_size": 300}
 # adafactor factors only axes of 128 or more: the ViT's text tower is 128 wide, so its
 # token embedding and its stacked MLP kernels (per layer) are factored, and its

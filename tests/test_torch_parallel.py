@@ -55,6 +55,8 @@ from open_clip_tpu_torch.parallel import distributed as pdist
 from open_clip_tpu_torch.train import params as pparams
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
 MICRO = {

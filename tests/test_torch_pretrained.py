@@ -44,6 +44,8 @@ from open_clip_tpu_torch.push_to_hf_hub import push_to_hf_hub, save_for_hf
 
 from tests.test_timm_vit_convert import TimmNaFlexViT, TimmSiglipViT
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TINY = {"embed_dim": 32,
         "vision_cfg": {"image_size": 32, "layers": 2, "width": 64, "patch_size": 16,
                        "head_width": 32},

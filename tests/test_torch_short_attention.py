@@ -20,6 +20,8 @@ from open_clip_tpu.ops.attention import dot_product_attention as jax_attention
 from open_clip_tpu_torch.ops import attention as pattn
 from open_clip_tpu_torch.ops import short_attention as psa
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -24,6 +24,8 @@ import open_clip_tpu.ops.short_attention as jsa
 from open_clip_tpu.ops.attention import dot_product_attention as jax_attention
 from open_clip_tpu_torch.ops import short_attention as psa
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

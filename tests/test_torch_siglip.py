@@ -53,6 +53,8 @@ from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 from open_clip_tpu_torch.train.main import main
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 MICRO = {
     "embed_dim": 64,
     "init_logit_bias": -10,

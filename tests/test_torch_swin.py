@@ -27,6 +27,8 @@ from open_clip_tpu_torch.convert import params_from_jax
 from open_clip_tpu_torch.models import swin as pswin
 from open_clip_tpu_torch.models.clip import CLIPModel
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 SWIN = "swin_micro_patch4_window7_56"
 MICRO = dict(patch_size=4, embed_dim=24, depths=(2, 2), heads=(3, 3), window=7, mlp_ratio=4.0)
 CFG = {"embed_dim": 24, "text_cfg": {"context_length": 16, "width": 32, "heads": 2, "layers": 1},

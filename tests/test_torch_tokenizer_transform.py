@@ -25,6 +25,8 @@ from open_clip_tpu.transform import make_device_preprocess as jax_device_preproc
 from open_clip_tpu_torch import tokenizer as ptok
 from open_clip_tpu_torch.transform import PreprocessCfg, make_device_preprocess
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 STRINGS = [
     "",
     "a photo of a cat.",

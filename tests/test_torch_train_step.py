@@ -36,6 +36,8 @@ from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TINY = {
     "embed_dim": 64,
     "vision_cfg": {"image_size": 32, "layers": 2, "width": 128, "patch_size": 16, "head_width": 64},
@@ -247,9 +249,10 @@ def test_eval_forward_matches_clip_forward(setup):
     assert all(torch.equal(out[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("kw", [{"loss_type": "genlap"}, {"loss_type": "coca", "mesh": "a mesh"},
+@pytest.mark.parametrize("kw", [{"loss_type": "genlap", "mesh": "a mesh"},
+                                {"loss_type": "coca", "mesh": "a mesh"},
                                 {"loss_type": "distill", "mesh": "a mesh"},
-                                {"loss_type": "genlip"},
+                                {"loss_type": "genlip", "mesh": "a mesh"},
                                 {"ema_decay": 0.999, "mesh": "a mesh"}, {"freeze_bn_stats": True}])
 def test_unported_step_options_raise(setup, kw):
     _, params, cfg, _, _ = setup

@@ -21,6 +21,8 @@ from open_clip_tpu_torch.train import params as pparams
 from open_clip_tpu_torch.train.main import main
 from open_clip_tpu_torch.train.train_loop import AverageMeter
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TINY = {
     "embed_dim": 32,
     "vision_cfg": {"image_size": 32, "layers": 2, "width": 64, "patch_size": 16, "head_width": 32},

@@ -23,6 +23,8 @@ import open_clip_tpu.ops.window_attention as jwa
 from open_clip_tpu_torch.ops import swin_attention as swa
 from open_clip_tpu_torch.ops import window_attention as wa
 
+torch.set_num_threads(1)  # one intra-op thread a test process: see test_torch_layers.py
+
 TOL = 1e-5
 
 
