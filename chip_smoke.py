@@ -271,12 +271,37 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      image + 96 text tokens (one caption ragged): the card's trunk on the flash
      kernels' CUDA-core bodies with prefix_len 448 against the CPU's dense bias:
      logits on the valid rows, the caption loss and every gradient.
+ 52. rn50_serve: RN50 (the ModifiedResNet tower: convolutions on cuDNN's NHWC path,
+     batch norms on stored statistics, the dense attention pool) in pure_bf16, a
+     10-class classifier and requests of 256 uint8 256x320 images, timed and profiled
+     like phase 2 (device ms by kernel class: conv, batch_norm, pool, elementwise,
+     matmul, short attention); 12 short forwards for the classifier, none an image;
+ 53. rn50_train: RN50 b256 amp_bf16, AdamW, clip 1.0, train-mode batch norms, timed and
+     profiled like phase 4 (the idle share also as 1 - kernel ms / step ms): the loss
+     falls, 12 + 12 short launches a step; then a plain step, whose running statistics
+     must equal 0.9 of theirs plus 0.1 of the batch's, a freeze_bn_stats step and an
+     accum_steps 2 (GradCache) step, after which they must not have moved;
+ 54. rn_card_vs_cpu: fp32, TF32 off for the matmuls and cuDNN, RN50's widths with one
+     block a stage and 2 text blocks, b4: features, the loss and every gradient (the
+     attention pool's key bias, zero in exact arithmetic, by its size), and the running
+     statistics after one step, card against CPU;
+ 55. convnext_serve: convnext_base_w (256 px, text 640 wide in 10 heads) in pure_bf16,
+     requests of 256 images, like phase 52;
+ 56. convnext_train: convnext_base_w b128 amp_bf16, AdamW, clip 1.0, drop path 0.1: a
+     window with the fused LayerNorm backward off and one with it on (66 launches a
+     step, 5 at the stage-0 shape 524288 x 128), each timed and profiled; the two
+     switches' gradients from the same weights and drop-path masks (cosine), and the
+     loss under full remat against the plain forward's with the same masks;
+ 57. convnext_card_vs_cpu: fp32 (TF32 off), convnext_base_w's widths with blocks 1, 1,
+     2, 1 and 2 text blocks, drop path 0, b2: features, the loss and every gradient.
 
 Phase 1 also times the short forward and backward at CoCa's decoder shape (B=256, L=76,
 H=8, causal) and at the SigLIP shapes, the flash
 forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash kernels
 at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity) and at GenLIP's train step
-(B=32, L=1152, H=12, causal with prefix_len 1024, ragged captions); phase 17 also times the
+(B=32, L=1152, H=12, causal with prefix_len 1024, ragged captions), the short kernels at
+convnext_base_w's text shape (B=128, L=77, H=10, causal) and the LayerNorm backward at
+its stage-0 shape (524288 x 128, bf16); phase 17 also times the
 SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
 
 Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
@@ -388,6 +413,19 @@ SB_TIMED_RAGGED = (130, 40, 129)  # a shape of the mma body (K % 16 != 0), timed
 # another order, which moves that output by one quantum (~1e-2 of the row's
 # largest entry); so a looser bound than COSINE_MIN
 SB_COSINE_MIN, SB_LOSS_RTOL = 0.999, 1e-3
+# the conv towers: RN50 served and trained at b256 (224 px), convnext_base_w (256 px,
+# the config's drop path 0.1) served at b256 and trained at b128
+RN_MODEL, RN_BATCH = "RN50", 256
+CNX_MODEL, CNX_SERVE_BATCH, CNX_TRAIN_BATCH = "convnext_base_w", 256, 128
+# the (rows, width) of every LayerNorm in convnext_base_w's b128 step at 256 px: the
+# stem and stage 0 (64x64 positions), stages 1-3 (32x32, 16x16, 8x8; each opened by
+# the downsample's norm at the stage before's shape), head_norm, the 640-wide text tower
+CNX_LN_SHAPES = {"convnext_s0": (CNX_TRAIN_BATCH * 64 * 64, 128),
+                 "convnext_s1": (CNX_TRAIN_BATCH * 32 * 32, 256),
+                 "convnext_s2": (CNX_TRAIN_BATCH * 16 * 16, 512),
+                 "convnext_s3": (CNX_TRAIN_BATCH * 8 * 8, 1024),
+                 "convnext_head": (CNX_TRAIN_BATCH, 1024),
+                 "convnext_text": (CNX_TRAIN_BATCH * 77, 640)}
 KERNEL_CLASSES = {  # first match wins
     "switchback": ("int8_matmul_dequant",),
     "switchback_quantize": ("quantize_rowwise",),
@@ -399,10 +437,18 @@ KERNEL_CLASSES = {  # first match wins
     "short_attention_bwd": ("short_attn_bwd",),
     "short_attention": ("short_attn",),
     "layer_norm_bwd": ("layer_norm_bwd",),  # the port's kernel; PyTorch's own falls below
+    # cuDNN's convolutions (implicit GEMMs on the tensor cores, named fprop / dgrad /
+    # wgrad) and the layout changes around them, ahead of the GEMMs they resemble
+    "conv": ("fprop", "dgrad", "wgrad", "convolve", "conv2d", "conv_depthwise", "depthwise",
+             "winograd", "nchwtonhwc", "nhwctonchw"),
+    "batch_norm": ("batch_norm", "batchnorm", "bn_fw", "bn_bw"),
+    "pool": ("avg_pool", "avgpool", "max_pool"),
     "matmul": ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas", "wgmma"),
     "layer_norm": ("layer_norm", "layernorm", "gammabeta"),
     "optimizer": ("multi_tensor", "foreach"),
     "resize": ("upsample", "interpolate", "aa_"),
+    # PyTorch's elementwise kernels (casts, adds, activations)
+    "elementwise": ("elementwise_kernel",),
 }
 
 FAILURES = []
@@ -551,7 +597,11 @@ def phase_kernels(torch, sa, text_batch):
              ("l197", BATCH, 197, 12, 64, False, bf16),
              ("l99", BATCH, 99, 12, 64, False, bf16),
              # coca_ViT-B-32's decoder self-attention at the train batch
-             ("coca_decoder", BATCH, 76, 8, 64, True, bf16)]
+             ("coca_decoder", BATCH, 76, 8, 64, True, bf16),
+             # convnext_base_w's text tower (width 640, 10 heads) at its train batch and
+             # at its classifier's
+             ("text_h10", CNX_TRAIN_BATCH, 77, 10, 64, True, bf16),
+             ("text_h10_b70", text_batch, 77, 10, 64, True, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
@@ -617,7 +667,9 @@ def phase_attention_bwd_kernels(torch, sa):
                                                bf16),
                                               ("l197", BATCH, 197, 12, 64, False, bf16),
                                               ("l99", BATCH, 99, 12, 64, False, bf16),
-                                              ("coca_decoder", BATCH, 76, 8, 64, True, bf16)):
+                                              ("coca_decoder", BATCH, 76, 8, 64, True, bf16),
+                                              ("text_h10", CNX_TRAIN_BATCH, 77, 10, 64, True,
+                                               bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             body = sa.bwd_body(l, hd, dtype)
@@ -672,12 +724,16 @@ def phase_attention_bwd_kernels(torch, sa):
 
 
 def phase_ln_bwd_kernels(torch, fl):
-    """LayerNorm backward kernel vs plain version; records for the two tower shapes."""
+    """LayerNorm backward kernel vs plain version; records for the two tower shapes and
+    for every shape of convnext_base_w's b128 step (``CNX_LN_SHAPES``)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     records = {}
-    for name, rows, w in (("vision", BATCH * 50, 768), ("text", BATCH * 77, 512),
-                          ("pooled", BATCH, 768)):
-        for dtype in (torch.bfloat16, torch.float32):
+    both = (torch.bfloat16, torch.float32)
+    for name, rows, w, dtypes in (("vision", BATCH * 50, 768, both), ("text", BATCH * 77, 512, both),
+                                  ("pooled", BATCH, 768, both),
+                                  *((n, r, w, (torch.bfloat16,))
+                                    for n, (r, w) in CNX_LN_SHAPES.items())):
+        for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             x = (torch.randn(rows, w, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
             dy = torch.randn(rows, w, generator=gen, device="cuda").to(dtype)
@@ -5778,6 +5834,377 @@ def phase_genlip_card_vs_cpu(torch, oc, fa):
     grads_card_vs_cpu(torch, results, "genlip")
 
 
+# ---------------------------------------------------------------------------
+# the conv towers: ModifiedResNet (RN50) and ConvNeXt (convnext_base_w)
+# ---------------------------------------------------------------------------
+
+def conv_serve(torch, oc, sa, name, batch, label):
+    """Serving a conv tower in pure_bf16: a 10-class classifier (one encode_text call),
+    requests of ``batch`` uint8 256x320 images (device preprocess -> encode_image ->
+    logits -> top-5), timed and profiled like phase 2. The image tower launches no
+    attention kernel; the text tower the short forward once a block."""
+    torch.cuda.reset_peak_memory_stats()
+    model, _, preprocess = oc.create_model_and_transforms(name, precision="pure_bf16", seed=0)
+    lt = model.cfg.text_cfg.layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    requests = [torch.randint(0, 256, (batch, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
+                              generator=gen) for _ in range(4)]
+    with torch.inference_mode():
+        reset_counts(sa)
+        clf = oc.build_zero_shot_classifier(model, oc.get_tokenizer(name),
+                                            oc.IMAGENET_CLASSNAMES[:CLASSES],
+                                            oc.SIMPLE_IMAGENET_TEMPLATES,
+                                            num_classes_per_batch=CLASSES)
+        torch.cuda.synchronize()
+        text_launches = dict(sa.LAUNCHES)
+        clf32 = clf.float()
+
+        def request(i):
+            feats = model.encode_image(preprocess(requests[i % 4]), normalize=True)
+            return feats, (100.0 * feats.float() @ clf32).topk(5, dim=-1).indices.cpu()
+
+        reset_counts(sa)
+        t0 = time.perf_counter()
+        request(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lat, window_s, feats, top5, prof, prof_wall_ms = serve_window(request, 3)
+        image_launches = dict(sa.LAUNCHES)
+    check(text_launches == {"fwd": lt, "bwd": 0} and image_launches == {"fwd": 0, "bwd": 0},
+          f"{label}: short launches {text_launches} for the classifier (expect {lt}), "
+          f"{image_launches} for {1 + len(lat) + 3} image-tower calls (expect none)")
+    fn = torch.linalg.vector_norm(feats.float(), dim=-1)
+    check(tuple(feats.shape) == (batch, model.cfg.embed_dim) and bool(torch.isfinite(feats).all())
+          and bool(((fn - 1).abs() < 1e-2).all()) and tuple(top5.shape) == (batch, 5)
+          and int(top5.min()) >= 0 and int(top5.max()) < CLASSES,
+          f"{label} request output: features {tuple(feats.shape)} finite and unit, top-5")
+    summary = profile_summary(prof, prof_wall_ms, 3)
+    print(f"{label} " + json.dumps({
+        "model": name, "precision": "pure_bf16", "batch": batch, "image_hw": list(IMAGE_HW),
+        "first_request_ms": first_ms, "window_s": window_s, "window_requests": len(lat),
+        "images_per_s": batch * len(lat) / window_s, "median_request_ms": statistics.median(lat),
+        "min_request_ms": min(lat), "kernel_ms_per_request": summary["device_busy_ms_per_request"],
+        "class_ms_per_request": summary["class_ms_per_request"],
+        "device_idle_share": summary["device_idle_share"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    print(f"{label}_profile " + json.dumps(summary), flush=True)
+    return text_launches["fwd"]
+
+
+def running_stats(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def phase_rn50_train(torch, oc, sa):
+    """RN50 b256 amp_bf16, AdamW, clip 1.0, one fixed batch, timed and profiled like
+    phase 4: the loss falls, 12 + 12 short launches a step (the text tower). Then one
+    step each: plain, where the running statistics move by the merge (0.9 of theirs
+    plus 0.1 of the batch's, recorded by a train-mode forward of the same weights);
+    with freeze_bn_stats and with accum_steps 2 (GradCache), where they do not move."""
+    from open_clip_tpu_torch.models.clip import clip_forward
+    from open_clip_tpu_torch.models.resnet import BN_MOMENTUM
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(RN_MODEL, precision="amp_bf16", seed=0)
+    lt = model.cfg.text_cfg.layers
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(5e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = train_batch(torch, model.cfg, RN_BATCH, "cuda", seed=11)
+    state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+    n = max(3, math.ceil(TRAIN_WINDOW_S / 2 * 1e3 / warm_ms[-1]))
+    reset_counts(sa)
+    state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state, batch, n)
+    launched = dict(sa.LAUNCHES)
+    losses = [float(m["loss"]) for m in warm + window]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"rn50_train: {len(losses)} losses finite, fell {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(launched == {"fwd": lt * n, "bwd": lt * n} and sa.BWD_BODIES == {"mma": lt * n, "simt": 0},
+          f"rn50_train: short launches {launched}, backward by body {sa.BWD_BODIES} in {n} "
+          f"steps (expect {lt} of each a step, on the tensor cores)")
+    state, summary = profiled_steps(torch, step, state, batch)
+    print("rn50_train_profile " + json.dumps(summary), flush=True)
+    median = statistics.median(step_ms)
+    # the running statistics: the plain step's merge, then a frozen and a GradCache step
+    sink = []
+    with torch.no_grad():
+        clip_forward(model, batch["image"], batch["text"], train=True, stats_sink=sink)
+    names = {id(m): n for n, m in model.named_modules()}
+    want = {}
+    for bn, mean, var in sink:
+        prefix = names[id(bn)]
+        want[prefix + ".running_mean"] = (1 - BN_MOMENTUM) * bn.running_mean.detach() \
+            + BN_MOMENTUM * mean
+        want[prefix + ".running_var"] = (1 - BN_MOMENTUM) * bn.running_var.detach() \
+            + BN_MOMENTUM * var
+    before = running_stats(model)
+    state, _ = step(state, batch)
+    after = running_stats(model)
+    err = max(((after[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-6)).item()
+              for k in want)
+    moved = max((after[k] - before[k]).abs().max().item() for k in after)
+    n_bn = sum(type(m).__name__ == "BatchNorm2d" for m in model.modules())
+    check(set(want) == set(after) and len(after) == 2 * n_bn and err <= 1e-3 and moved > 0,
+          f"rn50_train: the plain step moved the {len(after)} running statistics by the merge "
+          f"(max change {moved:.3e}; against 0.9 running + 0.1 batch: rel err {err:.2e} <= 1e-3)")
+    frozen = {}
+    for label, kw in (("freeze_bn_stats", {"freeze_bn_stats": True}),
+                      ("accum_steps 2", {"accum_steps": 2})):
+        before = running_stats(model)
+        state, m = oc.make_train_step(model.cfg, optimizer, **kw)(state, batch)
+        frozen[label] = float(m["loss"])
+        after = running_stats(model)
+        check(all(torch.equal(after[k], before[k]) for k in after) and math.isfinite(frozen[label]),
+              f"rn50_train[{label}]: the running statistics did not move, loss "
+              f"{frozen[label]:.4f} finite")
+    print("rn50_train " + json.dumps({
+        "model": RN_MODEL, "precision": "amp_bf16", "batch": RN_BATCH, "window_steps": n,
+        "window_s": wall_s, "images_per_s": RN_BATCH * n / wall_s, "median_step_ms": median,
+        "min_step_ms": min(step_ms), "median_host_ms_per_step": statistics.median(host_ms),
+        "host_lead_ms_at_end": lead_ms, "first_loss": losses[0], "last_loss": losses[-1],
+        "kernel_ms_per_step": summary["device_busy_ms_per_step"],
+        "class_ms_per_step": summary["class_ms_per_step"],
+        "idle_share_by_window": 1.0 - summary["device_busy_ms_per_step"] / median,
+        "device_idle_share_profiled": summary["device_idle_share"],
+        "short_launches_per_step": {k: v / n for k, v in launched.items()},
+        "running_stats_merge_rel_err": err, "losses_frozen_and_accum": frozen,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+    return launched, n
+
+
+def cut_rn(oc, name: str, layers, text: int) -> str:
+    raw = json.loads(json.dumps(oc.get_model_config(name)))
+    raw["vision_cfg"]["layers"], raw["text_cfg"]["layers"] = list(layers), text
+    cut = f"{name}-cut"
+    oc.add_model_config(raw, name=cut)
+    return cut
+
+
+def conv_card_vs_cpu(torch, oc, name, batch_size, label, seed, zero=()):
+    """fp32, TF32 off for the matmuls and cuDNN (an fp32 convolution is TF32 in cuDNN
+    by default): features (inference), then one train-mode forward and backward:
+    the loss and every gradient, card against CPU; the gradients named in ``zero``,
+    zero in exact arithmetic, by their size. Returns both models and the batch."""
+    from open_clip_tpu_torch.loss import clip_loss
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results, feats, models = {}, {}, {}
+    batch = None
+    for device in ("cuda", "cpu"):
+        model = oc.create_model(name, precision="fp32", seed=seed, device=device)
+        if batch is None:
+            batch = train_batch(torch, model.cfg, batch_size, "cpu", seed=seed)
+        image, text = batch["image"].to(device), batch["text"].to(device)
+        with torch.inference_mode():
+            feats[device] = (model.encode_image(image, normalize=True).cpu(),
+                             model.encode_text(text, normalize=True).cpu())
+        out = clip_forward(model, image, text, train=True)
+        loss = clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp())
+        loss.backward()
+        results[device] = ({k: p.grad.detach().cpu().double() for k, p in model.named_parameters()
+                            if p.grad is not None}, loss.item())
+        models[device] = model
+    for i, which in enumerate(("encode_image", "encode_text")):
+        cos = torch.nn.functional.cosine_similarity(feats["cuda"][i].double(),
+                                                    feats["cpu"][i].double(), dim=-1).min().item()
+        check(bool(torch.isfinite(feats["cuda"][i]).all()) and cos >= COSINE_MIN,
+              f"{label} {which} card vs CPU fp32: min cosine {cos:.7f} (>= {COSINE_MIN})")
+    # a gradient that is zero in exact arithmetic is rounding noise on both sides: it is
+    # held to its size, not its direction
+    g_gpu, g_cpu = results["cuda"][0], results["cpu"][0]
+    top = max(g.norm().item() for g in g_cpu.values())
+    for k in zero:
+        size = max(g_gpu[k].norm().item(), g_cpu[k].norm().item()) / top
+        check(size <= 1e-6, f"{label}: the gradient of {k}, zero in exact arithmetic, is "
+              f"{size:.1e} of the largest on the card and the CPU (<= 1e-6)")
+    grads_card_vs_cpu(torch, {d: ({k: g for k, g in r[0].items() if k not in zero}, r[1])
+                              for d, r in results.items()}, label)
+    return models, batch
+
+
+def phase_rn_card_vs_cpu(torch, oc):
+    """RN50's widths with one block a stage and 2 text blocks, batch 4 at 224 px: the
+    features, the loss and every gradient, then one train step's running statistics,
+    card against CPU."""
+    name = cut_rn(oc, RN_MODEL, (1, 1, 1, 1), 2)
+    # the attention pool's key bias: a softmax does not see a constant added to a row
+    models, batch = conv_card_vs_cpu(torch, oc, name, 4, "RN50", seed=5,
+                                     zero=("visual.attnpool.k_proj.bias",))
+    stats = {}
+    for device, model in models.items():
+        model.zero_grad(set_to_none=True)
+        optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                        model, oc.const_lr(5e-4, 0))
+        oc.make_train_step(model.cfg, optimizer)(oc.create_train_state(model, optimizer),
+                                                 {k: v.to(device) for k, v in batch.items()})
+        stats[device] = {k: v.cpu() for k, v in running_stats(model).items()}
+    err = max(((stats["cuda"][k] - v).abs().max() / v.abs().max().clamp_min(1e-6)).item()
+              for k, v in stats["cpu"].items())
+    moved = max((v - 1.0 if k.endswith("var") else v).abs().max().item()
+                for k, v in stats["cpu"].items())
+    check(err <= 1e-4 and moved > 0,
+          f"RN50 running statistics after one step, card vs CPU fp32: rel err {err:.2e} "
+          f"(<= 1e-4) over {len(stats['cpu'])} tensors")
+
+
+@contextlib.contextmanager
+def tally_ln_rows(fl):
+    """While open, count the LayerNorm backward kernel's launches by (rows, width)."""
+    tally = {}
+    ln = fl.layer_norm_bwd
+
+    def ln_(x, dy, scale, eps=1e-5):
+        key = (x.numel() // x.shape[-1], x.shape[-1])
+        tally[key] = tally.get(key, 0) + 1
+        return ln(x, dy, scale, eps)
+
+    fl.layer_norm_bwd = ln_
+    try:
+        yield tally
+    finally:
+        fl.layer_norm_bwd = ln
+
+
+def phase_convnext_train(torch, oc, sa, fl, layers_mod):
+    """convnext_base_w b128 amp_bf16, AdamW, clip 1.0, the config's drop path 0.1, one
+    fixed batch: a window with the fused LayerNorm backward off, then on (66 of its
+    launches a step, 5 at the stage-0 shape, each at a shape of ``CNX_LN_SHAPES``, which
+    phase_ln_bwd_kernels holds against the plain version), each timed and profiled like
+    phase 4; the two switches' gradients from the same weights and masks, whole and for
+    each LayerNorm's weight and bias, and the loss under full remat against the plain
+    forward's with the same masks."""
+    from open_clip_tpu_torch.loss import clip_loss
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(CNX_MODEL, precision="amp_bf16", seed=0)
+    lt = model.cfg.text_cfg.layers
+    blocks = sum(len(s.blocks) for s in model.visual.stages)
+    lns = 1 + blocks + (len(model.visual.stages) - 1) + 1 + 2 * lt + 1
+    s0_lns = 1 + len(model.visual.stages[0].blocks) + 1  # stem, stage 0, stage 1's downsample
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=5e-4, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(5e-4, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = train_batch(torch, model.cfg, CNX_TRAIN_BATCH, "cuda", seed=12)
+    lines, ln_tally, short = {}, {}, {}
+    for fused in (False, True):
+        layers_mod.FUSED_LN_BWD = fused
+        try:
+            state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+            n = max(3, math.ceil(TRAIN_WINDOW_S / 2 * 1e3 / warm_ms[-1]))
+            reset_counts(sa, fl)
+            with tally_ln_rows(fl) as tally:
+                state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state,
+                                                                             batch, n)
+            launched, ln_launched = dict(sa.LAUNCHES), fl.LAUNCHES["bwd"]
+            state, summary = profiled_steps(torch, step, state, batch)
+        finally:
+            layers_mod.FUSED_LN_BWD = False
+        tag = "on" if fused else "off"
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"convnext_train[fused_ln {tag}]: {len(losses)} losses finite, fell "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        check(launched == {"fwd": lt * n, "bwd": lt * n}
+              and ln_launched == (lns * n if fused else 0)
+              and (not fused or tally.get(CNX_LN_SHAPES["convnext_s0"], 0) == s0_lns * n)
+              and set(tally) <= set(CNX_LN_SHAPES.values()),
+              f"convnext_train[fused_ln {tag}]: short launches {launched}, LayerNorm backward "
+              f"{ln_launched} ({tally}) in {n} steps (expect {lt} short of each a step"
+              + (f", {lns} LayerNorm backwards, {s0_lns} at the stage-0 shape)" if fused else ")"))
+        short[tag], ln_tally[tag] = (launched, n), (dict(tally), n)
+        median = statistics.median(step_ms)
+        lines[tag] = {"window_steps": n, "window_s": wall_s, "images_per_s": CNX_TRAIN_BATCH * n / wall_s,
+                      "median_step_ms": median, "min_step_ms": min(step_ms),
+                      "median_host_ms_per_step": statistics.median(host_ms),
+                      "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
+                      "last_loss": losses[-1],
+                      "kernel_ms_per_step": summary["device_busy_ms_per_step"],
+                      "class_ms_per_step": summary["class_ms_per_step"],
+                      "layer_norm_bwd_ms_per_step": summary["class_ms_per_step"].get(
+                          "layer_norm_bwd"),
+                      "idle_share_by_window": 1.0 - summary["device_busy_ms_per_step"] / median,
+                      "device_idle_share_profiled": summary["device_idle_share"]}
+        print(f"convnext_train_profile[fused_ln {tag}] " + json.dumps(summary), flush=True)
+
+    ln_params = {f"{m}.{n}": p for m, mod in model.named_modules()
+                 if isinstance(mod, torch.nn.LayerNorm) for n, p in mod.named_parameters()}
+    check(len(ln_params) == 2 * lns, f"convnext_train: {len(ln_params)} LayerNorm weights and "
+          f"biases (expect {2 * lns})")
+
+    # a batch the windows did not fit, so that the loss and every gradient stay far
+    # from 0 and each LayerNorm's gradient carries more than rounding
+    held = train_batch(torch, model.cfg, CNX_TRAIN_BATCH, "cuda", seed=13)
+
+    def grads(fused: bool, remat: bool = False):
+        """The loss on ``held``, every gradient flattened into one fp32 vector, and
+        each LayerNorm weight's and bias's gradient in fp32."""
+        layers_mod.FUSED_LN_BWD = fused
+        try:
+            model.zero_grad(set_to_none=True)
+            out = clip_forward(model, held["image"], held["text"], train=True, remat=remat,
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+            loss = clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp())
+            loss.backward()
+            got = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+            ln = {k: p.grad.float() for k, p in ln_params.items()}
+            model.zero_grad(set_to_none=True)
+            return loss.item(), got, ln
+        finally:
+            layers_mod.FUSED_LN_BWD = False
+
+    loss_off, g_off, ln_off = grads(False)
+    loss_on, g_on, ln_on = grads(True)
+    cos = torch.nn.functional.cosine_similarity(g_off, g_on, dim=0).item()
+    ln_cos = {k: torch.nn.functional.cosine_similarity(ln_off[k].flatten(), ln_on[k].flatten(),
+                                                       dim=0).item() for k in ln_params}
+    worst = min(ln_cos, key=ln_cos.get)
+    check(abs(loss_on - loss_off) <= 1e-6 * abs(loss_off) and cos >= 0.999
+          and ln_cos[worst] >= 0.999,
+          f"convnext_train: gradients with the fused LayerNorm backward against without, the "
+          f"same weights and masks: cosine {cos:.6f} (>= 0.999) over all, >= "
+          f"{ln_cos[worst]:.6f} ({worst}) for each of the {len(ln_cos)} LayerNorm weights "
+          f"and biases (>= 0.999), loss {loss_on:.6f} vs {loss_off:.6f}")
+    del g_on, ln_on
+    train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    loss_remat, g_remat, _ = grads(False, remat=True)
+    remat_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    cos_remat = torch.nn.functional.cosine_similarity(g_off, g_remat, dim=0).item()
+    check(abs(loss_remat - loss_off) <= 1e-6 * abs(loss_off) and cos_remat >= 0.999,
+          f"convnext_train[remat]: loss {loss_remat:.6f} vs {loss_off:.6f} without remat (the "
+          f"same masks), gradient cosine {cos_remat:.6f}")
+    print("convnext_train " + json.dumps({
+        "model": CNX_MODEL, "precision": "amp_bf16", "batch": CNX_TRAIN_BATCH,
+        "drop_path": model.cfg.vision_cfg.timm_drop_path, "fused_ln_off": lines["off"],
+        "fused_ln_on": lines["on"], "grad_cosine_fused_ln": cos,
+        "min_ln_grad_cosine_fused_ln": ln_cos[worst], "min_ln_grad_cosine_at": worst,
+        "loss_remat": loss_remat, "loss_plain": loss_off, "grad_cosine_remat": cos_remat,
+        "remat_peak_gib": remat_gib, "ln_bwd_launches_by_rows_width": {
+            f"{r}x{w}": c for (r, w), c in ln_tally["on"][0].items()},
+        "peak_mem_gib": train_gib}), flush=True)
+    return short, ln_tally
+
+
+def phase_convnext_card_vs_cpu(torch, oc):
+    """convnext_base_w's widths with blocks 1, 1, 2, 1 and 2 text blocks, drop path 0
+    (the two devices' generators differ), batch 2 at 256 px: features, the loss and
+    every gradient, card against CPU."""
+    from open_clip_tpu_torch.models import convnext
+
+    raw = json.loads(json.dumps(oc.get_model_config(CNX_MODEL)))
+    arch = raw["vision_cfg"]["timm_model_name"]
+    convnext.CONVNEXT_CFGS[arch + "_cut"] = ((1, 1, 2, 1), convnext.CONVNEXT_CFGS[arch][1])
+    raw["vision_cfg"].update(timm_model_name=arch + "_cut", timm_drop_path=0.0)
+    raw["text_cfg"]["layers"] = 2
+    oc.add_model_config(raw, name=CNX_MODEL + "-cut")
+    conv_card_vs_cpu(torch, oc, CNX_MODEL + "-cut", 2, "convnext", seed=6)
+
+
 def main() -> int:
     import torch
 
@@ -5912,6 +6339,15 @@ def main() -> int:
     gl_train, gl_steps = timed("genlip_train", phase_genlip_train, torch, oc, sa, fa, blocks)
     timed("genlap_serve_train", phase_genlap_serve_train, torch, oc, sa, fa)
     timed("genlip_card_vs_cpu", phase_genlip_card_vs_cpu, torch, oc, fa)
+    rn_text_serve = timed("rn50_serve", conv_serve, torch, oc, sa, RN_MODEL, RN_BATCH,
+                          "rn50_serve")
+    rn_train, rn_steps = timed("rn50_train", phase_rn50_train, torch, oc, sa)
+    timed("rn_card_vs_cpu", phase_rn_card_vs_cpu, torch, oc)
+    cnx_text_serve = timed("convnext_serve", conv_serve, torch, oc, sa, CNX_MODEL,
+                           CNX_SERVE_BATCH, "convnext_serve")
+    cnx_short, cnx_ln = timed("convnext_train", phase_convnext_train, torch, oc, sa, fl,
+                              layers_mod)
+    timed("convnext_card_vs_cpu", phase_convnext_card_vs_cpu, torch, oc)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -5939,10 +6375,13 @@ def main() -> int:
         n_train, n_dist = tally[("fwd", tower)], dist_tally[("fwd", tower)]
         n_data = data_tally.get(("fwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("fwd", tower)], ft_cli_tally[("fwd", tower)]
+        n_rn = rn_text_serve if tower == "text" else 0  # RN50's classifier (B=70, H=8)
         kernels.append(dict(fwd_records[tower],
                             launches=(launches[tower] + n_train + n_dist + n_data
                                       + load_launches[tower] + n_ft + n_ft_cli
-                                      + new_paths[("fwd", tower)] + coca_paths[("fwd", tower)]),
+                                      + new_paths[("fwd", tower)] + coca_paths[("fwd", tower)]
+                                      + n_rn),
+                            launches_rn50_classifier=n_rn,
                             launches_coca_and_distill_paths=coca_paths[("fwd", tower)],
                             launches_distill_per_train_step=distill_tally.get(("fwd", tower), 0)
                             / distill_steps,
@@ -5966,9 +6405,13 @@ def main() -> int:
         n_train, n_dist = tally[("bwd", tower)], dist_tally[("bwd", tower)]
         n_data = data_tally.get(("bwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("bwd", tower)], ft_cli_tally[("bwd", tower)]
+        n_rn = rn_train["bwd"] if tower == "text" else 0  # RN50 b256: the same shape
         kernels.append(dict(bwd_records[(tower, "bfloat16")],
                             launches=(n_train + n_dist + n_data + n_ft + n_ft_cli
-                                      + new_paths[("bwd", tower)] + coca_paths[("bwd", tower)]),
+                                      + new_paths[("bwd", tower)] + coca_paths[("bwd", tower)]
+                                      + n_rn),
+                            launches_rn50_train=n_rn,
+                            launches_rn50_per_train_step=n_rn / rn_steps,
                             launches_coca_and_distill_paths=coca_paths[("bwd", tower)],
                             launches_step_option_paths=new_paths[("bwd", tower)],
                             launches_finetune=n_ft, launches_per_finetune_step=n_ft / ft_steps,
@@ -6117,6 +6560,25 @@ def main() -> int:
     kernels.append(dict(bwd_records[("coca_decoder", "bfloat16")],
                         launches=coca_tally.get(("bwd", 76), 0),
                         launches_per_train_step=coca_tally.get(("bwd", 76), 0) / coca_steps))
+    # the conv towers' text towers: RN50's at b256 (12 short forwards and backwards a
+    # step), convnext_base_w's 10 heads at b128 (both fused-LN windows) and at its
+    # classifier's B=70; the LayerNorm backward at each shape of ConvNeXt's step (the
+    # switch on)
+    kernels.append(dict(fwd_records["text_b256"], launches=rn_train["fwd"],
+                        launches_path="rn50_train",
+                        launches_per_train_step=rn_train["fwd"] / rn_steps))
+    cnx = {d: sum(c[d] for c, _ in cnx_short.values()) for d in ("fwd", "bwd")}
+    cnx_steps = sum(n for _, n in cnx_short.values())
+    kernels.append(dict(fwd_records["text_h10"], launches=cnx["fwd"],
+                        launches_per_train_step=cnx["fwd"] / cnx_steps))
+    kernels.append(dict(fwd_records["text_h10_b70"], launches=cnx_text_serve,
+                        launches_path="convnext_serve's classifier"))
+    kernels.append(dict(bwd_records[("text_h10", "bfloat16")], launches=cnx["bwd"],
+                        launches_per_train_step=cnx["bwd"] / cnx_steps))
+    ln_tally_on, ln_steps_on = cnx_ln["on"]
+    for name, shape in CNX_LN_SHAPES.items():
+        n = ln_tally_on.get(shape, 0)
+        kernels.append(dict(ln_records[name], launches=n, launches_per_train_step=n / ln_steps_on))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

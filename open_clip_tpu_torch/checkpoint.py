@@ -89,7 +89,18 @@ def checkpoint_to_params(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
 
 
 def _reconcile(name: str, cur: torch.Tensor, val: torch.Tensor, cfg) -> torch.Tensor:
-    """``val`` brought to ``cur``'s shape where the JAX package's ``_reconcile`` does."""
+    """``val`` brought to ``cur``'s shape where the JAX package's ``_reconcile`` does.
+    The JAX rule resizes any positional embedding of the vision tower on the patch
+    grid; a ModifiedResNet's attention pool sits on the image's grid at stride 32, on
+    which the port resizes it (the JAX resize takes the patch grid there: a TypeError
+    for the registry's RN configs, whose ``patch_size`` is None, and the wrong length
+    for one with a patch size; ROADMAP, the reference's faults)."""
+    if name == "visual.attnpool.positional_embedding":
+        size = cfg.vision_cfg.image_size
+        side = (size if isinstance(size, int) else size[0]) // 32
+        old_side = int(round(np.sqrt(val.shape[0] - 1)))
+        logger.info("resizing %s %s -> %s", name, tuple(val.shape), tuple(cur.shape))
+        return resize_vision_pos_embed(val, (side, side), (old_side, old_side), num_prefix=1)
     if name == "visual.positional_embedding":
         num_prefix = 1 if cfg.vision_cfg.class_token else 0
         old_side = int(round(np.sqrt(val.shape[0] - num_prefix)))

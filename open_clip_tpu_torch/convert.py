@@ -8,7 +8,11 @@ keys are the reference checkpoint's, the ones the JAX package's
 ``params_to_torch_state_dict(params, custom_text=False)`` emits; a NaFlex visual
 tree (``naflexvit_*`` towers) maps onto ``models/naflex_vit.py:NaFlexVit``'s names and
 a ViT's MAP head (``map_pool``, SigLIP's) onto the same ``visual.attn_pool.*`` names,
-a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, CoCa's
+a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, a ModifiedResNet
+tree onto the reference's names (``models/resnet.py``: HWIO kernels to (out, in, kh,
+kw), the batch norms' four leaves as ``weight``/``bias``/``running_mean``/
+``running_var``), a ConvNeXt tree onto the JAX names with each stage's stacked blocks
+unstacked (``models/convnext.py``), CoCa's
 attentional pooler(s) (``attn_pool``, ``attn_pool_contrastive``) onto
 ``visual.attn_pool*.{query,ln_q,ln_k,attn.{q,k,v,out}_proj}``, its ``cls_emb`` and
 ``text_decoder`` onto the reference's names, and the
@@ -19,8 +23,8 @@ patchify layout (kh*kw*in, out), except the token-semantic head's, which becomes
 ``nn.Conv2d``'s (out, in, kh, kw).
 
 The reference's checkpoints come the same way: ``torch_clip_to_params`` (the port's
-numpy copy of the JAX package's converter, with the Swin, HTSAT and CLAP ones in
-``models/``) turns a reference state dict into the JAX tree, which
+numpy copy of the JAX package's converter, with the Swin, HTSAT, CLAP, ModifiedResNet
+and ConvNeXt ones in ``models/``) turns a reference state dict into the JAX tree, which
 ``params_from_jax`` then carries into the port; ``big_vision_to_params`` does the
 same for big_vision SigLIP ``.npz`` files. ``reference_state_dict`` is the inverse
 for the native ViT and text towers. The port's ``visual.conv1.weight`` keeps the
@@ -104,6 +108,14 @@ _EXPECTED_CLAP = {(): {"audio", "text", "logit_scale", "logit_bias"},
                   ("text", "text_projection"): _LINEAR}
 _EXPECTED_SWIN = {**_ROOT, ("text", "text_projection"): _LINEAR,
                   ("visual",): {"patch_embed", "layers", "norm", "head"}}
+_EXPECTED_RESNET = {**_ROOT, ("text", "text_projection"): _LINEAR,
+                    ("visual",): {"conv1", "bn1", "conv2", "bn2", "conv3", "bn3", "layer1",
+                                  "layer2", "layer3", "layer4", "attnpool"},
+                    ("visual", "attnpool"): {"positional_embedding", "q_proj", "k_proj",
+                                             "v_proj", "c_proj"}}
+_EXPECTED_CONVNEXT = {**_ROOT, ("text", "text_projection"): _LINEAR,
+                      ("visual",): {"stem", "stages", "head_norm", "proj", "proj_mlp"},
+                      ("visual", "proj"): _LINEAR}
 _EXPECTED_NAFLEX = {
     **_ROOT,
     ("text", "text_projection"): _LINEAR,
@@ -356,11 +368,18 @@ def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torc
 
 def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor],
             modern_text: bool = False) -> None:
+    from .models import convnext, resnet
     from .models.naflex_vit import is_naflex, parse_naflex_cfg
     from .models.swin import is_swin
     from .models.vit import check_vision_cfg
 
     vis = params.get("visual", {})
+    if cfg.vision_cfg.is_resnet:
+        _check_keys(params, _EXPECTED_RESNET, modern_text)
+        return resnet.params_from_jax(vis, out)
+    if convnext.is_convnext(cfg.vision_cfg):
+        _check_keys(params, _EXPECTED_CONVNEXT, modern_text)
+        return convnext.params_from_jax(vis, out)
     if is_swin(cfg.vision_cfg):
         _check_keys(params, _EXPECTED_SWIN, modern_text)
         _swin_visual(vis, out)
@@ -429,16 +448,18 @@ def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     (patch embeddings, fused qkv, out/MLP projections, the MAP pools, the NaFlex
     tower's head, Swin patch merging, HTSAT's token-semantic head, the audio projection) and
     the two tower projections to ``dtype``; norms, embeddings, position grids, class,
-    register and latent tokens, layer scales, relative-position tables, ``bn0`` and
+    register and latent tokens, layer scales, relative-position tables, ``bn0``, the
+    ModifiedResNet's convolutions and batch norms (bare leaves in the JAX tree) and
     the logit scale stay fp32. The partition of
     the JAX package's ``convert_params_dtype`` and the reference's
     ``convert_weights_to_lp``, used for the pure_bf16/pure_fp16 precisions."""
     from .models.blocks import Attention
+    from .models.resnet import Conv2d as ResNetConv
     from .models.vit import PatchEmbed
 
     for m in model.modules():
         names = ()
-        if isinstance(m, (nn.Linear, nn.Conv2d, PatchEmbed)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, PatchEmbed)) and not isinstance(m, ResNetConv):
             names = ("weight", "bias")
         elif isinstance(m, Attention):
             names = ("in_proj_weight", "in_proj_bias")
@@ -693,17 +714,14 @@ def _unported_trunk(cfg: Optional[CLIPModelCfg], sd: Mapping[str, np.ndarray]) -
     vcfg = cfg.vision_cfg if cfg is not None else None
     name = (vcfg.timm_model_name or "") if vcfg is not None else ""
     for prefix, family in (("fastvit", "FastViT (MobileCLIP)"), ("mobileclip", "FastViT (MobileCLIP)"),
-                           ("vitamin", "ViTamin"), ("convnext", "ConvNeXt"), ("eva", "EVA"),
+                           ("vitamin", "ViTamin"), ("eva", "EVA"),
                            ("vit_relpos", "relpos-ViT")):
         if name.startswith(prefix):
             return family
     if name.startswith("vit_base_mci"):
         return "the MCi hybrid conv stem (MobileCLIP-B)"
-    keys = (("image_encoder.", "MobileCLIP release (image_encoder.*, the MCi stem)"),
-            ("visual.trunk.stem.", "ConvNeXt"), ("visual.layer1", "ModifiedResNet"))
-    for prefix, family in keys:
-        if any(k.startswith(prefix) for k in sd):
-            return family
+    if any(k.startswith("image_encoder.") for k in sd):
+        return "MobileCLIP release (image_encoder.*, the MCi stem)"
     if any(k.startswith("visual.trunk.blocks.") and ".attn.rel_pos.mlp." in k for k in sd):
         return "relpos-ViT"
     if cfg is not None and cfg.text_cfg is not None and (cfg.text_cfg.hf_model_name
@@ -716,8 +734,10 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
                          ) -> Dict[str, Any]:
     """A reference CLIP / CustomTextCLIP state dict -> the JAX package's param tree
     (numpy leaves), for the families the port builds: the native ViT and text towers
-    (CoCa's attentional poolers, CLS token and ``text_decoder`` too), and the timm ViT,
-    NaFlexVit and Swin trunks. Keys it cannot place are logged and
+    (CoCa's attentional poolers, CLS token and ``text_decoder`` too), the timm ViT,
+    NaFlexVit, Swin and ConvNeXt trunks, and the ModifiedResNet (the JAX package's
+    order: ConvNeXt by its ``visual.trunk.stem.`` keys before the other trunks, the
+    ResNet by ``visual.layer1``/``layer2`` after them). Keys it cannot place are logged and
     listed under ``_unconverted``, as in the JAX package; a checkpoint of a family the
     port does not build raises."""
     sd = normalize_torch_state_dict(sd)
@@ -726,7 +746,14 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
         raise NotImplementedError(f"checkpoints of the {family} family are not ported yet")
     vcfg = cfg.vision_cfg if cfg is not None else None
     if any(k.startswith("visual.trunk.") for k in sd):
-        if vcfg is not None and (vcfg.timm_model_name or "").startswith("naflexvit"):
+        if any(k.startswith("visual.trunk.stem.") for k in sd):
+            from .models.convnext import torch_convnext_clip_to_params
+
+            if cfg is None:
+                raise ValueError("ConvNeXt conversion needs the model config")
+            tree_vis = torch_convnext_clip_to_params(sd, vcfg)
+            own = ("visual.",)
+        elif vcfg is not None and (vcfg.timm_model_name or "").startswith("naflexvit"):
             tree_vis = _convert_timm_naflexvit_trunk(sd)
             own = ("visual.trunk.", "visual.head.")
         elif any(k.startswith("visual.trunk.layers.")
@@ -751,6 +778,10 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
         tree = torch_clip_to_params(rest, cfg) if rest else {}
         tree["visual"] = tree_vis
         return tree
+    if any(k.startswith(("visual.layer1", "visual.layer2")) for k in sd):
+        from .models.resnet import torch_resnet_clip_to_params
+
+        return torch_resnet_clip_to_params(sd, cfg)
     if any(k.startswith("text_decoder.") for k in sd):  # CoCa's multimodal decoder
         from .models.coca import convert_multimodal_decoder
 

@@ -3,7 +3,9 @@
 ``CLIPModel`` is an ``nn.Module`` holding both towers under the reference
 checkpoint's names (``visual.*``, the text tower's parts at the top level, or the
 modern text tower as ``text.*``, ``logit_scale``). The vision tower is a ViT, a
-NaFlex ViT (``naflexvit_*``) or a Swin tower (``swin_*``). A CoCa config (one with
+NaFlex ViT (``naflexvit_*``), a Swin tower (``swin_*``), a ModifiedResNet (a config
+whose ``layers`` is a tuple: the RN50 family, ``models/resnet.py``) or a ConvNeXt
+(``convnext_*``, ``models/convnext.py``). A CoCa config (one with
 ``multimodal_cfg``) adds the multimodal decoder ``text_decoder`` of
 ``models/coca.py``; its forward is ``coca_forward`` and ``generate`` captions. A CLAP config (one with
 ``audio_cfg``) holds ``audio``, the HTSAT or NaFlex audio tower of
@@ -26,7 +28,9 @@ from torch import nn
 from ..config import CLIPModelCfg
 from . import clap
 from . import text as text_mod
+from .convnext import ConvNeXt, is_convnext
 from .naflex_vit import NaFlexVit, is_naflex, parse_naflex_cfg
+from .resnet import ModifiedResNet
 from .swin import SwinTransformer, is_swin
 from .vit import VisionTransformer
 
@@ -63,6 +67,10 @@ class CLIPModel(nn.Module):
             self.audio = clap.AudioTower(cfg.audio_cfg, cfg.embed_dim)
         elif is_naflex(cfg.vision_cfg):
             self.visual = NaFlexVit(parse_naflex_cfg(cfg.vision_cfg), cfg.embed_dim, act)
+        elif cfg.vision_cfg.is_resnet:
+            self.visual = ModifiedResNet(cfg.vision_cfg, cfg.embed_dim)
+        elif is_convnext(cfg.vision_cfg):
+            self.visual = ConvNeXt(cfg.vision_cfg, cfg.embed_dim)
         elif is_swin(cfg.vision_cfg):
             self.visual = SwinTransformer(cfg.vision_cfg, cfg.embed_dim)
         else:
@@ -103,18 +111,25 @@ class CLIPModel(nn.Module):
         return encode_audio(self, audio, normalize=normalize)
 
     def params_outside_loss(self) -> set:
-        """Parameters the contrastive loss does not reach; a train step gives them
-        zero gradients, as ``jax.grad`` does."""
-        return clap.params_outside_loss(self) if self.cfg.audio_cfg is not None else set()
+        """Parameters the contrastive loss does not reach (a ResNet's running
+        statistics among them); a train step gives them zero gradients, as
+        ``jax.grad`` does."""
+        if self.cfg.audio_cfg is not None:
+            return clap.params_outside_loss(self)
+        if isinstance(self.visual, ModifiedResNet):
+            return {f"visual.{n}" for n, _ in self.visual.named_parameters()
+                    if n.endswith(("running_mean", "running_var"))}
+        return set()
 
     def get_logits(self, image, text):
         return get_logits(self, image, text)
 
     def forward(self, image=None, text=None, *, train: bool = False, remat: bool = False,
-                generator: Optional[torch.Generator] = None, **coca_kw) -> Dict[str, torch.Tensor]:
-        """``coca_kw``: ``return_hidden`` and ``decode`` of ``coca_forward``."""
+                generator: Optional[torch.Generator] = None, **kw) -> Dict[str, torch.Tensor]:
+        """``kw``: ``return_hidden`` and ``decode`` of ``coca_forward``, or a ResNet's
+        ``bn_eval`` and ``stats_sink`` (``clip_forward``)."""
         return clip_forward(self, image, text, train=train, remat=remat, generator=generator,
-                            **coca_kw)
+                            **kw)
 
     def generate(self, image, *, seed: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, **kw) -> torch.Tensor:
@@ -146,12 +161,13 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: bool = False,
-                 remat: bool = False, generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+                 remat: bool = False, generator: Optional[torch.Generator] = None,
+                 bn_eval: bool = False, stats_sink: Optional[list] = None) -> torch.Tensor:
     """(B, H, W, 3) normalized NHWC images, or a NaFlex patch dict for a ``naflexvit_*``
     tower, -> (B, embed_dim) features. ``train`` turns on what only training does
-    (a ViT's patch dropout, its noise drawn from ``generator``); ``remat`` recomputes
-    each block in the backward pass."""
+    (a ViT's patch dropout, a ConvNeXt's drop path, their noise drawn from
+    ``generator``; a ResNet's batch statistics, unless ``bn_eval``, recorded in
+    ``stats_sink``); ``remat`` recomputes each block in the backward pass."""
     if model.cfg.audio_cfg is not None:
         raise ValueError("a CLAP model encodes audio: use encode_audio")
     if isinstance(image, dict):
@@ -162,8 +178,10 @@ def encode_image(model: CLIPModel, image, *, normalize: bool = False, train: boo
         image = {k: _as_tensor(v, model.device) for k, v in image.items()}
     else:
         image = _as_tensor(image, model.device)
+    bn = ({"bn_eval": bn_eval, "stats_sink": stats_sink}
+          if isinstance(model.visual, ModifiedResNet) else {})
     pooled = model.visual(image, model.compute_dtype, train=train, remat=remat,
-                          generator=generator)
+                          generator=generator, **bn)
     return _l2_normalize(pooled) if normalize else pooled
 
 
@@ -185,12 +203,13 @@ def encode_audio(model: CLIPModel, audio, *, normalize: bool = False) -> torch.T
 
 
 def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False,
-                 remat: bool = False, generator: Optional[torch.Generator] = None, **coca_kw
+                 remat: bool = False, generator: Optional[torch.Generator] = None,
+                 bn_eval: bool = False, stats_sink: Optional[list] = None, **coca_kw
                  ) -> Dict[str, torch.Tensor]:
     """Dict output of the reference ``CLIP.forward(output_dict=True)``. For a CLAP
     model ``image`` is the audio batch and the output is ``clap_forward``'s (HTSAT
     has no remat, as in the JAX package); a CoCa model's is ``coca_forward``'s,
-    which takes ``coca_kw``."""
+    which takes ``coca_kw``. ``bn_eval`` and ``stats_sink``: ``encode_image``'s."""
     if model.cfg.multimodal_cfg is not None:
         from .coca import coca_forward
 
@@ -203,7 +222,8 @@ def clip_forward(model: CLIPModel, image=None, text=None, *, train: bool = False
     out: Dict[str, torch.Tensor] = {}
     if image is not None:
         out["image_features"] = encode_image(model, image, normalize=True, train=train,
-                                             remat=remat, generator=generator)
+                                             remat=remat, generator=generator, bn_eval=bn_eval,
+                                             stats_sink=stats_sink)
     if text is not None:
         out["text_features"] = encode_text(model, text, normalize=True, remat=remat)
     out["logit_scale"] = model.logit_scale.float().exp()

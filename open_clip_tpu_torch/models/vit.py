@@ -105,13 +105,17 @@ def resolve_timm_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
 
 def check_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
     """Raise for the vision-tower variants that are not ported; return the config the
-    tower is built from (a timm name resolved). A ``naflexvit_*`` timm name never gets
-    here: ``models/naflex_vit.py`` is that tower."""
+    tower is built from (a timm name resolved). A ModifiedResNet or ConvNeXt config
+    comes back as it is: ``models/resnet.py`` and ``models/convnext.py`` build those
+    towers, as ``models/naflex_vit.py`` builds the ``naflexvit_*`` names, which never
+    get here."""
+    from .convnext import is_convnext
+
+    if cfg.is_resnet or is_convnext(cfg):
+        return cfg
     if cfg.timm_model_name:
         cfg = resolve_timm_vision_cfg(cfg)
     unported = []
-    if cfg.is_resnet:
-        unported.append("ModifiedResNet")
     if cfg.attentional_pool not in (False, True, "parallel", "cascade"):
         unported.append(f"attentional_pool {cfg.attentional_pool!r}")
     if cfg.pool_type not in ("tok", "avg", "map"):

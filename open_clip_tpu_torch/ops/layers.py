@@ -115,3 +115,15 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           stride=1, padding=0, groups: int = 1) -> torch.Tensor:
+    """2-D convolution of an NCHW ``x`` (the conv towers pass ``channels_last`` views
+    of NHWC memory, so cuDNN takes its NHWC path) by PyTorch's (out, in / groups, kh,
+    kw) ``weight``, cast to x.dtype and laid out channels_last. The bias is added after
+    the convolution in the same dtype: two roundings, as the JAX package's conv and
+    bias, like ``linear``'s."""
+    w = weight.to(dtype=x.dtype, memory_format=torch.channels_last)
+    y = F.conv2d(x, w, None, stride, padding, 1, groups)
+    return y if bias is None else y + bias.to(y.dtype)[:, None, None]

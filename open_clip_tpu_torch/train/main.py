@@ -302,7 +302,8 @@ def _run(args):
                               reference_batch_size=args.batch_size,
                               caption_loss_weight=args.coca_caption_loss_weight,
                               clip_loss_weight=args.coca_contrastive_loss_weight,
-                              teacher=teacher)
+                              teacher=teacher,
+                              freeze_bn_stats=args.lock_image and args.lock_image_freeze_bn_stats)
     # a checkpoint taken in the middle of an epoch resumes past the batches it trained on
     resume_skip = max(0, state.step - start_epoch * steps_per_epoch)
 

@@ -40,6 +40,13 @@ HTSAT ``blocks`` lists: the JAX rules take the first axis of every leaf under
 ``blocks`` for a stacked layer axis, and those leaves are unstacked, so their
 values run along that axis of the JAX layout (the second axis of a port
 ``nn.Linear`` weight). The port follows it (ROADMAP, the reference's faults).
+ConvNeXt's ``stages.{i}.blocks`` are stacked in the JAX tree, one leaf a stage, and
+one module a block in the port (``_STAGE_BLOCK_RE``): each block's tensor counts its
+own dimensions for the weight decay, and its layer decay and lock follow its index
+in its stage, so the decay ladder starts again in every stage and
+``unlocked_groups`` > 1 unlocks the last blocks of every stage, as the JAX rules give
+them. A ModifiedResNet's layers are no ``blocks``: it gets no layer decay (the CLI
+passes no depth for it) and locking leaves only its ``attnpool`` trainable.
 """
 
 from __future__ import annotations
@@ -107,10 +114,11 @@ def wd_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], extra_names: Sequ
 
     The JAX mask takes every leaf under a ``blocks`` key for a layer-stacked one and
     counts one dimension less. The port's ViT and text stacks are ``resblocks`` (one
-    module per layer, no stacked axis), where both rules agree; the Swin and HTSAT
-    blocks are ``blocks`` lists in both packages, unstacked in JAX too, so their 2-D
-    weights count as 1-D there and get no decay. The port follows the JAX package
-    (the upstream reference decays them; ROADMAP Queue C 4)."""
+    module per layer, no stacked axis), where both rules agree, and so are ConvNeXt's
+    stage blocks, stacked in JAX; the Swin and HTSAT blocks are ``blocks`` lists in
+    both packages, unstacked in JAX too, so their 2-D weights count as 1-D there and
+    get no decay. The port follows the JAX package (the upstream reference decays
+    them; ROADMAP Queue C 4)."""
     exclude = NO_WD_NAMES | set(extra_names)
     regexes = [re.compile(p.replace(".", r"\.").replace("*", ".*")) for p in patterns]
 
@@ -120,7 +128,7 @@ def wd_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], extra_names: Sequ
             return False
         if any(r.fullmatch(name) for r in regexes):
             return False
-        return p.ndim - ("blocks" in parts) > 1
+        return p.ndim - ("blocks" in parts and not _STAGE_BLOCK_RE.search(name)) > 1
 
     return {name: decays(name, p) for name, p in _named(params).items()}
 
@@ -150,6 +158,8 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 # which its ladder leaves out; GenLIP's top-level trunk, not the NaFlex audio
 # encoder's, whose JAX tree nests it deeper)
 _BLOCK_RE = re.compile(r"(?:(?:^|\.)(?:transformer|text_decoder)|^trunk)\.resblocks\.(\d+)\.")
+# ConvNeXt's blocks, stacked one leaf a stage in the JAX tree: (stage, block index)
+_STAGE_BLOCK_RE = re.compile(r"(?:^|\.)stages\.(\d+)\.blocks\.(\d+)\.")
 # the top-level keys of the JAX GenLIP/GenLAP tree, each a tower of its own there
 GENLIP_KEYS = ("patch_embed", "text_embed", "in_proj", "out_proj", "text_norm_pre", "lm_head",
                "trunk", "visual_proj")
@@ -175,6 +185,17 @@ def _stack_depths(names: Iterable[str]) -> Dict[str, int]:
     return depths
 
 
+def _stage_depths(names: Iterable[str]) -> Dict[str, int]:
+    """The block count of each ConvNeXt stage, keyed by the name up to its index."""
+    depths: Dict[str, int] = {}
+    for name in names:
+        m = _STAGE_BLOCK_RE.search(name)
+        if m:
+            key = name[:m.start(2)]
+            depths[key] = max(depths.get(key, 0), int(m.group(2)) + 1)
+    return depths
+
+
 def _along_first_jax_axis(name: str, p: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``values`` (one per row of the JAX leaf's first axis) shaped to broadcast
     over the port's ``p``: a 2-D ``.weight`` is the transpose of the JAX kernel."""
@@ -194,7 +215,7 @@ def layer_decay_scales(params: Union[nn.Module, Dict[str, torch.Tensor]], decay:
     per tower (``visual``, ``text``, ``audio``; else ``decay``); a tower's depth is
     its block count, else ``num_layers``; d of None or >= 1 or no depth gives 1."""
     named = _named(params)
-    depths = _stack_depths(named)
+    depths, stages = _stack_depths(named), _stage_depths(named)
     out: Dict[str, Factor] = {}
     for name, p in named.items():
         tower = _tower(name)
@@ -204,10 +225,13 @@ def layer_decay_scales(params: Union[nn.Module, Dict[str, torch.Tensor]], decay:
         if d is None or d >= 1.0 or not depth:
             out[name] = 1.0
             continue
-        m = _BLOCK_RE.search(name)
+        m, s = _BLOCK_RE.search(name), _STAGE_BLOCK_RE.search(name)
         if m:
             n = depths[tower]
             out[name] = float(np.float32(d) ** np.float32(n - int(m.group(1))))
+        elif s:
+            n = stages[name[:s.start(2)]]
+            out[name] = float(np.float32(d) ** (np.float32(n) - np.float32(s.group(2))))
         elif "blocks" in parts:
             n = p.shape[1] if p.ndim == 2 and name.endswith(".weight") else p.shape[0]
             ladder = np.float32(d) ** (np.float32(n) - np.arange(n, dtype=np.float32))
@@ -234,7 +258,7 @@ def trainable_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], lock_image
     [embeddings, block 0 .. block L-1, head]; ``unlocked`` k > 0 keeps the head
     trainable and k > 1 the last k - 1 blocks too."""
     named = _named(params)
-    depths = _stack_depths(named)
+    depths, stages = _stack_depths(named), _stage_depths(named)
     out: Dict[str, Factor] = {}
     for name, p in named.items():
         tower = _tower(name)
@@ -244,11 +268,13 @@ def trainable_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], lock_image
             continue
         unlocked = lock_image_unlocked_groups if tower == "visual" else lock_text_unlocked_layers
         parts = name.split(".")[1 if tower == "visual" else 0:]
-        m = _BLOCK_RE.search(name)
+        m, s = _BLOCK_RE.search(name), _STAGE_BLOCK_RE.search(name)
         if unlocked > 0 and HEAD_NAMES.intersection(parts):
             out[name] = 1.0
         elif unlocked > 1 and m:
             out[name] = float(int(m.group(1)) >= depths[tower] - (unlocked - 1))
+        elif unlocked > 1 and s:
+            out[name] = float(int(s.group(2)) >= stages[name[:s.start(2)]] - (unlocked - 1))
         elif unlocked > 1 and "blocks" in parts:
             n = p.shape[1] if p.ndim == 2 and name.endswith(".weight") else p.shape[0]
             keep = (torch.arange(n) >= n - (unlocked - 1)).float()
@@ -263,7 +289,8 @@ OPTIMIZERS = ("adamw", "nadamw", "lion", "sgd", "momentum", "lamb", "adafactor",
 _LEAF_RULES = ("lamb", "adafactor", "muon")
 # the JAX tree stacks these blocks along a leading layer axis
 _STACK_RE = re.compile(
-    r"(?:^|\.)(?:(?:transformer|trunk)\.resblocks|text_decoder\.(?:resblocks|cross_attn))\.(\d+)\.")
+    r"(?:^|\.)(?:(?:transformer|trunk)\.resblocks|text_decoder\.(?:resblocks|cross_attn)"
+    r"|stages\.\d+\.blocks)\.(\d+)\.")
 # optax.scale_by_factored_rms()'s defaults
 _FACTOR_DECAY, _FACTOR_MIN_DIM, _FACTOR_EPS = 0.8, 128, 1e-30
 
@@ -314,7 +341,9 @@ def _jax_view(model: nn.Module, name: str, p: torch.Tensor, stacked: bool) -> Ca
     """The map from the port tensor ``name`` to its JAX layout."""
     from ..models.vit import PatchEmbed
 
-    if stacked:  # a block's 2-D tensors are all kernels
+    if stacked:  # a block's 2-D tensors are all kernels, its 4-D ones convolutions
+        if p.ndim == 4:
+            return lambda t: t.permute(2, 3, 1, 0)
         return _transposed if p.ndim == 2 else _same
     owner = model.get_submodule(name.rpartition(".")[0])
     if isinstance(owner, PatchEmbed):
@@ -331,10 +360,11 @@ def _jax_view(model: nn.Module, name: str, p: torch.Tensor, stacked: bool) -> Ca
 
 def jax_leaves(model: nn.Module) -> List[Leaf]:
     """The model's parameters grouped into the JAX tree's leaves: the tensors of
-    ``transformer.resblocks.{i}``, ``trunk.resblocks.{i}`` and CoCa's
-    ``text_decoder.resblocks.{i}`` and ``text_decoder.cross_attn.{i}`` stack into one
-    leaf per name (the JAX blocks' layer axis), every other tensor is a leaf of its own (the
-    Swin and HTSAT ``blocks`` lists are unstacked in JAX too)."""
+    ``transformer.resblocks.{i}``, ``trunk.resblocks.{i}``, CoCa's
+    ``text_decoder.resblocks.{i}`` and ``text_decoder.cross_attn.{i}`` and each ConvNeXt
+    stage's ``stages.{s}.blocks.{i}`` stack into one leaf per name (the JAX blocks'
+    layer axis), every other tensor is a leaf of its own (the Swin and HTSAT
+    ``blocks`` lists are unstacked in JAX too)."""
     named = list(model.named_parameters())
     depth: Dict[str, int] = {}
     for name, _ in named:

@@ -35,8 +35,6 @@ _UNPORTED: List[Tuple[Tuple[str, ...], dict]] = [
     (("--remote-sync-protocol",), dict(type=str, default="fsspec")),
     # model
     (("--scan-unroll",), dict(type=int, default=1)),
-    # frozen batch-norm statistics belong to the ResNet towers
-    (("--lock-image-freeze-bn-stats",), _ON),
     # compilation (the port has no compiled step) and audio loader processes
     (("--torchcompile",), _ON), (("--torchcompile-backend",), _STRS),
     (("--torchcompile-mode",), _STRS), (("--torchcompile-strategy",), _STRS),
@@ -253,6 +251,9 @@ def parse_args(args=None) -> argparse.Namespace:
     parser.add_argument("--lock-image-unlocked-groups", type=int, default=0,
                         help="keep the head and the last N-1 blocks of a locked image tower "
                              "trainable")
+    parser.add_argument("--lock-image-freeze-bn-stats", action="store_true", default=False,
+                        help="with --lock-image, a ResNet tower's batch norms use and keep "
+                             "their running statistics")
     parser.add_argument("--lock-text", action="store_true", default=False)
     parser.add_argument("--lock-text-unlocked-layers", type=int, default=0)
     parser.add_argument("--lock-text-freeze-layer-norm", action="store_true", default=False,

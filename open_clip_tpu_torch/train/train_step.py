@@ -26,6 +26,15 @@ caption loss over ``accum_steps``. Distillation (``loss_type="distill"``, a
 the batch; the teacher's features come from its eval forward under ``no_grad``,
 and under GradCache the term joins the loss of the cached features.
 
+A ModifiedResNet trains its batch norms in train mode, as the JAX step does: the
+forward normalizes by each batch's statistics and records them, and after the
+optimizer's update (and the EMA, which so averages the statistics of before the
+step) they are folded into the running statistics with momentum 0.1
+(``models/resnet.py:merge_bn_stats_``). ``freeze_bn_stats`` normalizes by the
+running statistics instead and leaves them alone; GradCache normalizes each
+microbatch by its own statistics and leaves the running ones alone too (with a
+warning, as in the JAX package).
+
 Under a mesh (``parallel.mesh``: the model under ``shard_model``) every rank takes
 its own rows, the loss is gathered over the mesh's ranks when there is more than
 one, FSDP2 averages the sharded gradients over the ranks and the step averages the
@@ -38,6 +47,7 @@ The metrics are tensors on the model's device; reading them waits for the step.
 from __future__ import annotations
 
 import contextlib
+import logging
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -49,9 +59,13 @@ from ..config import CLIPModelCfg
 from ..loss import SIGLIP_DIST_IMPLS, clip_loss, distill_kl, siglip_loss
 from ..models import blocks
 from ..models.clip import LOGIT_SCALE_MAX, CLIPModel, clamp_logit_scale, clip_forward
+from ..models.convnext import is_convnext
+from ..models.resnet import merge_bn_stats_
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..parallel.mesh import is_sharded, sync_replicated_grads
 from .optim import Optimizer
+
+logger = logging.getLogger(__name__)
 
 GEN_LOSSES = ("genlip", "genlap")
 LOSS_TYPES = ("clip", "siglip", "coca", "distill") + GEN_LOSSES
@@ -134,15 +148,16 @@ def ema_weights(state: TrainState):
 
 
 def _features(model: CLIPModel, batch, remat: bool,
-              gen: Optional[torch.Generator] = None, **coca_kw) -> Tuple[torch.Tensor, ...]:
+              gen: Optional[torch.Generator] = None, **kw) -> Tuple[torch.Tensor, ...]:
     """(primary, text) features; a CLAP batch's audio features take the image slot.
     The model is called as a module, so that FSDP2's hooks run under a mesh. ``gen``
-    draws the patch-dropout noise. A CoCa model runs without its decoder, or with
+    draws the patch-dropout or drop-path noise. ``kw``: a ResNet's ``bn_eval`` and
+    ``stats_sink``; a CoCa model runs without its decoder, or with
     ``return_hidden=True`` returns the decoder's hidden states third."""
     key = "audio" if "audio" in batch else "image"
     if model.cfg.multimodal_cfg is not None:
-        coca_kw = coca_kw or {"decode": False}
-    out = model(batch[key], batch["text"], train=True, remat=remat, generator=gen, **coca_kw)
+        kw = kw or {"decode": False}
+    out = model(batch[key], batch["text"], train=True, remat=remat, generator=gen, **kw)
     feats = (out[f"{key}_features"], out["text_features"])
     return feats + (out["hidden"],) if "hidden" in out else feats
 
@@ -217,8 +232,14 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
     seeded from (``preprocess_seed``, the state's step, the rank), so that a resumed
     run draws the crops an uninterrupted one would.
 
-    A ViT with ``patch_dropout`` draws each microbatch's patch noise from a
-    generator seeded the same way (and apart from the crop's).
+    A ViT with ``patch_dropout`` draws each microbatch's patch noise, a ConvNeXt with
+    a drop-path rate its keep masks, from a generator seeded the same way (and apart
+    from the crop's).
+
+    ``freeze_bn_stats`` (a ModifiedResNet; the CLI's ``--lock-image`` with
+    ``--lock-image-freeze-bn-stats``): the batch norms use their running statistics
+    and the step leaves them as they are; else the step folds each batch's into them
+    (see the module's docstring). Other towers ignore it, as in the JAX package.
 
     ``ema_decay``: after the update and the logit-scale clamp, the state's EMA copy
     (``create_train_state(ema=True)``) moves to ``e * d + p * (1 - d)``.
@@ -251,9 +272,6 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         raise ValueError("the coca step needs a CoCa config (multimodal_cfg)")
     if loss_type == "distill" and teacher is None:
         raise ValueError("the distill step needs a teacher model")
-    if freeze_bn_stats:
-        raise NotImplementedError("frozen batch-norm statistics belong to the ResNet towers, "
-                                  "which are not ported yet")
     if loss_type != "siglip" and cfg.init_logit_bias is not None:
         raise NotImplementedError("a logit bias belongs to the siglip step: pass "
                                   "loss_type='siglip'")
@@ -270,6 +288,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
                                   "yet (full remat is)")
     # every rank of the mesh holds its own rows, and the mesh spans the default group
     group = dist.group.WORLD if mesh is not None and mesh.size() > 1 else None
+    resnet = cfg.vision_cfg is not None and cfg.vision_cfg.is_resnet
+    if resnet and accum_steps > 1:
+        logger.warning("grad accumulation with a ResNet tower: BN running stats are not updated "
+                       "under the GradCache path; they stay at their initial/loaded values")
 
     def _loss(model: CLIPModel, imf: torch.Tensor, txf: torch.Tensor) -> torch.Tensor:
         """fp32 scale = exp(logit_scale) and, for siglip, the fp32 logit bias."""
@@ -291,11 +313,17 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         """The patch-dropout generator of microbatch ``micro`` (GradCache's two passes
         over a microbatch make it afresh, so both draw the same patches)."""
         vcfg = cfg.vision_cfg
-        if vcfg is None or not vcfg.patch_dropout or isinstance(batch.get("image"), dict):
+        noise = vcfg is not None and (vcfg.patch_dropout or (
+            is_convnext(vcfg) and (vcfg.timm_drop_path or 0.0) > 0.0))
+        if not noise or isinstance(batch.get("image"), dict):
             return None
         gen = torch.Generator(device=batch["image"].device)
         gen.manual_seed(_seed(preprocess_seed, state.step) * 64 + 32 + micro)
         return gen
+
+    def _bn(sink: Optional[list] = None) -> Dict:
+        """A ResNet forward's batch-norm arguments (none for other towers)."""
+        return {"bn_eval": freeze_bn_stats, "stats_sink": sink} if resnet else {}
 
     def _loss_ratio(batch, n: int) -> float:
         if naflex_loss_scale == "none" or not isinstance(batch.get("image"), dict):
@@ -314,6 +342,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         batch = _preprocess(state, batch)
         gen = _dropout_gen(state, batch)
         aux = {}
+        sink = [] if resnet and not freeze_bn_stats else None
         if loss_type == "coca":
             imf, txf, hidden = _features(model, batch, remat, gen, return_hidden=True)
             closs = _loss(model, imf, txf)
@@ -321,7 +350,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
             loss = clip_loss_weight * closs + caption_loss_weight * cap
             aux = {"contrastive_loss": closs, "caption_loss": cap}
         else:
-            imf, txf = _features(model, batch, remat, gen)
+            imf, txf = _features(model, batch, remat, gen, **_bn(sink))
             loss = _loss(model, imf, txf) * _loss_ratio(batch, imf.shape[0])
             if loss_type == "distill":
                 dloss = distill_kl(imf, txf, model.logit_scale.exp(),
@@ -329,7 +358,10 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
                 aux = {"contrastive_loss": loss, "distill_loss": dloss}
                 loss = loss + dloss
         loss.backward()
-        return _apply_updates(state, loss, aux)
+        state, metrics = _apply_updates(state, loss, aux)
+        if sink:  # train-mode batch norm: after the update, as in the JAX step
+            merge_bn_stats_(sink)
+        return state, metrics
 
     def accum_step(state: TrainState, batch):
         """GradCache accumulation over ``accum_steps`` equal slices of the batch."""
@@ -340,7 +372,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
         size = n // accum_steps
         # phase 1: features without gradients, one loss backward w.r.t. the features
         with torch.no_grad():
-            feats = [_features(model, mb, remat, _dropout_gen(state, mb, i))
+            feats = [_features(model, mb, remat, _dropout_gen(state, mb, i), **_bn())
                      for i, mb in enumerate(micro)]
         all_imf = torch.cat([f[0] for f in feats]).requires_grad_()
         all_txf = torch.cat([f[1] for f in feats]).requires_grad_()
@@ -365,7 +397,7 @@ def make_train_step(cfg: CLIPModelCfg, optimizer: Optimizer, *, loss_type: str =
             if mesh is not None:
                 model.set_requires_gradient_sync(i == accum_steps - 1)
             part = slice(i * size, (i + 1) * size)
-            out = _features(model, mb, remat, _dropout_gen(state, mb, i),
+            out = _features(model, mb, remat, _dropout_gen(state, mb, i), **_bn(),
                             **({"return_hidden": True} if loss_type == "coca" else {}))
             tensors = [out[0], out[1]]
             grads = [all_imf.grad[part].to(out[0].dtype), all_txf.grad[part].to(out[1].dtype)]

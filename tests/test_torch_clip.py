@@ -203,7 +203,7 @@ def test_create_model_runs_on_the_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("name,kwargs", [
-    ("RN50", {}),
+    ("RN50", {"pretrained": "openai"}),  # RN50 builds; its registry tag is not fetched
     ("coca_roberta-ViT-B-32", {}),  # CoCa builds; its HF text tower does not
     ("EVA02-B-16", {}),  # a timm tower
     # nothing is downloaded: a hub name (and a registry tag, below) raises

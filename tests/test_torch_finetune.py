@@ -258,8 +258,6 @@ def test_cli_pretrained_image_loads_one_tower(tmp_path, checkpoint):
 
 
 def test_cli_rejects_what_stays_unported(tmp_path, checkpoint):
-    with pytest.raises(NotImplementedError, match="--lock-image-freeze-bn-stats"):
-        main(_args(tmp_path, "bn", "--lock-image", "--lock-image-freeze-bn-stats"))
     with pytest.raises(NotImplementedError, match="laion2b_s34b_b79k"):
         main(["--model", "ViT-B-32", "--pretrained", "laion2b_s34b_b79k", "--device", "cpu",
               "--dataset-type", "synthetic", "--logs", str(tmp_path), "--name", "tag"])

@@ -500,7 +500,7 @@ def test_the_eight_configs_build_with_the_jax_parameter_count():
             built += 1
         except NotImplementedError:
             pass
-    assert (built, len(registry)) == (105, 181)
+    assert (built, len(registry)) == (126, 181)
 
 
 def test_precision_sets_the_compute_dtype_only():

@@ -295,16 +295,22 @@ def test_hf_clap_audio_tree_equals_jax():
         pclap.hf_clap_audio_to_params(hf_model(True).state_dict())
 
 
-@pytest.mark.parametrize("family,sd", [
-    ("ConvNeXt", {"visual.trunk.stem.0.weight": torch.zeros(1)}),
-    ("ModifiedResNet", {"visual.layer1.0.conv1.weight": torch.zeros(1)}),
+@pytest.mark.parametrize("family,sd,timm_name", [
+    # ConvNeXt and ModifiedResNet checkpoints convert now (tests/test_torch_convnext.py,
+    # tests/test_torch_resnet.py); ViTamin's trunk, which also has a stem, and EVA's not
+    ("ViTamin", {"visual.trunk.stem.conv1.conv.weight": torch.zeros(1)}, "vitamin_small_224"),
+    ("EVA", {"visual.trunk.blocks.0.attn.q_proj.weight": torch.zeros(1)},
+     "eva02_base_patch16_clip_224"),
     # CoCa checkpoints convert now (tests/test_torch_coca.py); the relative-position ViT not
-    ("relpos-ViT", {"visual.trunk.blocks.0.attn.rel_pos.mlp.fc1.weight": torch.zeros(1)}),
-    ("MobileCLIP", {"image_encoder.model.x": torch.zeros(1)}),
+    ("relpos-ViT", {"visual.trunk.blocks.0.attn.rel_pos.mlp.fc1.weight": torch.zeros(1)}, None),
+    ("MobileCLIP", {"image_encoder.model.x": torch.zeros(1)}, None),
 ])
-def test_unported_families_raise(family, sd):
+def test_unported_families_raise(family, sd, timm_name):
+    raw = json.loads(json.dumps(TINY))
+    if timm_name:
+        raw["vision_cfg"] = {"image_size": 32, "timm_model_name": timm_name}
     with pytest.raises(NotImplementedError, match=family):
-        pconv.torch_clip_to_params(sd, oc.CLIPModelCfg.from_dict(TINY))
+        pconv.torch_clip_to_params(sd, oc.CLIPModelCfg.from_dict(raw))
 
 
 # ---------------------------------------------------------------------------

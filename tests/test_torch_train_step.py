@@ -32,6 +32,7 @@ import open_clip_tpu_torch as oc
 from open_clip_tpu_torch.convert import params_from_jax
 from open_clip_tpu_torch.loss import clip_loss
 from open_clip_tpu_torch.models.clip import LOGIT_SCALE_MAX, CLIPModel, clip_forward
+from open_clip_tpu_torch.parallel.mesh import shard_model
 from open_clip_tpu_torch.train import optim as poptim
 from open_clip_tpu_torch.train import scheduler as psched
 from open_clip_tpu_torch.train import train_step as pts
@@ -43,6 +44,7 @@ TINY = {
     "vision_cfg": {"image_size": 32, "layers": 2, "width": 128, "patch_size": 16, "head_width": 64},
     "text_cfg": {"context_length": 16, "width": 128, "heads": 2, "layers": 2},
 }
+RN_VISION = {"image_size": 64, "layers": [1, 1, 1, 1], "width": 8, "head_width": 32}
 LR, WARMUP, WD, CLIP = 1e-3, 2, 0.2, 1.0
 BATCH = 8
 
@@ -253,9 +255,16 @@ def test_eval_forward_matches_clip_forward(setup):
                                 {"loss_type": "coca", "mesh": "a mesh"},
                                 {"loss_type": "distill", "mesh": "a mesh"},
                                 {"loss_type": "genlip", "mesh": "a mesh"},
-                                {"ema_decay": 0.999, "mesh": "a mesh"}, {"freeze_bn_stats": True}])
+                                {"ema_decay": 0.999, "mesh": "a mesh"},
+                                {"vision_cfg": RN_VISION, "mesh": "a mesh"}])
 def test_unported_step_options_raise(setup, kw):
     _, params, cfg, _, _ = setup
+    if "vision_cfg" in kw:  # a ModifiedResNet tower: the mesh's sharding refuses it
+        with torch.device("meta"):
+            model = CLIPModel(oc.CLIPModelCfg.from_dict({**TINY, "vision_cfg": kw["vision_cfg"]}))
+        with pytest.raises(NotImplementedError, match="ModifiedResNet"):
+            shard_model(model, kw["mesh"])
+        return
     _, opt = _port_state(params, cfg)
     with pytest.raises(NotImplementedError):
         pts.make_train_step(cfg, opt, **kw)

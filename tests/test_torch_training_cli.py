@@ -107,7 +107,7 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--audio-fusion"], ["--wandb-project-name", "x"],
-    ["--lock-image-freeze-bn-stats"], ["--torchcompile-mode", "max-autotune"],
+    ["--remote-sync-frequency", "60"], ["--torchcompile-mode", "max-autotune"],
     ["--log-local"], ["--wandb-notes", "x"],
     ["--copy-codebase"], ["--mesh-tensor", "2"],
     ["--audio-zeroshot-multiprocessing-context", "spawn"],
