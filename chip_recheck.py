@@ -1,10 +1,15 @@
-"""Two checks on the card beside chip_smoke.py, each in a process of its own.
+"""Three checks on the card beside chip_smoke.py, each in a process of its own.
 
   python3 chip_recheck.py l14 ROOT
       ViT-L-14's fixed-batch losses over 20 steps at bench_vit_l14's lr 5e-4 (the
       l14_train step of chip_smoke.py, TF32 off as at its place there), with the
       package and chip_smoke.py found under ROOT; run it on two checkouts to hold
       their losses bit for bit (the kernels are built once, under this checkout).
+  python3 chip_recheck.py ln ROOT
+      The LayerNorm backward kernel of the package under ROOT at chip_smoke.py's
+      LayerNorm shapes in bf16: device ms a call warm and cold (chip_smoke.py's
+      graph_ms and cold_ms, from this checkout) and the wrapper's host us a call;
+      run it on two checkouts in turns to compare their kernels on one card.
   python3 chip_recheck.py coca
       The coca_ViT-B-32 b256 step of chip_smoke.py's coca_train, profiled in a fresh
       process, again with TF32 off, and again after the coca_serve phase, with
@@ -14,6 +19,7 @@
 Imports no JAX.
 """
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -53,6 +59,41 @@ def l14(root):
         losses.append(float(m["loss"]))
     print("recheck_l14 " + json.dumps({"root": str(root), "losses": losses,
                                        "hex": [x.hex() for x in losses]}), flush=True)
+
+
+def ln(root):
+    root = Path(root).resolve()
+    sys.path.insert(0, str(root))
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_timing", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)  # the timing helpers and shapes of this checkout
+    from open_clip_tpu_torch.ops import _build
+    from open_clip_tpu_torch.ops import fused_ln as fl
+
+    assert Path(fl.__file__).resolve().is_relative_to(root), fl.__file__
+    smi()
+    _build.BUILD_DIR = REPO / "build" / "open_clip_tpu_torch"  # one build for every ROOT
+    _build.build_all(("layer_norm_bwd",))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = {"vision": (cs.BATCH * 50, 768), "text": (cs.BATCH * 77, 512), **cs.CNX_LN_SHAPES}
+    out = {}
+    for name, (rows, w) in shapes.items():
+        x, dy = (torch.randn(rows, w, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        scale = torch.randn(w, generator=gen, device="cuda")
+        copies = [(x, dy)] + [(torch.randn_like(x), torch.randn_like(dy))
+                              for _ in range(math.ceil(cs.COLD_BYTES / (2 * x.nbytes)) - 1)]
+        out[name] = {"shape": [rows, w],
+                     "warm_ms": cs.graph_ms(lambda: fl.layer_norm_bwd(x, dy, scale)),
+                     "cold_ms": cs.cold_ms(lambda a, b: fl.layer_norm_bwd(a, b, scale), copies)}
+        if (rows, w) == cs.CNX_LN_SHAPES["convnext_head"]:
+            out[name]["host_us_per_call"] = cs.host_us_per_call(
+                lambda: fl.layer_norm_bwd(x, dy, scale))
+        del copies
+    print("recheck_ln " + json.dumps({"root": str(root), "shapes": out}), flush=True)
 
 
 def coca():
@@ -112,6 +153,8 @@ def coca():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["l14"] and len(sys.argv) == 3:
         l14(sys.argv[2])
+    elif sys.argv[1:2] == ["ln"] and len(sys.argv) == 3:
+        ln(sys.argv[2])
     elif sys.argv[1:] == ["coca"]:
         sys.exit(coca())
     else:

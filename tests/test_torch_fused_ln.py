@@ -117,3 +117,79 @@ def test_switch_is_off_by_default():
 ])
 def test_supported(shape, dtype, ok):
     assert pfl.supported(torch.empty(shape, dtype=dtype, device="meta")) is ok
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch plan (computed in Python; the kernel runs on the card)
+# ---------------------------------------------------------------------------
+
+PLAN_WIDTHS = [4, 12, 20, 64, 128, 256, 512, 640, 768, 1024, 1028, 2048, 4096]
+PLAN_ROWS = [1, 3, 7, 255, 8192, 524288]
+H100_SMS = 132
+SMEM_227_KB = 232448
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("width", PLAN_WIDTHS)
+def test_launch_plan(width, dtype, rows):
+    plan = pfl.launch_plan(rows, width, dtype, H100_SMS)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert plan.smem_bytes <= SMEM_227_KB
+    assert 1 <= plan.blocks <= min(rows, H100_SMS)
+    assert 1 <= plan.fold_slices <= min(pfl.MAX_FOLD_SLICES, plan.blocks)
+    assert 2 <= plan.stages <= pfl.MAX_STAGES
+    # a thread's chunks cover the row, in a body the kernel is built for
+    assert plan.lanes * plan.nv * plan.vec >= width and width % plan.vec == 0
+    assert plan.nv in pfl._NV[plan.lanes] and plan.vec * size in (8, 16)
+    # a warpgroup owns a row past WARP_ROW_WIDTH and where the rows do not fill every
+    # consumer warp of the card
+    assert (plan.lanes <= 32) == (width <= pfl.WARP_ROW_WIDTH
+                                  and rows >= pfl.CONSUMER_WARPS * H100_SMS)
+    # every row exactly once: the tiles cut [0, rows) in order; every block gets rows,
+    # and the blocks' rows differ by two at most
+    t = plan.tile_table()
+    assert t["first"][0] == 0 and (t["rows"] >= 1).all() and t["rows"].sum() == rows
+    assert (t["first"][1:] == t["first"][:-1] + t["rows"][:-1]).all()
+    assert (t["rows"] <= plan.rows_per_tile).all()
+    assert np.array_equal(np.unique(t["block"]), np.arange(plan.blocks))
+    share = np.bincount(t["block"], weights=t["rows"], minlength=plan.blocks)
+    assert share.max() - share.min() <= 2
+    # every bulk copy starts 16-byte aligned and moves a multiple of 16 bytes, in the
+    # stage for x and in the one for dy; what no copy moves (at most the last tile's
+    # last row) goes to the plain loads
+    assert plan.rows_per_tile % 2 == 0 and plan.stage_bytes % 128 == 0
+    assert plan.rows_per_tile * width * size % 16 == 0
+    assert (t["offset"] % 16 == 0).all() and (t["bytes"] % 16 == 0).all()
+    assert (t["first"] % 2 == 0).all()
+    plain = t["rows"] - t["bulk_rows"]
+    assert set(plain[:-1].tolist()) <= {0} and plain[-1] in (0, 1)
+    assert plain[-1] == (1 if size == 2 and width % 8 == 4 and t["rows"][-1] % 2 else 0)
+    if rows * 2 * width * size >= H100_SMS * 4 * 32 * 1024:  # enough for 4 stages an SM:
+        # at least ~32 KB of x and dy in flight an SM
+        assert (plan.stages - 1) * 2 * plan.rows_per_tile * width * size >= 32 * 1024
+
+
+def test_launch_plan_takes_only_what_the_kernel_takes():
+    for bad in ((8, 6, torch.float32), (8, 4100, torch.float32), (8, 64, torch.float16),
+                (0, 64, torch.float32)):
+        with pytest.raises(ValueError):
+            pfl.launch_plan(*bad, H100_SMS)
+
+
+def test_every_planned_body_is_built():
+    """Each (dtype, vec, lanes, nv) a plan can name is instantiated in the CUDA source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(pfl.__file__).resolve().parent.parent / "csrc" / "layer_norm_bwd.cu").read_text()
+    built = {(m[0], int(m[1]), int(m[2]), int(m[3]))
+             for m in re.findall(r"OCT_LN_CASE\((float|__nv_bfloat16), (\d+), (\d+), (\d+)\)", src)}
+    names = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    wanted = set()
+    for dtype in names:
+        for width in range(4, pfl.MAX_WIDTH + 1, 4):
+            for rows in (1, 4096):
+                p = pfl.launch_plan(rows, width, dtype, H100_SMS)
+                wanted.add((names[dtype], p.vec, p.lanes, p.nv))
+    assert wanted <= built, sorted(wanted - built)

@@ -314,13 +314,78 @@ def test_layer_norm_backward_kernel_matches_plain(cuda, monkeypatch, shape, with
         assert _rel_err(got, ref) <= tol, (name, _rel_err(got, ref))
 
 
-def test_layer_norm_backward_kernel_is_deterministic(cuda):
-    x = torch.randn(12800, 768, device=cuda, dtype=torch.bfloat16)
+def _ln_rows(which, w, dtype):
+    """Row counts that reach each path of the launch plan: 1 and 3 rows (one tile, the
+    bf16 rows of W % 8 == 4 then partly by plain loads), fewer tiles than blocks, and
+    more tiles than blocks with a last tile of one row."""
+    if which == "fewer_tiles_than_blocks":
+        return 100
+    if which == "ragged_last_tile":
+        return fused_ln.launch_plan(1 << 20, w, dtype, 132).rows_per_tile * 140 + 1
+    return int(which)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", ["1", "3", "fewer_tiles_than_blocks", "ragged_last_tile"])
+@pytest.mark.parametrize("w", [4, 12, 20, 128, 256, 640, 1024, 1028, 4096])
+def test_layer_norm_backward_kernel_widths_and_rows(cuda, w, rows, dtype):
+    r = _ln_rows(rows, w, dtype)
+    rng = np.random.default_rng(w + r)
+    x = torch.from_numpy(rng.standard_normal((r, w), dtype=np.float32) * 2 + 0.5).to(cuda, dtype)
+    dy = torch.from_numpy(rng.standard_normal((r, w), dtype=np.float32)).to(cuda, dtype)
+    scale = torch.from_numpy(rng.standard_normal(w, dtype=np.float32)).to(cuda)
+    before = fused_ln.LAUNCHES["bwd"]
+    got = fused_ln.layer_norm_bwd(x, dy, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_ln.LAUNCHES["bwd"] == before + 1
+    refs = fused_ln.layer_norm_bwd_reference(x, dy, scale, 1e-5)
+    for name, g, ref in zip(("dx", "dscale", "dbias"), got, refs):
+        assert g.shape == ref.shape and g.dtype == ref.dtype and bool(torch.isfinite(g).all()), name
+        tol = 1e-2 if (dtype == torch.bfloat16 and name == "dx") else 1e-4
+        assert _rel_err(g, ref) <= tol, (name, _rel_err(g, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_layer_norm_backward_kernel_at_convnext_stage0(cuda, dtype):
+    """524,288 x 128: 8,192 tiles over the persistent blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn(524288, 128, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    dy = torch.randn(524288, 128, generator=gen, device=cuda).to(dtype)
+    scale = torch.randn(128, generator=gen, device=cuda)
+    got = fused_ln.layer_norm_bwd(x, dy, scale, 1e-5)
+    refs = fused_ln.layer_norm_bwd_reference(x, dy, scale, 1e-5)
+    for name, g, ref in zip(("dx", "dscale", "dbias"), got, refs):
+        assert bool(torch.isfinite(g).all()), name
+        tol = 1e-2 if (dtype == torch.bfloat16 and name == "dx") else 1e-4
+        assert _rel_err(g, ref) <= tol, (name, _rel_err(g, ref))
+
+
+@pytest.mark.parametrize("shape", [(12800, 768), (524288, 128), (131072, 256)],
+                         ids=["12800x768", "524288x128", "131072x256"])
+def test_layer_norm_backward_kernel_is_deterministic(cuda, shape):
+    x = torch.randn(*shape, device=cuda, dtype=torch.bfloat16)
     dy = torch.randn_like(x)
-    scale = torch.randn(768, device=cuda)
+    scale = torch.randn(shape[1], device=cuda)
     a = fused_ln.layer_norm_bwd(x, dy, scale)
     b = fused_ln.layer_norm_bwd(x, dy, scale)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+def test_layer_norm_backward_kernel_in_a_cuda_graph(cuda):
+    """Replays of a captured launch (each taking the kernel's arrival counters in
+    turn) give the eager launch's bits, and so does an eager launch after them."""
+    x = torch.randn(8192, 1024, device=cuda, dtype=torch.bfloat16)
+    dy, scale = torch.randn_like(x), torch.randn(1024, device=cuda)
+    want = fused_ln.layer_norm_bwd(x, dy, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fused_ln.layer_norm_bwd(x, dy, scale)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(s, t) for s, t in zip(got, want))
+    again = fused_ln.layer_norm_bwd(x, dy, scale)
+    assert all(torch.equal(s, t) for s, t in zip(again, want))
 
 
 @pytest.mark.parametrize("what", ["fp16", "width_6", "too_wide", "dy_dtype"])
