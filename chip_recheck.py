@@ -1,4 +1,4 @@
-"""Three checks on the card beside chip_smoke.py, each in a process of its own.
+"""Four checks on the card beside chip_smoke.py, each in a process of its own.
 
   python3 chip_recheck.py l14 ROOT
       ViT-L-14's fixed-batch losses over 20 steps at bench_vit_l14's lr 5e-4 (the
@@ -15,6 +15,12 @@
       process, again with TF32 off, and again after the coca_serve phase, with
       nvidia-smi's clocks, power and throttle reasons sampled during each window,
       profile and the parts timed alone.
+  python3 chip_recheck.py vitamin
+      ViTamin-B's fixed-batch losses over 25 steps (chip_smoke.py's vitamin_train batch,
+      b128, AdamW, clip 1.0, no warmup, TF32 off as at its place there) in amp_bf16 at
+      lr 5e-4, 2e-4, 1e-4 and 5e-5 and in fp32 at 5e-4, each with the mean cosine between
+      the batch's image features before and after: where a rate leaves the loss at
+      ln(128), the tower has drawn every image onto one feature.
 
 Imports no JAX.
 """
@@ -150,6 +156,45 @@ def coca():
     return 1 if cs.FAILURES else 0
 
 
+def vitamin():
+    sys.path.insert(0, str(REPO))
+    import torch
+    import chip_smoke as cs
+    import open_clip_tpu_torch as oc
+    from open_clip_tpu_torch.ops import _build
+
+    smi()
+    _build.build_all(("short_attention",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def image_cosine(model, batch):
+        with torch.no_grad():
+            f = model.encode_image(batch["image"], normalize=True).float()
+        n = f.shape[0]
+        return ((f @ f.T).sum().item() - n) / (n * n - n)
+
+    for precision, lr in (("amp_bf16", 5e-4), ("amp_bf16", 2e-4), ("amp_bf16", 1e-4),
+                          ("amp_bf16", 5e-5), ("fp32", 5e-4)):
+        model = oc.create_model(cs.VTM_MODEL, precision=precision, seed=0)
+        batch = cs.train_batch(torch, model.cfg, cs.VTM_TRAIN_BATCH, "cuda", seed=14)
+        opt = oc.create_optimizer(oc.OptimizerCfg(lr=lr, wd=0.2, grad_clip_norm=1.0), model,
+                                  oc.const_lr(lr, 0))
+        state = oc.create_train_state(model, opt)
+        step = oc.make_train_step(model.cfg, opt)
+        before = image_cosine(model, batch)
+        losses = []
+        for _ in range(25):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        print("recheck_vitamin " + json.dumps({
+            "precision": precision, "lr": lr, "ln_batch": math.log(cs.VTM_TRAIN_BATCH),
+            "image_cosine_before": before, "image_cosine_after": image_cosine(model, batch),
+            "losses": losses}), flush=True)
+        del state, opt, model, step
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["l14"] and len(sys.argv) == 3:
         l14(sys.argv[2])
@@ -157,5 +202,7 @@ if __name__ == "__main__":
         ln(sys.argv[2])
     elif sys.argv[1:] == ["coca"]:
         sys.exit(coca())
+    elif sys.argv[1:] == ["vitamin"]:
+        vitamin()
     else:
         sys.exit(__doc__)

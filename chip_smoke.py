@@ -294,6 +294,26 @@ Phases, each of which fails the run (exit code 1, no result line) when it fails:
      loss under full remat against the plain forward's with the same masks;
  57. convnext_card_vs_cpu: fp32 (TF32 off), convnext_base_w's widths with blocks 1, 1,
      2, 1 and 2 text blocks, drop path 0, b2: features, the loss and every gradient.
+ 58. vitamin_serve: ViTamin-B (the stem and MBConv stages on cuDNN's NHWC convolutions)
+     in pure_bf16, a 10-class classifier from the CLIP tokenizer, requests of 256 images,
+     like phase 22: 14 short forwards a request at L=196 (select_impl counted), none dense;
+ 59. vitamin_train: ViTamin-B b128 amp_bf16, AdamW at lr 5e-5, clip 1.0: a window with
+     the fused LayerNorm backward off and one with it on (63 launches a step at the shapes
+     of ``VTM_LN_SHAPES``, 3 at the stem's 1,605,632 x 128), each timed and profiled (step,
+     host and kernel ms, idle share, peak GiB), 14 + 12 short launches of each direction a
+     step; then, on another batch, the loss and gradients under full remat and with the
+     switch on against the plain ones (the config's drop path is ignored, as in JAX);
+ 60. eva_serve: EVA02-B-16 in pure_bf16, b256 requests: rope on q and k, 12 short
+     forwards a request at L=197;
+ 61. eva_train: EVA02-B-16 b256 amp_bf16 with the switch off, like phase 59;
+ 62. pe_core_serve: PE-Core-L-14-336 b64 at 336 px: 24 wgmma flash forwards a request at
+     L=577 without a key mask, the MAP pool dense, the classifier's 32-token text tower on
+     the short kernel;
+ 63. vitamin_card_vs_cpu: fp32 (TF32 off), ViTamin-B's widths with its MBConv stages whole
+     and 2 ViT and 2 text blocks, b2: features, the loss and every gradient;
+ 64. eva_card_vs_cpu: the same for EVA02-B-16 (rope, SwiGLU with its inner LayerNorm),
+     PE-Core-L-14-336 (the flash kernels' CUDA-core bodies at L=577, the MAP pool) and
+     EVA01-g-14 (fused qkv with the zero k bias), 2 + 2 blocks each.
 
 Phase 1 also times the short forward and backward at CoCa's decoder shape (B=256, L=76,
 H=8, causal) and at the SigLIP shapes, the flash
@@ -301,7 +321,11 @@ forward at ViT-B-16-SigLIP-384's (576 tokens, no key mask) and the three flash k
 at the NaFlex audio trunk's (B=64, L=816, H=8, ragged key validity) and at GenLIP's train step
 (B=32, L=1152, H=12, causal with prefix_len 1024, ragged captions), the short kernels at
 convnext_base_w's text shape (B=128, L=77, H=10, causal) and the LayerNorm backward at
-its stage-0 shape (524288 x 128, bf16); phase 17 also times the
+its stage-0 shape (524288 x 128, bf16), the short kernels at ViTamin-B's train shapes
+(B=128: L=196, H=12; L=77, H=8, causal) and PE-Core's classifier (B=70, L=32, H=16,
+causal), the flash kernels at PE-Core-L-14-336's (B=64, L=577, H=16, no mask), and the
+LayerNorm backward at every shape of ViTamin-B's b128 step and at EVA02-B-16's two
+(50432 x 768 and x 2048); phase 17 also times the
 SwitchBack product's mma body at one ragged shape (130 x 40 x 129).
 
 Every kernel record names its body: "wgmma" (on the tensor cores, warpgroup
@@ -427,6 +451,23 @@ CNX_LN_SHAPES = {"convnext_s0": (CNX_TRAIN_BATCH * 64 * 64, 128),
                  "convnext_s3": (CNX_TRAIN_BATCH * 8 * 8, 1024),
                  "convnext_head": (CNX_TRAIN_BATCH, 1024),
                  "convnext_text": (CNX_TRAIN_BATCH * 77, 640)}
+# the EVA and ViTamin towers: ViTamin-B served at b256 and trained at b128 (224 px; the
+# fused LayerNorm backward off, then on), EVA02-B-16 served and trained at b256, and
+# PE-Core-L-14-336 served at b64 (336 px: 577 tokens on the flash forward without a key
+# mask, the MAP pool, the 32-token text tower)
+VTM_MODEL, VTM_SERVE_BATCH, VTM_TRAIN_BATCH = "ViTamin-B", 256, 128
+EVA_MODEL, EVA_BATCH = "EVA02-B-16", 256
+PE_MODEL, PE_BATCH = "PE-Core-L-14-336", 64
+# the (rows, width) of every LayerNorm in ViTamin-B's b128 step at 224 px: the stem's two
+# and stage 0's first block (112x112), stage 0's second block and stage 1's first
+# (56x56), stage 1's others and the pool's (28x28), the ViT stage's 196 tokens, the text
+# tower; and EVA02-B-16's at b256: the blocks' (768) and the SwiGLU's inner one (2048)
+VTM_LN_SHAPES = {"vitamin_stem": (VTM_TRAIN_BATCH * 112 * 112, 128),
+                 "vitamin_s0": (VTM_TRAIN_BATCH * 56 * 56, 128),
+                 "vitamin_s1": (VTM_TRAIN_BATCH * 28 * 28, 256),
+                 "vitamin_vit": (VTM_TRAIN_BATCH * 196, 768),
+                 "vitamin_text": (VTM_TRAIN_BATCH * 77, 512)}
+EVA_LN_SHAPES = {"eva02_dim": (EVA_BATCH * 197, 768), "eva02_mlp": (EVA_BATCH * 197, 2048)}
 # the LayerNorm backward's cold timing: copies of x and dy past twice the 50 MB L2
 COLD_BYTES = 100e6
 KERNEL_CLASSES = {  # first match wins
@@ -650,7 +691,12 @@ def phase_kernels(torch, sa, text_batch):
              # convnext_base_w's text tower (width 640, 10 heads) at its train batch and
              # at its classifier's
              ("text_h10", CNX_TRAIN_BATCH, 77, 10, 64, True, bf16),
-             ("text_h10_b70", text_batch, 77, 10, 64, True, bf16)]
+             ("text_h10_b70", text_batch, 77, 10, 64, True, bf16),
+             # ViTamin-B's train batch: the ViT stage's 196 tokens and the text tower;
+             # PE-Core's 32-token text tower (16 heads) at its classifier's batch
+             ("vitamin_b128", VTM_TRAIN_BATCH, 196, 12, 64, False, bf16),
+             ("text_b128", VTM_TRAIN_BATCH, 77, 8, 64, True, bf16),
+             ("pe_text", text_batch, 32, 16, 64, True, bf16)]
     records = {}
     for name, b, l, h, hd, causal, dtypes in cases:
         for dtype in dtypes:
@@ -718,6 +764,10 @@ def phase_attention_bwd_kernels(torch, sa):
                                               ("l99", BATCH, 99, 12, 64, False, bf16),
                                               ("coca_decoder", BATCH, 76, 8, 64, True, bf16),
                                               ("text_h10", CNX_TRAIN_BATCH, 77, 10, 64, True,
+                                               bf16),
+                                              ("vitamin_b128", VTM_TRAIN_BATCH, 196, 12, 64,
+                                               False, bf16),
+                                              ("text_b128", VTM_TRAIN_BATCH, 77, 8, 64, True,
                                                bf16)):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
@@ -785,8 +835,8 @@ def phase_ln_bwd_kernels(torch, fl):
     both = (torch.bfloat16, torch.float32)
     for name, rows, w, dtypes in (("vision", BATCH * 50, 768, both), ("text", BATCH * 77, 512, both),
                                   ("pooled", BATCH, 768, both),
-                                  *((n, r, w, (torch.bfloat16,))
-                                    for n, (r, w) in CNX_LN_SHAPES.items())):
+                                  *((n, r, w, (torch.bfloat16,)) for n, (r, w) in
+                                    {**CNX_LN_SHAPES, **VTM_LN_SHAPES, **EVA_LN_SHAPES}.items())):
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             x = (torch.randn(rows, w, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
@@ -873,7 +923,9 @@ def phase_flash_kernels(torch, fa):
              # GenLIP's train step: [1024 image ; 128 text] under the prefix-LM mask, the
              # captions ragged (the lengths of genlip_train's batch)
              ("genlip_train", GENLIP_BATCH, GENLIP_NI + GENLIP_LT, 12, 64, True, GENLIP_NI,
-              tuple(GENLIP_NI + n for n in (128, 101, 64, 128, 87, 33, 128, 120)), True)]
+              tuple(GENLIP_NI + n for n in (128, 101, 64, 128, 87, 33, 128, 120)), True),
+             # PE-Core-L-14-336's image tower: 577 tokens, 16 heads, no key mask
+             ("pe_core336", PE_BATCH, 577, 16, 64, False, 0, None, True)]
     records = {}
     for name, b, l, h, hd, causal, prefix, lens, timed in cases:
         valid = ragged_valid(torch, b, l, lens) if lens else None
@@ -2865,23 +2917,25 @@ def tally_by_len(sa):
         sa._launch_fwd, sa.short_attention_bwd = fwd, bwd
 
 
-def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label):
+def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label, tokenizer=None):
     """SigLIP serving: ``name`` in pure_bf16 with weights from seed 0, a 10-class
     classifier built once from seeded token ids, then requests of ``batch`` uint8
     256x320 images (device preprocess -> encode_image -> sigmoid(scale * logits +
     bias) -> top-5), one in flight: a warm-up request, a window of at least 0.5 s and
-    10 profiled requests. Returns the model, the classifier's and the requests'
-    launches and path counts, and the requests served."""
+    10 profiled requests. A model without a logit bias (a CLIP one, served with its
+    ``tokenizer``) ranks by softmax(scale * logits). Returns the model, the
+    classifier's and the requests' launches and path counts, and the requests served."""
     torch.cuda.reset_peak_memory_stats()
     model, _, preprocess = oc.create_model_and_transforms(name, precision="pure_bf16", seed=0)
-    lv, lt = model.visual.cfg.layers, model.cfg.text_cfg.layers
+    lt = model.cfg.text_cfg.layers
     gen = torch.Generator(device="cuda").manual_seed(0)
     requests = [torch.randint(0, 256, (batch, *IMAGE_HW, 3), dtype=torch.uint8, device="cuda",
                               generator=gen) for _ in range(DISTINCT_REQUESTS)]
     with torch.inference_mode():
         reset_counts(sa, fa)
         with attention_paths(attn, nf) as text_paths:
-            clf = oc.build_zero_shot_classifier(model, seeded_token_ids(torch, model.cfg.text_cfg, 0),
+            clf = oc.build_zero_shot_classifier(model, tokenizer or seeded_token_ids(
+                                                    torch, model.cfg.text_cfg, 0),
                                                 oc.IMAGENET_CLASSNAMES[:CLASSES],
                                                 oc.SIMPLE_IMAGENET_TEMPLATES,
                                                 num_classes_per_batch=CLASSES)
@@ -2889,12 +2943,14 @@ def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label):
         text = {"short": dict(sa.LAUNCHES), "short_bodies": dict(sa.FWD_BODIES),
                 "paths": dict(text_paths)}
         clf32 = clf.float()
-        scale, bias = model.logit_scale.float().exp(), model.logit_bias.detach().float()
+        scale = model.logit_scale.float().exp()
+        bias = None if model.logit_bias is None else model.logit_bias.detach().float()
 
         def request(i):
             pixels = preprocess(requests[i % DISTINCT_REQUESTS])
             feats = model.encode_image(pixels, normalize=True)
-            probs = torch.sigmoid(scale * feats.float() @ clf32 + bias)
+            logits = scale * feats.float() @ clf32
+            probs = logits.softmax(dim=-1) if bias is None else torch.sigmoid(logits + bias)
             return feats, (probs, probs.topk(5, dim=-1).indices.cpu())
 
         t0 = time.perf_counter()
@@ -2912,15 +2968,15 @@ def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label):
     check(text["short"] == {"fwd": lt, "bwd": 0} and text["short_bodies"] == {"mma": lt, "simt": 0}
           and text["paths"] == {("short", lq): lt},
           f"{label} classifier: short launches {text['short']}, by body {text['short_bodies']}, "
-          f"paths {text['paths']} for 1 encode_text call (expect {lt} non-causal L={lq} mma "
-          "launches, no dense block)")
+          f"paths {text['paths']} for 1 encode_text call (expect {lt} L={lq} mma launches, no "
+          "dense block)")
     fn = torch.linalg.vector_norm(feats.float(), dim=-1)
     check(tuple(clf.shape) == (model.cfg.embed_dim, CLASSES) and bool(torch.isfinite(clf).all())
           and tuple(feats.shape) == (batch, model.cfg.embed_dim) and bool(torch.isfinite(feats).all())
           and bool(((fn - 1).abs() < 1e-2).all()) and bool(torch.isfinite(probs).all())
           and tuple(top5.shape) == (batch, 5) and int(top5.min()) >= 0 and int(top5.max()) < CLASSES,
           f"{label} output: classifier {tuple(clf.shape)}, features {tuple(feats.shape)} finite "
-          f"and unit, sigmoid probabilities finite, top-5 {tuple(top5.shape)}")
+          f"and unit, probabilities finite, top-5 {tuple(top5.shape)}")
     summary = profile_summary(prof, prof_wall_ms, PROFILED_REQUESTS)
     print(f"{label}_profile " + json.dumps(summary), flush=True)
     line = {"model": name, "precision": "pure_bf16", "batch": batch, "image_hw": list(IMAGE_HW),
@@ -2933,7 +2989,8 @@ def siglip_serve(torch, oc, sa, fa, attn, nf, name, batch, label):
             "short_fwd_launches_per_request": served["short"]["fwd"] / calls,
             "flash_fwd_launches_per_request": served["flash"]["fwd"] / calls,
             "paths_per_request": {f"{k[0]}@{k[1]}": v / calls for k, v in served["paths"].items()},
-            "logit_bias": float(bias), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "logit_bias": None if bias is None else float(bias),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"{label} " + json.dumps(line), flush=True)
     return model, text, served, calls
 
@@ -6281,6 +6338,209 @@ def phase_convnext_card_vs_cpu(torch, oc):
     conv_card_vs_cpu(torch, oc, CNX_MODEL + "-cut", 2, "convnext", seed=6)
 
 
+def phase_vitamin_serve(torch, oc, sa, fa, attn, nf):
+    """ViTamin-B serving at b256 with the CLIP tokenizer: the stem and MBConv stages on
+    cuDNN's NHWC convolutions, every ViT block (196 tokens, no class token) on the short
+    kernel's two-pass mma forward, no dense block."""
+    model, text, served, calls = siglip_serve(torch, oc, sa, fa, attn, nf, VTM_MODEL,
+                                              VTM_SERVE_BATCH, "vitamin_serve",
+                                              tokenizer=oc.get_tokenizer(VTM_MODEL))
+    lv, l = model.visual.cfg.depth, (model.visual.cfg.image_size // 16) ** 2
+    check(served["short"] == {"fwd": lv * calls, "bwd": 0}
+          and served["short_bodies"] == {"mma": lv * calls, "simt": 0}
+          and served["flash"]["fwd"] == 0 and served["paths"] == {("short", l): lv * calls},
+          f"vitamin_serve requests: short {served['short']}, by body {served['short_bodies']}, "
+          f"paths {served['paths']} for {calls} encode_image calls (expect {lv} mma launches "
+          f"at L={l} a call, no dense block)")
+    return text["short"]["fwd"], served["short"]["fwd"], calls
+
+
+def phase_eva_serve(torch, oc, sa, fa, attn, nf):
+    """EVA02-B-16 serving at b256: rope on q and k, then every block (197 tokens) on the
+    short kernel's two-pass mma forward; the class token pools."""
+    model, text, served, calls = siglip_serve(torch, oc, sa, fa, attn, nf, EVA_MODEL, EVA_BATCH,
+                                              "eva_serve", tokenizer=oc.get_tokenizer(EVA_MODEL))
+    lv, l = model.visual.cfg.depth, model.visual.pos_embed.shape[0]
+    check(served["short"] == {"fwd": lv * calls, "bwd": 0}
+          and served["short_bodies"] == {"mma": lv * calls, "simt": 0}
+          and served["flash"]["fwd"] == 0 and served["paths"] == {("short", l): lv * calls},
+          f"eva_serve requests: short {served['short']}, by body {served['short_bodies']}, "
+          f"paths {served['paths']} for {calls} encode_image calls (expect {lv} mma launches "
+          f"at L={l} a call, no dense block)")
+    return text["short"]["fwd"], served["short"]["fwd"], calls
+
+
+def phase_pe_core_serve(torch, oc, sa, fa, attn, nf):
+    """PE-Core-L-14-336 serving at b64: 577 tokens without a key mask, so every block
+    takes the flash forward (wgmma); the MAP pool's one-query attention is dense; the
+    classifier's 32-token text tower takes the short kernel."""
+    model, text, served, calls = siglip_serve(torch, oc, sa, fa, attn, nf, PE_MODEL, PE_BATCH,
+                                              "pe_core_serve", tokenizer=oc.get_tokenizer(PE_MODEL))
+    lv, l = model.visual.cfg.depth, model.visual.pos_embed.shape[0]
+    check(served["flash"] == {"fwd": lv * calls, "bwd_dq": 0, "bwd_dkv": 0}
+          and served["flash_bodies"] == {"wgmma": lv * calls, "simt": 0}
+          and served["short"] == {"fwd": 0, "bwd": 0}
+          and served["paths"] == {("flash", l): lv * calls, ("pool_dense", l): calls},
+          f"pe_core_serve requests: flash {served['flash']}, by body {served['flash_bodies']}, "
+          f"short {served['short']}, paths {served['paths']} for {calls} encode_image calls "
+          f"(expect {lv} wgmma flash forwards at L={l} without a key mask, 0 short, one dense "
+          "MAP pool a call)")
+    return text["short"]["fwd"], served["flash"]["fwd"], calls
+
+
+def tower_train(torch, oc, sa, fl, layers_mod, name, batch_size, label, switches, ln_shapes=(),
+                lr=5e-4):
+    """``name`` at ``batch_size`` in amp_bf16, AdamW at ``lr``, clip 1.0, one fixed batch: a
+    window for each fused-LayerNorm switch in ``switches``, timed and profiled like phase 4
+    (step ms, host ms, kernel ms, the idle share 1 - kernel ms / step ms, peak GiB), the short
+    launches by direction and length, and with the switch on every LayerNorm's backward
+    on the kernel, each at a shape of ``ln_shapes``, which phase_ln_bwd_kernels holds
+    against the plain version. Then, on a batch the windows did not fit, the loss and
+    the gradients under full remat (and with the switch on) against the plain ones.
+    Returns {switch: (short tally, LayerNorm tally, steps)}."""
+    from open_clip_tpu_torch.loss import clip_loss
+    from open_clip_tpu_torch.models.clip import clip_forward
+
+    torch.cuda.reset_peak_memory_stats()
+    model = oc.create_model(name, precision="amp_bf16", seed=0)
+    lv, lt = len(model.visual.transformer.resblocks), model.cfg.text_cfg.layers
+    lns = sum(isinstance(m, torch.nn.LayerNorm) for m in model.modules())
+    optimizer = oc.create_optimizer(oc.OptimizerCfg(lr=lr, wd=0.2, grad_clip_norm=1.0),
+                                    model, oc.const_lr(lr, 0))
+    state = oc.create_train_state(model, optimizer)
+    step = oc.make_train_step(model.cfg, optimizer)
+    batch = train_batch(torch, model.cfg, batch_size, "cuda", seed=14)
+    li, lq = model.visual.pos_embed.shape[0], model.cfg.text_cfg.context_length
+    results, lines = {}, {}
+    for fused in switches:
+        tag = "on" if fused else "off"
+        layers_mod.FUSED_LN_BWD = fused
+        try:
+            state, warm, warm_ms, _, _, _ = run_steps(torch, step, state, batch, 2)
+            n = max(3, math.ceil(TRAIN_WINDOW_S / 2 * 1e3 / warm_ms[-1]))
+            reset_counts(sa, fl)
+            with tally_by_len(sa) as short, tally_ln_rows(fl) as ln:
+                state, window, step_ms, host_ms, lead_ms, wall_s = run_steps(torch, step, state,
+                                                                             batch, n)
+            bodies = dict(sa.FWD_BODIES), dict(sa.BWD_BODIES)
+            state, summary = profiled_steps(torch, step, state, batch)
+        finally:
+            layers_mod.FUSED_LN_BWD = False
+        losses = [float(m["loss"]) for m in warm + window]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"{label}[fused_ln {tag}]: {len(losses)} losses finite, fell "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        want = {(d, l): k * n for d in ("fwd", "bwd") for l, k in ((li, lv), (lq, lt))}
+        check(short == want and bodies == ({"mma": (lv + lt) * n, "simt": 0},) * 2
+              and sum(ln.values()) == (lns * n if fused else 0)
+              and set(ln) <= set(ln_shapes),
+              f"{label}[fused_ln {tag}]: short launches by (direction, L) {short}, bodies "
+              f"{bodies[0]}/{bodies[1]}, LayerNorm backward {ln} in {n} steps (expect "
+              f"{lv} + {lt} mma launches of each a step"
+              + (f", {lns} LayerNorm backwards at the shapes of the step)" if fused else ")"))
+        results[tag] = (dict(short), dict(ln), n)
+        median = statistics.median(step_ms)
+        lines[tag] = {"window_steps": n, "window_s": wall_s,
+                      "images_per_s": batch_size * n / wall_s, "median_step_ms": median,
+                      "min_step_ms": min(step_ms),
+                      "median_host_ms_per_step": statistics.median(host_ms),
+                      "host_lead_ms_at_end": lead_ms, "first_loss": losses[0],
+                      "last_loss": losses[-1],
+                      "kernel_ms_per_step": summary["device_busy_ms_per_step"],
+                      "class_ms_per_step": summary["class_ms_per_step"],
+                      "idle_share_by_window": 1.0 - summary["device_busy_ms_per_step"] / median,
+                      "device_idle_share_profiled": summary["device_idle_share"],
+                      "ln_bwd_launches_by_rows_width": {f"{r}x{w}": c for (r, w), c in ln.items()}}
+        print(f"{label}_profile[fused_ln {tag}] " + json.dumps(summary), flush=True)
+    train_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = train_batch(torch, model.cfg, batch_size, "cuda", seed=15)
+
+    def grads(fused: bool, remat: bool):
+        layers_mod.FUSED_LN_BWD = fused
+        try:
+            model.zero_grad(set_to_none=True)
+            out = clip_forward(model, held["image"], held["text"], train=True, remat=remat)
+            loss = clip_loss(out["image_features"], out["text_features"], model.logit_scale.exp())
+            loss.backward()
+            got = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+            model.zero_grad(set_to_none=True)
+            return loss.item(), got
+        finally:
+            layers_mod.FUSED_LN_BWD = False
+
+    loss_off, g_off = grads(False, False)
+    other = {"remat": grads(False, True)}
+    if True in switches:
+        other["fused_ln"] = grads(True, False)
+    cosines = {}
+    for what, (loss, g) in other.items():
+        cosines[what] = torch.nn.functional.cosine_similarity(g_off, g, dim=0).item()
+        check(abs(loss - loss_off) <= 1e-6 * abs(loss_off) and cosines[what] >= 0.999,
+              f"{label}[{what}]: loss {loss:.6f} vs {loss_off:.6f} plain, gradient cosine "
+              f"{cosines[what]:.6f} (>= 0.999)")
+    print(f"{label} " + json.dumps({
+        "model": name, "precision": "amp_bf16", "batch": batch_size, "lr": lr,
+        **{f"fused_ln_{k}": v for k, v in lines.items()},
+        "grad_cosine": cosines, "peak_mem_gib": train_gib}), flush=True)
+    return results
+
+
+def phase_vitamin_train(torch, oc, sa, fl, layers_mod):
+    """ViTamin-B b128: the fused LayerNorm backward off, then on (63 launches a step, 3 at
+    the stem's 1,605,632 x 128, the widest rows of any path). The config's drop path 0.1
+    is ignored, as in the JAX package, so the remat and fused-LN gradients are the
+    plain ones. AdamW at lr 5e-5: at 5e-4 without warmup the first steps drive the image
+    features together and the loss sits at ln(128) through both windows, in fp32 as in
+    amp_bf16 (``chip_recheck.py vitamin``)."""
+    return tower_train(torch, oc, sa, fl, layers_mod, VTM_MODEL, VTM_TRAIN_BATCH,
+                       "vitamin_train", (False, True), tuple(VTM_LN_SHAPES.values()), lr=5e-5)
+
+
+def phase_eva_train(torch, oc, sa, fl, layers_mod):
+    """EVA02-B-16 b256 with the fused LayerNorm backward off: rope, SwiGLU and its inner
+    LayerNorm, the short kernels at L=197 and 77."""
+    return tower_train(torch, oc, sa, fl, layers_mod, EVA_MODEL, EVA_BATCH, "eva_train", (False,))
+
+
+def cut_timm_tower(oc, table, name: str, arch: str, cut_arch: str, timm_name: str) -> str:
+    """Register ``name``'s config with its tower ``arch`` at 2 blocks (as ``cut_arch`` in
+    ``table``, named ``timm_name``; the widths and every other field kept) and 2 text
+    blocks; returns the new name."""
+    cfg = table[arch]
+    table[cut_arch] = (cfg._replace(depth=2) if hasattr(cfg, "_replace")
+                       else dataclasses.replace(cfg, depth=2))
+    raw = json.loads(json.dumps(oc.get_model_config(name)))
+    raw["vision_cfg"]["timm_model_name"] = timm_name
+    raw["text_cfg"]["layers"] = 2
+    oc.add_model_config(raw, name=name + "-cut")
+    return name + "-cut"
+
+
+def phase_vitamin_card_vs_cpu(torch, oc):
+    """ViTamin-B's widths with its MBConv stages whole, 2 ViT and 2 text blocks, b2,
+    fp32 (TF32 off for the matmuls and cuDNN): features, the loss and every gradient,
+    card (the short kernel's CUDA-core bodies) against CPU."""
+    from open_clip_tpu_torch.models import vitamin
+
+    name = cut_timm_tower(oc, vitamin.VITAMIN_CFGS, VTM_MODEL, "vitamin_base", "vitamin_basecut",
+                          "vitamin_basecut_224")
+    conv_card_vs_cpu(torch, oc, name, 2, "vitamin", seed=7)
+
+
+def phase_eva_card_vs_cpu(torch, oc):
+    """fp32 (TF32 off), 2 image and 2 text blocks at full width, b2, card against CPU:
+    EVA02-B-16 (rope, separate q/k/v, SwiGLU with its inner LayerNorm), PE-Core-L-14-336
+    (fused qkv with rope, the flash kernels' CUDA-core bodies at L=577, the MAP pool)
+    and EVA01-g-14 (fused qkv with the zero k bias, GELU): features, the loss and every
+    gradient."""
+    from open_clip_tpu_torch.models import eva
+
+    for name, label in ((EVA_MODEL, "eva02"), (PE_MODEL, "pe_core"), ("EVA01-g-14", "eva01")):
+        arch = oc.get_model_config(name)["vision_cfg"]["timm_model_name"]
+        cut = cut_timm_tower(oc, eva.EVA_CONFIGS, name, arch, arch + "_cut", arch + "_cut")
+        conv_card_vs_cpu(torch, oc, cut, 2, label, seed=8)
+
+
 def main() -> int:
     import torch
 
@@ -6424,6 +6684,16 @@ def main() -> int:
     cnx_short, cnx_ln = timed("convnext_train", phase_convnext_train, torch, oc, sa, fl,
                               layers_mod)
     timed("convnext_card_vs_cpu", phase_convnext_card_vs_cpu, torch, oc)
+    vtm_text_serve, vtm_serve, vtm_calls = timed("vitamin_serve", phase_vitamin_serve, torch, oc,
+                                                 sa, fa, attn, nf)
+    vtm_train = timed("vitamin_train", phase_vitamin_train, torch, oc, sa, fl, layers_mod)
+    eva_text_serve, eva_serve, eva_calls = timed("eva_serve", phase_eva_serve, torch, oc, sa, fa,
+                                                 attn, nf)
+    eva_train = timed("eva_train", phase_eva_train, torch, oc, sa, fl, layers_mod)
+    pe_text_serve, pe_serve, pe_calls = timed("pe_core_serve", phase_pe_core_serve, torch, oc, sa,
+                                              fa, attn, nf)
+    timed("vitamin_card_vs_cpu", phase_vitamin_card_vs_cpu, torch, oc)
+    timed("eva_card_vs_cpu", phase_eva_card_vs_cpu, torch, oc)
 
     print("phase_s " + json.dumps(PHASE_S), flush=True)
     if FAILURES:
@@ -6434,6 +6704,11 @@ def main() -> int:
     # classifier build) and the train window (attention kernels with the switch
     # off, the LayerNorm backward with it on)
     kernels = []
+    # the EVA and ViTamin paths: the short kernels by (direction, L) over each train window
+    vtm_short = {k: sum(t.get(k, 0) for t, _, _ in vtm_train.values())
+                 for k in (("fwd", 196), ("bwd", 196), ("fwd", 77), ("bwd", 77))}
+    vtm_steps = sum(n for _, _, n in vtm_train.values())
+    eva_short, _, eva_steps = eva_train["off"]
     # this slice's paths at the same shapes: the optimizer windows (ViT-B-32 b256, 50
     # and 77 tokens), the text tower of the NaFlex data run, of the patch-dropout
     # windows and of the ViT-L-14 remat windows (77 tokens)
@@ -6452,12 +6727,15 @@ def main() -> int:
         n_data = data_tally.get(("fwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("fwd", tower)], ft_cli_tally[("fwd", tower)]
         n_rn = rn_text_serve if tower == "text" else 0  # RN50's classifier (B=70, H=8)
+        # ViTamin-B's and EVA02-B-16's classifiers (B=70, L=77, H=8)
+        n_clf = vtm_text_serve + eva_text_serve if tower == "text" else 0
         kernels.append(dict(fwd_records[tower],
                             launches=(launches[tower] + n_train + n_dist + n_data
                                       + load_launches[tower] + n_ft + n_ft_cli
                                       + new_paths[("fwd", tower)] + coca_paths[("fwd", tower)]
-                                      + n_rn),
+                                      + n_rn + n_clf),
                             launches_rn50_classifier=n_rn,
+                            launches_vitamin_and_eva_classifiers=n_clf,
                             launches_coca_and_distill_paths=coca_paths[("fwd", tower)],
                             launches_distill_per_train_step=distill_tally.get(("fwd", tower), 0)
                             / distill_steps,
@@ -6482,11 +6760,12 @@ def main() -> int:
         n_data = data_tally.get(("bwd", tower), 0)
         n_ft, n_ft_cli = ft_tally[("bwd", tower)], ft_cli_tally[("bwd", tower)]
         n_rn = rn_train["bwd"] if tower == "text" else 0  # RN50 b256: the same shape
+        n_eva = eva_short.get(("bwd", 77), 0) if tower == "text" else 0  # EVA02-B-16 b256
         kernels.append(dict(bwd_records[(tower, "bfloat16")],
                             launches=(n_train + n_dist + n_data + n_ft + n_ft_cli
                                       + new_paths[("bwd", tower)] + coca_paths[("bwd", tower)]
-                                      + n_rn),
-                            launches_rn50_train=n_rn,
+                                      + n_rn + n_eva),
+                            launches_rn50_train=n_rn, launches_eva_train=n_eva,
                             launches_rn50_per_train_step=n_rn / rn_steps,
                             launches_coca_and_distill_paths=coca_paths[("bwd", tower)],
                             launches_step_option_paths=new_paths[("bwd", tower)],
@@ -6511,14 +6790,25 @@ def main() -> int:
                         launches_remat_dots=rd_tally.get(("bwd", 257), 0),
                         launches_per_train_step=l14_tally[("bwd", "vision")] / l14_steps))
     # ViT-B-16 at batch 256: 197 tokens, 99 under patch dropout 0.5 (patch_dropout_train)
+    # (and EVA02-B-16's image tower at the same shape: eva_serve's requests and the
+    # eva_train window)
     for name, length, prob in (("l197", 197, 0.0), ("l99", 99, PD_PROB)):
-        kernels.append(dict(fwd_records[name], launches=pd_tally.get(("fwd", length), 0),
+        n_eva = {d: eva_short.get((d, length), 0) for d in ("fwd", "bwd")}
+        n_eva["fwd"] += eva_serve if length == 197 else 0
+        kernels.append(dict(fwd_records[name],
+                            launches=pd_tally.get(("fwd", length), 0) + n_eva["fwd"],
                             launches_per_train_step=pd_tally.get(("fwd", length), 0)
-                            / pd_steps[prob]))
+                            / pd_steps[prob],
+                            launches_eva_serving=eva_serve if length == 197 else 0,
+                            launches_eva_per_request=(eva_serve / eva_calls if length == 197
+                                                      else 0),
+                            launches_eva_per_train_step=eva_short.get(("fwd", length), 0)
+                            / eva_steps))
         kernels.append(dict(bwd_records[(name, "bfloat16")],
-                            launches=pd_tally.get(("bwd", length), 0),
+                            launches=pd_tally.get(("bwd", length), 0) + n_eva["bwd"],
                             launches_per_train_step=pd_tally.get(("bwd", length), 0)
-                            / pd_steps[prob]))
+                            / pd_steps[prob],
+                            launches_eva_per_train_step=n_eva["bwd"] / eva_steps))
     for tower, width in (("vision", 768), ("text", 512)):
         kernels.append(dict(ln_records[tower], launches=tally_ln[("ln", width)],
                             launches_per_train_step=tally_ln[("ln", width)] / steps_ln))
@@ -6595,8 +6885,10 @@ def main() -> int:
     # classifier and the train windows), the backwards in the train windows (names_mm
     # and no remat), the flash forward without a key mask in siglip384_serve
     kernels.append(dict(fwd_records["siglip_vision"],
-                        launches=sg_serve_launches + sg_tally[("fwd", sg_li)] + bv_l196,
+                        launches=sg_serve_launches + sg_tally[("fwd", sg_li)] + bv_l196 + vtm_serve,
                         launches_big_vision_serving=bv_l196,
+                        launches_vitamin_serving=vtm_serve,
+                        launches_vitamin_per_request=vtm_serve / vtm_calls,
                         launches_serving=sg_serve_launches,
                         launches_training=sg_tally[("fwd", sg_li)],
                         launches_per_call=sg_serve_launches / sg_calls,
@@ -6640,9 +6932,11 @@ def main() -> int:
     # step), convnext_base_w's 10 heads at b128 (both fused-LN windows) and at its
     # classifier's B=70; the LayerNorm backward at each shape of ConvNeXt's step (the
     # switch on)
-    kernels.append(dict(fwd_records["text_b256"], launches=rn_train["fwd"],
-                        launches_path="rn50_train",
-                        launches_per_train_step=rn_train["fwd"] / rn_steps))
+    kernels.append(dict(fwd_records["text_b256"],
+                        launches=rn_train["fwd"] + eva_short.get(("fwd", 77), 0),
+                        launches_path="rn50_train, eva_train",
+                        launches_per_train_step=rn_train["fwd"] / rn_steps,
+                        launches_eva_per_train_step=eva_short.get(("fwd", 77), 0) / eva_steps))
     cnx = {d: sum(c[d] for c, _ in cnx_short.values()) for d in ("fwd", "bwd")}
     cnx_steps = sum(n for _, n in cnx_short.values())
     kernels.append(dict(fwd_records["text_h10"], launches=cnx["fwd"],
@@ -6655,6 +6949,23 @@ def main() -> int:
     for name, shape in CNX_LN_SHAPES.items():
         n = ln_tally_on.get(shape, 0)
         kernels.append(dict(ln_records[name], launches=n, launches_per_train_step=n / ln_steps_on))
+    # ViTamin-B b128: the ViT stage (L=196) and the text tower in both fused-LN windows,
+    # every LayerNorm backward of the switch-on window (EVA02-B-16's shapes are checked
+    # and timed in phase 1 only: its train window runs with the switch off); PE-Core's
+    # classifier and image tower
+    for length, name in ((196, "vitamin_b128"), (77, "text_b128")):
+        kernels.append(dict(fwd_records[name], launches=vtm_short[("fwd", length)],
+                            launches_per_train_step=vtm_short[("fwd", length)] / vtm_steps))
+        kernels.append(dict(bwd_records[(name, "bfloat16")], launches=vtm_short[("bwd", length)],
+                            launches_per_train_step=vtm_short[("bwd", length)] / vtm_steps))
+    _, vtm_ln, vtm_ln_steps = vtm_train["on"]
+    for name, shape in VTM_LN_SHAPES.items():
+        n = vtm_ln.get(shape, 0)
+        kernels.append(dict(ln_records[name], launches=n, launches_per_train_step=n / vtm_ln_steps))
+    kernels.append(dict(fwd_records["pe_text"], launches=pe_text_serve,
+                        launches_path="pe_core_serve's classifier"))
+    kernels.append(dict(flash_records["pe_core336"]["fwd"], launches=pe_serve,
+                        launches_per_call=pe_serve / pe_calls))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ take images; CLAP models (``CLAP-HTSAT-tiny``) take waveform dicts from
 ``data.audio.AudioPreprocess`` into ``encode_audio``, with the log-mel on the card;
 CoCa models (``coca_ViT-B-32``) also caption: ``model.generate(images)``, then
 ``tokenizer.decode``; the convolutional towers (``RN50`` and its family, the
-``convnext_*`` line) take images like the ViTs. Weights: ``create_model(name, pretrained=<file>)`` and ``local-dir:<dir>`` load the
+``convnext_*`` line), the EVA towers (``EVA01-*``, ``EVA02-*``, ``PE-Core-*``) and
+ViTamin (``ViTamin-*``) take images like the ViTs. Weights: ``create_model(name, pretrained=<file>)`` and ``local-dir:<dir>`` load the
 reference's ``.pt``/``.bin``/``.safetensors``/``.npz`` checkpoints (``checkpoint.py``,
 ``convert.py``), ``convert.load_big_vision_weights`` big_vision SigLIP files, and
 ``save_for_hf`` writes a model directory. Training: ``clip_loss``,

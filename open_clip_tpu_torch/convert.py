@@ -12,7 +12,8 @@ a Swin visual tree (``swin_*``) onto timm's names in ``models/swin.py``, a Modif
 tree onto the reference's names (``models/resnet.py``: HWIO kernels to (out, in, kh,
 kw), the batch norms' four leaves as ``weight``/``bias``/``running_mean``/
 ``running_var``), a ConvNeXt tree onto the JAX names with each stage's stacked blocks
-unstacked (``models/convnext.py``), CoCa's
+unstacked (``models/convnext.py``), an EVA or ViTamin tree onto its JAX paths with the
+stacked ``blocks`` as ``transformer.resblocks`` (``_tree_to_port``), CoCa's
 attentional pooler(s) (``attn_pool``, ``attn_pool_contrastive``) onto
 ``visual.attn_pool*.{query,ln_q,ln_k,attn.{q,k,v,out}_proj}``, its ``cls_emb`` and
 ``text_decoder`` onto the reference's names, and the
@@ -23,8 +24,8 @@ patchify layout (kh*kw*in, out), except the token-semantic head's, which becomes
 ``nn.Conv2d``'s (out, in, kh, kw).
 
 The reference's checkpoints come the same way: ``torch_clip_to_params`` (the port's
-numpy copy of the JAX package's converter, with the Swin, HTSAT, CLAP, ModifiedResNet
-and ConvNeXt ones in ``models/``) turns a reference state dict into the JAX tree, which
+numpy copy of the JAX package's converter, with the Swin, HTSAT, CLAP, ModifiedResNet,
+ConvNeXt, EVA and ViTamin ones in ``models/``) turns a reference state dict into the JAX tree, which
 ``params_from_jax`` then carries into the port; ``big_vision_to_params`` does the
 same for big_vision SigLIP ``.npz`` files. ``reference_state_dict`` is the inverse
 for the native ViT and text towers. The port's ``visual.conv1.weight`` keeps the
@@ -116,6 +117,14 @@ _EXPECTED_RESNET = {**_ROOT, ("text", "text_projection"): _LINEAR,
 _EXPECTED_CONVNEXT = {**_ROOT, ("text", "text_projection"): _LINEAR,
                       ("visual",): {"stem", "stages", "head_norm", "proj", "proj_mlp"},
                       ("visual", "proj"): _LINEAR}
+_EXPECTED_EVA = {**_ROOT, ("text", "text_projection"): _LINEAR,
+                 ("visual",): {"patch_embed", "cls_token", "pos_embed", "blocks", "norm",
+                               "attn_pool", "head"},
+                 ("visual", "patch_embed"): _LINEAR, ("visual", "head"): _LINEAR}
+_EXPECTED_VITAMIN = {**_ROOT, ("text", "text_projection"): _LINEAR,
+                     ("visual",): {"stem", "stages", "pool", "pos_embed", "blocks", "norm",
+                                   "fc_norm", "proj"},
+                     ("visual", "proj"): _LINEAR}
 _EXPECTED_NAFLEX = {
     **_ROOT,
     ("text", "text_projection"): _LINEAR,
@@ -223,6 +232,38 @@ def _stacked(blocks: Dict[str, Any], table, layers: int, prefix: str,
             if not skip(path, i):
                 v = _t(stacked[i])
                 out[f"{prefix}{i}.{table[path]}"] = v.T.contiguous() if path[-1] == "kernel" else v
+
+
+def _tree_to_port(node, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    """A JAX subtree (dicts, and lists for unstacked blocks) under ``prefix`` for a
+    tower whose port names follow the JAX keys (EVA, ViTamin): ``scale`` becomes
+    ``weight``, a (in, out) ``kernel`` an ``nn.Linear``'s (out, in) weight and a
+    (kh, kw, in, out) one an ``nn.Conv2d``'s (out, in, kh, kw)."""
+    for key, value in (enumerate(node) if isinstance(node, list) else node.items()):
+        if isinstance(value, (dict, list)):
+            _tree_to_port(value, f"{prefix}.{key}", out)
+            continue
+        value, name = np.asarray(value), f"{prefix}.{key}"
+        if key == "kernel":
+            value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
+        if key in ("kernel", "scale"):
+            name = f"{prefix}.weight"
+        out[name] = _t(value).contiguous()
+
+
+def _stacked_to_port(blocks: Dict[str, Any], layers: int, prefix: str,
+                     out: Dict[str, torch.Tensor]) -> None:
+    """Layer-stacked JAX ``blocks`` as ``{prefix}.{i}.*`` through ``_tree_to_port``."""
+    def row(node, i):
+        if isinstance(node, dict):
+            return {k: row(v, i) for k, v in node.items()}
+        stacked = np.asarray(node)
+        if stacked.shape[0] != layers:
+            raise ValueError(f"{prefix} stacks {stacked.shape[0]} layers; the config has {layers}")
+        return stacked[i]
+
+    for i in range(layers):
+        _tree_to_port(row(blocks, i), f"{prefix}.{i}", out)
 
 
 def _modern_text(txt: Dict[str, Any], layers: int, out: Dict[str, torch.Tensor]) -> None:
@@ -368,7 +409,7 @@ def params_from_jax(params: Dict[str, Any], cfg: CLIPModelCfg) -> Dict[str, torc
 
 def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tensor],
             modern_text: bool = False) -> None:
-    from .models import convnext, resnet
+    from .models import convnext, eva, resnet, vitamin
     from .models.naflex_vit import is_naflex, parse_naflex_cfg
     from .models.swin import is_swin
     from .models.vit import check_vision_cfg
@@ -380,6 +421,12 @@ def _visual(params: Dict[str, Any], cfg: CLIPModelCfg, out: Dict[str, torch.Tens
     if convnext.is_convnext(cfg.vision_cfg):
         _check_keys(params, _EXPECTED_CONVNEXT, modern_text)
         return convnext.params_from_jax(vis, out)
+    if eva.is_eva(cfg.vision_cfg):
+        _check_keys(params, _EXPECTED_EVA, modern_text)
+        return eva.params_from_jax(vis, eva.resolve_eva_cfg(cfg.vision_cfg).depth, out)
+    if vitamin.is_vitamin(cfg.vision_cfg):
+        _check_keys(params, _EXPECTED_VITAMIN, modern_text)
+        return vitamin.params_from_jax(vis, vitamin.parse_vitamin_cfg(cfg.vision_cfg).depth, out)
     if is_swin(cfg.vision_cfg):
         _check_keys(params, _EXPECTED_SWIN, modern_text)
         _swin_visual(vis, out)
@@ -449,17 +496,21 @@ def convert_params_dtype_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     tower's head, Swin patch merging, HTSAT's token-semantic head, the audio projection) and
     the two tower projections to ``dtype``; norms, embeddings, position grids, class,
     register and latent tokens, layer scales, relative-position tables, ``bn0``, the
-    ModifiedResNet's convolutions and batch norms (bare leaves in the JAX tree) and
-    the logit scale stay fp32. The partition of
+    ModifiedResNet's convolutions and batch norms (bare leaves in the JAX tree), EVA's
+    q and v biases, ViTamin's MBConv convolutions (a list in the JAX tree, which its
+    partition does not enter) and the logit scale stay fp32. The partition of
     the JAX package's ``convert_params_dtype`` and the reference's
     ``convert_weights_to_lp``, used for the pure_bf16/pure_fp16 precisions."""
     from .models.blocks import Attention
     from .models.resnet import Conv2d as ResNetConv
     from .models.vit import PatchEmbed
+    from .models.vitamin import MbConvBlock
 
+    in_list = {id(c) for m in model.modules() if isinstance(m, MbConvBlock) for c in m.modules()}
     for m in model.modules():
         names = ()
-        if isinstance(m, (nn.Linear, nn.Conv2d, PatchEmbed)) and not isinstance(m, ResNetConv):
+        if (isinstance(m, (nn.Linear, nn.Conv2d, PatchEmbed)) and not isinstance(m, ResNetConv)
+                and id(m) not in in_list):
             names = ("weight", "bias")
         elif isinstance(m, Attention):
             names = ("in_proj_weight", "in_proj_bias")
@@ -714,7 +765,6 @@ def _unported_trunk(cfg: Optional[CLIPModelCfg], sd: Mapping[str, np.ndarray]) -
     vcfg = cfg.vision_cfg if cfg is not None else None
     name = (vcfg.timm_model_name or "") if vcfg is not None else ""
     for prefix, family in (("fastvit", "FastViT (MobileCLIP)"), ("mobileclip", "FastViT (MobileCLIP)"),
-                           ("vitamin", "ViTamin"), ("eva", "EVA"),
                            ("vit_relpos", "relpos-ViT")):
         if name.startswith(prefix):
             return family
@@ -735,8 +785,9 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
     """A reference CLIP / CustomTextCLIP state dict -> the JAX package's param tree
     (numpy leaves), for the families the port builds: the native ViT and text towers
     (CoCa's attentional poolers, CLS token and ``text_decoder`` too), the timm ViT,
-    NaFlexVit, Swin and ConvNeXt trunks, and the ModifiedResNet (the JAX package's
-    order: ConvNeXt by its ``visual.trunk.stem.`` keys before the other trunks, the
+    NaFlexVit, Swin, ConvNeXt, EVA and ViTamin trunks, and the ModifiedResNet (the JAX
+    package's order: ViTamin and EVA by the model config before any key heuristic,
+    ConvNeXt by its ``visual.trunk.stem.`` keys before the other trunks, the
     ResNet by ``visual.layer1``/``layer2`` after them). Keys it cannot place are logged and
     listed under ``_unconverted``, as in the JAX package; a checkpoint of a family the
     port does not build raises."""
@@ -746,13 +797,22 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
         raise NotImplementedError(f"checkpoints of the {family} family are not ported yet")
     vcfg = cfg.vision_cfg if cfg is not None else None
     if any(k.startswith("visual.trunk.") for k in sd):
-        if any(k.startswith("visual.trunk.stem.") for k in sd):
+        from .models.eva import is_eva, timm_eva_to_params
+        from .models.vitamin import is_vitamin, torch_vitamin_clip_to_params
+
+        own = ("visual.",)
+        if is_vitamin(vcfg):  # by the config: its trunk's keys are timm's too
+            tree_vis = torch_vitamin_clip_to_params(
+                {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}, vcfg)
+        elif is_eva(vcfg):
+            tree_vis = timm_eva_to_params({k[len("visual.trunk."):]: v for k, v in sd.items()
+                                           if k.startswith("visual.trunk.")}, vcfg)
+        elif any(k.startswith("visual.trunk.stem.") for k in sd):
             from .models.convnext import torch_convnext_clip_to_params
 
             if cfg is None:
                 raise ValueError("ConvNeXt conversion needs the model config")
             tree_vis = torch_convnext_clip_to_params(sd, vcfg)
-            own = ("visual.",)
         elif vcfg is not None and (vcfg.timm_model_name or "").startswith("naflexvit"):
             tree_vis = _convert_timm_naflexvit_trunk(sd)
             own = ("visual.trunk.", "visual.head.")
@@ -768,10 +828,8 @@ def torch_clip_to_params(sd: Mapping[str, Any], cfg: Optional[CLIPModelCfg] = No
                 if "visual." + hk in sd:  # TimmModel's adapter projection
                     trunk[hk] = sd["visual." + hk]
             tree_vis = torch_swin_to_params(trunk, vcfg)
-            own = ("visual.",)
         elif any(k.startswith("visual.trunk.blocks.") for k in sd):
             tree_vis = _convert_timm_vit_trunk(sd)
-            own = ("visual.",)
         else:
             raise NotImplementedError("this timm trunk's checkpoint is not ported yet")
         rest = {k: v for k, v in sd.items() if not k.startswith(own)}

@@ -4,8 +4,10 @@
 checkpoint's names (``visual.*``, the text tower's parts at the top level, or the
 modern text tower as ``text.*``, ``logit_scale``). The vision tower is a ViT, a
 NaFlex ViT (``naflexvit_*``), a Swin tower (``swin_*``), a ModifiedResNet (a config
-whose ``layers`` is a tuple: the RN50 family, ``models/resnet.py``) or a ConvNeXt
-(``convnext_*``, ``models/convnext.py``). A CoCa config (one with
+whose ``layers`` is a tuple: the RN50 family, ``models/resnet.py``), a ConvNeXt
+(``convnext_*``, ``models/convnext.py``), an EVA tower (``eva_*``, ``eva02_*`` and
+PE-Core's ``vit_pe_core_*``, ``models/eva.py``) or a ViTamin (``vitamin_*``,
+``models/vitamin.py``). A CoCa config (one with
 ``multimodal_cfg``) adds the multimodal decoder ``text_decoder`` of
 ``models/coca.py``; its forward is ``coca_forward`` and ``generate`` captions. A CLAP config (one with
 ``audio_cfg``) holds ``audio``, the HTSAT or NaFlex audio tower of
@@ -29,10 +31,12 @@ from ..config import CLIPModelCfg
 from . import clap
 from . import text as text_mod
 from .convnext import ConvNeXt, is_convnext
+from .eva import Eva, is_eva
 from .naflex_vit import NaFlexVit, is_naflex, parse_naflex_cfg
 from .resnet import ModifiedResNet
 from .swin import SwinTransformer, is_swin
 from .vit import VisionTransformer
+from .vitamin import ViTamin, is_vitamin
 
 DEFAULT_LOGIT_SCALE = math.log(1.0 / 0.07)
 LOGIT_SCALE_MAX = math.log(100.0)
@@ -71,6 +75,10 @@ class CLIPModel(nn.Module):
             self.visual = ModifiedResNet(cfg.vision_cfg, cfg.embed_dim)
         elif is_convnext(cfg.vision_cfg):
             self.visual = ConvNeXt(cfg.vision_cfg, cfg.embed_dim)
+        elif is_eva(cfg.vision_cfg):
+            self.visual = Eva(cfg.vision_cfg, cfg.embed_dim)
+        elif is_vitamin(cfg.vision_cfg):
+            self.visual = ViTamin(cfg.vision_cfg, cfg.embed_dim)
         elif is_swin(cfg.vision_cfg):
             self.visual = SwinTransformer(cfg.vision_cfg, cfg.embed_dim)
         else:

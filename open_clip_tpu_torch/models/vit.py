@@ -105,13 +105,16 @@ def resolve_timm_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
 
 def check_vision_cfg(cfg: CLIPVisionCfg) -> CLIPVisionCfg:
     """Raise for the vision-tower variants that are not ported; return the config the
-    tower is built from (a timm name resolved). A ModifiedResNet or ConvNeXt config
-    comes back as it is: ``models/resnet.py`` and ``models/convnext.py`` build those
-    towers, as ``models/naflex_vit.py`` builds the ``naflexvit_*`` names, which never
-    get here."""
+    tower is built from (a timm name resolved). A ModifiedResNet, ConvNeXt, EVA
+    (``eva_*``, ``eva02_*``, ``vit_pe_core_*``) or ViTamin config comes back as it is:
+    ``models/resnet.py``, ``models/convnext.py``, ``models/eva.py`` and
+    ``models/vitamin.py`` build those towers, as ``models/naflex_vit.py`` builds the
+    ``naflexvit_*`` names, which never get here."""
     from .convnext import is_convnext
+    from .eva import is_eva
+    from .vitamin import is_vitamin
 
-    if cfg.is_resnet or is_convnext(cfg):
+    if cfg.is_resnet or is_convnext(cfg) or is_eva(cfg) or is_vitamin(cfg):
         return cfg
     if cfg.timm_model_name:
         cfg = resolve_timm_vision_cfg(cfg)

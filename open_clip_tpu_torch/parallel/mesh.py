@@ -98,7 +98,8 @@ def shard_model(model: nn.Module, mesh, *, min_size: int = MIN_SHARD_SIZE) -> nn
     if getattr(model.cfg, "audio_cfg", None) is not None or not isinstance(
             getattr(model, "visual", None), VisionTransformer):
         raise NotImplementedError("training under a mesh is ported for the ViT towers only "
-                                  "(not yet NaFlex, Swin, ModifiedResNet, ConvNeXt or CLAP)")
+                                  "(not yet NaFlex, Swin, ModifiedResNet, ConvNeXt, EVA, ViTamin or "
+                                  "CLAP)")
     ignored = {p for p in model.parameters() if p.ndim == 0 or p.numel() < min_size}
     for block in [m for m in model.modules() if isinstance(m, ResidualAttentionBlock)]:
         fully_shard(block, mesh=mesh, ignored_params=ignored)

@@ -46,7 +46,12 @@ own dimensions for the weight decay, and its layer decay and lock follow its ind
 in its stage, so the decay ladder starts again in every stage and
 ``unlocked_groups`` > 1 unlocks the last blocks of every stage, as the JAX rules give
 them. A ModifiedResNet's layers are no ``blocks``: it gets no layer decay (the CLI
-passes no depth for it) and locking leaves only its ``attnpool`` trainable.
+passes no depth for it) and locking leaves only its ``attnpool`` trainable. The EVA and
+ViTamin towers hold their stacked ViT blocks as ``transformer.resblocks``; ViTamin's
+MBConv blocks are a plain list under ``stages.{i}.blocks`` in both packages (the
+lookahead of ``_STAGE_BLOCK_RE`` tells them from ConvNeXt's), so the JAX rules read
+the first axis of each of their leaves as a layer axis: a convolution's kh (the port's
+axis 2), a LayerNorm's channels. The port follows (ROADMAP, the reference's faults).
 """
 
 from __future__ import annotations
@@ -158,8 +163,11 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 # which its ladder leaves out; GenLIP's top-level trunk, not the NaFlex audio
 # encoder's, whose JAX tree nests it deeper)
 _BLOCK_RE = re.compile(r"(?:(?:^|\.)(?:transformer|text_decoder)|^trunk)\.resblocks\.(\d+)\.")
-# ConvNeXt's blocks, stacked one leaf a stage in the JAX tree: (stage, block index)
-_STAGE_BLOCK_RE = re.compile(r"(?:^|\.)stages\.(\d+)\.blocks\.(\d+)\.")
+# ConvNeXt's blocks, stacked one leaf a stage in the JAX tree: (stage, block index).
+# ViTamin's MBConv blocks sit at the same path but are a plain list in the JAX tree;
+# the lookahead tells the two apart by ConvNeXt's block entries.
+_CNX_BLOCK = r"(?=\.\d+\.(?:dwconv|norm|fc1|fc2|gamma)(?:\.|$))"
+_STAGE_BLOCK_RE = re.compile(r"(?:^|\.)stages\.(\d+)\.blocks" + _CNX_BLOCK + r"\.(\d+)\.")
 # the top-level keys of the JAX GenLIP/GenLAP tree, each a tower of its own there
 GENLIP_KEYS = ("patch_embed", "text_embed", "in_proj", "out_proj", "text_norm_pre", "lm_head",
                "trunk", "visual_proj")
@@ -196,12 +204,21 @@ def _stage_depths(names: Iterable[str]) -> Dict[str, int]:
     return depths
 
 
+def _first_jax_axis(name: str, p: torch.Tensor) -> int:
+    """The port axis of the JAX leaf's first axis: a 2-D ``.weight`` is the transpose
+    of the JAX (in, out) kernel, a 4-D one an (out, in, kh, kw) convolution of the
+    JAX (kh, kw, in, out) kernel."""
+    if name.endswith(".weight") and p.ndim in (2, 4):
+        return {2: 1, 4: 2}[p.ndim]
+    return 0
+
+
 def _along_first_jax_axis(name: str, p: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``values`` (one per row of the JAX leaf's first axis) shaped to broadcast
-    over the port's ``p``: a 2-D ``.weight`` is the transpose of the JAX kernel."""
-    if p.ndim == 2 and name.endswith(".weight"):
-        return values.reshape(1, -1)
-    return values.reshape((-1,) + (1,) * (p.ndim - 1))
+    over the port's ``p``."""
+    shape = [1] * p.ndim
+    shape[_first_jax_axis(name, p)] = -1
+    return values.reshape(shape)
 
 
 def layer_decay_scales(params: Union[nn.Module, Dict[str, torch.Tensor]], decay: Optional[float],
@@ -233,7 +250,7 @@ def layer_decay_scales(params: Union[nn.Module, Dict[str, torch.Tensor]], decay:
             n = stages[name[:s.start(2)]]
             out[name] = float(np.float32(d) ** (np.float32(n) - np.float32(s.group(2))))
         elif "blocks" in parts:
-            n = p.shape[1] if p.ndim == 2 and name.endswith(".weight") else p.shape[0]
+            n = p.shape[_first_jax_axis(name, p)]
             ladder = np.float32(d) ** (np.float32(n) - np.arange(n, dtype=np.float32))
             out[name] = _along_first_jax_axis(name, p, torch.from_numpy(ladder))
         elif parts[-1] in ("proj", "text_projection", "logit_scale", "logit_bias") or \
@@ -276,7 +293,7 @@ def trainable_mask(params: Union[nn.Module, Dict[str, torch.Tensor]], lock_image
         elif unlocked > 1 and s:
             out[name] = float(int(s.group(2)) >= stages[name[:s.start(2)]] - (unlocked - 1))
         elif unlocked > 1 and "blocks" in parts:
-            n = p.shape[1] if p.ndim == 2 and name.endswith(".weight") else p.shape[0]
+            n = p.shape[_first_jax_axis(name, p)]
             keep = (torch.arange(n) >= n - (unlocked - 1)).float()
             out[name] = _along_first_jax_axis(name, p, keep)
         else:
@@ -290,7 +307,7 @@ _LEAF_RULES = ("lamb", "adafactor", "muon")
 # the JAX tree stacks these blocks along a leading layer axis
 _STACK_RE = re.compile(
     r"(?:^|\.)(?:(?:transformer|trunk)\.resblocks|text_decoder\.(?:resblocks|cross_attn)"
-    r"|stages\.\d+\.blocks)\.(\d+)\.")
+    r"|stages\.\d+\.blocks" + _CNX_BLOCK + r")\.(\d+)\.")
 # optax.scale_by_factored_rms()'s defaults
 _FACTOR_DECAY, _FACTOR_MIN_DIM, _FACTOR_EPS = 0.8, 128, 1e-30
 

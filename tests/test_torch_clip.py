@@ -205,7 +205,7 @@ def test_create_model_runs_on_the_card_unless_told(monkeypatch):
 @pytest.mark.parametrize("name,kwargs", [
     ("RN50", {"pretrained": "openai"}),  # RN50 builds; its registry tag is not fetched
     ("coca_roberta-ViT-B-32", {}),  # CoCa builds; its HF text tower does not
-    ("EVA02-B-16", {}),  # a timm tower
+    ("MobileCLIP-S1", {}),  # a timm tower (FastViT)
     # nothing is downloaded: a hub name (and a registry tag, below) raises
     ("hf-hub:laion/clap-htsat-unfused", {}),
     ("ViT-B-32", {"pretrained": "openai"}),

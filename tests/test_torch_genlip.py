@@ -476,7 +476,7 @@ GENERATIVE = ["naflexgenlip_b16", "naflexgenlip_so150m2", "naflexgenlip_so16",
 
 def test_the_eight_configs_build_with_the_jax_parameter_count():
     """Each GenLIP/GenLAP config on the meta device against ``jax.eval_shape`` of its
-    init; with them 105 of the registry's 181 configs build."""
+    init; with them 153 of the registry's 181 configs build."""
     from open_clip_tpu.models import genlap as JGA
 
     for name in GENERATIVE:
@@ -500,7 +500,7 @@ def test_the_eight_configs_build_with_the_jax_parameter_count():
             built += 1
         except NotImplementedError:
             pass
-    assert (built, len(registry)) == (126, 181)
+    assert (built, len(registry)) == (153, 181)
 
 
 def test_precision_sets_the_compute_dtype_only():

@@ -524,6 +524,56 @@ def test_siglip384_flash_forward_without_a_mask_matches_plain(cuda, dtype):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("b,l", [(8, 196), (8, 197)], ids=["vitamin_b", "eva02_b"])
+def test_eva_and_vitamin_short_kernels_match_plain(cuda, b, l):
+    """ViTamin-B's ViT stage (196 tokens, no class token) and EVA02-B-16's blocks (197
+    tokens, rope applied to q and k before the kernel: contiguous q and k beside a v
+    that stays a view of the fused projection), H=12, bf16: the two-pass forward and
+    the two-kernel backward."""
+    q, k, v = _fused_qkv(l, b, l, 12, 64, torch.bfloat16, cuda)
+    assert sa.fwd_body(l, 64, torch.bfloat16) == sa.bwd_body(l, 64, torch.bfloat16) == "mma"
+    if l == 197:
+        q, k = q.contiguous(), k.contiguous()
+    _check(q, k, v, False)
+    _check_bwd(q, k, v, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_pe_core_flash_forward_without_a_mask_matches_plain(cuda, dtype):
+    """PE-Core-L-14-336's blocks: 577 tokens, 16 heads, no key mask, no causal mask."""
+    q, k, v = _fused_qkv(577, 2, 577, 16, 64, dtype, cuda)
+    before, bodies = dict(fa.LAUNCHES), dict(fa.FWD_BODIES)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == dict(before, fwd=before["fwd"] + 1)
+    body = fa.fwd_body(64, dtype)
+    assert fa.FWD_BODIES == dict(bodies, **{body: bodies[body] + 1})
+    ref, ref_lse = fa.flash_attention_reference(q, k, v)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("rows,w", [(50432, 2048), (1605632, 128)],
+                         ids=["eva02_swiglu_norm", "vitamin_b_stem"])
+def test_layer_norm_backward_kernel_at_eva_and_vitamin_shapes(cuda, rows, w):
+    """EVA02-B-16's SwiGLU inner LayerNorm at b256 (50,432 x 2048) and ViTamin-B's stem at
+    b128 (128 * 112 * 112 = 1,605,632 rows of 128), bf16, against the plain version; two
+    calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn(rows, w, generator=gen, device=cuda) * 2 + 0.5).to(torch.bfloat16)
+    dy = torch.randn(rows, w, generator=gen, device=cuda).to(torch.bfloat16)
+    scale = torch.randn(w, generator=gen, device=cuda)
+    got = fused_ln.layer_norm_bwd(x, dy, scale, 1e-6)
+    refs = fused_ln.layer_norm_bwd_reference(x, dy, scale, 1e-6)
+    for name, g, ref in zip(("dx", "dscale", "dbias"), got, refs):
+        assert bool(torch.isfinite(g).all()), name
+        tol = 1e-2 if name == "dx" else 1e-4
+        assert _rel_err(g, ref) <= tol, (name, _rel_err(g, ref))
+    again = fused_ln.layer_norm_bwd(x, dy, scale, 1e-6)
+    assert all(torch.equal(s, t) for s, t in zip(got, again))
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_flash_row_without_a_visible_key_is_zero(cuda, causal):
     """Sample 1 has no valid key: zero output, finite lse, zero gradients, as the

@@ -296,11 +296,11 @@ def test_hf_clap_audio_tree_equals_jax():
 
 
 @pytest.mark.parametrize("family,sd,timm_name", [
-    # ConvNeXt and ModifiedResNet checkpoints convert now (tests/test_torch_convnext.py,
-    # tests/test_torch_resnet.py); ViTamin's trunk, which also has a stem, and EVA's not
-    ("ViTamin", {"visual.trunk.stem.conv1.conv.weight": torch.zeros(1)}, "vitamin_small_224"),
-    ("EVA", {"visual.trunk.blocks.0.attn.q_proj.weight": torch.zeros(1)},
-     "eva02_base_patch16_clip_224"),
+    # ConvNeXt, ModifiedResNet, ViTamin and EVA checkpoints convert now
+    # (tests/test_torch_convnext.py, test_torch_resnet.py, test_torch_vitamin.py,
+    # test_torch_eva.py); FastViT's trunk, which also has a stem, and the MCi stem's not
+    ("FastViT", {"visual.trunk.stem.0.weight": torch.zeros(1)}, "fastvit_mci1"),
+    ("MCi", {"visual.trunk.blocks.0.attn.qkv.weight": torch.zeros(1)}, "vit_base_mci_224"),
     # CoCa checkpoints convert now (tests/test_torch_coca.py); the relative-position ViT not
     ("relpos-ViT", {"visual.trunk.blocks.0.attn.rel_pos.mlp.fc1.weight": torch.zeros(1)}, None),
     ("MobileCLIP", {"image_encoder.model.x": torch.zeros(1)}, None),

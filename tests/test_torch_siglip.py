@@ -121,7 +121,7 @@ def test_the_registry_has_the_timm_names_of_the_slice():
 def test_other_timm_names_raise():
     """Other timm towers, a SigLIP size the JAX package does not know, and MobileCLIP's
     trunk, whose conv stem is not ported."""
-    for name in ("vitamin_small_224", "vit_so150m_patch16_siglip_256", "vit_base_patch16_rope",
+    for name in ("fastvit_mci1", "vit_so150m_patch16_siglip_256", "vit_base_patch16_rope",
                  "vit_base_mci_224"):
         cfg = oc.CLIPModelCfg.from_dict({**MICRO, "vision_cfg": {"timm_model_name": name}})
         with pytest.raises(NotImplementedError, match="vision tower not ported yet"):
